@@ -1,0 +1,120 @@
+"""B-spline KAN convolution, port of ``convkan_tpu/nn/kan_conv.py`` for
+family ``kan``, 2-D, groups 1, forward only.
+
+    y = PReLU(InstanceNorm(kan_conv2d(x)))
+
+``kan_conv2d`` (kernels/kan_conv2d.py) is the conv itself: the B-spline
+basis of every input channel plus act(x), contracted with the weights over
+the k*k taps.  On CUDA it is the hand-written kernel; on the CPU its plain
+version.  Parameters keep the JAX names and shapes: ``base_w`` (k,k,C,O)
+HWIO, ``poly_w`` (k,k,C*K,O) with channel-major rows c*K + kk, ``prelu``
+(groups,).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..basis.bspline import make_bspline_grid
+from ..device import resolve_device
+from ..kernels.kan_conv2d import kan_conv2d
+from ..utils import initializers as init_lib
+from ..utils.activations import ACTIVATIONS
+from ..utils.norms import InstanceNorm, make_norm
+
+
+def _single(v, what: str) -> int:
+    """A square/uniform int from an int or a tuple of equal ints."""
+    if isinstance(v, (tuple, list)):
+        if len(set(v)) != 1:
+            raise NotImplementedError(f"non-uniform {what} {v} is not ported")
+        v = v[0]
+    return int(v)
+
+
+def _act_name(act) -> str:
+    """The registry name of a base activation given by name or function."""
+    if isinstance(act, str):
+        return act
+    for name, fn in ACTIVATIONS.items():
+        if fn is act:
+            return name
+    raise NotImplementedError(f"base activation {act!r} is not ported")
+
+
+class KanConvND(nn.Module):
+    """KAN convolution (channel-last), family ``kan`` only.
+
+    Args mirror the JAX module: input_dim/output_dim, kernel_size, padding
+    (stride, dilation and groups must stay 1), norm_layer, base_activation
+    and the spline hyperparameters.  Parameters are drawn on the CPU from
+    ``generator`` (so one seed gives the same weights on every device) and
+    then moved to ``device``: None means the GPU, and raises without one."""
+
+    def __init__(self, family: str, input_dim: int, output_dim: int,
+                 kernel_size, ndim: int = 2, groups: int = 1, padding=0,
+                 stride=1, dilation=1, dropout: float = 0.0,
+                 norm_layer: Any = InstanceNorm,
+                 norm_kwargs: Optional[Mapping[str, Any]] = None,
+                 base_activation: Any = "gelu", grid_size: int = 5,
+                 spline_order: int = 3,
+                 grid_range: Tuple[float, float] = (-1.0, 1.0), *,
+                 generator: torch.Generator = None,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        config = (f"KanConvND(family={family!r}, ndim={ndim}, groups={groups},"
+                  f" stride={stride}, dilation={dilation})")
+        if family != "kan" or ndim != 2 or groups != 1 or \
+                _single(stride, "stride") != 1 or \
+                _single(dilation, "dilation") != 1:
+            raise NotImplementedError(f"{config} is not ported")
+        self.family = family
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.kernel_size = _single(kernel_size, "kernel_size")
+        self.padding = _single(padding, "padding")
+        self.dropout = dropout  # channel dropout: identity in eval
+        self.spline_order = spline_order
+        self.act = _act_name(base_activation)
+        self.knots = tuple(float(v) for v in make_bspline_grid(
+            grid_size, spline_order, grid_range))
+        K = len(self.knots) - spline_order - 1
+        self.num_basis = K
+        k = self.kernel_size
+        self.base_w = nn.Parameter(torch.zeros(k, k, input_dim, output_dim,
+                                               dtype=dtype))
+        self.poly_w = nn.Parameter(torch.zeros(k, k, input_dim * K, output_dim,
+                                               dtype=dtype))
+        self.prelu = nn.Parameter(torch.full((groups,), 0.25, dtype=dtype))
+        self.norm = make_norm(norm_layer, output_dim, **dict(norm_kwargs or {}))
+        if generator is not None:
+            self.reset_parameters(generator)
+        self.to(device)
+
+    def reset_parameters(self, generator: torch.Generator):
+        """JAX init distributions: kaiming_uniform('linear') over HWIO fans
+        for both weights; PReLU slope 0.25."""
+        ku = init_lib.kaiming_uniform("linear", layout="conv_hwio")
+        ku(self.base_w, generator)
+        ku(self.poly_w, generator)
+        with torch.no_grad():
+            self.prelu.fill_(0.25)
+
+    def forward(self, x):
+        if x.shape[-1] != self.input_dim:
+            raise ValueError(f"expected {self.input_dim} channels (NHWC), "
+                             f"got {tuple(x.shape)}")
+        y = kan_conv2d(x.contiguous(), self.base_w, self.poly_w, self.knots,
+                       self.spline_order, self.kernel_size, self.padding,
+                       self.act)
+        return self._post_combine(y)
+
+    def _post_combine(self, y):
+        """Norm, then PReLU with the per-group slope repeated per out_g."""
+        y = self.norm(y)
+        slope = self.prelu.repeat_interleave(self.output_dim // self.prelu.numel())
+        return torch.where(y >= 0, y, slope * y)

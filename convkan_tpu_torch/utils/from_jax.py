@@ -1,0 +1,34 @@
+"""Carry JAX-package weights into the port.
+
+The port keeps the JAX parameter names, shapes and layouts, so a flax
+``params`` tree of numpy arrays maps onto a ``state_dict`` by joining the
+path with dots: ``{"KanConvND_0": {"poly_w": a}}`` -> ``"KanConvND_0.poly_w"``.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping, prefix: str, out: dict):
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            _flatten(val, name + ".", out)
+        else:
+            out[name] = torch.from_numpy(np.array(val, copy=True))
+
+
+def vggkan_state_dict_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``VGGKAN`` params (the tree itself or ``{"params": tree}``, with
+    numpy-convertible leaves) -> a state_dict that ``VGGKAN.load_state_dict``
+    accepts with ``strict=True``.  Dtypes are kept."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _flatten(params, "", out)
+    return out

@@ -1,0 +1,58 @@
+"""PyTorch-parity initializers for the port's HWIO / (in, out) layouts,
+port of the parts of ``convkan_tpu/utils/initializers.py`` that serving
+with fresh weights needs.  Every initializer draws from an explicit
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+
+def _fans(shape: Sequence[int], layout: str):
+    if layout == "conv_hwio":
+        receptive = math.prod(int(s) for s in shape[:-2])
+        return int(shape[-2]) * receptive, int(shape[-1]) * receptive
+    if layout == "linear_io":
+        return int(shape[0]), int(shape[1])
+    raise ValueError(f"unknown layout {layout!r}")
+
+
+def _gain(nonlinearity: str, a=None) -> float:
+    if nonlinearity == "linear":
+        return 1.0
+    if nonlinearity == "leaky_relu":
+        neg = 0.01 if a is None else a
+        return math.sqrt(2.0 / (1.0 + neg ** 2))
+    raise ValueError(f"unsupported nonlinearity {nonlinearity!r}")
+
+
+def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
+    """Fill ``t`` in place with U(-bound, bound) drawn from ``generator``."""
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=generator)
+
+
+def kaiming_uniform(nonlinearity: str = "linear", a=None,
+                    layout: str = "conv_hwio"):
+    """torch.nn.init.kaiming_uniform_ (fan_in): U(±sqrt(3)·gain/sqrt(fan))."""
+    g = _gain(nonlinearity, a)
+
+    def init(t: torch.Tensor, generator: torch.Generator):
+        fan_in, _ = _fans(t.shape, layout)
+        return uniform_(t, math.sqrt(3.0) * g / math.sqrt(fan_in), generator)
+
+    return init
+
+
+def torch_linear_bias(fan_in: int):
+    """torch Linear/Conv default bias init: U(±1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+
+    def init(t: torch.Tensor, generator: torch.Generator):
+        return uniform_(t, bound, generator)
+
+    return init
