@@ -1,11 +1,13 @@
-"""GPU smoke test of convkan_tpu_torch: serves KAN-VGG16_small on one CUDA
-card through the hand-written KAN-conv kernel and checks every step.
+"""GPU smoke test of convkan_tpu_torch: serves and trains KAN-VGG16_small
+on one CUDA card through the hand-written KAN-conv kernels and checks
+every step.
 
     python3 chip_smoke.py
 
 Phases (the first failed check exits non-zero):
-  1. setup: the card's name and power limit, TF32 off, the kernel built
-     from csrc/ (build time and the compiler's register/spill report);
+  1. setup: the card's name and power limit, TF32 off, the kernels built
+     from csrc/ (one nvcc per source, started together; build time and the
+     compiler's register/spill report);
   2. kernel vs its plain PyTorch version on the card, at the 9 distinct
      VGG16_small conv shapes (batch 64), a batch-1 case, an input scaled
      to +-3 with exact knot values, and a GELU case (rtol = atol = 1e-4:
@@ -19,7 +21,24 @@ Phases (the first failed check exits non-zero):
      answers are checked against engine.predict, and the counts are read;
   5. times with CUDA events: predict at batch 1024 (images/s) and, per conv
      shape at batch 1024, the kernel, its plain version, one cuDNN conv over
-     a materialized basis (a yardstick the port never calls) and the bound.
+     a materialized basis (a yardstick the port never calls) and the bound;
+  6. backward kernels vs their plain versions on the card, at the 9
+     VGG16_small conv shapes (batch 64), a ragged shape and a GELU case:
+     each kernel wrapper (data gradient, weight-gradient partials, their
+     reduction) and the autograd path's dx, d base_w, d poly_w, against
+     float64 autograd of the plain version (tolerance at BWD_TOL);
+  7. training, the main path: launch counts are zeroed, three train steps
+     of VGG16_small (batch 16, dropout 0.5 at the head) run on the GPU and
+     on the CPU from one state_dict with the same crop offsets, flips and
+     dropout masks; losses and parameters are compared, every KAN conv's
+     poly_w gradient must be non-zero, and the counts read: per step 13
+     forward, 12 data-gradient (the first conv's input is the image), 13
+     weight-gradient and 13 reduction launches;
+  8. times: the train step at batch 1024 (images/s, median of 12 steps
+     after warm-up, each ending in a host readback of the loss) and, per
+     conv shape at batch 1024, each backward kernel, its plain version,
+     one cuDNN convolution_backward over a materialized basis (a yardstick
+     the port never calls) and the bound.
 
 Prints a {"kernels": [...]} line, then the contract line
 {"ok": true, "device": {...}} last.
@@ -35,6 +54,7 @@ import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -50,6 +70,23 @@ VGG16_SMALL_CONVS = [(32, 3, 16), (32, 16, 16), (16, 16, 32), (16, 32, 32),
                      (2, 128, 128), (2, 128, 128)]
 REPLACES = "convkan_tpu/kernels/wide_kan_conv.py:300"
 ALSO_REPLACES = "convkan_tpu/kernels/fused_kan_conv.py:167"
+BWD_REPLACES = "convkan_tpu/kernels/wide_kan_conv.py:344"
+# backward kernels vs float64 autograd of the plain version: a dW entry sums
+# up to B*H*W = 65,536 float32 products at batch 64 (dx: k*k*(K+1)*O <=
+# 10,368) in another order, an error of ~sqrt(n) * 2^-24 of the sum of
+# |terms|; allowed: BWD_TOL of the largest reference entry + BWD_TOL relative
+BWD_TOL = 1e-4
+# train step GPU vs CPU, float32.  VGG16_small is ill-conditioned in float32
+# (InstanceNorm over 2x2 planes amplifies rounding): two float32 runs that
+# sum in different orders differ in their gradients by percents of a
+# parameter's largest entry.  So: first-step gradients within GRAD_TOL of
+# each parameter's largest entry;
+# losses within LOSS_RTOL relative; and, since AdamW moves every entry by
+# about lr per step whatever its gradient's size (entries near 0 flip sign
+# between the runs), the runs' parameter updates over the three steps must
+# agree to UPDATE_TOL in relative L2 distance
+GRAD_TOL, LOSS_RTOL, UPDATE_TOL = 0.1, 1e-3, 0.5
+TRAIN_STEPS, TRAIN_BATCH, TIME_BATCH = 3, 16, 1024
 
 
 def fail(msg: str):
@@ -84,6 +121,263 @@ def conv_inputs(gen, B, H, C, O, scale=1.0):
     return x, bw, pw
 
 
+
+def interior_pairs(H: int, k: int = 3, pad: int = 1) -> int:
+    """(output pixel, tap) pairs of one HxH image whose input pixel lies in
+    the image: the products a backward pass needs (pad values are zero)."""
+    Ho = H + 2 * pad - k + 1
+    rows = sum(1 for d in range(k) for i in range(Ho) if 0 <= i + d - pad < H)
+    return rows * rows
+
+
+def bwd_close(got, want):
+    """max |got - want| and whether every entry is within BWD_TOL of the
+    largest reference entry plus BWD_TOL relative (see BWD_TOL)."""
+    d = (got.double() - want.double()).abs()
+    lim = BWD_TOL * want.abs().max().double() + BWD_TOL * want.abs().double()
+    return d.max().item(), bool((d <= lim).all())
+
+
+def phase_backward(kc, knots, gen, dev):
+    """6. each backward kernel and the autograd path against float64
+    autograd of the plain version on the card; returns max |err| per
+    kernel."""
+    cases = [(64, H, C, O, "silu")
+             for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
+    cases += [(3, 7, 13, 5, "silu"), (8, 16, 16, 32, "gelu")]
+    errs = {"kan_conv2d_bwd_dx": 0.0, "kan_conv2d_bwd_dw": 0.0,
+            "kan_conv2d_bwd_dw_reduce": 0.0}
+    for B, H, C, O, act in cases:
+        x, bw, pw = conv_inputs(gen, B, H, C, O)
+        g = torch.randn(B, H, H, O, generator=gen)
+        x, bw, pw, g = (t.to(dev) for t in (x, bw, pw, g))
+        spec = (knots, 3, 3, 1, act)
+        w_all = kc.pack_w_all(bw, pw, C=C, K=8, k=3, O=O)
+        cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, 8)
+        dx = kc.input_grad(x, w_all, g, *spec)
+        part = kc.weight_partials(x, g, *spec)
+        dw = kc.reduce_partials(part)
+        torch.cuda.synchronize()
+        e_dx, ok_dx = bwd_close(dx, kc.input_grad_reference(
+            x.double(), w_all.double(), g.double(), *spec))
+        e_dw, ok_dw = bwd_close(part, kc.weight_partials_reference(
+            x.double(), g.double(), *spec, cfg["S"], cfg["ips"]))
+        e_red = (dw - kc.reduce_reference(part)).abs().max().item()
+        leaves = [t.clone().requires_grad_(True) for t in (x, bw, pw)]
+        got = torch.autograd.grad(kc.kan_conv2d(*leaves, *spec), leaves, g)
+        ref = [t.double().requires_grad_(True) for t in (x, bw, pw)]
+        want = torch.autograd.grad(kc.kan_conv2d_reference(*ref, *spec), ref,
+                                   g.double())
+        auto = [bwd_close(a, b) for a, b in zip(got, want)]
+        ok = ok_dx and ok_dw and e_red == 0.0 and all(o for _, o in auto)
+        print(f"[backward] B={B} {H}x{H} C={C} O={O} {act} S={cfg['S']}: "
+              f"dx {e_dx:.3e}, dW partials {e_dw:.3e}, reduce {e_red:.1e}; "
+              f"autograd dx/dbase_w/dpoly_w "
+              f"{'/'.join(f'{e:.3e}' for e, _ in auto)} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        for t in (dx, part, *got):
+            check(bool(torch.isfinite(t).all()), "backward output not finite")
+        check(ok, f"backward kernels disagree with the plain version (B={B} "
+                  f"H={H} C={C} O={O} {act})")
+        for name, e in (("kan_conv2d_bwd_dx", max(e_dx, auto[0][0])),
+                        ("kan_conv2d_bwd_dw",
+                         max(e_dw, auto[1][0], auto[2][0])),
+                        ("kan_conv2d_bwd_dw_reduce", e_red)):
+            errs[name] = max(errs[name], e)
+    return errs
+
+
+def phase_train(kc, dev):
+    """7. the training main path: three train steps on the GPU against the
+    same steps on the CPU; returns the launch counts of the GPU steps."""
+    from convkan_tpu_torch.models.vgg import vggkan
+    from convkan_tpu_torch.train.data import _synthetic, crop_params
+    from convkan_tpu_torch.train.loop import make_train_step
+    from convkan_tpu_torch.train.state import create_train_state
+
+    model_cpu = vggkan(3, 10, arch="VGG16_small", kan_conv="KAN",
+                       classifier_type="Linear",
+                       generator=torch.Generator().manual_seed(2),
+                       device="cpu")
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    x, y = _synthetic("CIFAR10", TRAIN_STEPS * TRAIN_BATCH, seed=4)
+    crops = torch.Generator().manual_seed(6)
+    batches = []
+    for i in range(TRAIN_STEPS):
+        sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        offs, flips = crop_params(TRAIN_BATCH, "cpu", crops)
+        batches.append((torch.from_numpy(x[sl]), torch.from_numpy(y[sl]),
+                        offs, flips))
+
+    start = {n: t.clone() for n, t in model_cpu.state_dict().items()}
+
+    def run(model, device):
+        # a CPU generator on both sides: the same dropout masks (the GPU
+        # run copies each mask to the card)
+        state = create_train_state(model, 1e-3, 1e-3, 0.8, steps_per_epoch=2,
+                                   generator=torch.Generator().manual_seed(7))
+        step = make_train_step(model, "CIFAR10", augment=True)
+        losses, grads = [], None
+        for xb, yb, o, f in batches:
+            losses.append(step(state, xb.to(device), yb.to(device),
+                               offsets=o, flips=f).item())
+            if grads is None:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in model.named_parameters()}
+        return losses, grads
+
+    kc.reset_launches()
+    losses_gpu, grads_gpu = run(model_gpu, dev)
+    torch.cuda.synchronize()
+    counts = dict(kc.launches)
+    losses_cpu, grads_cpu = run(model_cpu, "cpu")
+    print(f"[train] VGG16_small batch {TRAIN_BATCH}, {TRAIN_STEPS} steps: "
+          f"losses GPU {losses_gpu} CPU {losses_cpu}", flush=True)
+    for lg, lc in zip(losses_gpu, losses_cpu):
+        check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
+              f"train loss on the GPU {lg} vs the CPU {lc}")
+    worst_g = max(((grads_gpu[n] - g).abs().max() / g.abs().max()).item()
+                  for n, g in grads_cpu.items())
+    num = den = worst = 0.0
+    want = model_cpu.state_dict()
+    for name, t in model_gpu.state_dict().items():
+        moved = want[name] - start[name]
+        num += ((t.cpu() - start[name]) - moved).square().sum().item()
+        den += moved.square().sum().item()
+        worst = max(worst, (t.cpu() - want[name]).abs().max().item())
+    rel = (num / den) ** 0.5
+    print(f"[train] GPU vs CPU: first-step gradients max |diff| {worst_g:.3e}"
+          f" of each parameter's largest entry; parameter updates over "
+          f"{TRAIN_STEPS} steps differ by {rel:.3e} in relative L2 (max "
+          f"|diff| {worst:.3e})", flush=True)
+    check(worst_g <= GRAD_TOL, "first-step gradients differ between GPU and "
+                               "CPU")
+    check(rel <= UPDATE_TOL, "parameter updates differ between GPU and CPU")
+    for name, m in model_gpu.named_children():
+        if name.startswith("KanConvND"):
+            check(m.poly_w.grad is not None and
+                  bool(m.poly_w.grad.abs().sum() > 0),
+                  f"{name}.poly_w got no gradient on the GPU")
+    print(f"[train] kernel launches on the main path ({TRAIN_STEPS} steps): "
+          f"{counts}", flush=True)
+    want_counts = {"kan_conv2d_fwd": 13, "kan_conv2d_bwd_dx": 12,
+                   "kan_conv2d_bwd_dw": 13, "kan_conv2d_bwd_dw_reduce": 13}
+    check(counts == {k: TRAIN_STEPS * v for k, v in want_counts.items()},
+          f"expected per step {want_counts}, got {counts} in {TRAIN_STEPS}")
+    return counts
+
+
+def phase_train_times(kc, knots, gen, dev, card):
+    """8. the train step at batch TIME_BATCH and the backward kernels per
+    conv shape; returns (images/s, per-kernel totals, rows)."""
+    from convkan_tpu_torch.models.vgg import vggkan
+    from convkan_tpu_torch.train.data import _synthetic
+    from convkan_tpu_torch.train.loop import make_train_step
+    from convkan_tpu_torch.train.state import create_train_state
+
+    model = vggkan(3, 10, arch="VGG16_small", kan_conv="KAN",
+                   classifier_type="Linear",
+                   generator=torch.Generator().manual_seed(3), device=dev)
+    # CIFAR-10's 50,000 images in full batches; generator on the card
+    state = create_train_state(model, steps_per_epoch=50000 // TIME_BATCH)
+    step = make_train_step(model, "CIFAR10", augment=True)
+    x, y = _synthetic("CIFAR10", TIME_BATCH, seed=8)
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    for _ in range(3):
+        step(state, x, y).item()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        step(state, x, y).item()  # host readback: the step is done
+        runs.append(TIME_BATCH / (time.perf_counter() - t0))
+    ips = statistics.median(runs)
+    print(f"[time] train step batch {TIME_BATCH}: median {ips:.1f} images/s "
+          f"({1e3 * TIME_BATCH / ips:.3f} ms) over {len(runs)} steps (min "
+          f"{min(runs):.1f}, max {max(runs):.1f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}",
+          flush=True)
+    del model, state, step
+
+    names = ("kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
+             "kan_conv2d_bwd_dw_reduce")
+    totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
+                                "byte_ms"), 0.0) for n in names}
+    rows = []
+    B, K = TIME_BATCH, 8
+    for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
+        x, bw, pw = (t.to(dev) for t in conv_inputs(gen, B, H, C, O))
+        g = torch.randn(B, H, H, O, generator=gen).to(dev)
+        spec = (knots, 3, 3, 1, "silu")
+        w_all = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O)
+        cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, K)
+        part = kc.weight_partials(x, g, *spec)
+        ms = {
+            "kan_conv2d_bwd_dx": (
+                cuda_ms(lambda: kc.input_grad(x, w_all, g, *spec)),
+                cuda_ms(lambda: kc.input_grad_reference(x, w_all, g, *spec),
+                        iters=3, warmup=1)),
+            "kan_conv2d_bwd_dw": (
+                cuda_ms(lambda: kc.weight_partials(x, g, *spec)),
+                cuda_ms(lambda: kc.weight_grad_reference(x, g, *spec),
+                        iters=3, warmup=1)),
+            "kan_conv2d_bwd_dw_reduce": (
+                cuda_ms(lambda: kc.reduce_partials(part)),
+                cuda_ms(lambda: kc.reduce_reference(part), iters=5)),
+        }
+        # yardsticks the port never calls: cuDNN's backward over an already
+        # materialized basis (dE and dW of the convolution), and one sum
+        E = kc.expand(x, knots, 3, "silu").permute(0, 3, 1, 2).contiguous()
+        w = w_all.reshape((K + 1) * C, 3, 3, O).permute(3, 0, 1, 2) \
+            .contiguous()
+        gn = g.permute(0, 3, 1, 2).contiguous()
+
+        def conv_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                gn, E, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                mask)
+
+        lib = {"kan_conv2d_bwd_dx": cuda_ms(lambda: conv_bwd(
+                   [True, False, False]), iters=10),
+               "kan_conv2d_bwd_dw": cuda_ms(lambda: conv_bwd(
+                   [False, True, False]), iters=10),
+               "kan_conv2d_bwd_dw_reduce": cuda_ms(lambda: part.sum(0))}
+        del E, gn
+        D, TO, S = (K + 1) * C, 9 * O, cfg["S"]
+        flops = 2 * B * interior_pairs(H) * D * O
+        work = {
+            "kan_conv2d_bwd_dx": (flops, 4 * (2 * x.numel() + w_all.numel()
+                                              + g.numel())),
+            "kan_conv2d_bwd_dw": (flops, 4 * (x.numel() + g.numel()
+                                              + S * D * TO)),
+            "kan_conv2d_bwd_dw_reduce": (S * D * TO, 4 * (S + 1) * D * TO),
+        }
+        n = VGG16_SMALL_CONVS.count((H, C, O))
+        row = {"H": H, "C": C, "O": O, "batch": B, "layers": n, "S": S}
+        for name in names:
+            layers = n - 1 if name == "kan_conv2d_bwd_dx" and \
+                (H, C, O) == VGG16_SMALL_CONVS[0] else n
+            op_ms = work[name][0] / PEAK_FP32_FLOPS * 1e3
+            byte_ms = work[name][1] / PEAK_BYTES * 1e3
+            row[name] = {"layers": layers, "ms": round(ms[name][0], 4),
+                         "plain_ms": round(ms[name][1], 4),
+                         "library_ms": round(lib[name], 4),
+                         "bound_ms": round(max(op_ms, byte_ms), 4)}
+            for key, v in (("ms", ms[name][0]), ("plain_ms", ms[name][1]),
+                           ("library_ms", lib[name]), ("op_ms", op_ms),
+                           ("byte_ms", byte_ms)):
+                totals[name][key] += layers * v
+        rows.append(row)
+        print(f"[time] {json.dumps(row)}", flush=True)
+    for name in names:
+        t = totals[name]
+        t["bound_ms"] = max(t["op_ms"], t["byte_ms"])
+        print(f"[time] {name} per train step at batch {B}: kernel "
+              f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+              f"(on {card})", flush=True)
+    return ips, totals, rows
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
@@ -106,14 +400,19 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     set_full_f32()
-    lib = build.library_path(kc.SOURCE)
-    lib.unlink(missing_ok=True)  # build from the checkout's sources
+    sources = (kc.SOURCE, kc.BWD_SOURCE)
+    for src in sources:  # build from the checkout's sources
+        build.library_path(src).unlink(missing_ok=True)
     t0 = time.perf_counter()
-    build.build(kc.SOURCE)
-    print(f"[build] {kc.SOURCE}: {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        list(pool.map(build.build, sources))
+    print(f"[build] {', '.join(sources)} (in parallel): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for src in sources:
+        log = build.library_path(src).with_suffix(".log").read_text()
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {src}: {line.strip()}")
 
     dev = torch.device("cuda")
     knots = tuple(float(v) for v in make_bspline_grid(5, 3))
@@ -155,7 +454,9 @@ def main():
         got = model_gpu(normalize_batch(torch.from_numpy(imgs).to(dev),
                                         "CIFAR10")).cpu()
         torch.cuda.synchronize()
-    n_launch = kc.launches
+    n_launch = kc.launches["kan_conv2d_fwd"]
+    check(sum(kc.launches.values()) == n_launch,
+          f"inference launched a backward kernel: {kc.launches}")
     err = (got - want).abs().max().item()
     print(f"[model] VGG16_small logits {tuple(got.shape)} GPU vs CPU max|err| "
           f"{err:.3e}; kernel launches per forward {n_launch}", flush=True)
@@ -211,7 +512,7 @@ def main():
         big = post(imgs)
         with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
             metrics = json.loads(r.read())
-        n_main = kc.launches
+        n_main = kc.launches["kan_conv2d_fwd"]
     finally:
         server.shutdown()
         server.server_close()
@@ -288,20 +589,54 @@ def main():
           f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, cuDNN "
           f"over materialized E {totals['library_ms']:.3f} ms, bound "
           f"{totals['bound_ms']:.3f} ms (on {card})", flush=True)
+
+    # ------------------------------------ 6. backward kernels vs plain
+    bwd_err = phase_backward(kc, knots, gen, dev)
+    # ------------------------------------------ 7. training (main path)
+    train_counts = phase_train(kc, dev)
+    # ---------------------------------------------- 8. training times
+    ips, bwd, bwd_rows = phase_train_times(kc, knots, gen, dev, card)
+    step_ms = 1e3 * TIME_BATCH / ips
+    kernel_ms = totals["ms"] + sum(t["ms"] for t in bwd.values())
+    print(f"[time] train step {step_ms:.3f} ms at batch {TIME_BATCH}: KAN-conv "
+          f"kernels {kernel_ms:.3f} ms (forward {totals['ms']:.3f}, backward "
+          f"{kernel_ms - totals['ms']:.3f}; per-shape CUDA-event times x "
+          f"layers), the rest {step_ms - kernel_ms:.3f} ms (on {card})",
+          flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     bound_by = "operations" if totals["op_ms"] >= totals["byte_ms"] \
         else "bytes"
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "kan_conv2d_fwd", "route": "cuda",
         "source": "convkan_tpu_torch/csrc/kan_conv2d_fwd.cu",
         "replaces": REPLACES, "also_replaces": ALSO_REPLACES,
-        "launches": n_main, "max_abs_err": max_err,
+        "launches": n_main + train_counts["kan_conv2d_fwd"],
+        "launches_by_path": {"serve": n_main,
+                             "train": train_counts["kan_conv2d_fwd"]},
+        "max_abs_err": max_err,
         "ms": round(totals["ms"], 4), "plain_ms": round(totals["plain_ms"], 4),
         "bound_ms": round(totals["bound_ms"], 4), "bound_by": bound_by,
         "library_ms": round(totals["library_ms"], 4),
         "times_are": "sum over the 13 VGG16_small convs at batch 1024",
-        "shapes": shapes}]}), flush=True)
+        "shapes": shapes}]
+    for name, t in bwd.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "convkan_tpu_torch/csrc/kan_conv2d_bwd.cu",
+            "replaces": BWD_REPLACES, "launches": train_counts[name],
+            "launches_by_path": {"serve": 0, "train": train_counts[name]},
+            "max_abs_err": bwd_err[name], "ms": round(t["ms"], 4),
+            "plain_ms": round(t["plain_ms"], 4),
+            "bound_ms": round(t["bound_ms"], 4),
+            "bound_by": "operations" if t["op_ms"] >= t["byte_ms"]
+            else "bytes",
+            "library_ms": round(t["library_ms"], 4),
+            "times_are": f"sum over the VGG16_small convs of one train step "
+                         f"at batch {TIME_BATCH}",
+            "shapes": [{k: r[k] for k in ("H", "C", "O", "S")} | r[name]
+                       for r in bwd_rows]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

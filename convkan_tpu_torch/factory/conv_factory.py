@@ -16,10 +16,10 @@ def kan_conv(in_planes, out_planes, kernel_size, spline_order=3, groups=1,
              base_activation="gelu", grid_range=(-1, 1), l1_decay=0.0,
              dropout=0.0, norm_layer=InstanceNorm, *, generator=None,
              device=None, **norm_kwargs):
-    """The reference's ``kan_conv`` builder.  ``l1_decay`` is a training
-    regularizer, which this forward-only port does not carry."""
+    """The reference's ``kan_conv`` builder.  ``l1_decay`` (a training
+    regularizer) is not ported yet."""
     if l1_decay and l1_decay > 0:
-        raise NotImplementedError("l1_decay > 0 (training only) is not ported")
+        raise NotImplementedError("l1_decay > 0 is not ported")
     pad = same_padding(kernel_size, dilation) if padding is None else padding
     return KanConvND(
         family="kan", input_dim=in_planes, output_dim=out_planes,

@@ -1,5 +1,5 @@
-"""B-spline KAN conv forward: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""B-spline KAN conv: the CUDA kernels' wrappers and their plain PyTorch
+versions, forward and backward.
 
 ``kan_conv2d`` computes the pre-norm output of a KAN conv (stride 1,
 dilation 1, groups 1, NHWC):
@@ -9,9 +9,13 @@ dilation 1, groups 1, NHWC):
 
 which is what ``convkan_tpu/kernels/wide_kan_conv.py`` (``fwd_kernel``) and
 ``convkan_tpu/kernels/fused_kan_conv.py`` (``fused_kan_conv2d``) compute on
-the TPU.  On a CUDA tensor it launches ``csrc/kan_conv2d_fwd.cu`` or raises;
-on a CPU tensor it runs ``kan_conv2d_reference``.  There is no fallback
-from the kernel to the plain version.
+the TPU.  On a CUDA tensor it launches ``csrc/kan_conv2d_fwd.cu`` or raises,
+and its gradient (the counterpart of the custom_vjp around ``bwd_kernel``
+in ``wide_kan_conv.py``) launches the three kernels of
+``csrc/kan_conv2d_bwd.cu``: the data gradient, the weight gradient in
+per-split partial sums, and their ordered reduction.  On a CPU tensor it
+runs ``kan_conv2d_reference`` under plain autograd.  There is no fallback
+from a kernel to a plain version.
 """
 
 from __future__ import annotations
@@ -27,28 +31,36 @@ from ..ops.conv import conv_nd
 from ..utils.activations import ACTIVATIONS
 
 SOURCE = "kan_conv2d_fwd.cu"
-# what the compiled kernel carries: (number of knots, spline order) pairs
-# and base activations, by the integer code the C entry takes
+BWD_SOURCE = "kan_conv2d_bwd.cu"
+# what the compiled kernels carry: (number of knots, spline order) pairs
+# and base activations, by the integer code the C entries take
 SPLINES = {(12, 3)}
 ACTS = {"silu": 0, "gelu": 1}
 THREADS, TM, TN = 256, 4, 4
 MAX_CHUNK = 8                    # input channels expanded per pass
 SMEM_LIMIT = 227 * 1024          # dynamic shared memory a block may use
+# data-gradient tile: 32 pixel slots x 4 pixels per thread, one channel per
+# thread (at most 8), output channels staged 16 at a time
+DX_PIXELS, DX_MAX_CC, DX_OC = 128, 8, 16
+# weight-gradient tile: 4x8 sums per thread, 64 pixels per chunk; the batch
+# is split so that about DW_TARGET_BLOCKS blocks (4 per SM) are in flight
+DW_TR, DW_TN, DW_P, DW_TARGET_BLOCKS = 4, 8, 64, 4 * 132
 
+KERNELS = ("kan_conv2d_fwd", "kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
+           "kan_conv2d_bwd_dw_reduce")
 _count_lock = threading.Lock()
-launches = 0                     # kernel launches since the last reset
+launches = dict.fromkeys(KERNELS, 0)   # launches per kernel since the reset
 
 
 def reset_launches() -> None:
-    global launches
     with _count_lock:
-        launches = 0
+        for name in launches:
+            launches[name] = 0
 
 
-def _count_launch() -> None:
-    global launches
+def _count_launch(name: str) -> None:
     with _count_lock:
-        launches += 1
+        launches[name] += 1
 
 
 def pack_w_all(base_w, poly_w, *, C: int, K: int, k: int, O: int):
@@ -61,19 +73,70 @@ def pack_w_all(base_w, poly_w, *, C: int, K: int, k: int, O: int):
     return torch.cat([pw, bw], dim=0).contiguous()
 
 
+def expand(x, knots, order: int, act: str):
+    """E = [B_0(x) .. B_{K-1}(x), act(x)] concatenated on the channel axis
+    (column kk*C + c), the rows of ``pack_w_all``'s layout."""
+    cols = bspline_basis_unrolled_list(x, knots, order)
+    return torch.cat(cols + [ACTIVATIONS[act](x)], dim=-1)
+
+
+def _conv_w_all(E, w_all, k: int, pad: int):
+    D, O = w_all.shape[0], w_all.shape[1] // (k * k)
+    w_hwio = w_all.reshape(D, k, k, O).permute(1, 2, 0, 3)
+    return conv_nd(E, w_hwio, padding=pad).contiguous()
+
+
 def kan_conv2d_reference(x, base_w, poly_w, knots, order: int, k: int,
                          pad: int, act: str):
     """Plain PyTorch version: build the basis, concatenate the base path,
     and convolve (the convolution's zero padding is the mask after
-    expansion).  float32 or float64, any device."""
-    B, H, W, C = x.shape
-    O = poly_w.shape[-1]
+    expansion).  float32 or float64, any device, differentiable."""
+    C, O = x.shape[-1], poly_w.shape[-1]
     K = len(knots) - order - 1
-    cols = bspline_basis_unrolled_list(x, knots, order)
-    E = torch.cat(cols + [ACTIVATIONS[act](x)], dim=-1)
-    w = pack_w_all(base_w, poly_w, C=C, K=K, k=k, O=O)
-    w_hwio = w.reshape((K + 1) * C, k, k, O).permute(1, 2, 0, 3)
-    return conv_nd(E, w_hwio, padding=pad).contiguous()
+    w_all = pack_w_all(base_w, poly_w, C=C, K=K, k=k, O=O)
+    return _conv_w_all(expand(x, knots, order, act), w_all, k, pad)
+
+
+def input_grad_reference(x, w_all, g, knots, order: int, k: int, pad: int,
+                         act: str):
+    """Plain version of the data-gradient kernel: dL/dx of the reference
+    for the output gradient g, by autograd."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        y = _conv_w_all(expand(xr, knots, order, act), w_all.detach(), k, pad)
+        return torch.autograd.grad(y, xr, g)[0]
+
+
+def weight_grad_reference(x, g, knots, order: int, k: int, pad: int,
+                          act: str):
+    """Plain version of the weight gradient: dL/dW_all ((K+1)*C, k*k*O) of
+    the reference for the output gradient g, by autograd."""
+    E = expand(x.detach(), knots, order, act)
+    O = g.shape[-1]
+    with torch.enable_grad():
+        w = torch.zeros(E.shape[-1], k * k * O, dtype=x.dtype,
+                        device=x.device, requires_grad=True)
+        return torch.autograd.grad(_conv_w_all(E, w, k, pad), w, g)[0]
+
+
+def weight_partials_reference(x, g, knots, order: int, k: int, pad: int,
+                              act: str, splits: int, ips: int):
+    """Plain version of the weight-gradient kernel: the (splits, (K+1)*C,
+    k*k*O) partial sums, split s over images [s*ips, s*ips + ips)."""
+    return torch.stack([
+        weight_grad_reference(x[s * ips:(s + 1) * ips],
+                              g[s * ips:(s + 1) * ips], knots, order, k, pad,
+                              act) for s in range(splits)])
+
+
+def reduce_reference(partial):
+    """Plain version of the reduction kernel: the partials summed in split
+    order (float adds in the kernel's order, so the two agree bit for
+    bit)."""
+    out = partial[0].clone()
+    for s in range(1, partial.shape[0]):
+        out += partial[s]
+    return out
 
 
 def _describe(B, H, W, C, O, k, pad, n_knots, order, act) -> str:
@@ -109,6 +172,53 @@ def launch_config(B, H, W, C, O, k, pad, K) -> dict:
         if 4 * row_stride(K, CC) * (tile + 2 * BN + 2) <= SMEM_LIMIT:
             return {"BN": BN, "TH": TH, "NB": NB, "CC": CC}
     raise NotImplementedError("tile does not fit in shared memory")
+
+
+def dx_launch_config(B, H, W, C, O, k, pad, K) -> dict:
+    """Block tile for the data-gradient kernel: NB images x TH input rows
+    (all W columns, at most DX_PIXELS pixels), CC channels (one per
+    thread), OC output channels staged per pass.  Raises
+    NotImplementedError for a shape whose tile does not fit."""
+    if W > DX_PIXELS:
+        raise NotImplementedError(f"input width {W} > {DX_PIXELS} pixels per "
+                                  "data-gradient block")
+    if H * W >= DX_PIXELS:
+        TH, NB = min(H, DX_PIXELS // W), 1
+    else:
+        TH, NB = H, min(B, DX_PIXELS // (H * W))
+    OC = min(DX_OC, -(-O // 4) * 4)
+    gs = OC if (OC // 4) % 2 else OC + 4
+    tile = NB * (TH + k - 1) * (W + k - 1)
+    for CC in range(min(C, DX_MAX_CC), 0, -1):
+        # haloed g tile, the weight rows of all taps, one int row table
+        if 4 * (gs * (tile + k * k * (K + 1) * CC) + (K + 1) * CC) \
+                <= SMEM_LIMIT:
+            return {"TH": TH, "NB": NB, "CC": CC, "OC": OC}
+    raise NotImplementedError("data-gradient tile does not fit in shared "
+                              "memory")
+
+
+def dw_launch_config(B, H, W, C, O, k, pad, K) -> dict:
+    """Block tile and batch split for the weight-gradient kernel: CC
+    channels ((K+1)*CC rows, padded to whole float4s as ``rs``), BN of the
+    k*k*O columns, P pixels per chunk, S splits of ``ips`` images.  S
+    depends on the shape only, so a shape always gets the same partial
+    sums and the same reduction order."""
+    K1 = K + 1
+    rows_max = DW_TR * (THREADS // (128 // DW_TN))  # row groups at BN = 128
+    if K1 > rows_max:
+        raise NotImplementedError(f"{K1} basis rows per channel > {rows_max}")
+    chunks = -(-C // (rows_max // K1))
+    CC = -(-C // chunks)
+    rs = -(-K1 * CC // 4) * 4
+    # the widest column tile the block's threads cover: every column tile
+    # recomputes the basis
+    BN = 256 if (rs // DW_TR) * (256 // DW_TN) <= THREADS else 128
+    tiles = chunks * -(-k * k * O // BN)
+    S = min(B, max(1, -(-DW_TARGET_BLOCKS // tiles)))
+    ips = -(-B // S)
+    return {"CC": CC, "BN": BN, "P": DW_P, "S": -(-B // ips), "ips": ips,
+            "rs": rs}
 
 
 def check_inputs(x, base_w, poly_w, knots, order, k, pad, act, *,
@@ -159,48 +269,210 @@ def check_inputs(x, base_w, poly_w, knots, order, k, pad, act, *,
     return None
 
 
-def _lib():
+_ARGTYPES = {
+    # x, w_all, y; B H W C O k pad BN TH NB CC; knots; n_knots order act;
+    # stream
+    "kan_conv2d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    # x, w_all, g, dx; B H W C O k pad TH NB CC OC; knots; n_knots order
+    # act; stream
+    "kan_conv2d_bwd_dx": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    # x, g, partial; B H W C O k pad CC BN P S ips; knots; n_knots order
+    # act; stream
+    "kan_conv2d_bwd_dw": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    # partial, out; S N; stream
+    "kan_conv2d_bwd_dw_reduce": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p],
+}
+
+
+def _fn(name: str):
+    """The C entry ``name``, its library built on first use."""
     from . import build
 
-    lib = build.load(SOURCE)
-    fn = lib.kan_conv2d_fwd
+    lib = build.load(SOURCE if name == "kan_conv2d_fwd" else BWD_SOURCE)
+    fn = getattr(lib, name)
     if not fn.argtypes:
-        # x, w_all, y; B H W C O k pad BN TH NB CC; knots; n_knots order
-        # act; stream
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name: str, args, desc: str) -> None:
+    err = _fn(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err} for "
+                           f"{desc}")
+    _count_launch(name)
+
+
+def _knots_arg(knots):
+    kn = np.ascontiguousarray(knots, dtype=np.float32)
+    return kn, kn.ctypes.data_as(ctypes.c_void_p)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _fwd(x, w_all, knots, order, k, pad, act, cfg):
+    B, H, W, C = x.shape
+    O = w_all.shape[1] // (k * k)
+    y = torch.empty((B, H + 2 * pad - k + 1, W + 2 * pad - k + 1, O),
+                    dtype=torch.float32, device=x.device)
+    kn, kn_ptr = _knots_arg(knots)
+    _launch("kan_conv2d_fwd",
+            (x.data_ptr(), w_all.data_ptr(), y.data_ptr(), B, H, W, C, O, k,
+             pad, cfg["BN"], cfg["TH"], cfg["NB"], cfg["CC"], kn_ptr, len(kn),
+             order, ACTS[act], _stream(x)),
+            _describe(B, H, W, C, O, k, pad, len(kn), order, act))
+    return y
+
+
+def _check_grad(x, g, k, pad, O):
+    B, H, W, _ = x.shape
+    want = (B, H + 2 * pad - k + 1, W + 2 * pad - k + 1, O)
+    if tuple(g.shape) != want:
+        raise ValueError(f"output gradient must be {want}, got "
+                         f"{tuple(g.shape)}")
+    if g.device != x.device or g.dtype != x.dtype:
+        raise TypeError(f"output gradient is {g.dtype} on {g.device}, x is "
+                        f"{x.dtype} on {x.device}")
+    if not g.is_contiguous():
+        raise ValueError("output gradient must be contiguous")
+
+
+def _check_kernel_args(x, O, knots, order, k, pad, act):
+    B, H, W, C = x.shape
+    desc = _describe(B, H, W, C, O, k, pad, len(knots), order, act)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the kernels take float32, got {x.dtype}")
+    if (len(knots), order) not in SPLINES or act not in ACTS:
+        raise NotImplementedError(f"{desc}: not carried by the kernels")
+    return desc
+
+
+def input_grad(x, w_all, g, knots, order: int, k: int, pad: int, act: str):
+    """dL/dx (B, H, W, C) for the output gradient g.  CUDA tensors: the
+    data-gradient kernel; CPU tensors: ``input_grad_reference``."""
+    O = w_all.shape[1] // (k * k)
+    _check_grad(x, g, k, pad, O)
+    if x.device.type == "cpu":
+        return input_grad_reference(x, w_all, g, knots, order, k, pad, act)
+    desc = _check_kernel_args(x, O, knots, order, k, pad, act)
+    B, H, W, C = x.shape
+    K = len(knots) - order - 1
+    try:
+        cfg = dx_launch_config(B, H, W, C, O, k, pad, K)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{desc}: {e}") from None
+    dx = torch.empty_like(x)
+    kn, kn_ptr = _knots_arg(knots)
+    _launch("kan_conv2d_bwd_dx",
+            (x.data_ptr(), w_all.data_ptr(), g.data_ptr(), dx.data_ptr(), B, H,
+             W, C, O, k, pad, cfg["TH"], cfg["NB"], cfg["CC"], cfg["OC"],
+             kn_ptr, len(kn), order, ACTS[act], _stream(x)), desc)
+    return dx
+
+
+def weight_partials(x, g, knots, order: int, k: int, pad: int, act: str):
+    """The weight gradient's per-split partial sums (S, (K+1)*C, k*k*O)
+    with the split of ``dw_launch_config``.  CUDA tensors: the
+    weight-gradient kernel; CPU tensors: ``weight_partials_reference``."""
+    O = g.shape[-1]
+    _check_grad(x, g, k, pad, O)
+    B, H, W, C = x.shape
+    K = len(knots) - order - 1
+    desc = _describe(B, H, W, C, O, k, pad, len(knots), order, act)
+    try:
+        cfg = dw_launch_config(B, H, W, C, O, k, pad, K)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{desc}: {e}") from None
+    if x.device.type == "cpu":
+        return weight_partials_reference(x, g, knots, order, k, pad, act,
+                                         cfg["S"], cfg["ips"])
+    _check_kernel_args(x, O, knots, order, k, pad, act)
+    if cfg["S"] * (K + 1) * C * k * k * O >= 2 ** 31:
+        raise NotImplementedError(f"{desc}: partial sums too large")
+    partial = torch.empty((cfg["S"], (K + 1) * C, k * k * O),
+                          dtype=torch.float32, device=x.device)
+    kn, kn_ptr = _knots_arg(knots)
+    _launch("kan_conv2d_bwd_dw",
+            (x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C, O, k,
+             pad, cfg["CC"], cfg["BN"], cfg["P"], cfg["S"], cfg["ips"], kn_ptr,
+             len(kn), order, ACTS[act], _stream(x)), desc)
+    return partial
+
+
+def reduce_partials(partial):
+    """Sum (S, ...) partials over S in split order.  CUDA tensors: the
+    reduction kernel; CPU tensors: ``reduce_reference``."""
+    if partial.device.type == "cpu":
+        return reduce_reference(partial)
+    if partial.dtype != torch.float32 or not partial.is_contiguous():
+        raise TypeError("the reduction takes contiguous float32 partials")
+    S, N = partial.shape[0], partial[0].numel()
+    out = torch.empty(partial.shape[1:], dtype=torch.float32,
+                      device=partial.device)
+    _launch("kan_conv2d_bwd_dw_reduce",
+            (partial.data_ptr(), out.data_ptr(), S, N, _stream(partial)),
+            f"partials {tuple(partial.shape)}")
+    return out
+
+
+def weight_grad(x, g, knots, order: int, k: int, pad: int, act: str):
+    """dL/dW_all ((K+1)*C, k*k*O) for the output gradient g.  CUDA tensors:
+    the weight-gradient kernel and the ordered reduction (deterministic);
+    CPU tensors: ``weight_grad_reference``."""
+    if x.device.type == "cpu":
+        _check_grad(x, g, k, pad, g.shape[-1])
+        return weight_grad_reference(x, g, knots, order, k, pad, act)
+    return reduce_partials(weight_partials(x, g, knots, order, k, pad, act))
+
+
+class _KanConv2dFunction(torch.autograd.Function):
+    """The CUDA KAN conv with its backward in the CUDA kernels.  Saves x
+    and W_all (E is recomputed, never kept); launches the data gradient
+    only when x needs it (never for the first conv, whose input is the
+    image)."""
+
+    @staticmethod
+    def forward(ctx, x, w_all, knots, order, k, pad, act, cfg):
+        ctx.save_for_backward(x, w_all)
+        ctx.spec = (knots, order, k, pad, act)
+        return _fwd(x, w_all, knots, order, k, pad, act, cfg)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w_all = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = input_grad(x, w_all, g, *ctx.spec)
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(x, g, *ctx.spec)
+        return dx, dw, None, None, None, None, None, None
 
 
 def kan_conv2d(x, base_w, poly_w, knots, order: int, k: int, pad: int,
                act: str):
     """KAN conv pre-norm output (B, Ho, Wo, O) for x (B, H, W, C) NHWC.
-    CUDA tensors: the hand-written kernel (float32 only).  CPU tensors:
-    ``kan_conv2d_reference``."""
+    CUDA tensors: the hand-written kernels (float32 only), forward and,
+    when an input requires grad, backward.  CPU tensors:
+    ``kan_conv2d_reference`` under plain autograd."""
     cfg = check_inputs(x, base_w, poly_w, knots, order, k, pad, act,
                        for_kernel=x.device.type != "cpu")
     if x.device.type == "cpu":
         return kan_conv2d_reference(x, base_w, poly_w, knots, order, k, pad,
                                     act)
-    B, H, W, C = x.shape
-    O = poly_w.shape[-1]
+    C, O = x.shape[-1], poly_w.shape[-1]
     K = len(knots) - order - 1
-    fn = _lib()
+    # autograd carries dW_all back to base_w and poly_w through the packing
     w_all = pack_w_all(base_w, poly_w, C=C, K=K, k=k, O=O)
-    y = torch.empty((B, H + 2 * pad - k + 1, W + 2 * pad - k + 1, O),
-                    dtype=torch.float32, device=x.device)
-    kn = np.ascontiguousarray(knots, dtype=np.float32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), w_all.data_ptr(), y.data_ptr(), B, H, W, C, O, k,
-             pad, cfg["BN"], cfg["TH"], cfg["NB"], cfg["CC"],
-             kn.ctypes.data_as(ctypes.c_void_p), len(kn), order, ACTS[act],
-             stream)
-    if err != 0:
-        raise RuntimeError(f"kan_conv2d_fwd launch failed with CUDA error "
-                           f"{err} for "
-                           + _describe(B, H, W, C, O, k, pad, len(kn), order,
-                                       act))
-    _count_launch()
-    return y
+    if torch.is_grad_enabled() and (x.requires_grad or w_all.requires_grad):
+        return _KanConv2dFunction.apply(x, w_all, tuple(knots), order, k, pad,
+                                        act, cfg)
+    return _fwd(x, w_all, knots, order, k, pad, act, cfg)

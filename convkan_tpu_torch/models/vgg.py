@@ -4,8 +4,10 @@ all five ``cfgs``) with KAN convs and the ``"Linear"`` head.
 Channel-last: NHWC images in, logits out.  Submodules are named like the
 JAX parameter tree (``KanConvND_0`` .. ``KanConvND_{n-1}``, ``Linear_0``),
 so a JAX ``params`` tree maps onto ``state_dict`` keys by flattening
-(utils/from_jax.py).  Dropout is the identity: the port serves, it does not
-train yet.
+(utils/from_jax.py).  In train mode the head applies dropout
+(``dropout_linear``, default 0.5) before ``Linear_0`` and every conv but
+the first applies channel dropout (``conv_dropout``); in eval mode both
+are the identity.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..factory.conv_factory import CONV_KAN_FACTORY
+from ..ops.dropout import dropout
 from ..ops.layers import Linear
 from ..ops.pooling import adaptive_avg_pool, max_pool
 from ..utils.norms import InstanceNorm, resolve_norm
@@ -46,7 +49,8 @@ class VGGKAN(nn.Module):
                  groups: int = 1, spline_order: int = 3, grid_size: int = 5,
                  base_activation: Any = "silu",
                  grid_range: Tuple[float, float] = (-1, 1),
-                 l1_decay: float = 0.0, arch: str = "VGG16",
+                 l1_decay: float = 0.0, dropout_linear: float = 0.5,
+                 arch: str = "VGG16",
                  classifier_type: str = "Linear",
                  expected_feature_shape: Tuple[int, int] = (1, 1),
                  width_scale: int = 1, kan_norm_layer: Any = InstanceNorm,
@@ -69,6 +73,7 @@ class VGGKAN(nn.Module):
         self.input_channels = input_channels
         self.num_classes = num_classes
         self.arch = arch
+        self.dropout_linear = dropout_linear
         self.classifier_type = classifier_type
         self.expected_feature_shape = tuple(expected_feature_shape)
         conv = CONV_KAN_FACTORY["KAN"]
@@ -100,21 +105,30 @@ class VGGKAN(nn.Module):
     def model_name(self) -> str:
         return f"VGGKAN_{self.classifier_type}_KAN_{self.arch}"
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator = None):
+        """Logits for NHWC x.  ``generator`` draws the dropout masks in
+        train mode, convs first, then the head (None: the device's default
+        generator)."""
         if x.shape[-1] != self.input_channels:
             raise ValueError(f"expected {self.input_channels} channels (NHWC),"
                              f" got {tuple(x.shape)}")
         for step in self._plan:
-            x = max_pool(x, 2, 2) if step == "M" else getattr(self, step)(x)
+            x = max_pool(x, 2, 2) if step == "M" else \
+                getattr(self, step)(x, generator)
         x = adaptive_avg_pool(x, self.expected_feature_shape)
-        return self.Linear_0(x.reshape(x.shape[0], -1))
+        x = x.reshape(x.shape[0], -1)
+        if self.training:
+            x = dropout(x, self.dropout_linear, generator)
+        return self.Linear_0(x)
 
 
 def vggkan(input_channels: int, num_classes: int, **kwargs) -> VGGKAN:
     """Builder with the reference's flag vocabulary.  Like the JAX builder
-    it drops keys VGGKAN does not take: the KAN-head ``classifier_*``
-    overrides, and the dropout rates and ``affine`` flag that evaluation
-    with InstanceNorm(affine=False) never reads."""
+    it drops keys VGGKAN does not take (the KAN-head ``classifier_*``
+    overrides, the ``affine`` flag of InstanceNorm(affine=False)), except
+    ``classifier_dropout``: when not None it replaces ``dropout_linear``."""
+    if kwargs.get("classifier_dropout") is not None:
+        kwargs["dropout_linear"] = kwargs["classifier_dropout"]
     names = set(signature(VGGKAN.__init__).parameters)
     return VGGKAN(input_channels, num_classes,
                   **{k: v for k, v in kwargs.items() if k in names})

@@ -1,12 +1,12 @@
 """B-spline KAN convolution, port of ``convkan_tpu/nn/kan_conv.py`` for
-family ``kan``, 2-D, groups 1, forward only.
+family ``kan``, 2-D, groups 1.
 
-    y = PReLU(InstanceNorm(kan_conv2d(x)))
+    y = ChannelDropout(PReLU(InstanceNorm(kan_conv2d(x))))   (dropout: train)
 
 ``kan_conv2d`` (kernels/kan_conv2d.py) is the conv itself: the B-spline
 basis of every input channel plus act(x), contracted with the weights over
-the k*k taps.  On CUDA it is the hand-written kernel; on the CPU its plain
-version.  Parameters keep the JAX names and shapes: ``base_w`` (k,k,C,O)
+the k*k taps.  On CUDA its forward and backward are the hand-written
+kernels; on the CPU its plain version under autograd.  Parameters keep the JAX names and shapes: ``base_w`` (k,k,C,O)
 HWIO, ``poly_w`` (k,k,C*K,O) with channel-major rows c*K + kk, ``prelu``
 (groups,).
 """
@@ -21,6 +21,7 @@ from torch import nn
 from ..basis.bspline import make_bspline_grid
 from ..device import resolve_device
 from ..kernels.kan_conv2d import kan_conv2d
+from ..ops.dropout import channel_dropout
 from ..utils import initializers as init_lib
 from ..utils.activations import ACTIVATIONS
 from ..utils.norms import InstanceNorm, make_norm
@@ -77,7 +78,7 @@ class KanConvND(nn.Module):
         self.output_dim = output_dim
         self.kernel_size = _single(kernel_size, "kernel_size")
         self.padding = _single(padding, "padding")
-        self.dropout = dropout  # channel dropout: identity in eval
+        self.dropout = dropout  # channel dropout at the output, train only
         self.spline_order = spline_order
         self.act = _act_name(base_activation)
         self.knots = tuple(float(v) for v in make_bspline_grid(
@@ -104,14 +105,19 @@ class KanConvND(nn.Module):
         with torch.no_grad():
             self.prelu.fill_(0.25)
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator = None):
+        """``generator`` draws the channel-dropout mask in train mode (None:
+        the device's default generator); eval mode ignores it."""
         if x.shape[-1] != self.input_dim:
             raise ValueError(f"expected {self.input_dim} channels (NHWC), "
                              f"got {tuple(x.shape)}")
         y = kan_conv2d(x.contiguous(), self.base_w, self.poly_w, self.knots,
                        self.spline_order, self.kernel_size, self.padding,
                        self.act)
-        return self._post_combine(y)
+        y = self._post_combine(y)
+        if self.training and self.dropout > 0:
+            y = channel_dropout(y, self.dropout, generator)
+        return y
 
     def _post_combine(self, y):
         """Norm, then PReLU with the per-group slope repeated per out_g."""

@@ -1,4 +1,5 @@
-"""The CUDA KAN-conv kernel against its plain version, on the card.
+"""The CUDA KAN-conv kernels (forward and backward) against their plain
+versions, on the card.
 
 Marked `cuda`: skips on a host without a GPU.  It imports no JAX, so it
 runs on the GPU machine without the JAX package's conftest:
@@ -37,7 +38,7 @@ def test_cuda_kernel_matches_plain_version(B, H, C, O, act):
     kc.reset_launches()
     y = kc.kan_conv2d(x, bw, pw, KNOTS, 3, 3, 1, act)
     torch.cuda.synchronize()
-    assert kc.launches == 1
+    assert kc.launches["kan_conv2d_fwd"] == 1
     ref = kc.kan_conv2d_reference(x, bw, pw, KNOTS, 3, 3, 1, act)
     torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
 
@@ -56,3 +57,90 @@ def test_cuda_refuses_float64_and_unported_spline():
     with pytest.raises(NotImplementedError):
         kc.kan_conv2d(x, bw, pw[:, :, :12].contiguous(), linear, 1, 3, 1,
                       "silu")
+
+
+def _bwd_inputs(B, H, C, O, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-3, 3, (B, H, H, C)).astype(np.float32)
+    x.reshape(-1)[:len(KNOTS)] = KNOTS          # exact knots occur
+    bw = rng.normal(0, 0.2, (3, 3, C, O)).astype(np.float32)
+    pw = rng.normal(0, 0.2, (3, 3, C * 8, O)).astype(np.float32)
+    g = rng.normal(0, 1, (B, H, H, O)).astype(np.float32)
+    return (torch.from_numpy(a).cuda() for a in (x, bw, pw, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,O,act", [
+    (4, 32, 3, 16, "silu"), (3, 8, 32, 64, "silu"), (5, 2, 128, 128, "silu"),
+    (2, 5, 6, 9, "gelu"),      # ragged: O not a multiple of 4, odd H
+    (3, 7, 13, 5, "silu"),     # ragged channel chunks
+])
+def test_cuda_backward_matches_plain_version(B, H, C, O, act):
+    """dx, d base_w and d poly_w of the CUDA path against autograd of the
+    plain version in float64 on the card.  Float32 sums of up to
+    B*H*W products per dW entry in another order: rtol = atol = 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.device import set_full_f32
+
+    set_full_f32()
+    x, bw, pw, g = _bwd_inputs(B, H, C, O, seed=B * 100 + C)
+    leaves = [t.clone().requires_grad_(True) for t in (x, bw, pw)]
+    kc.reset_launches()
+    y = kc.kan_conv2d(*leaves, KNOTS, 3, 3, 1, act)
+    got = torch.autograd.grad(y, leaves, g)
+    torch.cuda.synchronize()
+    assert kc.launches == {"kan_conv2d_fwd": 1, "kan_conv2d_bwd_dx": 1,
+                           "kan_conv2d_bwd_dw": 1,
+                           "kan_conv2d_bwd_dw_reduce": 1}
+    ref_leaves = [t.double().requires_grad_(True) for t in (x, bw, pw)]
+    ref = torch.autograd.grad(kc.kan_conv2d_reference(
+        *ref_leaves, KNOTS, 3, 3, 1, act), ref_leaves, g.double())
+    for name, a, b in zip(("dx", "dbase_w", "dpoly_w"), got, ref):
+        torch.testing.assert_close(a, b.float(), rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_cuda_result_has_grad_fn_and_skips_unneeded_dx():
+    """A CUDA result carries a grad_fn when the weights require grad, and
+    the data-gradient kernel runs only when x requires grad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    x, bw, pw, g = _bwd_inputs(2, 8, 4, 8, seed=1)
+    bw.requires_grad_(True)
+    pw.requires_grad_(True)
+    y = kc.kan_conv2d(x, bw, pw, KNOTS, 3, 3, 1, "silu")
+    assert y.grad_fn is not None
+    kc.reset_launches()
+    (y * g).sum().backward()
+    torch.cuda.synchronize()
+    assert kc.launches["kan_conv2d_bwd_dx"] == 0
+    assert kc.launches["kan_conv2d_bwd_dw"] == 1
+    assert bw.grad is not None and pw.grad is not None
+    assert float(pw.grad.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_weight_grad_is_deterministic():
+    """Two backward calls on the same inputs give bit-identical dW (fixed
+    batch split, ordered reduction, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    x, bw, pw, g = _bwd_inputs(64, 8, 32, 64, seed=2)
+    w_all = kc.pack_w_all(bw, pw, C=32, K=8, k=3, O=64)
+    a = kc.weight_grad(x, g, KNOTS, 3, 3, 1, "silu")
+    b = kc.weight_grad(x, g, KNOTS, 3, 3, 1, "silu")
+    assert kc.dw_launch_config(64, 8, 8, 32, 64, 3, 1, 8)["S"] > 1
+    assert torch.equal(a, b)
+    dx1 = kc.input_grad(x, w_all, g, KNOTS, 3, 3, 1, "silu")
+    dx2 = kc.input_grad(x, w_all, g, KNOTS, 3, 3, 1, "silu")
+    assert torch.equal(dx1, dx2)
+
+
+@pytest.mark.cuda
+def test_cuda_reduce_matches_ordered_sum_bitwise():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    p = torch.randn(7, 45, 99, device="cuda")
+    assert torch.equal(kc.reduce_partials(p), kc.reduce_reference(p))
