@@ -1,6 +1,6 @@
-"""GPU smoke test of convkan_tpu_torch: serves and trains KAN-VGG16_small
-on one CUDA card through the hand-written KAN-conv kernels and checks
-every step.
+"""GPU smoke test of convkan_tpu_torch: serves and trains KAN-VGG16_small,
+with B-spline KAN convs and with WavKAN convs, on one CUDA card through the
+hand-written kernels and checks every step.
 
     python3 chip_smoke.py
 
@@ -13,8 +13,8 @@ Phases (the first failed check exits non-zero):
      to +-3 with exact knot values, and a GELU case (rtol = atol = 1e-4:
      float32 sums of up to 10,368 products taken in another order);
   3. the model: VGG16_small with seeded weights on the card against the
-     same state_dict on the CPU (logits within 1e-3), 13 launches per
-     forward;
+     same state_dict on the CPU (logits within 1e-3, and not the same for
+     every image), 13 launches per forward;
   4. serving, the main path: launch counts are zeroed, an InferenceEngine
      with buckets (1, 8, 64) starts, the HTTP server answers 8 concurrent
      clients x 4 single-image requests and one 64-image request, the
@@ -39,6 +39,30 @@ Phases (the first failed check exits non-zero):
      conv shape at batch 1024, each backward kernel, its plain version,
      one cuDNN convolution_backward over a materialized basis (a yardstick
      the port never calls) and the bound.
+WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
+  9. forward kernel vs its plain version (rtol = atol = TOL): the 9
+     VGG16_small shapes at batch 64, all 5 wavelets at one shape, batch 1,
+     a ragged shape, x scaled to +-3, and the three BASELINE config-4
+     shapes 3->32@32x32, 32->64@16x16, 64->128@8x8; translation and scale
+     moved off their 0 / 1 init;
+ 10. backward kernels (data gradient, parameter partials, reduction) and
+     the autograd path's dx, dw, dt, ds against float64 autograd of the
+     plain version (BWD_TOL; the reduction bit-exact);
+ 11. the WavKAN VGG16_small (head on the last 2x2 map, see WAV_MODEL):
+     logits on the GPU vs the CPU (MODEL_TOL), 13 forward launches;
+ 12. serving, the main path, as phase 4 with the WavKAN model (served
+     logits vs predict within MODEL_TOL);
+ 13. training, the main path, as phase 7 with the WavKAN model, but each
+     CPU step starts from the GPU run's state before it (in float32 the
+     model's three-step trajectory is chaotic: two float32 runs that sum
+     in other orders part by more than LOSS_RTOL by the third step): per
+     step 13 forward, 12 data-gradient, 13 parameter and 13 reduction
+     launches, and every conv's wavelet_w, scale and translation gets a
+     gradient;
+ 14. times: predict and the train step at batch 1024 (images/s) and, per
+     conv shape at batch 1024, each WavKAN kernel, its plain version, one
+     cuDNN grouped convolution (forward, or convolution_backward) over a
+     materialized psi (a yardstick the port never calls) and the bound.
 
 Prints a {"kernels": [...]} line, then the contract line
 {"ok": true, "device": {...}} last.
@@ -87,6 +111,20 @@ BWD_TOL = 1e-4
 # agree to UPDATE_TOL in relative L2 distance
 GRAD_TOL, LOSS_RTOL, UPDATE_TOL = 0.1, 1e-3, 0.5
 TRAIN_STEPS, TRAIN_BATCH, TIME_BATCH = 3, 16, 1024
+WAV_REPLACES = "convkan_tpu/kernels/fused_wav_conv.py:351"
+WAV_BWD_REPLACES = "convkan_tpu/kernels/fused_wav_conv.py:405"
+WAVELETS = ("mexican_hat", "morlet", "dog", "meyer", "shannon")
+# (H, C, O) of the three WavKAN convs of the BASELINE config-4 stack
+CONFIG4_CONVS = [(32, 3, 32), (16, 32, 64), (8, 64, 128)]
+# one exp per psi on the SFU: 132 SMs x 16 per clock at 1.98 GHz (H100 SXM)
+PEAK_EXP = 132 * 16 * 1.98e9
+# The WavKAN phases' model keeps the 2x2 map of its last conv as features.
+# With the default (1, 1) head the last op of the trunk is InstanceNorm
+# (no PReLU after it, unlike the KAN conv), whose per-channel mean is 0, so
+# the average pool gives features that are exactly 0: the logits are the
+# Linear bias for every image and the trunk gets no gradient (the JAX model
+# alike).  The convs, and so the kernels' shapes and launches, are the same.
+WAV_MODEL = {"expected_feature_shape": (2, 2)}
 
 
 def fail(msg: str):
@@ -119,7 +157,6 @@ def conv_inputs(gen, B, H, C, O, scale=1.0):
     bw = torch.randn(3, 3, C, O, generator=gen) * 0.1
     pw = torch.randn(3, 3, C * 8, O, generator=gen) * 0.1
     return x, bw, pw
-
 
 
 def interior_pairs(H: int, k: int = 3, pad: int = 1) -> int:
@@ -187,18 +224,26 @@ def phase_backward(kc, knots, gen, dev):
     return errs
 
 
-def phase_train(kc, dev):
-    """7. the training main path: three train steps on the GPU against the
-    same steps on the CPU; returns the launch counts of the GPU steps."""
+def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
+                **model_kw):
+    """7 / 13. the training main path: three train steps on the GPU against
+    the same steps on the CPU; every conv's ``grad_params`` must get a
+    non-zero gradient and ``mod``'s launch counts must be ``want_counts``
+    per step.  With ``lockstep`` each CPU step starts from the GPU run's
+    parameters and optimizer state before that step, and every step's loss,
+    gradients and update are compared (for a model whose float32 trajectory
+    is chaotic); else the CPU runs its own three steps, and the first
+    step's gradients and the update over the three steps are compared.
+    Returns the launch counts of the GPU steps."""
     from convkan_tpu_torch.models.vgg import vggkan
     from convkan_tpu_torch.train.data import _synthetic, crop_params
     from convkan_tpu_torch.train.loop import make_train_step
     from convkan_tpu_torch.train.state import create_train_state
 
-    model_cpu = vggkan(3, 10, arch="VGG16_small", kan_conv="KAN",
+    model_cpu = vggkan(3, 10, arch="VGG16_small", kan_conv=kan_conv,
                        classifier_type="Linear",
                        generator=torch.Generator().manual_seed(2),
-                       device="cpu")
+                       device="cpu", **model_kw)
     model_gpu = copy.deepcopy(model_cpu).to(dev)
     x, y = _synthetic("CIFAR10", TRAIN_STEPS * TRAIN_BATCH, seed=4)
     crops = torch.Generator().manual_seed(6)
@@ -209,75 +254,91 @@ def phase_train(kc, dev):
         batches.append((torch.from_numpy(x[sl]), torch.from_numpy(y[sl]),
                         offs, flips))
 
-    start = {n: t.clone() for n, t in model_cpu.state_dict().items()}
+    def snapshot(model, state):
+        return ({n: t.detach().cpu().clone()
+                 for n, t in model.state_dict().items()},
+                copy.deepcopy(state.optimizer.state_dict()))
 
-    def run(model, device):
+    def run(model, device, starts=None):
         # a CPU generator on both sides: the same dropout masks (the GPU
         # run copies each mask to the card)
         state = create_train_state(model, 1e-3, 1e-3, 0.8, steps_per_epoch=2,
                                    generator=torch.Generator().manual_seed(7))
         step = make_train_step(model, "CIFAR10", augment=True)
-        losses, grads = [], None
-        for xb, yb, o, f in batches:
+        losses, grads, ends = [], [], [snapshot(model, state)]
+        for i, (xb, yb, o, f) in enumerate(batches):
+            if starts is not None:  # start where the GPU run's step i did
+                model.load_state_dict(starts[i][0])
+                state.optimizer.load_state_dict(starts[i][1])
             losses.append(step(state, xb.to(device), yb.to(device),
                                offsets=o, flips=f).item())
-            if grads is None:
-                grads = {n: p.grad.detach().cpu().clone()
-                         for n, p in model.named_parameters()}
-        return losses, grads
+            grads.append({n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()})
+            ends.append(snapshot(model, state))
+        return losses, grads, ends
 
-    kc.reset_launches()
-    losses_gpu, grads_gpu = run(model_gpu, dev)
+    mod.reset_launches()
+    losses_gpu, grads_gpu, snaps_gpu = run(model_gpu, dev)
     torch.cuda.synchronize()
-    counts = dict(kc.launches)
-    losses_cpu, grads_cpu = run(model_cpu, "cpu")
-    print(f"[train] VGG16_small batch {TRAIN_BATCH}, {TRAIN_STEPS} steps: "
-          f"losses GPU {losses_gpu} CPU {losses_cpu}", flush=True)
+    counts = dict(mod.launches)
+    losses_cpu, grads_cpu, snaps_cpu = run(
+        model_cpu, "cpu", snaps_gpu[:-1] if lockstep else None)
+    print(f"[train] {kan_conv} VGG16_small batch {TRAIN_BATCH}, {TRAIN_STEPS} "
+          f"steps{' in lockstep' if lockstep else ''}: losses GPU "
+          f"{losses_gpu} CPU {losses_cpu}", flush=True)
     for lg, lc in zip(losses_gpu, losses_cpu):
         check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
               f"train loss on the GPU {lg} vs the CPU {lc}")
-    worst_g = max(((grads_gpu[n] - g).abs().max() / g.abs().max()).item()
-                  for n, g in grads_cpu.items())
-    num = den = worst = 0.0
-    want = model_cpu.state_dict()
-    for name, t in model_gpu.state_dict().items():
-        moved = want[name] - start[name]
-        num += ((t.cpu() - start[name]) - moved).square().sum().item()
-        den += moved.square().sum().item()
-        worst = max(worst, (t.cpu() - want[name]).abs().max().item())
-    rel = (num / den) ** 0.5
-    print(f"[train] GPU vs CPU: first-step gradients max |diff| {worst_g:.3e}"
-          f" of each parameter's largest entry; parameter updates over "
-          f"{TRAIN_STEPS} steps differ by {rel:.3e} in relative L2 (max "
-          f"|diff| {worst:.3e})", flush=True)
-    check(worst_g <= GRAD_TOL, "first-step gradients differ between GPU and "
-                               "CPU")
+    steps = range(TRAIN_STEPS) if lockstep else range(1)
+    worst_g = max(((grads_gpu[i][n] - g).abs().max() / g.abs().max()).item()
+                  for i in steps for n, g in grads_cpu[i].items())
+    # (start, GPU end, CPU end) of each compared update
+    spans = [(snaps_gpu[i][0], snaps_gpu[i + 1][0], snaps_cpu[i + 1][0])
+             for i in range(TRAIN_STEPS)] if lockstep else \
+        [(snaps_cpu[0][0], snaps_gpu[-1][0], snaps_cpu[-1][0])]
+    rel = worst = 0.0
+    for begin, got, want in spans:
+        num = den = 0.0
+        for name, t in got.items():
+            moved = want[name] - begin[name]
+            num += ((t - begin[name]) - moved).square().sum().item()
+            den += moved.square().sum().item()
+            worst = max(worst, (t - want[name]).abs().max().item())
+        rel = max(rel, (num / den) ** 0.5)
+    print(f"[train] GPU vs CPU: {'every' if lockstep else 'first'}-step "
+          f"gradients max |diff| {worst_g:.3e} of each parameter's largest "
+          f"entry; parameter updates "
+          f"{'of each step' if lockstep else f'over {TRAIN_STEPS} steps'} "
+          f"differ by {rel:.3e} in relative L2 (max |diff| {worst:.3e})",
+          flush=True)
+    check(worst_g <= GRAD_TOL, "gradients differ between GPU and CPU")
     check(rel <= UPDATE_TOL, "parameter updates differ between GPU and CPU")
-    for name, m in model_gpu.named_children():
-        if name.startswith("KanConvND"):
-            check(m.poly_w.grad is not None and
-                  bool(m.poly_w.grad.abs().sum() > 0),
-                  f"{name}.poly_w got no gradient on the GPU")
-    print(f"[train] kernel launches on the main path ({TRAIN_STEPS} steps): "
-          f"{counts}", flush=True)
-    want_counts = {"kan_conv2d_fwd": 13, "kan_conv2d_bwd_dx": 12,
-                   "kan_conv2d_bwd_dw": 13, "kan_conv2d_bwd_dw_reduce": 13}
+    convs = [(n, m) for n, m in model_gpu.named_children()
+             if n.startswith(("KanConvND", "WavKANConvND"))]
+    check(len(convs) == 13, f"{len(convs)} convs in the model")
+    for name, m in convs:
+        for pn in grad_params:
+            grad = getattr(m, pn).grad
+            check(grad is not None and bool(grad.abs().sum() > 0),
+                  f"{name}.{pn} got no gradient on the GPU")
+    print(f"[train] {kan_conv} kernel launches on the main path "
+          f"({TRAIN_STEPS} steps): {counts}", flush=True)
     check(counts == {k: TRAIN_STEPS * v for k, v in want_counts.items()},
           f"expected per step {want_counts}, got {counts} in {TRAIN_STEPS}")
     return counts
 
 
-def phase_train_times(kc, knots, gen, dev, card):
-    """8. the train step at batch TIME_BATCH and the backward kernels per
-    conv shape; returns (images/s, per-kernel totals, rows)."""
+def time_train_step(kan_conv, dev, card, **model_kw):
+    """Median images/s of the VGG16_small train step at batch TIME_BATCH."""
     from convkan_tpu_torch.models.vgg import vggkan
     from convkan_tpu_torch.train.data import _synthetic
     from convkan_tpu_torch.train.loop import make_train_step
     from convkan_tpu_torch.train.state import create_train_state
 
-    model = vggkan(3, 10, arch="VGG16_small", kan_conv="KAN",
+    model = vggkan(3, 10, arch="VGG16_small", kan_conv=kan_conv,
                    classifier_type="Linear",
-                   generator=torch.Generator().manual_seed(3), device=dev)
+                   generator=torch.Generator().manual_seed(3), device=dev,
+                   **model_kw)
     # CIFAR-10's 50,000 images in full batches; generator on the card
     state = create_train_state(model, steps_per_epoch=50000 // TIME_BATCH)
     step = make_train_step(model, "CIFAR10", augment=True)
@@ -292,12 +353,18 @@ def phase_train_times(kc, knots, gen, dev, card):
         step(state, x, y).item()  # host readback: the step is done
         runs.append(TIME_BATCH / (time.perf_counter() - t0))
     ips = statistics.median(runs)
-    print(f"[time] train step batch {TIME_BATCH}: median {ips:.1f} images/s "
-          f"({1e3 * TIME_BATCH / ips:.3f} ms) over {len(runs)} steps (min "
-          f"{min(runs):.1f}, max {max(runs):.1f}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}",
-          flush=True)
-    del model, state, step
+    print(f"[time] {kan_conv} train step batch {TIME_BATCH}: median "
+          f"{ips:.1f} images/s ({1e3 * TIME_BATCH / ips:.3f} ms) over "
+          f"{len(runs)} steps (min {min(runs):.1f}, max {max(runs):.1f}); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"on {card}", flush=True)
+    return ips
+
+
+def phase_train_times(kc, knots, gen, dev, card):
+    """8. the train step at batch TIME_BATCH and the backward kernels per
+    conv shape; returns (images/s, per-kernel totals, rows)."""
+    ips = time_train_step("KAN", dev, card)
 
     names = ("kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
              "kan_conv2d_bwd_dw_reduce")
@@ -378,6 +445,355 @@ def phase_train_times(kc, knots, gen, dev, card):
               f"(on {card})", flush=True)
     return ips, totals, rows
 
+
+def phase_model(mod, kan_conv, fwd_name, dev, imgs, **model_kw):
+    """3 / 11. VGG16_small with seeded weights on the card against the same
+    state_dict on the CPU; returns the GPU model (eval mode)."""
+    from convkan_tpu_torch.models.vgg import vggkan
+    from convkan_tpu_torch.train.data import normalize_batch
+
+    model_cpu = vggkan(3, 10, arch="VGG16_small", kan_conv=kan_conv,
+                       classifier_type="Linear",
+                       generator=torch.Generator().manual_seed(0),
+                       device="cpu", **model_kw).eval()
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    with torch.inference_mode():
+        want = model_cpu(normalize_batch(torch.from_numpy(imgs), "CIFAR10"))
+        mod.reset_launches()
+        got = model_gpu(normalize_batch(torch.from_numpy(imgs).to(dev),
+                                        "CIFAR10")).cpu()
+        torch.cuda.synchronize()
+    n_launch = mod.launches[fwd_name]
+    check(sum(mod.launches.values()) == n_launch,
+          f"inference launched a backward kernel: {mod.launches}")
+    err = (got - want).abs().max().item()
+    print(f"[model] {kan_conv} VGG16_small logits {tuple(got.shape)} GPU vs "
+          f"CPU max|err| {err:.3e}; kernel launches per forward {n_launch}",
+          flush=True)
+    check(bool(torch.isfinite(got).all()), "model logits not finite")
+    check((got - got[0]).abs().max().item() > 1e-3,
+          "the logits are the same for every image")
+    check(torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL),
+          "model logits on the GPU disagree with the CPU")
+    check(n_launch == 13, f"expected 13 kernel launches, got {n_launch}")
+    return model_gpu
+
+
+def phase_serve(mod, kan_conv, fwd_name, imgs, tol=TOL, **model_kw):
+    """4 / 12. serving, the main path: launch counts are zeroed, an
+    InferenceEngine starts, the HTTP server answers 8 concurrent clients x
+    4 single-image requests and one 64-image request, the answers are
+    checked against engine.predict (within ``tol``: the two run the model
+    at other batch sizes, so cuDNN and cuBLAS sum in other orders), and the
+    counts are read.  Returns the forward launches."""
+    from convkan_tpu_torch.models.vgg import vggkan
+    from convkan_tpu_torch.serve import InferenceEngine, make_server
+
+    mod.reset_launches()
+    model = vggkan(3, 10, arch="VGG16_small", kan_conv=kan_conv,
+                   classifier_type="Linear",
+                   generator=torch.Generator().manual_seed(1), device="cuda",
+                   **model_kw)
+    engine = InferenceEngine(model, "CIFAR10", (32, 32, 3),
+                             buckets=(1, 8, 64), batch_timeout_ms=5.0,
+                             device="cuda")
+    server = make_server(engine, model.model_name, "127.0.0.1", 0)
+    srv_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    srv_thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(batch):
+        req = urllib.request.Request(
+            url + "/predict", data=json.dumps(
+                {"instances": batch.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+
+    req_imgs = np.random.RandomState(2).randint(0, 256, (32, 32, 32, 3),
+                                                np.uint8)
+    answers: dict = {}
+    errors: list = []
+
+    def client(c):
+        try:
+            for r in range(4):
+                i = c * 4 + r
+                answers[i] = post(req_imgs[i:i + 1])
+        except Exception as e:  # collected and reported below
+            errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+    try:
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(8)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=120)
+        check(not any(t.is_alive() for t in clients), "HTTP clients hung")
+        check(not errors, f"HTTP errors: {errors}")
+        check(len(answers) == 32, f"{len(answers)} of 32 answers")
+        big = post(imgs)
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())
+        n_main = mod.launches[fwd_name]
+    finally:
+        server.shutdown()
+        server.server_close()
+        srv_thread.join(timeout=10)
+        engine.close()
+    direct = engine.predict(req_imgs)
+    single = np.array([answers[i]["predictions"][0] for i in range(32)])
+    serr = float(np.abs(single - direct).max())
+    berr = float(np.abs(np.array(big["predictions"])
+                        - engine.predict(imgs)).max())
+    print(f"[serve] {model.model_name}: 32 single-image requests from 8 "
+          f"clients, max|err| vs predict {serr:.3e}; 64-image request "
+          f"max|err| {berr:.3e}", flush=True)
+    print(f"[serve] /metrics {json.dumps(metrics)}", flush=True)
+    print(f"[serve] kernel launches on the main path: {n_main}", flush=True)
+    check(serr <= tol and berr <= tol, "served logits disagree with predict")
+    check(big["batch"] == 64 and metrics["requests"] == 33,
+          "server counted the wrong requests")
+    steps = metrics["device_batches"] + len(engine.buckets)  # + warm-up
+    check(n_main == 13 * steps, f"{n_main} launches for {steps} forwards")
+    return n_main
+
+
+def time_predict(model_gpu, kan_conv, card):
+    """predict at batch 1024: median images/s of 10 calls."""
+    from convkan_tpu_torch.serve import InferenceEngine
+
+    bench = InferenceEngine(model_gpu, "CIFAR10", (32, 32, 3),
+                            buckets=(1024,), device="cuda")
+    try:
+        x1024 = np.random.RandomState(3).randint(0, 256, (1024, 32, 32, 3),
+                                                 np.uint8)
+        runs = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            bench.predict(x1024)  # returns host numpy: the device is done
+            runs.append(1024 / (time.perf_counter() - t0))
+    finally:
+        bench.close()
+    ips = statistics.median(runs)
+    print(f"[time] {kan_conv} predict batch 1024: median {ips:.1f} "
+          f"images/s over {len(runs)} runs (min {min(runs):.1f}, max "
+          f"{max(runs):.1f}) on {card}", flush=True)
+    return ips
+
+
+# ---------------------------------------------------------------- WavKAN
+def wav_inputs(gen, B, H, W, C, O, scale=1.0):
+    """x, w, translation 0.5 N, scale 1 + 0.3 U (off their 0 / 1 init)."""
+    x = torch.randn(B, H, W, C, generator=gen) * scale
+    w = torch.randn(3, 3, C, O, generator=gen) * 0.1
+    t = 0.5 * torch.randn(O, C, generator=gen)
+    s = 1.0 + 0.3 * torch.rand(O, C, generator=gen)
+    return x, w, t, s
+
+
+def phase_wav_forward(wc, gen, dev):
+    """9. the forward kernel against its plain version; returns max |err|."""
+    cases = [(64, H, H, C, O, "mexican_hat", 1.0)
+             for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
+    cases += [(16, 16, 16, 16, 32, w, 1.0) for w in WAVELETS]
+    cases += [(1, 32, 32, 3, 16, "mexican_hat", 1.0),      # batch 1
+              (3, 7, 5, 13, 5, "mexican_hat", 1.0),        # ragged
+              (8, 8, 8, 32, 64, "mexican_hat", 3.0)]       # x scaled to +-3
+    cases += [(64, H, H, C, O, "mexican_hat", 1.0)
+              for H, C, O in CONFIG4_CONVS]
+    max_err = 0.0
+    for B, H, W, C, O, wt, scale in cases:
+        x, w, t, s = (a.to(dev) for a in wav_inputs(gen, B, H, W, C, O,
+                                                    scale))
+        y = wc.wav_conv2d(x, w, t, s, wavelet_type=wt, padding=1)
+        torch.cuda.synchronize()
+        ref = wc.wav_conv2d_reference(x, w, t, s, wavelet_type=wt,
+                                      padding=1)
+        err = (y - ref).abs().max().item()
+        ok = torch.allclose(y, ref, rtol=TOL, atol=TOL)
+        print(f"[wav kernel] B={B} {H}x{W} C={C} O={O} x*{scale} {wt}: "
+              f"max|err| {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        check(bool(torch.isfinite(y).all()), "WavKAN kernel output not "
+                                             "finite")
+        check(ok, f"WavKAN kernel disagrees with the plain version (B={B} "
+                  f"{H}x{W} C={C} O={O} {wt})")
+        max_err = max(max_err, err)
+    return max_err
+
+
+def phase_wav_backward(wc, gen, dev):
+    """10. each backward kernel and the autograd path against float64
+    autograd of the plain version; returns max |err| per kernel."""
+    cases = [(64, H, H, C, O, "mexican_hat")
+             for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
+    cases += [(3, 7, 5, 13, 5, "mexican_hat")]
+    cases += [(8, 8, 8, 16, 32, w) for w in WAVELETS[1:]]
+    errs = dict.fromkeys(wc.KERNELS[1:], 0.0)
+    for B, H, W, C, O, wt in cases:
+        x, w, t, s = (a.to(dev) for a in wav_inputs(gen, B, H, W, C, O))
+        g = torch.randn(B, H, W, O, generator=gen).to(dev)
+        spec = (wt, 1)
+        wf = w
+        if wt == "shannon":  # the kernels take the window folded into w
+            wf = w * torch.from_numpy(wc.hamming_window(C)).to(w)[:, None]
+        cfg = wc.param_launch_config(B, H, W, C, O, 3, 1)
+        dx = wc.input_grad(x, wf, t, s, g, *spec)
+        part = wc.param_partials(x, wf, t, s, g, *spec)
+        red = wc.reduce_partials(part)
+        torch.cuda.synchronize()
+        d64 = [a.double() for a in (x, wf, t, s, g)]
+        e_dx, ok_dx = bwd_close(dx, wc.input_grad_reference(*d64, *spec))
+        e_p, ok_p = bwd_close(part, wc.param_partials_reference(
+            *d64, *spec, cfg["S"], cfg["ips"]))
+        e_red = (red - wc.reduce_reference(part)).abs().max().item()
+        leaves = [a.clone().requires_grad_(True) for a in (x, w, t, s)]
+        got = torch.autograd.grad(wc.wav_conv2d(
+            *leaves, wavelet_type=wt, padding=1), leaves, g)
+        ref = [a.double().requires_grad_(True) for a in (x, w, t, s)]
+        want = torch.autograd.grad(wc.wav_conv2d_reference(
+            *ref, wavelet_type=wt, padding=1), ref, g.double())
+        auto = [bwd_close(a, b) for a, b in zip(got, want)]
+        ok = ok_dx and ok_p and e_red == 0.0 and all(o for _, o in auto)
+        print(f"[wav backward] B={B} {H}x{W} C={C} O={O} {wt} "
+              f"S={cfg['S']}: dx {e_dx:.3e}, param partials {e_p:.3e}, "
+              f"reduce {e_red:.1e}; autograd dx/dw/dt/ds "
+              f"{'/'.join(f'{e:.3e}' for e, _ in auto)} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        for a in (dx, part, *got):
+            check(bool(torch.isfinite(a).all()), "backward output not finite")
+        check(ok, f"WavKAN backward kernels disagree with the plain version "
+                  f"(B={B} {H}x{W} C={C} O={O} {wt})")
+        for name, e in (("wav_conv2d_bwd_dx", max(e_dx, auto[0][0])),
+                        ("wav_conv2d_bwd_param",
+                         max(e_p, *(a for a, _ in auto[1:]))),
+                        ("wav_conv2d_bwd_reduce", e_red)):
+            errs[name] = max(errs[name], e)
+    return errs
+
+
+def wav_bound(name, B, H, C, O, S, N):
+    """(operations ms, bytes ms) of one WavKAN kernel at batch B: taps whose
+    input lies in the image (the pad's psi is 0), one exp per psi."""
+    fmas = B * interior_pairs(H) * C * O
+    exps = B * H * H * C * O
+    x, g, p = B * H * H * C, B * H * H * O, 9 * C * O + 2 * O * C
+    ops_ms = {
+        "wav_conv2d_fwd": max(2 * fmas / PEAK_FP32_FLOPS, exps / PEAK_EXP),
+        "wav_conv2d_bwd_dx": max(2 * fmas / PEAK_FP32_FLOPS, exps / PEAK_EXP),
+        "wav_conv2d_bwd_param": max(4 * fmas / PEAK_FP32_FLOPS,
+                                    exps / PEAK_EXP),
+        "wav_conv2d_bwd_reduce": S * N / PEAK_FP32_FLOPS,
+    }[name] * 1e3
+    nbytes = 4 * {"wav_conv2d_fwd": x + p + g,
+                  "wav_conv2d_bwd_dx": 2 * x + p + g,
+                  "wav_conv2d_bwd_param": x + g + p + S * N,
+                  "wav_conv2d_bwd_reduce": (S + 1) * N}[name]
+    return ops_ms, nbytes / PEAK_BYTES * 1e3
+
+
+def phase_wav_times(wc, gen, dev, card):
+    """14. per conv shape at batch TIME_BATCH: each WavKAN kernel, its plain
+    version, a cuDNN grouped convolution over a materialized psi and the
+    bound; returns (per-kernel totals, rows)."""
+    F = torch.nn.functional
+    totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
+                                "byte_ms"), 0.0) for n in wc.KERNELS}
+    rows = []
+    B, spec = TIME_BATCH, ("mexican_hat", 1)
+    for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
+        x, w, t, s = (a.to(dev) for a in wav_inputs(gen, B, H, H, C, O))
+        g = torch.randn(B, H, H, O, generator=gen).to(dev)
+        cfg = wc.param_launch_config(B, H, H, C, O, 3, 1)
+        part = wc.param_partials(x, w, t, s, g, *spec)
+        ms = {
+            "wav_conv2d_fwd": (
+                cuda_ms(lambda: wc.wav_conv2d(x, w, t, s,
+                                              wavelet_type=spec[0],
+                                              padding=1)),
+                cuda_ms(lambda: wc.wav_conv2d_reference(
+                    x, w, t, s, wavelet_type=spec[0], padding=1),
+                    iters=3, warmup=1)),
+            "wav_conv2d_bwd_dx": (
+                cuda_ms(lambda: wc.input_grad(x, w, t, s, g, *spec)),
+                cuda_ms(lambda: wc.input_grad_reference(x, w, t, s, g, *spec),
+                        iters=3, warmup=1)),
+            "wav_conv2d_bwd_param": (
+                cuda_ms(lambda: wc.param_partials(x, w, t, s, g, *spec)),
+                cuda_ms(lambda: wc.param_grads_reference(x, w, t, s, g,
+                                                         *spec),
+                        iters=3, warmup=1)),
+            "wav_conv2d_bwd_reduce": (
+                cuda_ms(lambda: wc.reduce_partials(part)),
+                cuda_ms(lambda: wc.reduce_reference(part), iters=5)),
+        }
+        # yardsticks the port never calls: cuDNN's grouped conv (groups=O)
+        # over an already materialized psi, forward and backward, and one
+        # sum
+        psi = wc.PSI[spec[0]][0](wc._z(x, t, s))          # (B,H,W,O,C)
+        psi = psi.permute(0, 3, 4, 1, 2).reshape(B, O * C, H, H) \
+            .contiguous()
+        wn = w.permute(3, 2, 0, 1).contiguous()            # (O, C, 3, 3)
+        gn = g.permute(0, 3, 1, 2).contiguous()
+
+        def conv_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                gn, psi, wn, None, [1, 1], [1, 1], [1, 1], False, [0, 0], O,
+                mask)
+
+        lib = {"wav_conv2d_fwd": cuda_ms(
+                   lambda: F.conv2d(psi, wn, padding=1, groups=O), iters=5),
+               "wav_conv2d_bwd_dx": cuda_ms(lambda: conv_bwd(
+                   [True, False, False]), iters=5),
+               "wav_conv2d_bwd_param": cuda_ms(lambda: conv_bwd(
+                   [False, True, False]), iters=5),
+               "wav_conv2d_bwd_reduce": cuda_ms(lambda: part.sum(0))}
+        del psi, gn
+        n = VGG16_SMALL_CONVS.count((H, C, O))
+        row = {"H": H, "C": C, "O": O, "batch": B, "layers": n,
+               "S": cfg["S"]}
+        for name in wc.KERNELS:
+            layers = n - 1 if name == "wav_conv2d_bwd_dx" and \
+                (H, C, O) == VGG16_SMALL_CONVS[0] else n
+            op_ms, byte_ms = wav_bound(name, B, H, C, O, cfg["S"], cfg["N"])
+            row[name] = {"layers": layers, "ms": round(ms[name][0], 4),
+                         "plain_ms": round(ms[name][1], 4),
+                         "library_ms": round(lib[name], 4),
+                         "bound_ms": round(max(op_ms, byte_ms), 4)}
+            for key, v in (("ms", ms[name][0]), ("plain_ms", ms[name][1]),
+                           ("library_ms", lib[name]), ("op_ms", op_ms),
+                           ("byte_ms", byte_ms)):
+                totals[name][key] += layers * v
+        rows.append(row)
+        print(f"[wav time] {json.dumps(row)}", flush=True)
+    for name in wc.KERNELS:
+        t = totals[name]
+        t["bound_ms"] = max(t["op_ms"], t["byte_ms"])
+        print(f"[wav time] {name} per {'forward' if name == 'wav_conv2d_fwd' else 'train step'} "
+              f"at batch {B}: kernel {t['ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, cuDNN over materialized psi "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms (on "
+              f"{card})", flush=True)
+    return totals, rows
+
+
+def kernel_entry(name, source, replaces, launches, err, t, times_are,
+                 shapes, **extra):
+    """One kernel's entry of the {"kernels": [...]} line; ``launches`` per
+    main path ({"serve": n, "train": n}), ``t`` the timing totals."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, **extra,
+            "launches": launches["serve"] + launches["train"],
+            "launches_by_path": launches, "max_abs_err": err,
+            "ms": round(t["ms"], 4), "plain_ms": round(t["plain_ms"], 4),
+            "bound_ms": round(t["bound_ms"], 4),
+            "bound_by": "operations" if t["op_ms"] >= t["byte_ms"]
+            else "bytes",
+            "library_ms": round(t["library_ms"], 4), "times_are": times_are,
+            "shapes": shapes}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
@@ -386,9 +802,7 @@ def main():
     from convkan_tpu_torch.device import set_full_f32
     from convkan_tpu_torch.kernels import build
     from convkan_tpu_torch.kernels import kan_conv2d as kc
-    from convkan_tpu_torch.models.vgg import vggkan
-    from convkan_tpu_torch.serve import InferenceEngine, make_server
-    from convkan_tpu_torch.train.data import normalize_batch
+    from convkan_tpu_torch.kernels import wav_conv2d as wc
 
     t_start = time.perf_counter()
     # ---------------------------------------------------------- 1. setup
@@ -400,7 +814,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     set_full_f32()
-    sources = (kc.SOURCE, kc.BWD_SOURCE)
+    sources = (kc.SOURCE, kc.BWD_SOURCE, wc.SOURCE, wc.BWD_SOURCE)
     for src in sources:  # build from the checkout's sources
         build.library_path(src).unlink(missing_ok=True)
     t0 = time.perf_counter()
@@ -443,114 +857,14 @@ def main():
         max_err = max(max_err, err)
 
     # ---------------------------------------------------------- 3. model
-    model_cpu = vggkan(3, 10, arch="VGG16_small", classifier_type="Linear",
-                       generator=torch.Generator().manual_seed(0),
-                       device="cpu").eval()
-    model_gpu = copy.deepcopy(model_cpu).to(dev)
     imgs = np.random.RandomState(0).randint(0, 256, (64, 32, 32, 3), np.uint8)
-    with torch.inference_mode():
-        want = model_cpu(normalize_batch(torch.from_numpy(imgs), "CIFAR10"))
-        kc.reset_launches()
-        got = model_gpu(normalize_batch(torch.from_numpy(imgs).to(dev),
-                                        "CIFAR10")).cpu()
-        torch.cuda.synchronize()
-    n_launch = kc.launches["kan_conv2d_fwd"]
-    check(sum(kc.launches.values()) == n_launch,
-          f"inference launched a backward kernel: {kc.launches}")
-    err = (got - want).abs().max().item()
-    print(f"[model] VGG16_small logits {tuple(got.shape)} GPU vs CPU max|err| "
-          f"{err:.3e}; kernel launches per forward {n_launch}", flush=True)
-    check(bool(torch.isfinite(got).all()), "model logits not finite")
-    check(torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL),
-          "model logits on the GPU disagree with the CPU")
-    check(n_launch == 13, f"expected 13 kernel launches, got {n_launch}")
-
+    model_gpu = phase_model(kc, "KAN", "kan_conv2d_fwd", dev, imgs)
     # ------------------------------------------- 4. serving (main path)
-    kc.reset_launches()
-    engine = InferenceEngine(
-        vggkan(3, 10, arch="VGG16_small", classifier_type="Linear",
-               generator=torch.Generator().manual_seed(1), device="cuda"),
-        "CIFAR10", (32, 32, 3), buckets=(1, 8, 64), batch_timeout_ms=5.0,
-        device="cuda")
-    server = make_server(engine, "VGGKAN_Linear_KAN_VGG16_small",
-                         "127.0.0.1", 0)
-    srv_thread = threading.Thread(target=server.serve_forever, daemon=True)
-    srv_thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}"
-
-    def post(batch):
-        req = urllib.request.Request(
-            url + "/predict", data=json.dumps(
-                {"instances": batch.tolist()}).encode(),
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=60) as r:
-            return json.loads(r.read())
-
-    req_imgs = np.random.RandomState(2).randint(0, 256, (32, 32, 32, 3),
-                                                np.uint8)
-    answers: dict = {}
-    errors: list = []
-
-    def client(c):
-        try:
-            for r in range(4):
-                i = c * 4 + r
-                answers[i] = post(req_imgs[i:i + 1])
-        except Exception as e:  # collected and reported below
-            errors.append(f"client {c}: {type(e).__name__}: {e}")
-
-    try:
-        clients = [threading.Thread(target=client, args=(c,))
-                   for c in range(8)]
-        for t in clients:
-            t.start()
-        for t in clients:
-            t.join(timeout=120)
-        check(not any(t.is_alive() for t in clients), "HTTP clients hung")
-        check(not errors, f"HTTP errors: {errors}")
-        check(len(answers) == 32, f"{len(answers)} of 32 answers")
-        big = post(imgs)
-        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
-            metrics = json.loads(r.read())
-        n_main = kc.launches["kan_conv2d_fwd"]
-    finally:
-        server.shutdown()
-        server.server_close()
-        srv_thread.join(timeout=10)
-        engine.close()
-    direct = engine.predict(req_imgs)
-    single = np.array([answers[i]["predictions"][0] for i in range(32)])
-    serr = float(np.abs(single - direct).max())
-    berr = float(np.abs(np.array(big["predictions"])
-                        - engine.predict(imgs)).max())
-    print(f"[serve] 32 single-image requests from 8 clients, max|err| vs "
-          f"predict {serr:.3e}; 64-image request max|err| {berr:.3e}",
-          flush=True)
-    print(f"[serve] /metrics {json.dumps(metrics)}", flush=True)
-    print(f"[serve] kernel launches on the main path: {n_main}", flush=True)
-    check(serr <= TOL and berr <= TOL, "served logits disagree with predict")
-    check(big["batch"] == 64 and metrics["requests"] == 33,
-          "server counted the wrong requests")
-    steps = metrics["device_batches"] + len(engine.buckets)  # + warm-up
-    check(n_main == 13 * steps, f"{n_main} launches for {steps} forwards")
+    n_main = phase_serve(kc, "KAN", "kan_conv2d_fwd", imgs)
 
     # ---------------------------------------------------------- 5. times
-    bench = InferenceEngine(model_gpu, "CIFAR10", (32, 32, 3),
-                            buckets=(1024,), device="cuda")
-    try:
-        x1024 = np.random.RandomState(3).randint(0, 256, (1024, 32, 32, 3),
-                                                 np.uint8)
-        runs = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            bench.predict(x1024)  # returns host numpy: the device is done
-            runs.append(1024 / (time.perf_counter() - t0))
-    finally:
-        bench.close()
-    print(f"[time] predict batch 1024: median {statistics.median(runs):.1f} "
-          f"images/s over {len(runs)} runs "
-          f"(min {min(runs):.1f}, max {max(runs):.1f}) on {card}", flush=True)
-
+    predict_ips = time_predict(model_gpu, "KAN", card)
+    del model_gpu
     shapes = []
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
               "op_ms": 0.0, "byte_ms": 0.0}
@@ -593,7 +907,10 @@ def main():
     # ------------------------------------ 6. backward kernels vs plain
     bwd_err = phase_backward(kc, knots, gen, dev)
     # ------------------------------------------ 7. training (main path)
-    train_counts = phase_train(kc, dev)
+    train_counts = phase_train(
+        kc, dev, "KAN", {"kan_conv2d_fwd": 13, "kan_conv2d_bwd_dx": 12,
+                         "kan_conv2d_bwd_dw": 13,
+                         "kan_conv2d_bwd_dw_reduce": 13}, ["poly_w"])
     # ---------------------------------------------- 8. training times
     ips, bwd, bwd_rows = phase_train_times(kc, knots, gen, dev, card)
     step_ms = 1e3 * TIME_BATCH / ips
@@ -603,39 +920,59 @@ def main():
           f"{kernel_ms - totals['ms']:.3f}; per-shape CUDA-event times x "
           f"layers), the rest {step_ms - kernel_ms:.3f} ms (on {card})",
           flush=True)
+
+    # ------------------------------------------------------------ WavKAN
+    wav_fwd_err = phase_wav_forward(wc, gen, dev)                    # 9
+    wav_bwd_err = phase_wav_backward(wc, gen, dev)                   # 10
+    wav_model = phase_model(wc, "WavKAN", "wav_conv2d_fwd", dev, imgs,  # 11
+                            **WAV_MODEL)
+    # the WavKAN model's float32 logits are worse conditioned than the KAN
+    # model's: served logits are held to MODEL_TOL, as phase 11 holds them
+    wav_serve = phase_serve(wc, "WavKAN", "wav_conv2d_fwd", imgs,    # 12
+                            tol=MODEL_TOL, **WAV_MODEL)
+    wav_train = phase_train(                                         # 13
+        wc, dev, "WavKAN", {"wav_conv2d_fwd": 13, "wav_conv2d_bwd_dx": 12,
+                            "wav_conv2d_bwd_param": 13,
+                            "wav_conv2d_bwd_reduce": 13},
+        ["wavelet_w", "scale", "translation"], lockstep=True, **WAV_MODEL)
+    wav_predict_ips = time_predict(wav_model, "WavKAN", card)        # 14
+    del wav_model
+    wav_ips = time_train_step("WavKAN", dev, card, **WAV_MODEL)
+    wav_totals, wav_rows = phase_wav_times(wc, gen, dev, card)
+    wav_step_ms = 1e3 * TIME_BATCH / wav_ips
+    wav_kernel_ms = sum(t["ms"] for t in wav_totals.values())
+    print(f"[wav time] train step {wav_step_ms:.3f} ms at batch {TIME_BATCH}:"
+          f" psi-conv kernels {wav_kernel_ms:.3f} ms (forward "
+          f"{wav_totals['wav_conv2d_fwd']['ms']:.3f}), the rest "
+          f"{wav_step_ms - wav_kernel_ms:.3f} ms; predict "
+          f"{wav_predict_ips:.1f} images/s (on {card})", flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    bound_by = "operations" if totals["op_ms"] >= totals["byte_ms"] \
-        else "bytes"
-    kernels = [{
-        "name": "kan_conv2d_fwd", "route": "cuda",
-        "source": "convkan_tpu_torch/csrc/kan_conv2d_fwd.cu",
-        "replaces": REPLACES, "also_replaces": ALSO_REPLACES,
-        "launches": n_main + train_counts["kan_conv2d_fwd"],
-        "launches_by_path": {"serve": n_main,
-                             "train": train_counts["kan_conv2d_fwd"]},
-        "max_abs_err": max_err,
-        "ms": round(totals["ms"], 4), "plain_ms": round(totals["plain_ms"], 4),
-        "bound_ms": round(totals["bound_ms"], 4), "bound_by": bound_by,
-        "library_ms": round(totals["library_ms"], 4),
-        "times_are": "sum over the 13 VGG16_small convs at batch 1024",
-        "shapes": shapes}]
-    for name, t in bwd.items():
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "convkan_tpu_torch/csrc/kan_conv2d_bwd.cu",
-            "replaces": BWD_REPLACES, "launches": train_counts[name],
-            "launches_by_path": {"serve": 0, "train": train_counts[name]},
-            "max_abs_err": bwd_err[name], "ms": round(t["ms"], 4),
-            "plain_ms": round(t["plain_ms"], 4),
-            "bound_ms": round(t["bound_ms"], 4),
-            "bound_by": "operations" if t["op_ms"] >= t["byte_ms"]
-            else "bytes",
-            "library_ms": round(t["library_ms"], 4),
-            "times_are": f"sum over the VGG16_small convs of one train step "
-                         f"at batch {TIME_BATCH}",
-            "shapes": [{k: r[k] for k in ("H", "C", "O", "S")} | r[name]
-                       for r in bwd_rows]})
+    kernels = [kernel_entry(
+        "kan_conv2d_fwd", "convkan_tpu_torch/csrc/" + kc.SOURCE, REPLACES,
+        {"serve": n_main, "train": train_counts["kan_conv2d_fwd"]}, max_err,
+        totals, "sum over the 13 VGG16_small convs at batch 1024", shapes,
+        also_replaces=ALSO_REPLACES,
+        predict_images_per_s=round(predict_ips, 1))]
+    kernels += [kernel_entry(
+        name, "convkan_tpu_torch/csrc/" + kc.BWD_SOURCE, BWD_REPLACES,
+        {"serve": 0, "train": train_counts[name]}, bwd_err[name], t,
+        f"sum over the VGG16_small convs of one train step at batch "
+        f"{TIME_BATCH}",
+        [{k: r[k] for k in ("H", "C", "O", "S")} | r[name] for r in bwd_rows])
+        for name, t in bwd.items()]
+    for name in wc.KERNELS:
+        fwd = name == "wav_conv2d_fwd"
+        kernels.append(kernel_entry(
+            name, "convkan_tpu_torch/csrc/" + (wc.SOURCE if fwd
+                                                else wc.BWD_SOURCE),
+            WAV_REPLACES if fwd else WAV_BWD_REPLACES,
+            {"serve": wav_serve if fwd else 0, "train": wav_train[name]},
+            wav_fwd_err if fwd else wav_bwd_err[name], wav_totals[name],
+            f"sum over the 13 WavKAN VGG16_small convs of one "
+            f"{'forward' if fwd else 'train step'} at batch {TIME_BATCH}",
+            [{k: r[k] for k in ("H", "C", "O", "S")} | r[name]
+             for r in wav_rows]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""CONV_KAN_FACTORY, port of the ``"KAN"`` key of
-``convkan_tpu/factory/conv_factory.py``: the reference signature with
+"""CONV_KAN_FACTORY, port of the ``"KAN"`` and ``"WavKAN"`` keys of
+``convkan_tpu/factory/conv_factory.py``: the reference signatures with
 'same' padding when ``padding`` is None."""
 
 from __future__ import annotations
@@ -7,8 +7,18 @@ from __future__ import annotations
 from typing import Callable
 
 from ..nn.kan_conv import KanConvND
+from ..nn.wav_conv import WavKANConvND
 from ..ops.conv import same_padding
 from ..utils.norms import InstanceNorm, resolve_norm
+
+
+def _pad(padding, kernel_size, dilation):
+    return same_padding(kernel_size, dilation) if padding is None else padding
+
+
+def _no_l1(l1_decay):
+    if l1_decay and l1_decay > 0:
+        raise NotImplementedError("l1_decay > 0 is not ported")
 
 
 def kan_conv(in_planes, out_planes, kernel_size, spline_order=3, groups=1,
@@ -18,17 +28,33 @@ def kan_conv(in_planes, out_planes, kernel_size, spline_order=3, groups=1,
              device=None, **norm_kwargs):
     """The reference's ``kan_conv`` builder.  ``l1_decay`` (a training
     regularizer) is not ported yet."""
-    if l1_decay and l1_decay > 0:
-        raise NotImplementedError("l1_decay > 0 is not ported")
-    pad = same_padding(kernel_size, dilation) if padding is None else padding
+    _no_l1(l1_decay)
     return KanConvND(
         family="kan", input_dim=in_planes, output_dim=out_planes,
         kernel_size=kernel_size, ndim=2, spline_order=spline_order,
-        stride=stride, padding=pad, dilation=dilation, groups=groups,
-        grid_size=grid_size, base_activation=base_activation,
-        grid_range=tuple(grid_range), dropout=dropout,
+        stride=stride, padding=_pad(padding, kernel_size, dilation),
+        dilation=dilation, groups=groups, grid_size=grid_size,
+        base_activation=base_activation, grid_range=tuple(grid_range),
+        dropout=dropout, norm_layer=resolve_norm(norm_layer),
+        norm_kwargs=norm_kwargs, generator=generator, device=device)
+
+
+def wavkan_conv(in_planes, out_planes, kernel_size, groups=1, stride=1,
+                dilation=1, padding=None, l1_decay=0.0, dropout=0.0,
+                wavelet_type="mexican_hat", wav_version="fast",
+                norm_layer=InstanceNorm, *, generator=None, device=None,
+                **norm_kwargs):
+    """The reference's ``wavkan_conv`` builder, with its InstanceNorm
+    default (the bare layer class defaults to BatchNorm, not ported)."""
+    _no_l1(l1_decay)
+    return WavKANConvND(
+        input_dim=in_planes, output_dim=out_planes, kernel_size=kernel_size,
+        ndim=2, stride=stride, padding=_pad(padding, kernel_size, dilation),
+        dilation=dilation, groups=groups, wavelet_type=wavelet_type,
+        wav_version=wav_version, dropout=dropout,
         norm_layer=resolve_norm(norm_layer), norm_kwargs=norm_kwargs,
         generator=generator, device=device)
 
 
-CONV_KAN_FACTORY: dict[str, Callable] = {"KAN": kan_conv}
+CONV_KAN_FACTORY: dict[str, Callable] = {"KAN": kan_conv,
+                                         "WavKAN": wavkan_conv}

@@ -5,7 +5,8 @@ with a plain C interface and loaded with ``ctypes``.  The library is built
 at first use into ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one is reused.  ``--use_fast_math`` is
-deliberately absent: the B-spline recurrence needs IEEE divides.
+deliberately absent: the B-spline recurrence needs IEEE divides, and the
+wavelets the accurate expf/sinf/cosf.
 """
 
 from __future__ import annotations
@@ -45,8 +46,10 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    src = (CSRC_DIR / source).read_bytes()
+    """Where the library built from ``csrc/<source>`` lives (the name hashes
+    the source, the headers of ``csrc/`` it may include, and the flags)."""
+    src = b"".join(p.read_bytes() for p in [CSRC_DIR / source]
+                   + sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 

@@ -1,0 +1,555 @@
+"""WavKAN psi-conv: the CUDA kernels' wrappers and their plain PyTorch
+versions, forward and backward.
+
+``wav_conv2d`` computes the wavelet path of a WavKAN conv before its 1x1
+mix (stride 1, dilation 1, groups 1, NHWC):
+
+    y[b,i,j,o] = sum_{c,di,dj} w[di,dj,c,o] * psi((x_pad[b,i+di,j+dj,c] - t[o,c]) / s[o,c])
+
+with psi := 0 on the pad (the conv pads the psi map, not x), which is what
+``convkan_tpu/kernels/fused_wav_conv.py`` (``_fwd_kernel``, and
+``_bwd_kernel`` for its custom_vjp) computes on the TPU.  On a CUDA tensor
+it launches ``csrc/wav_conv2d_fwd.cu`` or raises, and its gradient launches
+the three kernels of ``csrc/wav_conv2d_bwd.cu``: the data gradient, the
+parameter gradients (w, t, s) in per-split partial sums, and their ordered
+reduction.  On a CPU tensor it runs ``wav_conv2d_reference`` under plain
+autograd.  There is no fallback from a kernel to a plain version.
+
+Shannon's Hamming window runs over the input channels, so psi_shannon =
+ham[c] * sinc(z): the kernels see sin(z)/z and weights already multiplied
+by the window, and autograd carries dw back through that product.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from ..basis.wavelet import WAVELET_TYPES, hamming_window, wavelet
+from ..ops.conv import conv_nd
+from .kan_conv2d import reduce_reference  # the same ordered sum
+
+SOURCE = "wav_conv2d_fwd.cu"
+BWD_SOURCE = "wav_conv2d_bwd.cu"
+WAVELETS = {name: code for code, name in enumerate(WAVELET_TYPES)}
+KERNEL_SIZES = {3}               # square kernels the compiled code carries
+THREADS = 256
+SMEM_BUDGET = 96 * 1024          # bytes of shared memory a block may take
+FWD_MAX_CC = 8                   # forward: input channels staged per pass
+DX_MAX_OCH = 32                  # data gradient: output channels per pass
+# parameter kernel: the batch is split so that about TARGET_BLOCKS blocks
+# (4 per SM) are in flight
+TARGET_BLOCKS = 4 * 132
+
+KERNELS = ("wav_conv2d_fwd", "wav_conv2d_bwd_dx", "wav_conv2d_bwd_param",
+           "wav_conv2d_bwd_reduce")
+_count_lock = threading.Lock()
+launches = dict.fromkeys(KERNELS, 0)   # launches per kernel since the reset
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _count_lock:
+        launches[name] += 1
+
+
+# ------------------------------------------------------- psi and psi'
+# The closed forms of convkan_tpu/kernels/fused_wav_conv.py (PSI), term for
+# term; csrc/wav_conv2d_*.cu evaluate the same expressions in float32.
+_MH_C = 2.0 / (math.sqrt(3.0) * math.pi**0.25)
+
+
+def _psi_mexican_hat(z):
+    e = torch.exp(-0.5 * z * z)
+    return _MH_C * (z * z - 1.0) * e
+
+
+def _dpsi_mexican_hat(z):
+    e = torch.exp(-0.5 * z * z)
+    return _MH_C * z * e * (3.0 - z * z)
+
+
+def _psi_morlet(z):
+    return torch.exp(-0.5 * z * z) * torch.cos(5.0 * z)
+
+
+def _dpsi_morlet(z):
+    e = torch.exp(-0.5 * z * z)
+    return -e * (z * torch.cos(5.0 * z) + 5.0 * torch.sin(5.0 * z))
+
+
+def _psi_dog(z):
+    return -z * torch.exp(-0.5 * z * z)
+
+
+def _dpsi_dog(z):
+    return (z * z - 1.0) * torch.exp(-0.5 * z * z)
+
+
+def _nu(t):
+    return t**4 * (35.0 - 84.0 * t + 70.0 * t * t - 20.0 * t**3)
+
+
+def _dnu(t):
+    # 140 t^3 (1 - t)^3
+    u = 1.0 - t
+    return 140.0 * t**3 * u * u * u
+
+
+def _meyer_aux(v):
+    one, zero = torch.ones_like(v), torch.zeros_like(v)
+    return torch.where(v <= 0.5, one, torch.where(
+        v >= 1.0, zero, torch.cos(math.pi / 2.0 * _nu(2.0 * v - 1.0))))
+
+
+def _psi_meyer(z):
+    v = torch.abs(z)
+    return torch.sin(math.pi * v) * _meyer_aux(v)
+
+
+def _dpsi_meyer(z):
+    pi = math.pi
+    v = torch.abs(z)
+    aux = _meyer_aux(v)
+    band = torch.logical_and(v > 0.5, v < 1.0)
+    daux = torch.where(
+        band,
+        -pi * torch.sin(pi / 2.0 * _nu(2.0 * v - 1.0)) * _dnu(2.0 * v - 1.0),
+        torch.zeros_like(v))
+    dv = pi * torch.cos(pi * v) * aux + torch.sin(pi * v) * daux
+    return torch.sign(z) * dv
+
+
+def _psi_shannon(z):
+    # sinc(z/pi) = sin(z)/z; the Hamming window is folded into the weights
+    zero = z == 0.0
+    zs = torch.where(zero, torch.ones_like(z), z)
+    return torch.where(zero, torch.ones_like(z), torch.sin(zs) / zs)
+
+
+def _dpsi_shannon(z):
+    small = torch.abs(z) < 1e-4
+    zs = torch.where(small, torch.ones_like(z), z)
+    exact = (zs * torch.cos(zs) - torch.sin(zs)) / (zs * zs)
+    series = -z / 3.0 + (z**3) / 30.0
+    return torch.where(small, series, exact)
+
+
+PSI = {
+    "mexican_hat": (_psi_mexican_hat, _dpsi_mexican_hat),
+    "morlet": (_psi_morlet, _dpsi_morlet),
+    "dog": (_psi_dog, _dpsi_dog),
+    "meyer": (_psi_meyer, _dpsi_meyer),
+    "shannon": (_psi_shannon, _dpsi_shannon),
+}
+
+
+# ------------------------------------------------------ plain versions
+def _z(x, t, s):
+    """(B, H, W, O, C): (x - t) / s for every output channel."""
+    return (x[..., None, :] - t) / s
+
+
+def _grouped_conv(psi, w, pad: int):
+    """psi (B, H, W, O, C) flattened to channel o*C + c, convolved with
+    groups=O (group o reads its C channels); the conv's zero padding is the
+    psi := 0 on the pad."""
+    B, H, W, O, C = psi.shape
+    return conv_nd(psi.reshape(B, H, W, O * C), w, padding=pad,
+                   groups=O).contiguous()
+
+
+def wav_conv2d_reference(x, wav_w, translation, scale, *, wavelet_type: str,
+                         padding: int):
+    """Plain PyTorch version of ``wav_conv2d``, the XLA path of the JAX
+    module: materialize psi (Shannon windowed over the input channels),
+    then a grouped conv.  float32 or float64, any device, differentiable."""
+    psi = wavelet(_z(x, translation, scale), wavelet_type, channel_axis=-1)
+    return _grouped_conv(psi, wav_w, padding)
+
+
+def psi_conv_reference(x, w, t, s, wavelet_type: str, pad: int):
+    """The kernels' function in plain PyTorch: psi from the PSI table (for
+    Shannon without its window, which the caller folds into w)."""
+    return _grouped_conv(PSI[wavelet_type][0](_z(x, t, s)), w, pad)
+
+
+def input_grad_reference(x, w, t, s, g, wavelet_type: str, pad: int):
+    """Plain version of the data-gradient kernel: dL/dx of
+    ``psi_conv_reference`` for the output gradient g, by autograd."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        y = psi_conv_reference(xr, w.detach(), t.detach(), s.detach(),
+                               wavelet_type, pad)
+        return torch.autograd.grad(y, xr, g)[0]
+
+
+def param_grads_reference(x, w, t, s, g, wavelet_type: str, pad: int):
+    """Plain version of the parameter gradients: [dw (k,k,C,O), dt (O,C),
+    ds (O,C)] of ``psi_conv_reference`` for g, flattened and concatenated
+    (the kernel's partial layout), by autograd."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(True) for a in (w, t, s)]
+        y = psi_conv_reference(x.detach(), *leaves, wavelet_type, pad)
+        grads = torch.autograd.grad(y, leaves, g)
+    return torch.cat([d.reshape(-1) for d in grads])
+
+
+def param_partials_reference(x, w, t, s, g, wavelet_type: str, pad: int,
+                             splits: int, ips: int):
+    """Plain version of the parameter kernel: the (splits, N) partial sums,
+    split q over images [q*ips, q*ips + ips)."""
+    return torch.stack([
+        param_grads_reference(x[q * ips:(q + 1) * ips], w, t, s,
+                              g[q * ips:(q + 1) * ips], wavelet_type, pad)
+        for q in range(splits)])
+
+
+def split_param_grads(flat, k: int, C: int, O: int):
+    """(dw (k,k,C,O), dt (O,C), ds (O,C)) from the flat layout."""
+    n = k * k * C * O
+    return (flat[:n].reshape(k, k, C, O), flat[n:n + O * C].reshape(O, C),
+            flat[n + O * C:].reshape(O, C))
+
+
+# ---------------------------------------------------------- launch configs
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _tile(n: int) -> int:
+    """Tile edge (compiled: 2, 4, 8) for an extent of n pixels."""
+    return 2 if n <= 2 else 4 if n <= 4 else 8
+
+
+def _describe(B, H, W, C, O, k, pad, wavelet_type) -> str:
+    return (f"WavKAN conv x=({B},{H},{W},{C}) O={O} kernel={k} pad={pad} "
+            f"wavelet={wavelet_type!r}")
+
+
+def fwd_launch_config(B, H, W, C, O, k, pad) -> dict:
+    """Forward block: OC output channels (one per lane) x S output tiles of
+    T x T pixels; CC input channels staged per pass.  Raises
+    NotImplementedError for a shape whose tile does not fit."""
+    Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
+    T = _tile(max(Ho, Wo))
+    OC = min(32, _pow2_at_least(O))
+    S = THREADS // OC
+    P2 = (T + k - 1) ** 2
+    for CC in range(min(C, FWD_MAX_CC), 0, -1):
+        # haloed x tiles (odd tile stride), weights, t and 1/s
+        if 4 * (S * (CC * P2 + 1) + CC * k * k * OC + 2 * CC * OC) \
+                <= SMEM_BUDGET:
+            return {"T": T, "OC": OC, "S": S, "CC": CC}
+    raise NotImplementedError("forward tile does not fit in shared memory")
+
+
+def dx_launch_config(B, H, W, C, O, k, pad) -> dict:
+    """Data-gradient block: CL input channels (one per lane) x NS strips of
+    TW input pixels in a row; OCH output channels staged per pass."""
+    TW = _tile(W)
+    CL = min(32, _pow2_at_least(C))
+    NS = THREADS // CL
+    for OCH in range(min(O, DX_MAX_OCH), 0, -1):
+        # g rows of every strip (odd strip stride), weights, t and 1/s
+        if 4 * (NS * (OCH * k * (TW + k - 1) + 1) + OCH * k * k * CL
+                + 2 * OCH * CL) <= SMEM_BUDGET:
+            return {"TW": TW, "CL": CL, "NS": NS, "OCH": OCH}
+    raise NotImplementedError("data-gradient tile does not fit in shared "
+                              "memory")
+
+
+def param_launch_config(B, H, W, C, O, k, pad) -> dict:
+    """Parameter-gradient block: OC output channels (lanes) x CW input
+    channels, RB input rows staged per pass; S batch splits of ``ips``
+    images.  S depends on the shape only, so a shape always gets the same
+    partial sums and the same reduction order."""
+    OC = min(32, _pow2_at_least(O))
+    CW = min(THREADS // OC, _pow2_at_least(C))
+    per_row = k * (W + k - 1) * OC + W * CW     # g rows and x row, floats
+    RB = min(B * H, SMEM_BUDGET // (4 * per_row))
+    if RB < 1:
+        raise NotImplementedError(f"input width {W} too wide for the "
+                                  "parameter kernel")
+    tiles = -(-O // OC) * -(-C // CW)
+    S = min(B, max(1, -(-TARGET_BLOCKS // tiles)))
+    ips = -(-B // S)
+    return {"OC": OC, "CW": CW, "RB": RB, "S": -(-B // ips), "ips": ips,
+            "N": k * k * C * O + 2 * O * C}
+
+
+# ------------------------------------------------------------- checks
+def check_inputs(x, w, t, s, wavelet_type, pad, *, for_kernel: bool):
+    """Validate what the caller passes (NHWC x, (k,k,C,O) weights, (O,C)
+    translation and scale, contiguous, one device, float32 or float64);
+    ``for_kernel`` adds the kernels' own requirements (float32 CUDA
+    tensors, a kernel size the build carries, a tile that fits) and returns
+    the forward's launch config."""
+    if x.ndim != 4:
+        raise ValueError(f"x must be NHWC (4-D), got shape {tuple(x.shape)}")
+    B, H, W, C = x.shape
+    k = w.shape[0] if w.ndim == 4 else -1
+    O = w.shape[-1] if w.ndim == 4 else -1
+    if w.ndim != 4 or tuple(w.shape[:3]) != (k, k, C):
+        raise ValueError(f"wav_w must be ({k},{k},{C},O), got "
+                         f"{tuple(w.shape)}")
+    for name, a in (("translation", t), ("scale", s)):
+        if tuple(a.shape) != (O, C):
+            raise ValueError(f"{name} must be ({O},{C}), got "
+                             f"{tuple(a.shape)}")
+    if pad < 0 or H + 2 * pad - k + 1 <= 0 or W + 2 * pad - k + 1 <= 0:
+        raise ValueError(f"empty output for {H}x{W}, kernel {k}, pad {pad}")
+    for name, a in (("x", x), ("wav_w", w), ("translation", t),
+                    ("scale", s)):
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if a.device != x.device:
+            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
+        if for_kernel and a.dtype != torch.float32:
+            raise TypeError(f"the kernel takes float32, {name} is {a.dtype}")
+        if a.dtype not in (torch.float32, torch.float64) or \
+                a.dtype != x.dtype:
+            raise TypeError(f"{name} is {a.dtype}, x is {x.dtype}: both "
+                            "float32 (or float64 on the CPU) expected")
+    if wavelet_type not in WAVELETS:
+        raise ValueError(f"unknown wavelet type {wavelet_type!r}")
+    if not for_kernel:
+        return None
+    desc = _describe(B, H, W, C, O, k, pad, wavelet_type)
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {x.device}")
+    if k not in KERNEL_SIZES:
+        raise NotImplementedError(f"{desc}: not carried by the kernel")
+    if max(x.numel(), B * H * W * O, w.numel()) >= 2 ** 31:
+        raise NotImplementedError(f"{desc}: tensor too large")
+    try:
+        return fwd_launch_config(B, H, W, C, O, k, pad)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{desc}: {e}") from None
+
+
+def _check_grad(x, g, k, pad, O):
+    B, H, W, _ = x.shape
+    want = (B, H + 2 * pad - k + 1, W + 2 * pad - k + 1, O)
+    if tuple(g.shape) != want:
+        raise ValueError(f"output gradient must be {want}, got "
+                         f"{tuple(g.shape)}")
+    if g.device != x.device or g.dtype != x.dtype:
+        raise TypeError(f"output gradient is {g.dtype} on {g.device}, x is "
+                        f"{x.dtype} on {x.device}")
+    if not g.is_contiguous():
+        raise ValueError("output gradient must be contiguous")
+
+
+def _check_kernel_args(x, w, wavelet_type, pad) -> str:
+    B, H, W, C = x.shape
+    k, O = w.shape[0], w.shape[-1]
+    desc = _describe(B, H, W, C, O, k, pad, wavelet_type)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the kernels take float32, got {x.dtype}")
+    if k not in KERNEL_SIZES or wavelet_type not in WAVELETS:
+        raise NotImplementedError(f"{desc}: not carried by the kernels")
+    return desc
+
+
+# ---------------------------------------------------------- launching
+_ARGTYPES = {
+    # x, w, t, s, y; B H W C O k pad T OC CC wavelet; stream
+    "wav_conv2d_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+    + [ctypes.c_void_p],
+    # x, w, t, s, g, dx; B H W C O k pad TW CL OCH wavelet; stream
+    "wav_conv2d_bwd_dx": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+    + [ctypes.c_void_p],
+    # x, w, t, s, g, partial; B H W C O k pad OC CW RB S ips wavelet; stream
+    "wav_conv2d_bwd_param": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+    + [ctypes.c_void_p],
+    # partial, out; S N; stream
+    "wav_conv2d_bwd_reduce": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p],
+}
+
+
+def _fn(name: str):
+    """The C entry ``name``, its library built on first use."""
+    from . import build
+
+    lib = build.load(SOURCE if name == "wav_conv2d_fwd" else BWD_SOURCE)
+    fn = getattr(lib, name)
+    if not fn.argtypes:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, args, desc: str) -> None:
+    err = _fn(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err} for "
+                           f"{desc}")
+    _count_launch(name)
+
+
+def _stream(a):
+    return torch.cuda.current_stream(a.device).cuda_stream
+
+
+def _ptrs(*tensors):
+    return tuple(a.data_ptr() for a in tensors)
+
+
+def _fwd(x, w, t, s, wavelet_type, pad, cfg):
+    B, H, W, C = x.shape
+    k, O = w.shape[0], w.shape[-1]
+    y = torch.empty((B, H + 2 * pad - k + 1, W + 2 * pad - k + 1, O),
+                    dtype=torch.float32, device=x.device)
+    _launch("wav_conv2d_fwd",
+            _ptrs(x, w, t, s, y) + (B, H, W, C, O, k, pad, cfg["T"],
+                                    cfg["OC"], cfg["CC"],
+                                    WAVELETS[wavelet_type], _stream(x)),
+            _describe(B, H, W, C, O, k, pad, wavelet_type))
+    return y
+
+
+def input_grad(x, w, t, s, g, wavelet_type: str, pad: int):
+    """dL/dx (B, H, W, C) for the output gradient g (w already windowed for
+    Shannon).  CUDA tensors: the data-gradient kernel; CPU tensors:
+    ``input_grad_reference``."""
+    k, O = w.shape[0], w.shape[-1]
+    _check_grad(x, g, k, pad, O)
+    if x.device.type == "cpu":
+        return input_grad_reference(x, w, t, s, g, wavelet_type, pad)
+    desc = _check_kernel_args(x, w, wavelet_type, pad)
+    B, H, W, C = x.shape
+    try:
+        cfg = dx_launch_config(B, H, W, C, O, k, pad)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{desc}: {e}") from None
+    dx = torch.empty_like(x)
+    _launch("wav_conv2d_bwd_dx",
+            _ptrs(x, w, t, s, g, dx) + (B, H, W, C, O, k, pad, cfg["TW"],
+                                        cfg["CL"], cfg["OCH"],
+                                        WAVELETS[wavelet_type], _stream(x)),
+            desc)
+    return dx
+
+
+def param_partials(x, w, t, s, g, wavelet_type: str, pad: int):
+    """The parameter gradients' per-split partial sums (S, N), N = k*k*C*O
+    + 2*O*C ([dw, dt, ds] flattened), with the split of
+    ``param_launch_config``.  CUDA tensors: the parameter kernel; CPU
+    tensors: ``param_partials_reference``."""
+    k, O = w.shape[0], w.shape[-1]
+    _check_grad(x, g, k, pad, O)
+    B, H, W, C = x.shape
+    desc = _describe(B, H, W, C, O, k, pad, wavelet_type)
+    try:
+        cfg = param_launch_config(B, H, W, C, O, k, pad)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{desc}: {e}") from None
+    if x.device.type == "cpu":
+        return param_partials_reference(x, w, t, s, g, wavelet_type, pad,
+                                        cfg["S"], cfg["ips"])
+    _check_kernel_args(x, w, wavelet_type, pad)
+    if cfg["S"] * cfg["N"] >= 2 ** 31:
+        raise NotImplementedError(f"{desc}: partial sums too large")
+    partial = torch.empty((cfg["S"], cfg["N"]), dtype=torch.float32,
+                          device=x.device)
+    _launch("wav_conv2d_bwd_param",
+            _ptrs(x, w, t, s, g, partial) + (
+                B, H, W, C, O, k, pad, cfg["OC"], cfg["CW"], cfg["RB"],
+                cfg["S"], cfg["ips"], WAVELETS[wavelet_type], _stream(x)),
+            desc)
+    return partial
+
+
+def reduce_partials(partial):
+    """Sum (S, N) partials over S in split order.  CUDA tensors: the
+    reduction kernel; CPU tensors: ``reduce_reference``."""
+    if partial.device.type == "cpu":
+        return reduce_reference(partial)
+    if partial.dtype != torch.float32 or not partial.is_contiguous() or \
+            partial.ndim != 2:
+        raise TypeError("the reduction takes contiguous float32 (S, N) "
+                        "partials")
+    S, N = partial.shape
+    out = torch.empty(N, dtype=torch.float32, device=partial.device)
+    _launch("wav_conv2d_bwd_reduce",
+            _ptrs(partial, out) + (S, N, _stream(partial)),
+            f"partials {tuple(partial.shape)}")
+    return out
+
+
+def param_grads(x, w, t, s, g, wavelet_type: str, pad: int):
+    """(dw, dt, ds) for the output gradient g.  CUDA tensors: the parameter
+    kernel and the ordered reduction (deterministic); CPU tensors:
+    ``param_grads_reference``."""
+    k, C, O = w.shape[0], x.shape[-1], w.shape[-1]
+    if x.device.type == "cpu":
+        _check_grad(x, g, k, pad, O)
+        flat = param_grads_reference(x, w, t, s, g, wavelet_type, pad)
+    else:
+        flat = reduce_partials(param_partials(x, w, t, s, g, wavelet_type,
+                                              pad))
+    return split_param_grads(flat, k, C, O)
+
+
+class _WavConv2dFunction(torch.autograd.Function):
+    """The CUDA psi-conv with its backward in the CUDA kernels.  Saves x, w,
+    t and s (psi is recomputed, never kept); launches the data gradient only
+    when x needs it (never for the first conv, whose input is the image),
+    and the parameter kernel when w, t or s needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, t, s, wavelet_type, pad, cfg):
+        ctx.save_for_backward(x, w, t, s)
+        ctx.spec = (wavelet_type, pad)
+        return _fwd(x, w, t, s, wavelet_type, pad, cfg)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w, t, s = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = dt = ds = None
+        if ctx.needs_input_grad[0]:
+            dx = input_grad(x, w, t, s, g, *ctx.spec)
+        if any(ctx.needs_input_grad[1:4]):
+            dw, dt, ds = param_grads(x, w, t, s, g, *ctx.spec)
+        return dx, dw, dt, ds, None, None, None
+
+
+def wav_conv2d(x, wav_w, translation, scale, *, wavelet_type: str,
+               padding: int):
+    """WavKAN psi-conv (B, Ho, Wo, O) for x (B, H, W, C) NHWC, wav_w
+    (k, k, C, O), translation and scale (O, C).  CUDA tensors: the
+    hand-written kernels (float32 only), forward and, when an input
+    requires grad, backward.  CPU tensors: ``wav_conv2d_reference`` under
+    plain autograd."""
+    cfg = check_inputs(x, wav_w, translation, scale, wavelet_type, padding,
+                       for_kernel=x.device.type != "cpu")
+    if x.device.type == "cpu":
+        return wav_conv2d_reference(x, wav_w, translation, scale,
+                                    wavelet_type=wavelet_type,
+                                    padding=padding)
+    w = wav_w
+    if wavelet_type == "shannon":
+        # psi_shannon = ham[c] * sinc(z): fold the window into the weights;
+        # autograd restores dw through the product
+        ham = torch.from_numpy(hamming_window(x.shape[-1])).to(w)
+        w = (w * ham[None, None, :, None]).contiguous()
+    args = (x, w, translation, scale, wavelet_type, padding, cfg)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (x, w, translation, scale)):
+        return _WavConv2dFunction.apply(*args)
+    return _fwd(*args)

@@ -1,13 +1,16 @@
 """KAN-VGG, port of ``convkan_tpu/models/vgg.py`` (``VGGKAN``, ``vggkan``,
-all five ``cfgs``) with KAN convs and the ``"Linear"`` head.
+all five ``cfgs``) with B-spline KAN or WavKAN convs and the ``"Linear"``
+head.
 
 Channel-last: NHWC images in, logits out.  Submodules are named like the
-JAX parameter tree (``KanConvND_0`` .. ``KanConvND_{n-1}``, ``Linear_0``),
+JAX parameter tree (``KanConvND_0`` .. ``KanConvND_{n-1}``, or
+``WavKANConvND_0`` .. for ``kan_conv="WavKAN"``, and ``Linear_0``),
 so a JAX ``params`` tree maps onto ``state_dict`` keys by flattening
 (utils/from_jax.py).  In train mode the head applies dropout
 (``dropout_linear``, default 0.5) before ``Linear_0`` and every conv but
-the first applies channel dropout (``conv_dropout``); in eval mode both
-are the identity.
+the first applies channel dropout (``conv_dropout``: at a KAN conv's
+output, at a WavKAN conv's wavelet-path input); in eval mode both are the
+identity.
 """
 
 from __future__ import annotations
@@ -62,10 +65,11 @@ class VGGKAN(nn.Module):
         device = resolve_device(device)
         if arch not in cfgs:
             raise ValueError(f"Unknown arch: {arch}")
-        if conv_type != "kanconv" or (kan_conv or "KAN") != "KAN":
+        if conv_type != "kanconv" or (kan_conv or "KAN") not in \
+                CONV_KAN_FACTORY:
             raise NotImplementedError(
                 f"conv_type={conv_type!r} kan_conv={kan_conv!r} is not ported;"
-                " only KAN convs are")
+                f" only {sorted(CONV_KAN_FACTORY)} convs are")
         if classifier_type != "Linear":
             raise NotImplementedError(
                 f"classifier_type={classifier_type!r} is not ported; only "
@@ -76,7 +80,11 @@ class VGGKAN(nn.Module):
         self.dropout_linear = dropout_linear
         self.classifier_type = classifier_type
         self.expected_feature_shape = tuple(expected_feature_shape)
-        conv = CONV_KAN_FACTORY["KAN"]
+        self.kan_conv = kan_conv or "KAN"
+        conv = CONV_KAN_FACTORY[self.kan_conv]
+        # the JAX _filtered rule: only keys the builder names
+        accepted = set(signature(conv).parameters)
+        prefix = "WavKANConvND" if self.kan_conv == "WavKAN" else "KanConvND"
         in_c, first, n = input_channels, True, 0
         self._plan = []
         for v in cfgs[arch]:
@@ -84,15 +92,17 @@ class VGGKAN(nn.Module):
                 self._plan.append("M")
                 continue
             out_c = int(v * width_scale)
-            name = f"KanConvND_{n}"
+            name = f"{prefix}_{n}"
+            kwargs = {
+                "spline_order": spline_order, "grid_size": grid_size,
+                "base_activation": base_activation, "grid_range": grid_range,
+                "l1_decay": l1_decay, "dropout": 0.0 if first else conv_dropout,
+                "norm_layer": resolve_norm(kan_norm_layer),
+                "padding": std_conv_padding, "groups": groups}
             self.add_module(name, conv(
                 in_c, out_c, kernel_size=std_conv_kernel_size,
-                spline_order=spline_order, grid_size=grid_size,
-                base_activation=base_activation, grid_range=grid_range,
-                l1_decay=l1_decay, dropout=0.0 if first else conv_dropout,
-                norm_layer=resolve_norm(kan_norm_layer),
-                padding=std_conv_padding, groups=groups, generator=generator,
-                device=device))
+                generator=generator, device=device,
+                **{k: v for k, v in kwargs.items() if k in accepted}))
             self._plan.append(name)
             in_c, first, n = out_c, False, n + 1
         feat = in_c * self.expected_feature_shape[0] * \
@@ -103,7 +113,8 @@ class VGGKAN(nn.Module):
 
     @property
     def model_name(self) -> str:
-        return f"VGGKAN_{self.classifier_type}_KAN_{self.arch}"
+        return (f"VGGKAN_{self.classifier_type}_{self.kan_conv.upper()}_"
+                f"{self.arch}")
 
     def forward(self, x, generator: torch.Generator = None):
         """Logits for NHWC x.  ``generator`` draws the dropout masks in

@@ -16,6 +16,8 @@ checkpoint is not ported yet):
     python -m convkan_tpu_torch.serve --model VGGKAN --arch VGG16_small \\
         --dataset CIFAR10 --init_random --port 8421
 
+(add ``--kan_conv WavKAN`` for the WavKAN convs).
+
 Endpoints: POST /predict  {"instances": [...uint8 HWC arrays...]}
            -> {"predictions": [[per-class logits]...], "batch": n}
            GET  /healthz   -> {"ok": true, "model": "...", "buckets": [...]}
@@ -283,6 +285,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Serve a convkan_tpu_torch model over HTTP.")
     p.add_argument("--model", default="VGGKAN", choices=["VGGKAN"])
     p.add_argument("--arch", default="VGG16_small")
+    p.add_argument("--kan_conv", default="KAN", choices=["KAN", "WavKAN"],
+                   help="conv family of the VGGKAN trunk (train.py's flag)")
     p.add_argument("--dataset", default="CIFAR10",
                    choices=["MNIST", "SVHN", "CIFAR10", "CIFAR100"])
     p.add_argument("--seed", type=int, default=42)
@@ -311,7 +315,8 @@ def build_engine(args):
     num_classes = 100 if args.dataset == "CIFAR100" else 10
     gen = torch.Generator().manual_seed(args.seed)
     model = vggkan(shape[-1], num_classes, arch=args.arch,
-                   classifier_type="Linear", generator=gen,
+                   kan_conv=args.kan_conv, classifier_type="Linear",
+                   generator=gen,
                    device=args.device)
     engine = InferenceEngine(
         model, args.dataset, shape,

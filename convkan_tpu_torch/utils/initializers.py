@@ -48,6 +48,18 @@ def kaiming_uniform(nonlinearity: str = "linear", a=None,
     return init
 
 
+def zeros(t: torch.Tensor, generator: torch.Generator = None):
+    """Fill ``t`` with 0 (draws nothing)."""
+    with torch.no_grad():
+        return t.zero_()
+
+
+def ones(t: torch.Tensor, generator: torch.Generator = None):
+    """Fill ``t`` with 1 (draws nothing)."""
+    with torch.no_grad():
+        return t.fill_(1.0)
+
+
 def torch_linear_bias(fan_in: int):
     """torch Linear/Conv default bias init: U(±1/sqrt(fan_in))."""
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0

@@ -1,5 +1,5 @@
-"""The CUDA KAN-conv kernels (forward and backward) against their plain
-versions, on the card.
+"""The CUDA KAN-conv and WavKAN psi-conv kernels (forward and backward)
+against their plain versions, on the card.
 
 Marked `cuda`: skips on a host without a GPU.  It imports no JAX, so it
 runs on the GPU machine without the JAX package's conftest:
@@ -144,3 +144,114 @@ def test_cuda_reduce_matches_ordered_sum_bitwise():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     p = torch.randn(7, 45, 99, device="cuda")
     assert torch.equal(kc.reduce_partials(p), kc.reduce_reference(p))
+
+
+# ----------------------------------------------------- WavKAN psi-conv
+WAVELETS = ["mexican_hat", "morlet", "dog", "meyer", "shannon"]
+
+
+def _wav_inputs(B, H, W, C, O, seed, xscale=1.0):
+    rng = np.random.RandomState(seed)
+    x = (rng.normal(0, 1, (B, H, W, C)) * xscale).astype(np.float32)
+    w = rng.normal(0, 0.3, (3, 3, C, O)).astype(np.float32)
+    t = (0.5 * rng.randn(O, C)).astype(np.float32)
+    s = (1.0 + 0.3 * rng.rand(O, C)).astype(np.float32)
+    g = rng.normal(0, 1, (B, H, W, O)).astype(np.float32)
+    return (torch.from_numpy(a).cuda() for a in (x, w, t, s, g))
+
+
+def _within(got, want, tol=1e-4):
+    """|got - want| <= tol * max|want| + tol * |want| (float32 sums of up
+    to B*H*W products in another order than the float64 reference)."""
+    d = (got.double() - want.double()).abs()
+    lim = tol * want.abs().max().double() + tol * want.abs().double()
+    return bool((d <= lim).all()), d.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O,wavelet_type", [
+    (4, 32, 32, 3, 16, "mexican_hat"), (3, 8, 8, 32, 64, "mexican_hat"),
+    (5, 2, 2, 128, 128, "mexican_hat"),
+    (2, 5, 7, 6, 9, "mexican_hat"),    # ragged: odd planes, O not 2^n
+] + [(2, 16, 16, 16, 32, w) for w in WAVELETS])
+def test_cuda_wav_forward_matches_plain_version(B, H, W, C, O, wavelet_type):
+    """Float32 sums of up to 9*C products in another order: 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.device import set_full_f32
+    from convkan_tpu_torch.kernels import wav_conv2d as wc
+
+    set_full_f32()
+    x, w, t, s, _ = _wav_inputs(B, H, W, C, O, seed=B * 100 + C,
+                                xscale=3.0 if O == 9 else 1.0)
+    wc.reset_launches()
+    y = wc.wav_conv2d(x, w, t, s, wavelet_type=wavelet_type, padding=1)
+    torch.cuda.synchronize()
+    assert wc.launches["wav_conv2d_fwd"] == 1
+    ref = wc.wav_conv2d_reference(x, w, t, s, wavelet_type=wavelet_type,
+                                  padding=1)
+    torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O,wavelet_type", [
+    (4, 32, 32, 3, 16, "mexican_hat"), (3, 8, 8, 32, 64, "mexican_hat"),
+    (5, 2, 2, 128, 128, "mexican_hat"),
+    (3, 7, 5, 13, 5, "mexican_hat"),   # ragged
+] + [(2, 8, 8, 16, 32, w) for w in WAVELETS])
+def test_cuda_wav_backward_matches_plain_version(B, H, W, C, O,
+                                                 wavelet_type):
+    """dx, dw, dt and ds of the CUDA path against autograd of the plain
+    version in float64 on the card (see _within)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.device import set_full_f32
+    from convkan_tpu_torch.kernels import wav_conv2d as wc
+
+    set_full_f32()
+    x, w, t, s, g = _wav_inputs(B, H, W, C, O, seed=B * 10 + O)
+    leaves = [a.clone().requires_grad_(True) for a in (x, w, t, s)]
+    wc.reset_launches()
+    y = wc.wav_conv2d(*leaves, wavelet_type=wavelet_type, padding=1)
+    got = torch.autograd.grad(y, leaves, g)
+    torch.cuda.synchronize()
+    assert wc.launches == {"wav_conv2d_fwd": 1, "wav_conv2d_bwd_dx": 1,
+                           "wav_conv2d_bwd_param": 1,
+                           "wav_conv2d_bwd_reduce": 1}
+    ref_leaves = [a.double().requires_grad_(True) for a in (x, w, t, s)]
+    ref = torch.autograd.grad(wc.wav_conv2d_reference(
+        *ref_leaves, wavelet_type=wavelet_type, padding=1), ref_leaves,
+        g.double())
+    for name, a, b in zip(("dx", "dw", "dt", "ds"), got, ref):
+        ok, err = _within(a, b)
+        assert ok, f"{name}: max |diff| {err}"
+
+
+@pytest.mark.cuda
+def test_cuda_wav_skips_unneeded_dx_and_is_deterministic():
+    """No data gradient for an input that needs none; two backward calls
+    give bit-identical parameter gradients (fixed split, ordered
+    reduction) and data gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.kernels import wav_conv2d as wc
+
+    x, w, t, s, g = _wav_inputs(64, 8, 8, 32, 64, seed=2)
+    params = [a.clone().requires_grad_(True) for a in (w, t, s)]
+    y = wc.wav_conv2d(x, *params, wavelet_type="mexican_hat", padding=1)
+    assert y.grad_fn is not None
+    wc.reset_launches()
+    (y * g).sum().backward()
+    torch.cuda.synchronize()
+    assert wc.launches["wav_conv2d_bwd_dx"] == 0
+    assert wc.launches["wav_conv2d_bwd_param"] == 1
+    assert all(float(p.grad.abs().sum()) > 0 for p in params)
+    spec = ("mexican_hat", 1)
+    assert wc.param_launch_config(64, 8, 8, 32, 64, 3, 1)["S"] > 1
+    a = wc.param_grads(x, w, t, s, g, *spec)
+    b = wc.param_grads(x, w, t, s, g, *spec)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert torch.equal(wc.input_grad(x, w, t, s, g, *spec),
+                       wc.input_grad(x, w, t, s, g, *spec))
+    p = torch.randn(7, 45, device="cuda")
+    assert torch.equal(wc.reduce_partials(p), wc.reduce_reference(p))
