@@ -10,8 +10,10 @@ Phases (the first failed check exits non-zero):
      compiler's register/spill report);
   2. kernel vs its plain PyTorch version on the card, at the 9 distinct
      VGG16_small conv shapes (batch 64), a batch-1 case, an input scaled
-     to +-3 with exact knot values, and a GELU case (rtol = atol = 1e-4:
-     float32 sums of up to 10,368 products taken in another order);
+     to +-3 with exact knot values, a GELU case, and the tile's ragged
+     edges (batch 1023, O = 48, C = 5, 1x1 and 3x3 planes, the 2x2 layer
+     at batch 1024 with its channel splits) (rtol = atol = 1e-4: float32
+     sums of up to 10,368 products taken in another order);
   3. the model: VGG16_small with seeded weights on the card against the
      same state_dict on the CPU (logits within 1e-3, and not the same for
      every image), 13 launches per forward;
@@ -21,7 +23,9 @@ Phases (the first failed check exits non-zero):
      answers are checked against engine.predict, and the counts are read;
   5. times with CUDA events: predict at batch 1024 (images/s) and, per conv
      shape at batch 1024, the kernel, its plain version, one cuDNN conv over
-     a materialized basis (a yardstick the port never calls) and the bound;
+     a materialized basis (a yardstick the port never calls), the bound on
+     the (pixel, tap) pairs whose input lies in the image (the dense bound
+     beside it) and the share of the bound the kernel reaches;
   6. backward kernels vs their plain versions on the card, at the 9
      VGG16_small conv shapes (batch 64), a ragged shape and a GELU case:
      each kernel wrapper (data gradient, weight-gradient partials, their
@@ -161,7 +165,7 @@ def conv_inputs(gen, B, H, C, O, scale=1.0):
 
 def interior_pairs(H: int, k: int = 3, pad: int = 1) -> int:
     """(output pixel, tap) pairs of one HxH image whose input pixel lies in
-    the image: the products a backward pass needs (pad values are zero)."""
+    the image: the products a pass needs (pad values are zero)."""
     Ho = H + 2 * pad - k + 1
     rows = sum(1 for d in range(k) for i in range(Ho) if 0 <= i + d - pad < H)
     return rows * rows
@@ -837,6 +841,12 @@ def main():
              for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
     cases += [(1, 32, 16, 16, 1.0, "silu"), (8, 8, 32, 64, 3.0, "silu"),
               (8, 16, 16, 32, 3.0, "gelu")]
+    # ragged edges of the tile: B not a multiple of the image group, O not
+    # of the column tile, C not of the chunk, 1x1 and 3x3 planes (skipped
+    # pad taps), and the 2x2 layer at the real batch (16 channel splits)
+    cases += [(1023, 8, 32, 64, 1.0, "silu"), (64, 8, 16, 48, 1.0, "silu"),
+              (64, 16, 5, 16, 1.0, "silu"), (256, 1, 16, 32, 1.0, "silu"),
+              (64, 3, 6, 9, 3.0, "gelu"), (1024, 2, 128, 128, 1.0, "silu")]
     max_err = 0.0
     for B, H, C, O, scale, act in cases:
         x, bw, pw = conv_inputs(gen, B, H, C, O, scale)
@@ -849,7 +859,10 @@ def main():
         ref = kc.kan_conv2d_reference(x, bw, pw, knots, 3, 3, 1, act)
         err = (y - ref).abs().max().item()
         ok = torch.allclose(y, ref, rtol=TOL, atol=TOL)
-        print(f"[kernel] B={B} {H}x{H} C={C} O={O} x*{scale} {act}: "
+        cfg = kc.launch_config(B, H, H, C, O, 3, 1, 8)
+        print(f"[kernel] B={B} {H}x{H} C={C} O={O} x*{scale} {act} "
+              f"(BN {cfg['BN']}, {'skip' if cfg['skip'] else 'dense'}, CC "
+              f"{cfg['CC']}, S {cfg['S']}, {cfg['blocks']} blocks): "
               f"max|err| {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
         check(bool(torch.isfinite(y).all()), "kernel output not finite")
         check(ok, f"kernel disagrees with the plain version (B={B} H={H} "
@@ -867,7 +880,7 @@ def main():
     del model_gpu
     shapes = []
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-              "op_ms": 0.0, "byte_ms": 0.0}
+              "op_ms": 0.0, "byte_ms": 0.0, "dense_bound_ms": 0.0}
     for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
         B, K = 1024, 8
         x, bw, pw = (t.to(dev) for t in conv_inputs(gen, B, H, C, O))
@@ -882,27 +895,41 @@ def main():
         w = w.reshape((K + 1) * C, 3, 3, O).permute(3, 0, 1, 2).contiguous()
         l_ms = cuda_ms(lambda: torch.nn.functional.conv2d(E, w, padding=1))
         del E
-        flops = 2 * B * H * H * 9 * (K + 1) * C * O
+        # the bound counts the (pixel, tap) pairs whose input lies in the
+        # image, as the backward's does: a pad tap adds zero; the dense
+        # count (every tap) is printed beside it
+        flops = 2 * B * interior_pairs(H) * (K + 1) * C * O
+        dense_flops = 2 * B * H * H * 9 * (K + 1) * C * O
         nbytes = 4 * (x.numel() + bw.numel() + pw.numel() + B * H * H * O)
         op_ms = flops / PEAK_FP32_FLOPS * 1e3
         byte_ms = nbytes / PEAK_BYTES * 1e3
         bound_ms = max(op_ms, byte_ms)
+        dense_bound_ms = max(dense_flops / PEAK_FP32_FLOPS * 1e3, byte_ms)
+        cfg = kc.launch_config(B, H, H, C, O, 3, 1, K)
         n = VGG16_SMALL_CONVS.count((H, C, O))
         row = {"H": H, "C": C, "O": O, "batch": B, "layers": n,
+               "tile": {key: cfg[key] for key in kc.FWD_TILE + ("blocks",)},
                "kernel_ms": round(k_ms, 4), "plain_ms": round(p_ms, 4),
                "library_ms": round(l_ms, 4), "bound_ms": round(bound_ms, 4),
+               "dense_bound_ms": round(dense_bound_ms, 4),
+               "bound_share": round(bound_ms / k_ms, 4),
                "gflops": round(flops / 1e9, 3),
+               "dense_gflops": round(dense_flops / 1e9, 3),
                "tflops": round(flops / k_ms / 1e9, 2)}
         shapes.append(row)
         for key, v in (("ms", k_ms), ("plain_ms", p_ms),
                        ("bound_ms", bound_ms), ("library_ms", l_ms),
-                       ("op_ms", op_ms), ("byte_ms", byte_ms)):
+                       ("op_ms", op_ms), ("byte_ms", byte_ms),
+                       ("dense_bound_ms", dense_bound_ms)):
             totals[key] += n * v
         print(f"[time] {json.dumps(row)}", flush=True)
     print(f"[time] per forward of the 13 convs at batch 1024: kernel "
           f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, cuDNN "
           f"over materialized E {totals['library_ms']:.3f} ms, bound "
-          f"{totals['bound_ms']:.3f} ms (on {card})", flush=True)
+          f"{totals['bound_ms']:.3f} ms on interior pairs (dense "
+          f"{totals['dense_bound_ms']:.3f} ms), "
+          f"{100 * totals['bound_ms'] / totals['ms']:.1f}% of the bound "
+          f"(on {card})", flush=True)
 
     # ------------------------------------ 6. backward kernels vs plain
     bwd_err = phase_backward(kc, knots, gen, dev)
@@ -953,6 +980,7 @@ def main():
         {"serve": n_main, "train": train_counts["kan_conv2d_fwd"]}, max_err,
         totals, "sum over the 13 VGG16_small convs at batch 1024", shapes,
         also_replaces=ALSO_REPLACES,
+        dense_bound_ms=round(totals["dense_bound_ms"], 4),
         predict_images_per_s=round(predict_ips, 1))]
     kernels += [kernel_entry(
         name, "convkan_tpu_torch/csrc/" + kc.BWD_SOURCE, BWD_REPLACES,

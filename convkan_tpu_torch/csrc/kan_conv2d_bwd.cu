@@ -46,14 +46,15 @@
 //     recomputed once per column tile, k*k*O/BN times per value, so the
 //     column tile is as wide as the block allows (BN = 128 or 256), and
 //     only the ORDER+1 bases that can be non-zero at x are evaluated
-//     (bspline_span: 12 divides instead of 54 for grid 5, order 3).
+//     (bspline_span of kan_bspline.cuh: 12 divides instead of 54 for grid 5,
+//     order 3).
 // Later work: tensor cores (wgmma on TF32/bf16 operands), TMA staging, and
 // fusing the dW reduction.
 //
-// Numerics: the basis values use the forward's recurrence step for step
-// (explicitly rounded float32 operations, true IEEE divides), so the E
-// recomputed here is bit-identical to the forward's for finite x.  Build WITHOUT
-// --use_fast_math.
+// Numerics: the basis values come from kan_bspline.cuh, the forward's own
+// code (explicitly rounded float32 operations, true IEEE divides), so the E
+// recomputed here is bit-identical to the forward's for finite x.  Build
+// WITHOUT --use_fast_math.
 //
 // Interface: plain C entry points loaded with ctypes.  Each launches on the
 // caller's stream, allocates nothing, and returns cudaGetLastError().
@@ -62,19 +63,18 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "kan_bspline.cuh"
+
 namespace {
 
+using namespace kan;
+
 constexpr int kThreads = 256;
-constexpr int kMaxKnots = 32;
 constexpr int kDxTM = 4;          // dx: pixels per thread
 constexpr int kDxThreadsM = 32;   // dx: pixel slots of threads
 constexpr int kDxMaxCC = 8;       // dx: channels per block (one per thread)
 constexpr int kDwTR = 4;          // dW: rows per thread
 constexpr int kDwTN = 8;          // dW: columns per thread (two float4s)
-
-struct Knots {
-  float v[kMaxKnots];
-};
 
 struct DxShape {
   int B, H, W, C, O, k, pad, Ho, Wo;
@@ -90,12 +90,6 @@ struct DwShape {
   int rs;                 // floats per expanded pixel: (K+1)*CC padded
 };
 
-template <int ACT>
-__device__ __forceinline__ float base_act(float x) {
-  if (ACT == 0) return x / (1.0f + expf(-x));                        // SiLU
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));      // GELU
-}
-
 // d act / dx: SiLU' = s (1 + x (1 - s)); GELU' (erf) = Phi(x) + x phi(x)
 template <int ACT>
 __device__ __forceinline__ float base_act_grad(float x) {
@@ -106,50 +100,6 @@ __device__ __forceinline__ float base_act_grad(float x) {
   const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752440f));
   const float pdf = expf(-0.5f * x * x) * 0.39894228040143267794f;
   return cdf + x * pdf;
-}
-
-// The B-spline bases at x, the values of kan_conv2d_fwd.cu's full Cox-de
-// Boor recurrence bit for bit for finite x, evaluating only the ORDER+1
-// bases over the knot interval j that holds x (every other basis is exactly
-// 0 in the full recurrence, and adding a zero term leaves a float32 sum
-// unchanged): ORDER*(ORDER+1) divides instead of two per basis and level
-// (12 instead of 54 for 12 knots and order 3).
-// Knots come from shared memory (dynamically indexed).  Returns j (-1: x
-// outside the grid, all bases 0); N[m] is basis j - ORDER + m.
-template <int NK, int ORDER>
-__device__ __forceinline__ int bspline_span(float x, const float* kn,
-                                            float* N) {
-  int j = -1;
-#pragma unroll
-  for (int i = 0; i < NK - 1; ++i)
-    if (x >= kn[i] && x < kn[i + 1]) j = i;
-  N[0] = 1.0f;
-#pragma unroll
-  for (int k = 1; k <= ORDER; ++k) {
-    float nw[ORDER + 1];
-#pragma unroll
-    for (int m = 0; m <= k; ++m) {
-      const int i = j - k + m;  // basis i of level k (exists for i <= NK-2-k)
-      float v = 0.0f;
-      if (i >= 0 && i <= NK - 2 - k) {
-        float dr = __fsub_rn(kn[i + k], kn[i]);
-        float dd = __fsub_rn(kn[i + k + 1], kn[i + 1]);
-        if (dr == 0.0f) dr = 1.0f;
-        if (dd == 0.0f) dd = 1.0f;
-        if (m >= 1)  // b_i of level k-1 is N[m-1]
-          v = __fmul_rn(__fdiv_rn(__fsub_rn(x, kn[i]), dr), N[m - 1]);
-        if (m <= k - 1) {  // b_{i+1} of level k-1 is N[m]
-          const float t2 =
-              __fmul_rn(__fdiv_rn(__fsub_rn(kn[i + k + 1], x), dd), N[m]);
-          v = m >= 1 ? __fadd_rn(v, t2) : t2;
-        }
-      }
-      nw[m] = v;
-    }
-#pragma unroll
-    for (int m = 0; m <= k; ++m) N[m] = nw[m];
-  }
-  return j;
 }
 
 // d B_i / dx over the same knot span, carried through the recurrence with
@@ -572,12 +522,6 @@ cudaError_t launch_dw(const float* x, const float* g, float* partial,
                   (s.k * s.k * s.O + s.BN - 1) / s.BN, s.S);
   kernel<<<grid, kThreads, smem, stream>>>(x, g, partial, s, kn);
   return cudaGetLastError();
-}
-
-bool load_knots(const float* knots, int n_knots, Knots* kn) {
-  if (n_knots > kMaxKnots) return false;
-  for (int i = 0; i < kMaxKnots; ++i) kn->v[i] = i < n_knots ? knots[i] : 0.0f;
-  return true;
 }
 
 }  // namespace

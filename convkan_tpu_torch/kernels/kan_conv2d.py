@@ -36,15 +36,24 @@ BWD_SOURCE = "kan_conv2d_bwd.cu"
 # and base activations, by the integer code the C entries take
 SPLINES = {(12, 3)}
 ACTS = {"silu": 0, "gelu": 1}
-THREADS, TM, TN = 256, 4, 4
+THREADS, TM = 256, 8             # forward block: threads, pixels per thread
+WARPS = THREADS // 32
 MAX_CHUNK = 8                    # input channels expanded per pass
+MAX_BN = 128                     # output channels per forward block
+MAX_SPLITS = 16                  # channel splits of a tile: one cluster
+SKIP_POSITIONS = 16              # pad taps skipped when Ho*Wo <= this
+TARGET_BLOCKS = 4 * 132          # two waves of two blocks per SM (H100 SXM)
 SMEM_LIMIT = 227 * 1024          # dynamic shared memory a block may use
+SMEM_TWO_BLOCKS = 112 * 1024     # ... with two blocks on an SM
 # data-gradient tile: 32 pixel slots x 4 pixels per thread, one channel per
 # thread (at most 8), output channels staged 16 at a time
 DX_PIXELS, DX_MAX_CC, DX_OC = 128, 8, 16
 # weight-gradient tile: 4x8 sums per thread, 64 pixels per chunk; the batch
 # is split so that about DW_TARGET_BLOCKS blocks (4 per SM) are in flight
 DW_TR, DW_TN, DW_P, DW_TARGET_BLOCKS = 4, 8, 64, 4 * 132
+
+# the forward tile's entries of launch_config, in the C entry's order
+FWD_TILE = ("BN", "skip", "TH", "TW", "NB", "NG", "CC", "S")
 
 KERNELS = ("kan_conv2d_fwd", "kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
            "kan_conv2d_bwd_dw_reduce")
@@ -151,26 +160,89 @@ def row_stride(K: int, CC: int) -> int:
     return rs + 4 if (rs // 4) % 2 == 0 else rs
 
 
+def thread_tile(BN: int):
+    """(TN, TPW, BM, G) of the forward's BN-column block (mirrors Geo in the
+    C source): TN channels and TM pixels per thread, BN/TN threads along N,
+    TPW threads of a warp along M, BM pixels per block, and G = TPW*TM
+    images per warp when pad taps are skipped."""
+    TN = 4 if BN == 16 else 8
+    tpw = 32 // (BN // TN)
+    return TN, tpw, THREADS // (BN // TN) * TM, tpw * TM
+
+
+def skip_groups(P: int, groups: int) -> int:
+    """Image groups a block's WARPS warp slots reach at most, when slots
+    enumerate (group, position) with P positions (mirrors the C entry)."""
+    need = max((b * WARPS + WARPS - 1) // P - b * WARPS // P + 1
+               for b in range(P))
+    return min(need, groups)
+
+
+def fwd_smem(tile: int, rs: int, BN: int, BM: int, S: int) -> int:
+    """Dynamic shared memory of a forward block: the expanded tile, two
+    weight slices, and with S > 1 room for the partial tile."""
+    nbytes = 4 * (tile * rs + 2 * rs * BN)
+    return max(nbytes, 4 * BM * BN) if S > 1 else nbytes
+
+
 def launch_config(B, H, W, C, O, k, pad, K) -> dict:
-    """Block tile for the kernel: BN output channels, TH output rows, NB
-    images and CC input channels per pass.  Raises NotImplementedError for
-    a shape whose tile does not fit."""
+    """The forward's tile.  BN output channels per block (O rounded up to a
+    power of two in 16..128); either ``skip`` (Ho*Wo <= SKIP_POSITIONS:
+    pixels ordered (position, image), NG image groups of G per block, pad
+    taps skipped) or dense (NB images x TH rows x TW columns, TH and TW
+    shrunk until the tile fits); CC input channels per pass; S channel
+    splits summed inside one cluster, the largest power of two that keeps
+    the grid within TARGET_BLOCKS.  CC minimizes the channels on one
+    split's path (ties: the larger CC) within two blocks' shared memory per
+    SM, else one's.
+    Returns the kernel's arguments and, for the tests, ``rs``, ``tile``
+    (pixels), ``tiles`` (blocks along M), ``blocks`` and ``smem``.
+    Raises NotImplementedError for a shape whose tile does not fit."""
     Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
-    BN = 4
-    while BN < min(O, 64):
+    BN = 16
+    while BN < min(O, MAX_BN):
         BN *= 2
-    M = THREADS // (BN // TN) * TM          # output pixels per block
-    if Wo > M:
-        raise NotImplementedError(f"output width {Wo} > {M} pixels per block")
-    if Ho * Wo >= M:
-        TH, NB = min(Ho, M // Wo), 1
-    else:
-        TH, NB = Ho, min(B, M // (Ho * Wo))
-    tile = NB * (TH + k - 1) * (W + 2 * pad)
-    for CC in range(min(C, MAX_CHUNK), 0, -1):
-        # expanded tile, two weight slices, two int row tables
-        if 4 * row_stride(K, CC) * (tile + 2 * BN + 2) <= SMEM_LIMIT:
-            return {"BN": BN, "TH": TH, "NB": NB, "CC": CC}
+    _, _, BM, G = thread_tile(BN)
+    tiles_n = -(-O // BN)
+    geoms = []
+    if Ho * Wo <= SKIP_POSITIONS:
+        groups = -(-B // G)
+        NG = skip_groups(Ho * Wo, groups)
+        geoms.append({"skip": 1, "TH": 0, "TW": 0, "NB": 0, "NG": NG,
+                      "tile": NG * G * H * W,
+                      "tiles": -(-groups * Ho * Wo // WARPS)})
+    TW = min(Wo, BM)
+    TH = min(Ho, BM // TW)
+    while True:
+        NB = min(B, BM // (TH * TW)) if (TH, TW) == (Ho, Wo) else 1
+        geoms.append({"skip": 0, "TH": TH, "TW": TW, "NB": NB, "NG": 0,
+                      "tile": NB * (TH + k - 1) * (TW + k - 1),
+                      "tiles": -(-B // NB) * -(-Ho // TH) * -(-Wo // TW)})
+        if TH == TW == 1:
+            break
+        TH, TW = (TH // 2, TW) if TH > 1 else (1, TW // 2)
+    for budget in (SMEM_TWO_BLOCKS, SMEM_LIMIT):
+        for geo in geoms:
+            S = 1
+            while 2 * S <= min(MAX_SPLITS, C) and \
+                    2 * S * geo["tiles"] * tiles_n <= TARGET_BLOCKS:
+                S *= 2
+            best = None
+            for CC in range(min(C, MAX_CHUNK), 0, -1):
+                rs, nch = row_stride(K, CC), -(-C // CC)
+                s_cc = S
+                while s_cc > nch:  # every split gets a chunk
+                    s_cc //= 2
+                smem = fwd_smem(geo["tile"], rs, BN, BM, s_cc)
+                if smem > budget:
+                    continue
+                path = -(-nch // s_cc) * CC
+                if best is None or path < best[0]:
+                    best = (path, {"BN": BN, **geo, "CC": CC, "S": s_cc,
+                                   "rs": rs, "smem": smem,
+                                   "blocks": geo["tiles"] * tiles_n * s_cc})
+            if best is not None:
+                return best[1]
     raise NotImplementedError("tile does not fit in shared memory")
 
 
@@ -270,9 +342,9 @@ def check_inputs(x, base_w, poly_w, knots, order, k, pad, act, *,
 
 
 _ARGTYPES = {
-    # x, w_all, y; B H W C O k pad BN TH NB CC; knots; n_knots order act;
-    # stream
-    "kan_conv2d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+    # x, w_all, y; B H W C O k pad BN skip TH TW NB NG CC S; knots; n_knots
+    # order act; stream
+    "kan_conv2d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     # x, w_all, g, dx; B H W C O k pad TH NB CC OC; knots; n_knots order
     # act; stream
@@ -325,8 +397,8 @@ def _fwd(x, w_all, knots, order, k, pad, act, cfg):
     kn, kn_ptr = _knots_arg(knots)
     _launch("kan_conv2d_fwd",
             (x.data_ptr(), w_all.data_ptr(), y.data_ptr(), B, H, W, C, O, k,
-             pad, cfg["BN"], cfg["TH"], cfg["NB"], cfg["CC"], kn_ptr, len(kn),
-             order, ACTS[act], _stream(x)),
+             pad, *(cfg[key] for key in FWD_TILE), kn_ptr, len(kn), order,
+             ACTS[act], _stream(x)),
             _describe(B, H, W, C, O, k, pad, len(kn), order, act))
     return y
 

@@ -21,6 +21,12 @@ KNOTS = tuple(float(v) for v in make_bspline_grid(5, 3))
 @pytest.mark.parametrize("B,H,C,O,act", [
     (4, 32, 3, 16, "silu"), (3, 8, 32, 64, "silu"), (5, 2, 128, 128, "silu"),
     (2, 5, 6, 9, "gelu"),      # ragged tile: O not a multiple of 4, odd H
+    (1023, 8, 32, 64, "silu"),   # B not a multiple of the image group
+    (16, 8, 16, 48, "silu"),     # O not a multiple of the column tile
+    (8, 16, 5, 16, "silu"),      # C not a multiple of the chunk
+    (70, 1, 16, 32, "silu"),     # 1x1: every tap but the centre skipped
+    (19, 3, 6, 9, "gelu"),       # 3x3: a block spans two image groups
+    (1024, 2, 128, 128, "silu"),  # the 2x2 layer at the real batch
 ])
 def test_cuda_kernel_matches_plain_version(B, H, C, O, act):
     """Float32 sums in another order: rtol = atol = 1e-4."""
@@ -41,6 +47,23 @@ def test_cuda_kernel_matches_plain_version(B, H, C, O, act):
     assert kc.launches["kan_conv2d_fwd"] == 1
     ref = kc.kan_conv2d_reference(x, bw, pw, KNOTS, 3, 3, 1, act)
     torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_with_channel_splits_is_deterministic():
+    """The 2x2 layer's channel splits are summed over the cluster in rank
+    order (no atomics): two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    assert kc.launch_config(1024, 2, 2, 128, 128, 3, 1, 8)["S"] > 1
+    rng = np.random.RandomState(5)
+    x = rng.uniform(-3, 3, (1024, 2, 2, 128)).astype(np.float32)
+    bw = rng.normal(0, 0.2, (3, 3, 128, 128)).astype(np.float32)
+    pw = rng.normal(0, 0.2, (3, 3, 128 * 8, 128)).astype(np.float32)
+    x, bw, pw = (torch.from_numpy(a).cuda() for a in (x, bw, pw))
+    a = kc.kan_conv2d(x, bw, pw, KNOTS, 3, 3, 1, "silu")
+    b = kc.kan_conv2d(x, bw, pw, KNOTS, 3, 3, 1, "silu")
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

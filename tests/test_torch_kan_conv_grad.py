@@ -158,8 +158,9 @@ def test_grad_wrappers_refuse_bad_gradients():
 def _recurrence_f32(x, knots, order, span_only):
     """float32 emulation of the CUDA basis loops (every operation rounded
     to float32 as __fsub_rn/__fdiv_rn/__fmul_rn/__fadd_rn do): the full
-    Cox-de Boor recurrence of csrc/kan_conv2d_fwd.cu, or the span-limited
-    one of csrc/kan_conv2d_bwd.cu (bspline_span), for a vector x."""
+    Cox-de Boor recurrence (every basis at every level), or the
+    span-limited one of csrc/kan_bspline.cuh (bspline_span, which the
+    forward and backward kernels share), for a vector x."""
     f32 = np.float32
     kn = np.asarray(knots, f32)
     nk = len(kn)
@@ -207,9 +208,9 @@ def _recurrence_f32(x, knots, order, span_only):
 
 
 def test_span_basis_is_bit_identical_to_full_recurrence():
-    """The backward kernels evaluate only the ORDER+1 bases over x's knot
-    interval; every dropped term is an exact 0, so the float32 values are
-    those of the forward's full recurrence bit for bit (finite x)."""
+    """The kernels evaluate only the ORDER+1 bases over x's knot interval;
+    every dropped term is an exact 0, so the float32 values are those of
+    the full recurrence bit for bit (finite x)."""
     kn = np.asarray(KNOTS, np.float32)
     x = np.concatenate([
         np.random.RandomState(0).uniform(-3, 3, 20000).astype(np.float32),
