@@ -27,7 +27,9 @@ Phases (the first failed check exits non-zero):
      the (pixel, tap) pairs whose input lies in the image (the dense bound
      beside it) and the share of the bound the kernel reaches;
   6. backward kernels vs their plain versions on the card, at the 9
-     VGG16_small conv shapes (batch 64), a ragged shape and a GELU case:
+     VGG16_small conv shapes (batch 64), ragged shapes (C = 13 with O = 5,
+     O = 48, batch 1023) and the 2x2 layer at batch 1024, and a GELU case;
+     each case prints its weight-gradient tile:
      each kernel wrapper (data gradient, weight-gradient partials, their
      reduction) and the autograd path's dx, d base_w, d poly_w, against
      float64 autograd of the plain version (tolerance at BWD_TOL);
@@ -42,7 +44,10 @@ Phases (the first failed check exits non-zero):
      after warm-up, each ending in a host readback of the loss) and, per
      conv shape at batch 1024, each backward kernel, its plain version,
      one cuDNN convolution_backward over a materialized basis (a yardstick
-     the port never calls) and the bound.
+     the port never calls) and the bound; for the weight gradient also its
+     tile (CC, BN, PW, threads, S, blocks), the multiply-adds it issues
+     over the interior pairs the bound counts, the dense bound and the
+     share of the bound it reaches.
 WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
   9. forward kernel vs its plain version (rtol = atol = TOL): the 9
      VGG16_small shapes at batch 64, all 5 wavelets at one shape, batch 1,
@@ -99,6 +104,9 @@ VGG16_SMALL_CONVS = [(32, 3, 16), (32, 16, 16), (16, 16, 32), (16, 32, 32),
 REPLACES = "convkan_tpu/kernels/wide_kan_conv.py:300"
 ALSO_REPLACES = "convkan_tpu/kernels/fused_kan_conv.py:167"
 BWD_REPLACES = "convkan_tpu/kernels/wide_kan_conv.py:344"
+# the weight-gradient tile's entries of dw_launch_config that phases 6 and 8
+# print
+DW_TILE = ("CC", "BN", "PW", "threads", "S", "blocks")
 # backward kernels vs float64 autograd of the plain version: a dW entry sums
 # up to B*H*W = 65,536 float32 products at batch 64 (dx: k*k*(K+1)*O <=
 # 10,368) in another order, an error of ~sqrt(n) * 2^-24 of the sum of
@@ -179,6 +187,10 @@ def bwd_close(got, want):
     return d.max().item(), bool((d <= lim).all())
 
 
+def dw_tile(cfg) -> str:
+    return ", ".join(f"{key} {cfg[key]}" for key in DW_TILE)
+
+
 def phase_backward(kc, knots, gen, dev):
     """6. each backward kernel and the autograd path against float64
     autograd of the plain version on the card; returns max |err| per
@@ -186,6 +198,11 @@ def phase_backward(kc, knots, gen, dev):
     cases = [(64, H, C, O, "silu")
              for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
     cases += [(3, 7, 13, 5, "silu"), (8, 16, 16, 32, "gelu")]
+    # ragged edges of the weight-gradient tile: B not a multiple of the
+    # split, 216-column tiles, C not a multiple of the channel chunk, and
+    # the 2x2 layer at the real batch
+    cases += [(1023, 8, 32, 64, "silu"), (64, 8, 16, 48, "silu"),
+              (64, 16, 13, 32, "silu"), (1024, 2, 128, 128, "silu")]
     errs = {"kan_conv2d_bwd_dx": 0.0, "kan_conv2d_bwd_dw": 0.0,
             "kan_conv2d_bwd_dw_reduce": 0.0}
     for B, H, C, O, act in cases:
@@ -211,7 +228,8 @@ def phase_backward(kc, knots, gen, dev):
                                    g.double())
         auto = [bwd_close(a, b) for a, b in zip(got, want)]
         ok = ok_dx and ok_dw and e_red == 0.0 and all(o for _, o in auto)
-        print(f"[backward] B={B} {H}x{H} C={C} O={O} {act} S={cfg['S']}: "
+        print(f"[backward] B={B} {H}x{H} C={C} O={O} {act} (dW tile "
+              f"{dw_tile(cfg)}): "
               f"dx {e_dx:.3e}, dW partials {e_dw:.3e}, reduce {e_red:.1e}; "
               f"autograd dx/dbase_w/dpoly_w "
               f"{'/'.join(f'{e:.3e}' for e, _ in auto)} "
@@ -374,6 +392,7 @@ def phase_train_times(kc, knots, gen, dev, card):
              "kan_conv2d_bwd_dw_reduce")
     totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
                                 "byte_ms"), 0.0) for n in names}
+    totals["kan_conv2d_bwd_dw"]["dense_bound_ms"] = 0.0
     rows = []
     B, K = TIME_BATCH, 8
     for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
@@ -438,14 +457,35 @@ def phase_train_times(kc, knots, gen, dev, card):
                            ("library_ms", lib[name]), ("op_ms", op_ms),
                            ("byte_ms", byte_ms)):
                 totals[name][key] += layers * v
+        # the weight gradient's tile and what it issues: every input pixel
+        # times every row (whole channels of its chunks) and column (whole
+        # column tiles) of dW, pad pairs included; the dense bound counts
+        # every (pixel, tap) pair
+        issued = B * H * H * -(-C // cfg["CC"]) * cfg["CC"] * (K + 1) * \
+            -(-9 * O // cfg["BN"]) * cfg["BN"]
+        dense_ms = max(2 * B * H * H * 9 * D * O / PEAK_FP32_FLOPS * 1e3,
+                       work["kan_conv2d_bwd_dw"][1] / PEAK_BYTES * 1e3)
+        dw_row = row["kan_conv2d_bwd_dw"]
+        dw_row.update({
+            "tile": {key: cfg[key] for key in DW_TILE},
+            "issued_over_interior": round(issued / (flops / 2), 4),
+            "dense_bound_ms": round(dense_ms, 4),
+            "bound_share": round(dw_row["bound_ms"] / ms[
+                "kan_conv2d_bwd_dw"][0], 4),
+            "tflops_issued": round(2 * issued / ms["kan_conv2d_bwd_dw"][0]
+                                  / 1e9, 2)})
+        totals["kan_conv2d_bwd_dw"]["dense_bound_ms"] += n * dense_ms
         rows.append(row)
         print(f"[time] {json.dumps(row)}", flush=True)
     for name in names:
         t = totals[name]
         t["bound_ms"] = max(t["op_ms"], t["byte_ms"])
+        dense = f" (dense {t['dense_bound_ms']:.3f} ms)" \
+            if "dense_bound_ms" in t else ""
         print(f"[time] {name} per train step at batch {B}: kernel "
               f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
-              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms"
+              f"{dense}, {100 * t['bound_ms'] / t['ms']:.1f}% of the bound "
               f"(on {card})", flush=True)
     return ips, totals, rows
 
@@ -987,7 +1027,8 @@ def main():
         {"serve": 0, "train": train_counts[name]}, bwd_err[name], t,
         f"sum over the VGG16_small convs of one train step at batch "
         f"{TIME_BATCH}",
-        [{k: r[k] for k in ("H", "C", "O", "S")} | r[name] for r in bwd_rows])
+        [{k: r[k] for k in ("H", "C", "O", "S")} | r[name] for r in bwd_rows],
+        **{key: round(t[key], 4) for key in ("dense_bound_ms",) if key in t})
         for name, t in bwd.items()]
     for name in wc.KERNELS:
         fwd = name == "wav_conv2d_fwd"

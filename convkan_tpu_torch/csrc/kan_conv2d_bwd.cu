@@ -25,8 +25,9 @@
 //     written as a sum over interior input pixels p of E[p, r] * dZ[p, n],
 //     dZ[p, tap*O+o] = g[p - tap + pad, o] (zero off the output frame).  E is
 //     recomputed per pixel chunk in shared memory (never stored to global
-//     memory); a block owns a (K+1)*CC-row x BN-column tile of dW and one
-//     of S contiguous batch splits, and writes its partial sum.
+//     memory); a block owns the (K+1)*CC rows of CC whole channels x a
+//     BN-column tile of dW and one of S contiguous batch splits, and
+//     writes its partial sum.
 //   * kan_conv2d_bwd_dw_reduce: dW = sum over the S partials, in split
 //     order.  With the fixed split and the fixed in-block order, two runs
 //     give bit-identical dW (no atomics anywhere).
@@ -40,16 +41,27 @@
 //     of all k*k taps for the block's channels are staged in shared memory
 //     once per chunk; per four output channels a thread does 4 float4 g
 //     loads + (K+1) float4 weight loads for 4*(K+1)*4 = 144 FMAs.
-//   * dW: each thread keeps a 4-row x 8-column tile of sums in registers;
-//     per pixel one float4 of E and two float4s of dZ feed 32 FMAs.  The
-//     basis (with its IEEE divides, the costliest part per value) is
-//     recomputed once per column tile, k*k*O/BN times per value, so the
-//     column tile is as wide as the block allows (BN = 128 or 256), and
+//   * dW: each thread keeps ONE input channel's K+1 = 9 expanded rows x 8
+//     columns of sums (72) in registers; per pixel the channel's 9 E values
+//     (two float4s and a float, the same address for every thread of that
+//     channel) and two float4s of dZ feed 72 FMAs.  Rows are whole
+//     channels, so no row is padded.  The column tile BN is a multiple of 8
+//     that divides k*k*O where it can (144 at O = 16, 2 x 144 at O = 32,
+//     3 x 192 at O = 64, 6 x 192 at O = 128: no padded column), as wide as
+//     the block's threads cover: the basis (with its IEEE divides, the
+//     costliest part per value) is recomputed once per column tile, and
 //     only the ORDER+1 bases that can be non-zero at x are evaluated
 //     (bspline_span of kan_bspline.cuh: 12 divides instead of 54 for grid 5,
-//     order 3).
-// Later work: tensor cores (wgmma on TF32/bf16 operands), TMA staging, and
-// fusing the dW reduction.
+//     order 3).  A block has CC*BN/8 threads rounded up to whole warps; where
+//     that fills at most half of 256 (few channels, as in the first conv:
+//     3 x 18 threads), PW = 256 / (CC*BN/8) copies of it split each chunk's
+//     pixels and are summed in shared memory in slice order at the end (one
+//     launch, a fixed order).  dZ is gathered one float4 (one tap, 4 output channels)
+//     per load when O % 4 == 0.
+// Later work, in order: a haloed g tile per chunk shared by the taps and
+// double-buffered with cp.async; skipping pad pairs; fusing the dW
+// reduction; tensor cores (3xTF32 wgmma); only the ORDER+1 non-zero basis
+// rows per value.
 //
 // Numerics: the basis values come from kan_bspline.cuh, the forward's own
 // code (explicitly rounded float32 operations, true IEEE divides), so the E
@@ -73,8 +85,8 @@ constexpr int kThreads = 256;
 constexpr int kDxTM = 4;          // dx: pixels per thread
 constexpr int kDxThreadsM = 32;   // dx: pixel slots of threads
 constexpr int kDxMaxCC = 8;       // dx: channels per block (one per thread)
-constexpr int kDwTR = 4;          // dW: rows per thread
-constexpr int kDwTN = 8;          // dW: columns per thread (two float4s)
+constexpr int kDwMaxThreads = 256;  // dW: threads of a block at most
+constexpr int kDwTN = 8;            // dW: columns per thread (two float4s)
 
 struct DxShape {
   int B, H, W, C, O, k, pad, Ho, Wo;
@@ -87,8 +99,13 @@ struct DwShape {
   int B, H, W, C, O, k, pad, Ho, Wo;
   int CC, BN, P, S, ips;  // channels, columns, pixels per chunk, splits,
                           // images per split
-  int rs;                 // floats per expanded pixel: (K+1)*CC padded
+  int PW, threads;        // pixel slices; PW*CC*BN/8 in whole warps
 };
+
+// dW: floats per channel of an expanded pixel, K+1 rounded up to float4s
+__host__ __device__ constexpr int dw_channel_stride(int K1) {
+  return (K1 + 3) / 4 * 4;
+}
 
 // d act / dx: SiLU' = s (1 + x (1 - s)); GELU' (erf) = Phi(x) + x phi(x)
 template <int ACT>
@@ -306,25 +323,29 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------- weight gradient
-// Block (channel chunk, column tile, split): rows are the (K+1)*CC expanded
-// rows of channels c0..c0+CC-1 (row cl*(K+1) + kk in shared memory), columns
-// n0..n0+BN-1 of the k*k*O tap-major columns; the reduction runs over the
-// interior pixels of images [split*ips, split*ips + ips) in chunks of P.
+// Block (channel chunk, column tile, split): channels c0..c0+CC-1, columns
+// n0..n0+BN-1 of the k*k*O tap-major columns, images [split*ips,
+// split*ips + ips), summed over their interior pixels in chunks of P.
+// Thread t is pixel slice t / (CC*G) (G = BN/8 column groups), channel
+// cl = t % CC and column group tn = (t / CC) % G of the slice: it keeps
+// channel cl's K+1 expanded rows x columns {tn*4 .. tn*4+3, BN/2 + tn*4 ..
+// BN/2 + tn*4+3} in registers and sums pixels slice, slice + PW, ... of
+// each chunk.  The PW slices' tiles are added in slice order at the end.
 template <int NK, int ORDER, int ACT>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kDwMaxThreads, 2)
     kan_conv2d_bwd_dw_kernel(const float* __restrict__ x,
                              const float* __restrict__ g,
                              float* __restrict__ partial, const DwShape s,
                              const Knots kn) {
   constexpr int K = NK - ORDER - 1;
   constexpr int K1 = K + 1;
+  constexpr int ES = dw_channel_stride(K1);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
-  const int RS = s.rs;
-  const int R9 = K1 * s.CC;
+  const int RS = ES * s.CC;  // floats per expanded pixel
   __shared__ float knS[kMaxKnots];
-  float* Es = smem;                    // [P][RS]: expanded input rows
+  float* Es = smem;                    // [P][CC][ES]: expanded input
   float* Zs = Es + s.P * RS;           // [P][BN]: g gathered per column
   int* pixB = reinterpret_cast<int*>(Zs + s.P * s.BN);  // [P], -1: none
   int* pixH = pixB + s.P;
@@ -338,29 +359,32 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int HW = s.H * s.W;
 
   const int tid = threadIdx.x;
-  const int colGroups = s.BN / kDwTN;
-  const int halfBN = s.BN / 2;  // a thread's columns: two float4 runs
-  const int tn = tid % colGroups;
-  const int tr = tid / colGroups;
-  const bool active = tr * kDwTR < RS;
+  const int CG = s.CC * (s.BN / kDwTN);  // threads of one pixel slice
+  const int slice = tid / CG;
+  const int cl = (tid - slice * CG) % s.CC;
+  const int tn = (tid - slice * CG) / s.CC;
+  const bool active = slice < s.PW;
+  const int halfBN = s.BN / 2;
 
-  // the column this thread gathers for dZ (BN divides the block)
-  const int fn = tid % s.BN;
-  const int fp0 = tid / s.BN;
-  const int fpStep = kThreads / s.BN;
-  const int ng = n0 + fn;
+  // the gather: VW consecutive columns per load (a float4 of one tap's
+  // output channels when O % 4 == 0), column n0 + fq*VW, pixels fp0,
+  // fp0 + fpStep, ... (BN / VW <= threads: the C entry checks)
+  const int VW = s.O % 4 == 0 ? 4 : 1;
+  const int Q = s.BN / VW;
+  const int fpStep = s.threads / Q;
+  const int fq = tid % Q;
+  const int fp0 = tid < fpStep * Q ? tid / Q : s.P;
+  const int ng = n0 + fq * VW;
   const bool colOk = ng < TO;
   const int ftap = colOk ? ng / s.O : 0;
   const int fo = ng - ftap * s.O;
   const int fdi = ftap / k, fdj = ftap - (ftap / k) * k;
 
-  for (int idx = tid; idx < s.P * (RS - R9); idx += kThreads)
-    Es[(idx / (RS - R9)) * RS + R9 + idx % (RS - R9)] = 0.0f;
   if (tid < kMaxKnots) knS[tid] = kn.v[tid];
 
-  float acc[kDwTR][kDwTN];
+  float acc[K1][kDwTN];
 #pragma unroll
-  for (int i = 0; i < kDwTR; ++i)
+  for (int i = 0; i < K1; ++i)
 #pragma unroll
     for (int j = 0; j < kDwTN; ++j) acc[i][j] = 0.0f;
 
@@ -369,7 +393,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long long pixHi = (long long)bHi * HW;
   for (long long p0 = (long long)bLo * HW; p0 < pixHi; p0 += s.P) {
     __syncthreads();  // the previous chunk's readers are done
-    for (int p = tid; p < s.P; p += kThreads) {
+    for (int p = tid; p < s.P; p += s.threads) {
       const long long pg = p0 + p;
       if (pg < pixHi) {
         const int b = (int)(pg / HW);
@@ -382,11 +406,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     __syncthreads();
-    for (int idx = tid; idx < s.P * s.CC; idx += kThreads) {
+    for (int idx = tid; idx < s.P * s.CC; idx += s.threads) {
       const int p = idx / s.CC;
-      const int cl = idx - p * s.CC;
-      const int c = c0 + cl;
-      float* Ep = Es + p * RS + cl * K1;
+      const int c = c0 + idx - p * s.CC;
+      float* Ep = Es + idx * ES;  // pixel p, channel idx - p*CC
       if (pixB[p] >= 0 && c < s.C) {
         const float xv = __ldg(
             &x[(((size_t)pixB[p] * s.H + pixH[p]) * s.W + pixW[p]) * s.C + c]);
@@ -408,52 +431,84 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     for (int p = fp0; p < s.P; p += fpStep) {
-      float v = 0.0f;
       const int b = pixB[p];
-      if (b >= 0 && colOk) {
-        const int gi = pixH[p] + s.pad - fdi;
-        const int gj = pixW[p] + s.pad - fdj;
-        if (gi >= 0 && gi < s.Ho && gj >= 0 && gj < s.Wo)
-          v = __ldg(&g[(((size_t)b * s.Ho + gi) * s.Wo + gj) * s.O + fo]);
+      const int gi = pixH[p] + s.pad - fdi;
+      const int gj = pixW[p] + s.pad - fdj;
+      const bool ok = b >= 0 && colOk && gi >= 0 && gi < s.Ho && gj >= 0 &&
+                      gj < s.Wo;
+      const float* src =
+          g + (ok ? (((size_t)b * s.Ho + gi) * s.Wo + gj) * s.O + fo : 0);
+      if (VW == 4) {
+        *reinterpret_cast<float4*>(Zs + p * s.BN + fq * 4) =
+            ok ? __ldg(reinterpret_cast<const float4*>(src))
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else {
+        Zs[p * s.BN + fq] = ok ? __ldg(src) : 0.0f;
       }
-      Zs[p * s.BN + fn] = v;
     }
     __syncthreads();
     if (active) {
-      const float* Ep = Es + tr * kDwTR;
+      const float* Ep = Es + cl * ES;
       const float* Zp = Zs + tn * 4;
-#pragma unroll 4
-      for (int p = 0; p < s.P; ++p) {
-        const float4 ev = *reinterpret_cast<const float4*>(Ep + p * RS);
+#pragma unroll 2
+      for (int p = slice; p < s.P; p += s.PW) {
+        // the channel's K+1 values: float4s, then single floats
+        float e[K1];
+#pragma unroll
+        for (int v = 0; v < K1 / 4; ++v) {
+          const float4 ev = *reinterpret_cast<const float4*>(Ep + p * RS + 4 * v);
+          e[4 * v] = ev.x;
+          e[4 * v + 1] = ev.y;
+          e[4 * v + 2] = ev.z;
+          e[4 * v + 3] = ev.w;
+        }
+#pragma unroll
+        for (int kk = K1 / 4 * 4; kk < K1; ++kk) e[kk] = Ep[p * RS + kk];
         const float4 za = *reinterpret_cast<const float4*>(Zp + p * s.BN);
         const float4 zb =
             *reinterpret_cast<const float4*>(Zp + p * s.BN + halfBN);
-        const float e4[4] = {ev.x, ev.y, ev.z, ev.w};
         const float z8[8] = {za.x, za.y, za.z, za.w, zb.x, zb.y, zb.z, zb.w};
 #pragma unroll
-        for (int i = 0; i < kDwTR; ++i)
+        for (int i = 0; i < K1; ++i)
 #pragma unroll
           for (int j = 0; j < kDwTN; ++j)
-            acc[i][j] = fmaf(e4[i], z8[j], acc[i][j]);
+            acc[i][j] = fmaf(e[i], z8[j], acc[i][j]);
       }
     }
   }
 
-  if (!active) return;
+  if (s.PW > 1) {  // slices 1..PW-1 hand their tiles to slice 0
+    __syncthreads();  // the last chunk's readers are done
+    float* Red = smem;  // [PW - 1][K1 * 8][CG]
+    const int lt = tid - slice * CG;
+    if (active && slice > 0) {
+#pragma unroll
+      for (int i = 0; i < K1; ++i)
+#pragma unroll
+        for (int j = 0; j < kDwTN; ++j)
+          Red[(((slice - 1) * K1 + i) * kDwTN + j) * CG + lt] = acc[i][j];
+    }
+    __syncthreads();
+    if (slice == 0) {
+      for (int sl = 1; sl < s.PW; ++sl)
+#pragma unroll
+        for (int i = 0; i < K1; ++i)
+#pragma unroll
+          for (int j = 0; j < kDwTN; ++j)
+            acc[i][j] += Red[(((sl - 1) * K1 + i) * kDwTN + j) * CG + lt];
+    }
+  }
+
+  const int c = c0 + cl;
+  if (slice != 0 || c >= s.C) return;
   const size_t D = (size_t)K1 * s.C;
 #pragma unroll
-  for (int i = 0; i < kDwTR; ++i) {
-    const int r = tr * kDwTR + i;  // shared-memory row cl*(K+1) + kk
-    if (r >= R9) continue;
-    const int cl = r / K1;
-    const int kk = r - cl * K1;
-    const int c = c0 + cl;
-    if (c >= s.C) continue;
+  for (int kk = 0; kk < K1; ++kk) {
     float* dst = partial + ((size_t)split * D + (size_t)kk * s.C + c) * TO;
 #pragma unroll
     for (int j = 0; j < kDwTN; ++j) {
       const int n = n0 + (j < 4 ? 0 : halfBN) + tn * 4 + (j & 3);
-      if (n < TO) dst[n] = acc[i][j];
+      if (n < TO) dst[n] = acc[kk][j];
     }
   }
 }
@@ -489,9 +544,15 @@ size_t dx_smem(const DxShape& s, int K1) {
          sizeof(int) * (size_t)K1 * s.CC;
 }
 
-size_t dw_smem(const DwShape& s) {
-  return sizeof(float) * (size_t)s.P * (s.rs + s.BN) +
-         3 * sizeof(int) * (size_t)s.P;
+// the staged chunk (expanded input, gathered g, pixel table), or the
+// slices' tiles handed to slice 0 at the end, whichever is larger
+size_t dw_smem(const DwShape& s, int K1) {
+  const size_t staged =
+      sizeof(float) * (size_t)s.P * (dw_channel_stride(K1) * s.CC + s.BN) +
+      3 * sizeof(int) * (size_t)s.P;
+  const size_t slices =
+      sizeof(float) * (size_t)(s.PW - 1) * K1 * s.CC * s.BN;
+  return staged > slices ? staged : slices;
 }
 
 template <int NK, int ORDER, int ACT>
@@ -515,12 +576,12 @@ cudaError_t launch_dw(const float* x, const float* g, float* partial,
                       const DwShape& s, const Knots& kn, cudaStream_t stream) {
   auto kernel = kan_conv2d_bwd_dw_kernel<NK, ORDER, ACT>;
   static size_t granted = 48 * 1024;
-  const size_t smem = dw_smem(s);
+  const size_t smem = dw_smem(s, NK - ORDER);
   const cudaError_t err = grant_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.C + s.CC - 1) / s.CC,
                   (s.k * s.k * s.O + s.BN - 1) / s.BN, s.S);
-  kernel<<<grid, kThreads, smem, stream>>>(x, g, partial, s, kn);
+  kernel<<<grid, s.threads, smem, stream>>>(x, g, partial, s, kn);
   return cudaGetLastError();
 }
 
@@ -567,24 +628,29 @@ int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
 }
 
 // Weight-gradient partial sums (S, (K+1)*C, k*k*O): split s sums images
-// [s*ips, min(B, s*ips + ips)).  The wrapper chooses CC/BN/P/S/ips
-// (dw_launch_config).
+// [s*ips, min(B, s*ips + ips)).  The wrapper chooses CC/BN/P/S/ips/PW
+// (dw_launch_config); g must be 16-byte aligned when O % 4 == 0.
 int kan_conv2d_bwd_dw(const void* x, const void* g, void* partial, int B,
                       int H, int W, int C, int O, int k, int pad, int CC,
-                      int BN, int P, int S, int ips, const float* knots,
-                      int n_knots, int order, int act, void* stream) {
+                      int BN, int P, int S, int ips, int PW,
+                      const float* knots, int n_knots, int order, int act,
+                      void* stream) {
   DwShape s;
   s.B = B; s.H = H; s.W = W; s.C = C; s.O = O; s.k = k; s.pad = pad;
   s.Ho = H + 2 * pad - k + 1;
   s.Wo = W + 2 * pad - k + 1;
-  s.CC = CC; s.BN = BN; s.P = P; s.S = S; s.ips = ips;
+  s.CC = CC; s.BN = BN; s.P = P; s.S = S; s.ips = ips; s.PW = PW;
   const int K1 = n_knots - order;
-  s.rs = (K1 * CC + 3) / 4 * 4;
+  const long long slots = (long long)PW * CC * (BN / kDwTN);
+  s.threads = (int)((slots + 31) / 32 * 32);
+  const bool vec = O % 4 == 0;
   Knots kn;
-  if (CC <= 0 || BN < kDwTN || BN % kDwTN != 0 || kThreads % BN != 0 ||
-      (s.rs / kDwTR) * (BN / kDwTN) > kThreads || P <= 0 || S <= 0 ||
-      ips <= 0 || s.Ho <= 0 || s.Wo <= 0 || (act != 0 && act != 1) ||
-      !load_knots(knots, n_knots, &kn) || dw_smem(s) > 227 * 1024)
+  if (CC <= 0 || BN < kDwTN || BN % kDwTN != 0 || PW <= 0 ||
+      slots > kDwMaxThreads || BN / (vec ? 4 : 1) > s.threads || P <= 0 ||
+      S <= 0 || ips <= 0 || s.Ho <= 0 || s.Wo <= 0 ||
+      (act != 0 && act != 1) ||
+      (vec && reinterpret_cast<size_t>(g) % 16 != 0) ||
+      !load_knots(knots, n_knots, &kn) || dw_smem(s, K1) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
   const float* gp = static_cast<const float*>(g);

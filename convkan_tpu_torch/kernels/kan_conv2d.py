@@ -48,9 +48,13 @@ SMEM_TWO_BLOCKS = 112 * 1024     # ... with two blocks on an SM
 # data-gradient tile: 32 pixel slots x 4 pixels per thread, one channel per
 # thread (at most 8), output channels staged 16 at a time
 DX_PIXELS, DX_MAX_CC, DX_OC = 128, 8, 16
-# weight-gradient tile: 4x8 sums per thread, 64 pixels per chunk; the batch
-# is split so that about DW_TARGET_BLOCKS blocks (4 per SM) are in flight
-DW_TR, DW_TN, DW_P, DW_TARGET_BLOCKS = 4, 8, 64, 4 * 132
+# weight-gradient tile: a thread sums one channel's K+1 expanded rows x
+# DW_TN columns, a block CC <= DW_MAX_CC channels x BN columns in at most
+# DW_THREADS threads, over chunks of DW_P pixels; the batch is split so that
+# the grid stays within DW_TARGET_BLOCKS (6 per SM: whole waves whether 2 or
+# 3 blocks fit on an SM)
+DW_THREADS, DW_TN, DW_MAX_CC, DW_P = 256, 8, 8, 64
+DW_TARGET_BLOCKS = 6 * 132
 
 # the forward tile's entries of launch_config, in the C entry's order
 FWD_TILE = ("BN", "skip", "TH", "TW", "NB", "NG", "CC", "S")
@@ -270,27 +274,59 @@ def dx_launch_config(B, H, W, C, O, k, pad, K) -> dict:
                               "memory")
 
 
+def dw_smem(K1: int, CC: int, BN: int, PW: int) -> int:
+    """Dynamic shared memory of a weight-gradient block (mirrors dw_smem in
+    the C source): the staged chunk (CC channels' K+1 values rounded up to
+    float4s, BN gathered columns and a 3-int pixel table per pixel), or the
+    PW - 1 slices' tiles handed to slice 0, whichever is larger."""
+    staged = 4 * DW_P * (-(-K1 // 4) * 4 * CC + BN) + 12 * DW_P
+    return max(staged, 4 * (PW - 1) * K1 * CC * BN)
+
+
 def dw_launch_config(B, H, W, C, O, k, pad, K) -> dict:
-    """Block tile and batch split for the weight-gradient kernel: CC
-    channels ((K+1)*CC rows, padded to whole float4s as ``rs``), BN of the
-    k*k*O columns, P pixels per chunk, S splits of ``ips`` images.  S
+    """Block tile and batch split for the weight-gradient kernel: CC whole
+    channels (the (K+1)*CC rows, C cut into near-equal chunks of at most
+    DW_MAX_CC), BN of the k*k*O columns, PW pixel slices, P pixels per
+    chunk, S splits of ``ips`` images.  BN is a multiple of DW_TN, as wide
+    as DW_THREADS threads cover (every column tile recomputes the basis),
+    cut so that it divides k*k*O when that costs at most one more tile (no
+    padded column); PW copies of the CC x BN/DW_TN thread tile fill the
+    block.  Shared memory stays within two blocks per SM where it can.  S
+    is the largest split count whose grid stays within DW_TARGET_BLOCKS; it
     depends on the shape only, so a shape always gets the same partial
-    sums and the same reduction order."""
-    K1 = K + 1
-    rows_max = DW_TR * (THREADS // (128 // DW_TN))  # row groups at BN = 128
-    if K1 > rows_max:
-        raise NotImplementedError(f"{K1} basis rows per channel > {rows_max}")
-    chunks = -(-C // (rows_max // K1))
+    sums and the same reduction order.  Returns the kernel's arguments and,
+    for the tests, ``threads``, ``tiles`` (blocks per split), ``blocks``
+    and ``smem``."""
+    K1, TO = K + 1, k * k * O
+    chunks = -(-C // DW_MAX_CC)
     CC = -(-C // chunks)
-    rs = -(-K1 * CC // 4) * 4
-    # the widest column tile the block's threads cover: every column tile
-    # recomputes the basis
-    BN = 256 if (rs // DW_TR) * (256 // DW_TN) <= THREADS else 128
-    tiles = chunks * -(-k * k * O // BN)
-    S = min(B, max(1, -(-DW_TARGET_BLOCKS // tiles)))
-    ips = -(-B // S)
-    return {"CC": CC, "BN": BN, "P": DW_P, "S": -(-B // ips), "ips": ips,
-            "rs": rs}
+    vw = 4 if O % 4 == 0 else 1      # columns per gathered load
+    for budget in (SMEM_TWO_BLOCKS, SMEM_LIMIT):
+        # column groups that the threads and the staged chunk allow
+        groups = min(DW_THREADS // CC,
+                     (budget // (4 * DW_P) - 3 - -(-K1 // 4) * 4 * CC)
+                     // DW_TN)
+        if groups < 1:
+            continue
+        # t column tiles, from the fewest those groups cover
+        for t in range(-(-TO // (DW_TN * groups)), -(-TO // DW_TN) + 1):
+            exact = [u for u in (t, t + 1) if TO % (DW_TN * u) == 0]
+            BN = TO // exact[0] if exact else DW_TN * -(-TO // (DW_TN * t))
+            PW = DW_THREADS // (CC * (BN // DW_TN))
+            while PW > 1 and dw_smem(K1, CC, BN, PW) > budget:
+                PW -= 1
+            threads = 32 * -(-PW * CC * (BN // DW_TN) // 32)
+            smem = dw_smem(K1, CC, BN, PW)
+            if smem <= budget and BN // vw <= threads:
+                tiles = chunks * -(-TO // BN)
+                S = min(B, max(1, DW_TARGET_BLOCKS // tiles))
+                ips = -(-B // S)
+                S = -(-B // ips)
+                return {"CC": CC, "BN": BN, "P": DW_P, "S": S, "ips": ips,
+                        "PW": PW, "threads": threads, "tiles": tiles,
+                        "blocks": tiles * S, "smem": smem}
+    raise NotImplementedError("weight-gradient tile does not fit in shared "
+                              "memory")
 
 
 def check_inputs(x, base_w, poly_w, knots, order, k, pad, act, *,
@@ -350,9 +386,9 @@ _ARGTYPES = {
     # act; stream
     "kan_conv2d_bwd_dx": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    # x, g, partial; B H W C O k pad CC BN P S ips; knots; n_knots order
-    # act; stream
-    "kan_conv2d_bwd_dw": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+    # x, g, partial; B H W C O k pad CC BN P S ips PW; knots; n_knots
+    # order act; stream
+    "kan_conv2d_bwd_dw": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     # partial, out; S N; stream
     "kan_conv2d_bwd_dw_reduce": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
@@ -470,11 +506,13 @@ def weight_partials(x, g, knots, order: int, k: int, pad: int, act: str):
         raise NotImplementedError(f"{desc}: partial sums too large")
     partial = torch.empty((cfg["S"], (K + 1) * C, k * k * O),
                           dtype=torch.float32, device=x.device)
+    if g.data_ptr() % 16:   # the kernel loads g as float4s
+        g = g.clone()
     kn, kn_ptr = _knots_arg(knots)
     _launch("kan_conv2d_bwd_dw",
             (x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C, O, k,
-             pad, cfg["CC"], cfg["BN"], cfg["P"], cfg["S"], cfg["ips"], kn_ptr,
-             len(kn), order, ACTS[act], _stream(x)), desc)
+             pad, cfg["CC"], cfg["BN"], cfg["P"], cfg["S"], cfg["ips"],
+             cfg["PW"], kn_ptr, len(kn), order, ACTS[act], _stream(x)), desc)
     return partial
 
 

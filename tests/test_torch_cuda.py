@@ -97,6 +97,8 @@ def _bwd_inputs(B, H, C, O, seed):
     (4, 32, 3, 16, "silu"), (3, 8, 32, 64, "silu"), (5, 2, 128, 128, "silu"),
     (2, 5, 6, 9, "gelu"),      # ragged: O not a multiple of 4, odd H
     (3, 7, 13, 5, "silu"),     # ragged channel chunks
+    (16, 8, 16, 48, "silu"),   # 216-column weight-gradient tiles
+    (8, 16, 13, 32, "silu"),   # C not a multiple of the channel chunk
 ])
 def test_cuda_backward_matches_plain_version(B, H, C, O, act):
     """dx, d base_w and d poly_w of the CUDA path against autograd of the
@@ -122,6 +124,44 @@ def test_cuda_backward_matches_plain_version(B, H, C, O, act):
     for name, a, b in zip(("dx", "dbase_w", "dpoly_w"), got, ref):
         torch.testing.assert_close(a, b.float(), rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,O", [
+    (1023, 8, 32, 64),     # B not a multiple of the split's images
+    (1024, 2, 128, 128),   # the 2x2 layer at the real batch
+])
+def test_cuda_backward_matches_plain_version_at_full_batch(B, H, C, O):
+    """The weight-gradient partials and the autograd path's gradients at
+    batch 1023-1024 against float64 autograd of the plain version.  A dW
+    entry sums up to B*H*W = 65,472 float32 products, so it is held as
+    chip_smoke.py's phase 6 holds it (see _within: 1e-4 of the largest
+    entry + 1e-4 relative)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.device import set_full_f32
+
+    set_full_f32()
+    x, bw, pw, g = _bwd_inputs(B, H, C, O, seed=B + C)
+    spec = (KNOTS, 3, 3, 1, "silu")
+    cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, 8)
+    assert cfg["S"] > 1
+    ok, err = _within(kc.weight_partials(x, g, *spec),
+                      kc.weight_partials_reference(
+                          x.double(), g.double(), *spec, cfg["S"],
+                          cfg["ips"]))
+    assert ok, f"dW partials: max |diff| {err}"
+    leaves = [t.clone().requires_grad_(True) for t in (x, bw, pw)]
+    kc.reset_launches()
+    got = torch.autograd.grad(kc.kan_conv2d(*leaves, *spec), leaves, g)
+    torch.cuda.synchronize()
+    assert kc.launches == dict.fromkeys(kc.KERNELS, 1)
+    ref_leaves = [t.double().requires_grad_(True) for t in (x, bw, pw)]
+    ref = torch.autograd.grad(kc.kan_conv2d_reference(*ref_leaves, *spec),
+                              ref_leaves, g.double())
+    for name, a, b in zip(("dx", "dbase_w", "dpoly_w"), got, ref):
+        ok, err = _within(a, b)
+        assert ok, f"{name}: max |diff| {err}"
 
 
 @pytest.mark.cuda
