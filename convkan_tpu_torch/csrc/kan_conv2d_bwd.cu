@@ -56,8 +56,8 @@
 //     that fills at most half of 256 (few channels, as in the first conv:
 //     3 x 18 threads), PW = 256 / (CC*BN/8) copies of it split each chunk's
 //     pixels and are summed in shared memory in slice order at the end (one
-//     launch, a fixed order).  dZ is gathered one float4 (one tap, 4 output channels)
-//     per load when O % 4 == 0.
+//     launch, a fixed order).  dZ is gathered one float4 (one tap, 4 output
+//     channels) per load when O % 4 == 0.
 // Later work, in order: a haloed g tile per chunk shared by the taps and
 // double-buffered with cp.async; skipping pad pairs; fusing the dW
 // reduction; tensor cores (3xTF32 wgmma); only the ORDER+1 non-zero basis
@@ -456,7 +456,8 @@ __global__ void __launch_bounds__(kDwMaxThreads, 2)
         float e[K1];
 #pragma unroll
         for (int v = 0; v < K1 / 4; ++v) {
-          const float4 ev = *reinterpret_cast<const float4*>(Ep + p * RS + 4 * v);
+          const float4 ev =
+              *reinterpret_cast<const float4*>(Ep + p * RS + 4 * v);
           e[4 * v] = ev.x;
           e[4 * v + 1] = ev.y;
           e[4 * v + 2] = ev.z;

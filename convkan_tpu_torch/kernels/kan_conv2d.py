@@ -51,8 +51,8 @@ DX_PIXELS, DX_MAX_CC, DX_OC = 128, 8, 16
 # weight-gradient tile: a thread sums one channel's K+1 expanded rows x
 # DW_TN columns, a block CC <= DW_MAX_CC channels x BN columns in at most
 # DW_THREADS threads, over chunks of DW_P pixels; the batch is split so that
-# the grid stays within DW_TARGET_BLOCKS (6 per SM: whole waves whether 2 or
-# 3 blocks fit on an SM)
+# the grid stays within DW_TARGET_BLOCKS (6 per SM: close to whole waves
+# whether 2 or 3 blocks fit on an SM)
 DW_THREADS, DW_TN, DW_MAX_CC, DW_P = 256, 8, 8, 64
 DW_TARGET_BLOCKS = 6 * 132
 
@@ -302,7 +302,9 @@ def dw_launch_config(B, H, W, C, O, k, pad, K) -> dict:
     CC = -(-C // chunks)
     vw = 4 if O % 4 == 0 else 1      # columns per gathered load
     for budget in (SMEM_TWO_BLOCKS, SMEM_LIMIT):
-        # column groups that the threads and the staged chunk allow
+        # column groups that the threads and the staged chunk allow: a
+        # staged pixel takes 3 ints of pixel table, CC channels' values and
+        # BN gathered columns
         groups = min(DW_THREADS // CC,
                      (budget // (4 * DW_P) - 3 - -(-K1 // 4) * 4 * CC)
                      // DW_TN)
