@@ -29,10 +29,13 @@ Phases (the first failed check exits non-zero):
   6. backward kernels vs their plain versions on the card, at the 9
      VGG16_small conv shapes (batch 64), ragged shapes (C = 13 with O = 5,
      O = 48, batch 1023) and the 2x2 layer at batch 1024, and a GELU case;
-     each case prints its weight-gradient tile:
-     each kernel wrapper (data gradient, weight-gradient partials, their
-     reduction) and the autograd path's dx, d base_w, d poly_w, against
-     float64 autograd of the plain version (tolerance at BWD_TOL);
+     each case prints its weight-gradient tile and its reduction's launch
+     (VW, Gw, Gc, blocks): each kernel wrapper (data gradient,
+     weight-gradient partials, their reduction) and the autograd path's
+     dx, d base_w, d poly_w, against float64 autograd of the plain version
+     (tolerance at BWD_TOL); the reduction bit-exact against its plain
+     version in the kernel's grouped order, and the reduced dW against
+     float64 (BWD_TOL);
   7. training, the main path: launch counts are zeroed, three train steps
      of VGG16_small (batch 16, dropout 0.5 at the head) run on the GPU and
      on the CPU from one state_dict with the same crop offsets, flips and
@@ -47,7 +50,9 @@ Phases (the first failed check exits non-zero):
      the port never calls) and the bound; for the weight gradient also its
      tile (CC, BN, PW, threads, S, blocks), the multiply-adds it issues
      over the interior pairs the bound counts, the dense bound and the
-     share of the bound it reaches.
+     share of the bound it reaches; for the reduction its launch, its time
+     beside sum(0)'s, the bound and the share (and the 13-conv totals of
+     both by the earlier, unpreloaded timer, for the record).
 WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
   9. forward kernel vs its plain version (rtol = atol = TOL): the 9
      VGG16_small shapes at batch 64, all 5 wavelets at one shape, batch 1,
@@ -56,7 +61,8 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
      moved off their 0 / 1 init;
  10. backward kernels (data gradient, parameter partials, reduction) and
      the autograd path's dx, dw, dt, ds against float64 autograd of the
-     plain version (BWD_TOL; the reduction bit-exact);
+     plain version (BWD_TOL; the reduction bit-exact against its grouped
+     plain version, the reduced dw/dt/ds against float64 at BWD_TOL);
  11. the WavKAN VGG16_small (head on the last 2x2 map, see WAV_MODEL):
      logits on the GPU vs the CPU (MODEL_TOL), 13 forward launches;
  12. serving, the main path, as phase 4 with the WavKAN model (served
@@ -71,7 +77,11 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
  14. times: predict and the train step at batch 1024 (images/s) and, per
      conv shape at batch 1024, each WavKAN kernel, its plain version, one
      cuDNN grouped convolution (forward, or convolution_backward) over a
-     materialized psi (a yardstick the port never calls) and the bound.
+     materialized psi (a yardstick the port never calls) and the bound;
+     the reduction as in phase 8, and an empty kernel's time (the launch
+     floor).
+Every time is device time from CUDA events in a preloaded queue (cuda_ms:
+a sleep kernel holds the card until the host has issued all timed calls).
 
 Prints a {"kernels": [...]} line, then the contract line
 {"ok": true, "device": {...}} last.
@@ -80,6 +90,7 @@ Prints a {"kernels": [...]} line, then the contract line
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import statistics
 import subprocess
@@ -107,6 +118,10 @@ BWD_REPLACES = "convkan_tpu/kernels/wide_kan_conv.py:344"
 # the weight-gradient tile's entries of dw_launch_config that phases 6 and 8
 # print
 DW_TILE = ("CC", "BN", "PW", "threads", "S", "blocks")
+# the ordered reduction's launch (reduce_launch_config) that phases 6, 8, 10
+# and 14 print
+RED_TILE = ("VW", "Gw", "Gc", "blocks")
+RED_SOURCE = "convkan_tpu_torch/csrc/ordered_sum.cuh"
 # backward kernels vs float64 autograd of the plain version: a dW entry sums
 # up to B*H*W = 65,536 float32 products at batch 64 (dx: k*k*(K+1)*O <=
 # 10,368) in another order, an error of ~sqrt(n) * 2^-24 of the sum of
@@ -149,18 +164,53 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, by CUDA events over `iters` calls."""
-    for _ in range(warmup):
-        fn()
+@functools.cache
+def sleep_cycles_per_ms() -> float:
+    """SM clock cycles per ms of torch.cuda._sleep on this card (measured
+    once, by events around a 20M-cycle sleep)."""
     start, end = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    torch.cuda._sleep(20_000_000)
     end.record()
     torch.cuda.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            preload: bool = True) -> float:
+    """Mean device time of fn() in ms, by CUDA events around `iters` calls.
+    With ``preload`` a sleep kernel enqueued before the start event holds
+    the card until the host has issued every call, so the events read
+    device time only, not the rate at which the host issues calls (a
+    wrapper, torch.empty and a ctypes launch can take longer on the host
+    than a small kernel on the card).  The sleep lasts twice the host's
+    issue time of the calls plus 1 ms; if the host still took longer, the
+    sleep is lengthened (up to 1 s) and the run repeated (up to 3
+    times).  Without
+    ``preload``: the earlier method, events around the host's loop."""
+    for _ in range(warmup):
+        t0 = time.perf_counter()
+        fn()
+        per_call = time.perf_counter() - t0   # the last one: warm
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    for _ in range(4 if preload else 1):
+        sleep_ms = min(2e3 * iters * per_call + 1.0, 1000.0)
+        torch.cuda.synchronize()
+        if preload:
+            torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        issued_ms = 1e3 * (time.perf_counter() - t0)
+        end.record()
+        torch.cuda.synchronize()
+        if issued_ms < sleep_ms:
+            break
+        per_call = issued_ms / 1e3 / iters
     return start.elapsed_time(end) / iters
 
 
@@ -191,6 +241,12 @@ def dw_tile(cfg) -> str:
     return ", ".join(f"{key} {cfg[key]}" for key in DW_TILE)
 
 
+def red_tile(cfg) -> str:
+    """The ordered reduction's launch: float4 or float columns, thread rows,
+    cluster ranks, blocks."""
+    return ", ".join(f"{key} {cfg[key]}" for key in RED_TILE)
+
+
 def phase_backward(kc, knots, gen, dev):
     """6. each backward kernel and the autograd path against float64
     autograd of the plain version on the card; returns max |err| per
@@ -205,6 +261,10 @@ def phase_backward(kc, knots, gen, dev):
               (64, 16, 13, 32, "silu"), (1024, 2, 128, 128, "silu")]
     errs = {"kan_conv2d_bwd_dx": 0.0, "kan_conv2d_bwd_dw": 0.0,
             "kan_conv2d_bwd_dw_reduce": 0.0}
+    # the reduced dW against float64 (BWD_TOL, the grouped order's
+    # rounding included) beside the bit-exact check against the plain
+    # version in the kernel's order
+    red64 = 0.0
     for B, H, C, O, act in cases:
         x, bw, pw = conv_inputs(gen, B, H, C, O)
         g = torch.randn(B, H, H, O, generator=gen)
@@ -221,16 +281,22 @@ def phase_backward(kc, knots, gen, dev):
         e_dw, ok_dw = bwd_close(part, kc.weight_partials_reference(
             x.double(), g.double(), *spec, cfg["S"], cfg["ips"]))
         e_red = (dw - kc.reduce_reference(part)).abs().max().item()
+        e64, ok64 = bwd_close(dw, kc.weight_grad_reference(
+            x.double(), g.double(), *spec))
+        red64 = max(red64, e64)
+        rcfg = kc.reduce_launch_config(part.shape[0], part[0].numel())
         leaves = [t.clone().requires_grad_(True) for t in (x, bw, pw)]
         got = torch.autograd.grad(kc.kan_conv2d(*leaves, *spec), leaves, g)
         ref = [t.double().requires_grad_(True) for t in (x, bw, pw)]
         want = torch.autograd.grad(kc.kan_conv2d_reference(*ref, *spec), ref,
                                    g.double())
         auto = [bwd_close(a, b) for a, b in zip(got, want)]
-        ok = ok_dx and ok_dw and e_red == 0.0 and all(o for _, o in auto)
+        ok = ok_dx and ok_dw and e_red == 0.0 and ok64 and \
+            all(o for _, o in auto)
         print(f"[backward] B={B} {H}x{H} C={C} O={O} {act} (dW tile "
-              f"{dw_tile(cfg)}): "
-              f"dx {e_dx:.3e}, dW partials {e_dw:.3e}, reduce {e_red:.1e}; "
+              f"{dw_tile(cfg)}; reduce {red_tile(rcfg)}): "
+              f"dx {e_dx:.3e}, dW partials {e_dw:.3e}, reduce {e_red:.1e} "
+              f"(reduced dW vs float64 {e64:.3e}); "
               f"autograd dx/dbase_w/dpoly_w "
               f"{'/'.join(f'{e:.3e}' for e, _ in auto)} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -243,6 +309,8 @@ def phase_backward(kc, knots, gen, dev):
                          max(e_dw, auto[1][0], auto[2][0])),
                         ("kan_conv2d_bwd_dw_reduce", e_red)):
             errs[name] = max(errs[name], e)
+    print(f"[backward] reduced dW vs float64 autograd: max |err| "
+          f"{red64:.3e} (within BWD_TOL in every case)", flush=True)
     return errs
 
 
@@ -393,6 +461,7 @@ def phase_train_times(kc, knots, gen, dev, card):
     totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
                                 "byte_ms"), 0.0) for n in names}
     totals["kan_conv2d_bwd_dw"]["dense_bound_ms"] = 0.0
+    old_timer = {"ms": 0.0, "library_ms": 0.0}
     rows = []
     B, K = TIME_BATCH, 8
     for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
@@ -402,6 +471,7 @@ def phase_train_times(kc, knots, gen, dev, card):
         w_all = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O)
         cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, K)
         part = kc.weight_partials(x, g, *spec)
+        rcfg = kc.reduce_launch_config(part.shape[0], part[0].numel())
         ms = {
             "kan_conv2d_bwd_dx": (
                 cuda_ms(lambda: kc.input_grad(x, w_all, g, *spec)),
@@ -432,6 +502,12 @@ def phase_train_times(kc, knots, gen, dev, card):
                "kan_conv2d_bwd_dw": cuda_ms(lambda: conv_bwd(
                    [False, True, False]), iters=10),
                "kan_conv2d_bwd_dw_reduce": cuda_ms(lambda: part.sum(0))}
+        # the earlier timer (no preload) on the reduction and sum(0), for
+        # the record of the change of method
+        n = VGG16_SMALL_CONVS.count((H, C, O))
+        for key, fn in (("ms", lambda: kc.reduce_partials(part)),
+                        ("library_ms", lambda: part.sum(0))):
+            old_timer[key] += n * cuda_ms(fn, preload=False)
         del E, gn
         D, TO, S = (K + 1) * C, 9 * O, cfg["S"]
         flops = 2 * B * interior_pairs(H) * D * O
@@ -442,7 +518,6 @@ def phase_train_times(kc, knots, gen, dev, card):
                                               + S * D * TO)),
             "kan_conv2d_bwd_dw_reduce": (S * D * TO, 4 * (S + 1) * D * TO),
         }
-        n = VGG16_SMALL_CONVS.count((H, C, O))
         row = {"H": H, "C": C, "O": O, "batch": B, "layers": n, "S": S}
         for name in names:
             layers = n - 1 if name == "kan_conv2d_bwd_dx" and \
@@ -475,6 +550,13 @@ def phase_train_times(kc, knots, gen, dev, card):
             "tflops_issued": round(2 * issued / ms["kan_conv2d_bwd_dw"][0]
                                   / 1e9, 2)})
         totals["kan_conv2d_bwd_dw"]["dense_bound_ms"] += n * dense_ms
+        red_row = row["kan_conv2d_bwd_dw_reduce"]
+        red_row.update({
+            "config": {key: rcfg[key] for key in RED_TILE},
+            "bound_share": round(red_row["bound_ms"] / ms[
+                "kan_conv2d_bwd_dw_reduce"][0], 4),
+            "vs_sum": round(ms["kan_conv2d_bwd_dw_reduce"][0]
+                            / lib["kan_conv2d_bwd_dw_reduce"], 4)})
         rows.append(row)
         print(f"[time] {json.dumps(row)}", flush=True)
     for name in names:
@@ -487,6 +569,13 @@ def phase_train_times(kc, knots, gen, dev, card):
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms"
               f"{dense}, {100 * t['bound_ms'] / t['ms']:.1f}% of the bound "
               f"(on {card})", flush=True)
+    print(f"[time] kan_conv2d_bwd_dw_reduce per train step, earlier timer "
+          f"(events around the host's loop, no preload): kernel "
+          f"{old_timer['ms']:.3f} ms, sum(0) {old_timer['library_ms']:.3f} "
+          f"ms; preloaded (device time): kernel "
+          f"{totals['kan_conv2d_bwd_dw_reduce']['ms']:.3f} ms, sum(0) "
+          f"{totals['kan_conv2d_bwd_dw_reduce']['library_ms']:.3f} ms",
+          flush=True)
     return ips, totals, rows
 
 
@@ -675,6 +764,7 @@ def phase_wav_backward(wc, gen, dev):
     cases += [(3, 7, 5, 13, 5, "mexican_hat")]
     cases += [(8, 8, 8, 16, 32, w) for w in WAVELETS[1:]]
     errs = dict.fromkeys(wc.KERNELS[1:], 0.0)
+    red64 = 0.0   # the reduced gradients against float64, as in phase 6
     for B, H, W, C, O, wt in cases:
         x, w, t, s = (a.to(dev) for a in wav_inputs(gen, B, H, W, C, O))
         g = torch.randn(B, H, W, O, generator=gen).to(dev)
@@ -692,6 +782,9 @@ def phase_wav_backward(wc, gen, dev):
         e_p, ok_p = bwd_close(part, wc.param_partials_reference(
             *d64, *spec, cfg["S"], cfg["ips"]))
         e_red = (red - wc.reduce_reference(part)).abs().max().item()
+        e64, ok64 = bwd_close(red, wc.param_grads_reference(*d64, *spec))
+        red64 = max(red64, e64)
+        rcfg = wc.reduce_launch_config(*part.shape)
         leaves = [a.clone().requires_grad_(True) for a in (x, w, t, s)]
         got = torch.autograd.grad(wc.wav_conv2d(
             *leaves, wavelet_type=wt, padding=1), leaves, g)
@@ -699,10 +792,12 @@ def phase_wav_backward(wc, gen, dev):
         want = torch.autograd.grad(wc.wav_conv2d_reference(
             *ref, wavelet_type=wt, padding=1), ref, g.double())
         auto = [bwd_close(a, b) for a, b in zip(got, want)]
-        ok = ok_dx and ok_p and e_red == 0.0 and all(o for _, o in auto)
+        ok = ok_dx and ok_p and e_red == 0.0 and ok64 and \
+            all(o for _, o in auto)
         print(f"[wav backward] B={B} {H}x{W} C={C} O={O} {wt} "
-              f"S={cfg['S']}: dx {e_dx:.3e}, param partials {e_p:.3e}, "
-              f"reduce {e_red:.1e}; autograd dx/dw/dt/ds "
+              f"S={cfg['S']} (reduce {red_tile(rcfg)}): dx {e_dx:.3e}, "
+              f"param partials {e_p:.3e}, reduce {e_red:.1e} (reduced vs "
+              f"float64 {e64:.3e}); autograd dx/dw/dt/ds "
               f"{'/'.join(f'{e:.3e}' for e, _ in auto)} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         for a in (dx, part, *got):
@@ -714,6 +809,8 @@ def phase_wav_backward(wc, gen, dev):
                          max(e_p, *(a for a, _ in auto[1:]))),
                         ("wav_conv2d_bwd_reduce", e_red)):
             errs[name] = max(errs[name], e)
+    print(f"[wav backward] reduced dw/dt/ds vs float64 autograd: max |err| "
+          f"{red64:.3e} (within BWD_TOL in every case)", flush=True)
     return errs
 
 
@@ -744,6 +841,7 @@ def phase_wav_times(wc, gen, dev, card):
     F = torch.nn.functional
     totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
                                 "byte_ms"), 0.0) for n in wc.KERNELS}
+    old_timer = {"ms": 0.0, "library_ms": 0.0}
     rows = []
     B, spec = TIME_BATCH, ("mexican_hat", 1)
     for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
@@ -751,6 +849,7 @@ def phase_wav_times(wc, gen, dev, card):
         g = torch.randn(B, H, H, O, generator=gen).to(dev)
         cfg = wc.param_launch_config(B, H, H, C, O, 3, 1)
         part = wc.param_partials(x, w, t, s, g, *spec)
+        rcfg = wc.reduce_launch_config(*part.shape)
         ms = {
             "wav_conv2d_fwd": (
                 cuda_ms(lambda: wc.wav_conv2d(x, w, t, s,
@@ -795,6 +894,9 @@ def phase_wav_times(wc, gen, dev, card):
                "wav_conv2d_bwd_reduce": cuda_ms(lambda: part.sum(0))}
         del psi, gn
         n = VGG16_SMALL_CONVS.count((H, C, O))
+        for key, fn in (("ms", lambda: wc.reduce_partials(part)),
+                        ("library_ms", lambda: part.sum(0))):
+            old_timer[key] += n * cuda_ms(fn, preload=False)
         row = {"H": H, "C": C, "O": O, "batch": B, "layers": n,
                "S": cfg["S"]}
         for name in wc.KERNELS:
@@ -809,6 +911,13 @@ def phase_wav_times(wc, gen, dev, card):
                            ("library_ms", lib[name]), ("op_ms", op_ms),
                            ("byte_ms", byte_ms)):
                 totals[name][key] += layers * v
+        red_row = row["wav_conv2d_bwd_reduce"]
+        red_row.update({
+            "config": {key: rcfg[key] for key in RED_TILE},
+            "bound_share": round(red_row["bound_ms"] / ms[
+                "wav_conv2d_bwd_reduce"][0], 4),
+            "vs_sum": round(ms["wav_conv2d_bwd_reduce"][0]
+                            / lib["wav_conv2d_bwd_reduce"], 4)})
         rows.append(row)
         print(f"[wav time] {json.dumps(row)}", flush=True)
     for name in wc.KERNELS:
@@ -819,6 +928,20 @@ def phase_wav_times(wc, gen, dev, card):
               f"{t['plain_ms']:.3f} ms, cuDNN over materialized psi "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms (on "
               f"{card})", flush=True)
+    red = totals["wav_conv2d_bwd_reduce"]
+    print(f"[wav time] wav_conv2d_bwd_reduce per train step, earlier timer "
+          f"(events around the host's loop, no preload): kernel "
+          f"{old_timer['ms']:.3f} ms, sum(0) {old_timer['library_ms']:.3f} "
+          f"ms; preloaded (device time): kernel {red['ms']:.3f} ms, sum(0) "
+          f"{red['library_ms']:.3f} ms, {100 * red['bound_ms'] / red['ms']:.1f}"
+          f"% of the bound", flush=True)
+    # the launch floor: an empty kernel (a sleep of 0 cycles) in a
+    # preloaded queue, 13 of them as per step
+    empty = cuda_ms(lambda: torch.cuda._sleep(0), iters=100)
+    print(f"[wav time] empty kernel {1e3 * empty:.2f} us per launch, "
+          f"{13 * empty:.4f} ms for 13 launches (the reductions' floor; on "
+          f"{card})", flush=True)
+    totals["empty_kernel_ms"] = empty
     return totals, rows
 
 
@@ -1007,6 +1130,7 @@ def main():
     wav_ips = time_train_step("WavKAN", dev, card, **WAV_MODEL)
     wav_totals, wav_rows = phase_wav_times(wc, gen, dev, card)
     wav_step_ms = 1e3 * TIME_BATCH / wav_ips
+    empty_ms = wav_totals.pop("empty_kernel_ms")
     wav_kernel_ms = sum(t["ms"] for t in wav_totals.values())
     print(f"[wav time] train step {wav_step_ms:.3f} ms at batch {TIME_BATCH}:"
           f" psi-conv kernels {wav_kernel_ms:.3f} ms (forward "
@@ -1022,26 +1146,35 @@ def main():
         also_replaces=ALSO_REPLACES,
         dense_bound_ms=round(totals["dense_bound_ms"], 4),
         predict_images_per_s=round(predict_ips, 1))]
+    # the reductions' kernel lives in csrc/ordered_sum.cuh, built into each
+    # backward source's library behind its C entry
+    red_names = ("kan_conv2d_bwd_dw_reduce", "wav_conv2d_bwd_reduce")
     kernels += [kernel_entry(
-        name, "convkan_tpu_torch/csrc/" + kc.BWD_SOURCE, BWD_REPLACES,
+        name, RED_SOURCE if name in red_names
+        else "convkan_tpu_torch/csrc/" + kc.BWD_SOURCE, BWD_REPLACES,
         {"serve": 0, "train": train_counts[name]}, bwd_err[name], t,
         f"sum over the VGG16_small convs of one train step at batch "
         f"{TIME_BATCH}",
         [{k: r[k] for k in ("H", "C", "O", "S")} | r[name] for r in bwd_rows],
-        **{key: round(t[key], 4) for key in ("dense_bound_ms",) if key in t})
+        **{key: round(t[key], 4) for key in ("dense_bound_ms",) if key in t},
+        **({"entry_source": "convkan_tpu_torch/csrc/" + kc.BWD_SOURCE}
+           if name in red_names else {}))
         for name, t in bwd.items()]
     for name in wc.KERNELS:
         fwd = name == "wav_conv2d_fwd"
+        src = "convkan_tpu_torch/csrc/" + (wc.SOURCE if fwd else
+                                            wc.BWD_SOURCE)
+        extra = {"entry_source": src, "empty_kernel_ms_x13": round(
+            13 * empty_ms, 4)} if name in red_names else {}
         kernels.append(kernel_entry(
-            name, "convkan_tpu_torch/csrc/" + (wc.SOURCE if fwd
-                                                else wc.BWD_SOURCE),
+            name, RED_SOURCE if name in red_names else src,
             WAV_REPLACES if fwd else WAV_BWD_REPLACES,
             {"serve": wav_serve if fwd else 0, "train": wav_train[name]},
             wav_fwd_err if fwd else wav_bwd_err[name], wav_totals[name],
             f"sum over the 13 WavKAN VGG16_small convs of one "
             f"{'forward' if fwd else 'train step'} at batch {TIME_BATCH}",
             [{k: r[k] for k in ("H", "C", "O", "S")} | r[name]
-             for r in wav_rows]))
+             for r in wav_rows], **extra))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

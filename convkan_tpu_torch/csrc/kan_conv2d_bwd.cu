@@ -28,9 +28,13 @@
 //     memory); a block owns the (K+1)*CC rows of CC whole channels x a
 //     BN-column tile of dW and one of S contiguous batch splits, and
 //     writes its partial sum.
-//   * kan_conv2d_bwd_dw_reduce: dW = sum over the S partials, in split
-//     order.  With the fixed split and the fixed in-block order, two runs
-//     give bit-identical dW (no atomics anywhere).
+//   * kan_conv2d_bwd_dw_reduce: dW = sum over the S partials in a fixed
+//     order, the shared kernel of csrc/ordered_sum.cuh (a thread owns a
+//     float4 of columns; S is cut into leaves summed by the thread rows of a
+//     block and the ranks of a thread-block cluster where N is small,
+//     combined in row order, then rank order).  With the fixed split and
+//     the fixed orders, two runs give bit-identical dW (no atomics
+//     anywhere).
 //
 // What bounds it on the H100: arithmetic, as in the forward.  dx and dW each
 // cost 2 * (interior pixel, tap) pairs * (K+1)*C * O FLOPs, the forward's
@@ -60,8 +64,9 @@
 //     channels) per load when O % 4 == 0.
 // Later work, in order: a haloed g tile per chunk shared by the taps and
 // double-buffered with cp.async; skipping pad pairs; fusing the dW
-// reduction; tensor cores (3xTF32 wgmma); only the ORDER+1 non-zero basis
-// rows per value.
+// reduction into the weight kernel (once its own split is redesigned);
+// tensor cores (3xTF32 wgmma); only the ORDER+1 non-zero basis rows per
+// value.
 //
 // Numerics: the basis values come from kan_bspline.cuh, the forward's own
 // code (explicitly rounded float32 operations, true IEEE divides), so the E
@@ -76,6 +81,7 @@
 #include <stddef.h>
 
 #include "kan_bspline.cuh"
+#include "ordered_sum.cuh"
 
 namespace {
 
@@ -514,18 +520,6 @@ __global__ void __launch_bounds__(kDwMaxThreads, 2)
   }
 }
 
-// dW[i] = partial[0][i] + partial[1][i] + ... in split order
-__global__ void __launch_bounds__(kThreads)
-    kan_conv2d_bwd_dw_reduce_kernel(const float* __restrict__ partial,
-                                    float* __restrict__ out, int S, int N) {
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < N;
-       i += gridDim.x * kThreads) {
-    float acc = partial[i];
-    for (int sp = 1; sp < S; ++sp) acc += partial[(size_t)sp * N + i];
-    out[i] = acc;
-  }
-}
-
 template <typename Kernel>
 cudaError_t grant_smem(Kernel kernel, size_t smem, size_t* granted) {
   // raise the dynamic shared-memory cap once per instantiation, as needed
@@ -664,15 +658,12 @@ int kan_conv2d_bwd_dw(const void* x, const void* g, void* partial, int B,
   return (int)cudaErrorInvalidValue;
 }
 
-// out[i] = sum over s of partial[s][i], s ascending, for i < N.
+// dW = the (S, N) partials summed over S in the fixed order of
+// csrc/ordered_sum.cuh; VW, Gw and Gc from reduce_launch_config.
 int kan_conv2d_bwd_dw_reduce(const void* partial, void* out, int S, int N,
-                             void* stream) {
-  if (S <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (N + kThreads - 1) / kThreads;
-  kan_conv2d_bwd_dw_reduce_kernel<<<blocks < 4096 ? blocks : 4096, kThreads,
-                                    0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), S, N);
-  return (int)cudaGetLastError();
+                             int VW, int Gw, int Gc, void* stream) {
+  return (int)ordered_sum::launch(partial, out, S, N, VW, Gw, Gc,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -26,9 +26,12 @@
 //     one exp per pixel gives psi and psi', which feed 9 FMAs into dw, 9
 //     into G, and the dt / ds sums.  dt and ds live here, not in the data
 //     gradient, so that skipping dx (the first conv) never drops them.
-//   * wav_conv2d_bwd_reduce: the partials summed over the splits in split
-//     order.  With the fixed split and the fixed in-block order, two runs
-//     give bit-identical dw, dt and ds (no atomics anywhere).
+//   * wav_conv2d_bwd_reduce: the partials summed over the splits in a
+//     fixed order, the kernel of csrc/ordered_sum.cuh that the KAN weight
+//     gradient shares (leaves of splits over thread rows and cluster ranks
+//     where N is small, combined in row order, then rank order).  With the
+//     fixed split and the fixed orders, two runs give bit-identical dw, dt
+//     and ds (no atomics anywhere).
 //
 // What bounds it on the H100: operations, as in the forward.  Each (input
 // pixel, c, o) costs one wavelet evaluation and 9 FMAs in each of the two
@@ -44,6 +47,7 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "ordered_sum.cuh"
 #include "wav_psi.cuh"
 
 namespace {
@@ -316,18 +320,6 @@ __global__ void __launch_bounds__(kThreads)
   dst[nw + (size_t)sh.O * sh.C + (size_t)o * sh.C + c] = -dsA * iv;
 }
 
-// out[i] = partial[0][i] + partial[1][i] + ... in split order
-__global__ void __launch_bounds__(kThreads)
-    wav_conv2d_bwd_reduce_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ out, int S, int N) {
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < N;
-       i += gridDim.x * kThreads) {
-    float acc = partial[i];
-    for (int sp = 1; sp < S; ++sp) acc += partial[(size_t)sp * N + i];
-    out[i] = acc;
-  }
-}
-
 template <typename Kernel>
 cudaError_t grant_smem(Kernel kernel, size_t smem, size_t* granted) {
   // raise the dynamic shared-memory cap once per instantiation, as needed
@@ -471,15 +463,12 @@ int wav_conv2d_bwd_param(const void* x, const void* w, const void* t,
   }
 }
 
-// out[i] = sum over s of partial[s][i], s ascending, for i < N.
+// The (S, N) partials summed over S in the fixed order of
+// csrc/ordered_sum.cuh; VW, Gw and Gc from reduce_launch_config.
 int wav_conv2d_bwd_reduce(const void* partial, void* out, int S, int N,
-                          void* stream) {
-  if (S <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (N + kThreads - 1) / kThreads;
-  wav_conv2d_bwd_reduce_kernel<<<blocks < 4096 ? blocks : 4096, kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), S, N);
-  return (int)cudaGetLastError();
+                          int VW, int Gw, int Gc, void* stream) {
+  return (int)ordered_sum::launch(partial, out, S, N, VW, Gw, Gc,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

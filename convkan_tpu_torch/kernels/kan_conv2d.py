@@ -55,6 +55,15 @@ DX_PIXELS, DX_MAX_CC, DX_OC = 128, 8, 16
 # whether 2 or 3 blocks fit on an SM)
 DW_THREADS, DW_TN, DW_MAX_CC, DW_P = 256, 8, 8, 64
 DW_TARGET_BLOCKS = 6 * 132
+# ordered reduction (csrc/ordered_sum.cuh): 128-thread blocks of at most 8
+# rows, clusters of at most 8 ranks, leaves of at least one batch of the
+# kernel's 8 loads in flight, and the splits spread until the grid has four
+# blocks per SM.  A cluster costs about 1 us of barriers (the launch sweep
+# of tools/ordered_sum_ab.py on the H100), so ranks are used only where 8
+# rows leave fewer blocks than SMs and leaves of more than
+# RED_CLUSTER_LEAF splits
+RED_THREADS, RED_MAX_ROWS, RED_MAX_RANKS, RED_MIN_LEAF = 128, 8, 8, 8
+RED_TARGET_BLOCKS, RED_CLUSTER_GRID, RED_CLUSTER_LEAF = 4 * 132, 132, 32
 
 # the forward tile's entries of launch_config, in the C entry's order
 FWD_TILE = ("BN", "skip", "TH", "TW", "NB", "NG", "CC", "S")
@@ -142,14 +151,78 @@ def weight_partials_reference(x, g, knots, order: int, k: int, pad: int,
                               act) for s in range(splits)])
 
 
-def reduce_reference(partial):
-    """Plain version of the reduction kernel: the partials summed in split
-    order (float adds in the kernel's order, so the two agree bit for
-    bit)."""
-    out = partial[0].clone()
-    for s in range(1, partial.shape[0]):
-        out += partial[s]
-    return out
+def reduce_launch_config(S: int, N: int) -> dict:
+    """The ordered reduction's launch (csrc/ordered_sum.cuh) for (S, N)
+    partials; it depends on (S, N) alone.  A block is RED_THREADS threads
+    in ``Gw`` rows of T = RED_THREADS/Gw; a thread owns ``VW``
+    consecutive columns (4 when N % 4 == 0: float4 loads), so a block
+    covers ``cols`` = T*VW columns; ``Gc`` blocks of a cluster (along y)
+    take further leaves.  S is cut into L = Gw*Gc contiguous ``leaves``,
+    leaf l = [l*S//L, (l+1)*S//L); row w of rank r sums leaf r*Gw + w.
+    Starting from one leaf, L doubles (thread rows first, up to
+    RED_MAX_ROWS, then cluster ranks) while the grid has fewer than
+    RED_TARGET_BLOCKS blocks and every leaf keeps at least RED_MIN_LEAF
+    splits: the wide, small-S partials take one pass, the narrow ones with
+    hundreds of splits spread over the card.  Ranks join only where 8 rows
+    leave fewer than RED_CLUSTER_GRID blocks with leaves of more than
+    RED_CLUSTER_LEAF splits, and then halve the leaves until they hold at
+    most 2 * RED_MIN_LEAF.  Returns also ``grid`` (x, y) and
+    ``blocks``."""
+    if S < 1 or N < 1:
+        raise ValueError(f"empty partials ({S}, {N})")
+    VW = 4 if N % 4 == 0 else 1
+    Gw = Gc = 1
+
+    def grid_x(rows):
+        return -(-(N // VW) // (RED_THREADS // rows))
+
+    cluster = grid_x(RED_MAX_ROWS) < RED_CLUSTER_GRID and \
+        S // RED_MAX_ROWS > RED_CLUSTER_LEAF
+    while grid_x(Gw) * Gc < RED_TARGET_BLOCKS and \
+            S // (2 * Gw * Gc) >= RED_MIN_LEAF:
+        if Gw < RED_MAX_ROWS:
+            Gw *= 2
+        elif cluster and Gc < RED_MAX_RANKS and \
+                S // (Gw * Gc) > 2 * RED_MIN_LEAF:
+            Gc *= 2
+        else:
+            break
+    L = Gw * Gc
+    return {"VW": VW, "cols": RED_THREADS // Gw * VW, "Gw": Gw, "Gc": Gc,
+            "leaves": [(i * S // L, (i + 1) * S // L) for i in range(L)],
+            "grid": (grid_x(Gw), Gc), "blocks": grid_x(Gw) * Gc}
+
+
+def reduce_reference(partial, cfg=None):
+    """Plain version of the reduction kernel: the (S, ...) partials summed
+    over S in exactly the kernel's order for ``cfg`` (by default
+    ``reduce_launch_config(S, N)``): each leaf in split order, the leaves
+    of a block in row order, then the blocks of a cluster in rank
+    order.  Float adds in the kernel's order, so the two agree bit for
+    bit; with one leaf it is the plain split-order sum."""
+    if cfg is None:
+        cfg = reduce_launch_config(partial.shape[0], partial[0].numel())
+    total = None
+    for rank in range(cfg["Gc"]):
+        block = None
+        for row in range(cfg["Gw"]):
+            lo, hi = cfg["leaves"][rank * cfg["Gw"] + row]
+            leaf = partial[lo].clone()
+            for s in range(lo + 1, hi):
+                leaf += partial[s]
+            block = leaf if block is None else block.add_(leaf)
+        total = block if total is None else total.add_(block)
+    return total
+
+
+def reduce_args(partial, out, cfg) -> tuple:
+    """The reduction's C arguments after (partial, out): S N VW Gw Gc.
+    float4 loads need 16-byte aligned pointers; for a misaligned one the
+    kernel takes single floats (VW 1), which changes the grid but not the
+    order of the adds."""
+    aligned = partial.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    return (partial.shape[0], partial[0].numel(),
+            cfg["VW"] if aligned else 1, cfg["Gw"], cfg["Gc"])
 
 
 def _describe(B, H, W, C, O, k, pad, n_knots, order, act) -> str:
@@ -392,8 +465,8 @@ _ARGTYPES = {
     # order act; stream
     "kan_conv2d_bwd_dw": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    # partial, out; S N; stream
-    "kan_conv2d_bwd_dw_reduce": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    # partial, out; S N VW Gw Gc; stream
+    "kan_conv2d_bwd_dw_reduce": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
 }
 
@@ -519,17 +592,22 @@ def weight_partials(x, g, knots, order: int, k: int, pad: int, act: str):
 
 
 def reduce_partials(partial):
-    """Sum (S, ...) partials over S in split order.  CUDA tensors: the
-    reduction kernel; CPU tensors: ``reduce_reference``."""
+    """Sum (S, ...) partials over S in the order of
+    ``reduce_launch_config``.  CUDA tensors: the reduction kernel; CPU
+    tensors: ``reduce_reference``."""
     if partial.device.type == "cpu":
         return reduce_reference(partial)
     if partial.dtype != torch.float32 or not partial.is_contiguous():
         raise TypeError("the reduction takes contiguous float32 partials")
-    S, N = partial.shape[0], partial[0].numel()
+    if partial.numel() >= 2 ** 31:
+        raise NotImplementedError(f"partials {tuple(partial.shape)} too "
+                                  "large")
+    cfg = reduce_launch_config(partial.shape[0], partial[0].numel())
     out = torch.empty(partial.shape[1:], dtype=torch.float32,
                       device=partial.device)
     _launch("kan_conv2d_bwd_dw_reduce",
-            (partial.data_ptr(), out.data_ptr(), S, N, _stream(partial)),
+            (partial.data_ptr(), out.data_ptr(),
+             *reduce_args(partial, out, cfg), _stream(partial)),
             f"partials {tuple(partial.shape)}")
     return out
 

@@ -30,7 +30,8 @@ import torch
 
 from ..basis.wavelet import WAVELET_TYPES, hamming_window, wavelet
 from ..ops.conv import conv_nd
-from .kan_conv2d import reduce_reference  # the same ordered sum
+from .kan_conv2d import (  # the same ordered sum
+    reduce_args, reduce_launch_config, reduce_reference)
 
 SOURCE = "wav_conv2d_fwd.cu"
 BWD_SOURCE = "wav_conv2d_bwd.cu"
@@ -374,8 +375,8 @@ _ARGTYPES = {
     # x, w, t, s, g, partial; B H W C O k pad OC CW RB S ips wavelet; stream
     "wav_conv2d_bwd_param": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
     + [ctypes.c_void_p],
-    # partial, out; S N; stream
-    "wav_conv2d_bwd_reduce": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    # partial, out; S N VW Gw Gc; stream
+    "wav_conv2d_bwd_reduce": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
 }
 
@@ -474,7 +475,8 @@ def param_partials(x, w, t, s, g, wavelet_type: str, pad: int):
 
 
 def reduce_partials(partial):
-    """Sum (S, N) partials over S in split order.  CUDA tensors: the
+    """Sum (S, N) partials over S in the order of ``reduce_launch_config``
+    (the kernel the KAN weight gradient shares).  CUDA tensors: the
     reduction kernel; CPU tensors: ``reduce_reference``."""
     if partial.device.type == "cpu":
         return reduce_reference(partial)
@@ -482,10 +484,15 @@ def reduce_partials(partial):
             partial.ndim != 2:
         raise TypeError("the reduction takes contiguous float32 (S, N) "
                         "partials")
+    if partial.numel() >= 2 ** 31:
+        raise NotImplementedError(f"partials {tuple(partial.shape)} too "
+                                  "large")
     S, N = partial.shape
+    cfg = reduce_launch_config(S, N)
     out = torch.empty(N, dtype=torch.float32, device=partial.device)
     _launch("wav_conv2d_bwd_reduce",
-            _ptrs(partial, out) + (S, N, _stream(partial)),
+            _ptrs(partial, out) + (*reduce_args(partial, out, cfg),
+                                   _stream(partial)),
             f"partials {tuple(partial.shape)}")
     return out
 

@@ -13,6 +13,8 @@ import torch
 
 from convkan_tpu_torch.basis.bspline import make_bspline_grid
 from convkan_tpu_torch.kernels import kan_conv2d as kc
+from convkan_tpu_torch.kernels.wav_conv2d import (
+    param_launch_config as wav_param_launch_config)
 
 KNOTS = tuple(float(v) for v in make_bspline_grid(5, 3))
 
@@ -207,6 +209,48 @@ def test_cuda_reduce_matches_ordered_sum_bitwise():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     p = torch.randn(7, 45, 99, device="cuda")
     assert torch.equal(kc.reduce_partials(p), kc.reduce_reference(p))
+
+
+# (S, N) of both reductions at the VGG16_small convs at batch 1024, then
+# ragged ones: S = 1, odd N, N < 4, S = 1023, a few columns
+_VGG = [(32, 3, 16), (32, 16, 16), (16, 16, 32), (16, 32, 32), (8, 32, 64),
+        (8, 64, 64), (4, 64, 128), (4, 128, 128), (2, 128, 128)]
+REDUCE_PAIRS = [(kc.dw_launch_config(1024, H, H, C, O, 3, 1, 8)["S"],
+                 81 * C * O) for H, C, O in _VGG]
+REDUCE_PAIRS += [(cfg["S"], cfg["N"]) for cfg in (
+    wav_param_launch_config(1024, H, H, C, O, 3, 1) for H, C, O in _VGG)]
+REDUCE_PAIRS += [(1, 1000), (7, 45 * 99), (513, 4455), (300, 3), (1023, 37),
+                 (40, 1), (9, 4 * 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+@pytest.mark.parametrize("S,N", REDUCE_PAIRS)
+def test_cuda_reduce_matches_grouped_reference_bitwise(S, N, offset):
+    """Both reduction wrappers run the kernel of csrc/ordered_sum.cuh and
+    equal reduce_reference (the kernel's order) bit for bit, also on a
+    contiguous partial whose data pointer is one float past 16 bytes
+    (single-float loads); two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.kernels import wav_conv2d as wc
+
+    gen = torch.Generator(device="cuda").manual_seed(S * 7 + N)
+    buf = torch.randn(S * N + offset, device="cuda", generator=gen)
+    p = buf[offset:].view(S, N)
+    assert (p.data_ptr() % 16 != 0) == bool(offset)
+    want = kc.reduce_reference(p)
+    kc.reset_launches()
+    wc.reset_launches()
+    a = kc.reduce_partials(p)
+    b = wc.reduce_partials(p)
+    c = kc.reduce_partials(p)
+    torch.cuda.synchronize()
+    assert kc.launches["kan_conv2d_bwd_dw_reduce"] == 2
+    assert wc.launches["wav_conv2d_bwd_reduce"] == 1
+    assert torch.equal(a.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(b.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(a.view(torch.int32), c.view(torch.int32))
 
 
 # ----------------------------------------------------- WavKAN psi-conv
