@@ -50,9 +50,10 @@ Phases (the first failed check exits non-zero):
      the port never calls) and the bound; for the weight gradient also its
      tile (CC, BN, PW, threads, S, blocks), the multiply-adds it issues
      over the interior pairs the bound counts, the dense bound and the
-     share of the bound it reaches; for the reduction its launch, its time
-     beside sum(0)'s, the bound and the share (and the 13-conv totals of
-     both by the earlier, unpreloaded timer, for the record).
+     share of the bound it reaches; for the reduction, first its result on
+     these batch-1024 partials bit-exact against its plain version and two
+     calls bit-identical, then its launch, its time beside sum(0)'s on a
+     cold L2 (the share of the bound) and on a warm one.
 WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
   9. forward kernel vs its plain version (rtol = atol = TOL): the 9
      VGG16_small shapes at batch 64, all 5 wavelets at one shape, batch 1,
@@ -81,7 +82,9 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
      the reduction as in phase 8, and an empty kernel's time (the launch
      floor).
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
-a sleep kernel holds the card until the host has issued all timed calls).
+a sleep kernel holds the card until the host has issued all timed calls);
+a kernel's timing that the host held back fails, any other is listed
+under "host_bound" in its kernel's entry.
 
 Prints a {"kernels": [...]} line, then the contract line
 {"ok": true, "device": {...}} last.
@@ -91,6 +94,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -105,6 +109,9 @@ import torch
 
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores, 700 W
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+# the reductions' cold-L2 timing reads copies of the partials that fill 4x
+# the H100's 50 MB L2
+COLD_L2_BYTES = 4 * 50 * 2**20
 TOL = 1e-4                  # kernel vs plain version, float32
 MODEL_TOL = 1e-3            # 13 layers of float32 GPU vs CPU
 # (H, C, O) of the VGG16_small convs in order; 13 layers, 9 distinct shapes
@@ -154,6 +161,10 @@ PEAK_EXP = 132 * 16 * 1.98e9
 WAV_MODEL = {"expected_feature_shape": (2, 2)}
 
 
+# readings that cuda_ms could not hold to device time: kernel name -> fields
+HOST_BOUND: dict[str, set] = {}
+
+
 def fail(msg: str):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -178,29 +189,31 @@ def sleep_cycles_per_ms() -> float:
     return 20_000_000 / start.elapsed_time(end)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3,
-            preload: bool = True) -> float:
-    """Mean device time of fn() in ms, by CUDA events around `iters` calls.
-    With ``preload`` a sleep kernel enqueued before the start event holds
-    the card until the host has issued every call, so the events read
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, what=None) -> float:
+    """Mean device time of fn() in ms, by CUDA events around `iters` calls
+    in a preloaded queue: a sleep kernel enqueued before the start event
+    holds the card until the host has issued every call, so the events read
     device time only, not the rate at which the host issues calls (a
     wrapper, torch.empty and a ctypes launch can take longer on the host
     than a small kernel on the card).  The sleep lasts twice the host's
     issue time of the calls plus 1 ms; if the host still took longer, the
-    sleep is lengthened (up to 1 s) and the run repeated (up to 3
-    times).  Without
-    ``preload``: the earlier method, events around the host's loop."""
+    sleep is lengthened (up to 1 s) and the run repeated (up to 3 times
+    for a kernel, once for any other reading).  If the host outlasted the
+    sleep even then, the card may have waited on it: a kernel's time
+    (``what`` None) fails; any other reading (``what`` = (kernel name,
+    field): a plain version or a library call, which may queue more
+    launches than the queue holds or wait on the card) is printed as
+    host-bound, recorded in HOST_BOUND and returned."""
     for _ in range(warmup):
         t0 = time.perf_counter()
         fn()
         per_call = time.perf_counter() - t0   # the last one: warm
     start, end = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
-    for _ in range(4 if preload else 1):
+    for _ in range(4 if what is None else 2):
         sleep_ms = min(2e3 * iters * per_call + 1.0, 1000.0)
         torch.cuda.synchronize()
-        if preload:
-            torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+        torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
         start.record()
         t0 = time.perf_counter()
         for _ in range(iters):
@@ -209,9 +222,58 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3,
         end.record()
         torch.cuda.synchronize()
         if issued_ms < sleep_ms:
-            break
+            return start.elapsed_time(end) / iters
         per_call = issued_ms / 1e3 / iters
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    check(what is not None, f"kernel timing host-bound: the host issued "
+                            f"{iters} calls in {issued_ms:.3f} ms, longer "
+                            f"than the {sleep_ms:.3f} ms sleep")
+    print(f"[timer] host-bound reading of {what[0]} {what[1]}: "
+          f"{ms:.4f} ms (the host issued {iters} calls in {issued_ms:.3f} "
+          f"ms, longer than the {sleep_ms:.3f} ms sleep)", flush=True)
+    HOST_BOUND.setdefault(what[0], set()).add(what[1])
+    return ms
+
+
+def cold_copies(t):
+    """A function that returns, call after call, the next of enough copies
+    of ``t`` to fill COLD_L2_BYTES, round and round: none is still in L2
+    when read again."""
+    return itertools.cycle([t.clone() for _ in range(
+        -(-COLD_L2_BYTES // (t.element_size() * t.numel())) + 1)]).__next__
+
+
+def reduce_work(S: int, N: int) -> tuple:
+    """(adds, bytes) of the ordered reduction of (S, N) partials: each
+    partial read once, the sum written once."""
+    return S * N, 4 * (S + 1) * N
+
+
+def reduction_times(name, reduce, reference, part) -> dict:
+    """One ordered reduction at one shape of the main path: its result
+    bit-exact against the plain version in the kernel's order, and two
+    calls bit-identical; then its time and sum(0)'s on a cold L2 (each call
+    reads the next of enough copies of the partials to fill COLD_L2_BYTES,
+    so none finds its input in L2, as the bytes bound at HBM rate assumes)
+    and on a warm one (the same partials every call, as in a step right
+    after the weight kernel wrote them), and the plain version's."""
+    got = reduce(part)
+    check(torch.equal(got, reference(part)) and torch.equal(got,
+                                                             reduce(part)),
+          f"{name} not bit-exact against its plain version, or not "
+          f"bit-identical run to run, at (S, N) = {tuple(part.shape)}")
+    nxt = cold_copies(part)
+    times = {
+        "ms": cuda_ms(lambda: reduce(nxt())),
+        "library_ms": cuda_ms(lambda: nxt().sum(0),
+                              what=(name, "library_ms")),
+        "warm_l2_ms": cuda_ms(lambda: reduce(part)),
+        "library_warm_l2_ms": cuda_ms(lambda: part.sum(0),
+                                      what=(name, "library_warm_l2_ms")),
+        # one call: S launches of adds, under the launch queue's depth
+        "plain_ms": cuda_ms(lambda: reference(part), iters=1, warmup=1,
+                            what=(name, "plain_ms"))}
+    return times
 
 
 def conv_inputs(gen, B, H, C, O, scale=1.0):
@@ -245,6 +307,29 @@ def red_tile(cfg) -> str:
     """The ordered reduction's launch: float4 or float columns, thread rows,
     cluster ranks, blocks."""
     return ", ".join(f"{key} {cfg[key]}" for key in RED_TILE)
+
+
+def red_row(row, rcfg, red, total, layers):
+    """Adds to a reduction's row of one shape its launch, its and sum(0)'s
+    warm-L2 times, its share of the bound (cold L2) and its time over
+    sum(0)'s; adds the warm times x ``layers`` to ``total``."""
+    row.update({
+        "config": {key: rcfg[key] for key in RED_TILE},
+        "warm_l2_ms": round(red["warm_l2_ms"], 4),
+        "library_warm_l2_ms": round(red["library_warm_l2_ms"], 4),
+        "bound_share": round(row["bound_ms"] / red["ms"], 4),
+        "vs_sum": round(red["ms"] / red["library_ms"], 4)})
+    for key in ("warm_l2_ms", "library_warm_l2_ms"):
+        total[key] += layers * red[key]
+
+
+def print_red_totals(tag, name, t, card):
+    print(f"{tag} {name} per train step at batch {TIME_BATCH}, device time: "
+          f"cold L2 {t['ms']:.4f} ms (sum(0) {t['library_ms']:.4f} ms), "
+          f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound "
+          f"{t['bound_ms']:.4f} ms; warm L2 {t['warm_l2_ms']:.4f} ms (sum(0) "
+          f"{t['library_warm_l2_ms']:.4f} ms); plain {t['plain_ms']:.3f} ms "
+          f"(on {card})", flush=True)
 
 
 def phase_backward(kc, knots, gen, dev):
@@ -461,7 +546,8 @@ def phase_train_times(kc, knots, gen, dev, card):
     totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
                                 "byte_ms"), 0.0) for n in names}
     totals["kan_conv2d_bwd_dw"]["dense_bound_ms"] = 0.0
-    old_timer = {"ms": 0.0, "library_ms": 0.0}
+    totals["kan_conv2d_bwd_dw_reduce"].update(warm_l2_ms=0.0,
+                                              library_warm_l2_ms=0.0)
     rows = []
     B, K = TIME_BATCH, 8
     for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
@@ -472,18 +558,20 @@ def phase_train_times(kc, knots, gen, dev, card):
         cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, K)
         part = kc.weight_partials(x, g, *spec)
         rcfg = kc.reduce_launch_config(part.shape[0], part[0].numel())
+        red = reduction_times("kan_conv2d_bwd_dw_reduce", kc.reduce_partials,
+                              kc.reduce_reference, part)
         ms = {
             "kan_conv2d_bwd_dx": (
                 cuda_ms(lambda: kc.input_grad(x, w_all, g, *spec)),
                 cuda_ms(lambda: kc.input_grad_reference(x, w_all, g, *spec),
-                        iters=3, warmup=1)),
+                        iters=3, warmup=1,
+                        what=("kan_conv2d_bwd_dx", "plain_ms"))),
             "kan_conv2d_bwd_dw": (
                 cuda_ms(lambda: kc.weight_partials(x, g, *spec)),
                 cuda_ms(lambda: kc.weight_grad_reference(x, g, *spec),
-                        iters=3, warmup=1)),
-            "kan_conv2d_bwd_dw_reduce": (
-                cuda_ms(lambda: kc.reduce_partials(part)),
-                cuda_ms(lambda: kc.reduce_reference(part), iters=5)),
+                        iters=3, warmup=1,
+                        what=("kan_conv2d_bwd_dw", "plain_ms"))),
+            "kan_conv2d_bwd_dw_reduce": (red["ms"], red["plain_ms"]),
         }
         # yardsticks the port never calls: cuDNN's backward over an already
         # materialized basis (dE and dW of the convolution), and one sum
@@ -498,16 +586,13 @@ def phase_train_times(kc, knots, gen, dev, card):
                 mask)
 
         lib = {"kan_conv2d_bwd_dx": cuda_ms(lambda: conv_bwd(
-                   [True, False, False]), iters=10),
+                   [True, False, False]), iters=10,
+                   what=("kan_conv2d_bwd_dx", "library_ms")),
                "kan_conv2d_bwd_dw": cuda_ms(lambda: conv_bwd(
-                   [False, True, False]), iters=10),
-               "kan_conv2d_bwd_dw_reduce": cuda_ms(lambda: part.sum(0))}
-        # the earlier timer (no preload) on the reduction and sum(0), for
-        # the record of the change of method
+                   [False, True, False]), iters=10,
+                   what=("kan_conv2d_bwd_dw", "library_ms")),
+               "kan_conv2d_bwd_dw_reduce": red["library_ms"]}
         n = VGG16_SMALL_CONVS.count((H, C, O))
-        for key, fn in (("ms", lambda: kc.reduce_partials(part)),
-                        ("library_ms", lambda: part.sum(0))):
-            old_timer[key] += n * cuda_ms(fn, preload=False)
         del E, gn
         D, TO, S = (K + 1) * C, 9 * O, cfg["S"]
         flops = 2 * B * interior_pairs(H) * D * O
@@ -516,7 +601,7 @@ def phase_train_times(kc, knots, gen, dev, card):
                                               + g.numel())),
             "kan_conv2d_bwd_dw": (flops, 4 * (x.numel() + g.numel()
                                               + S * D * TO)),
-            "kan_conv2d_bwd_dw_reduce": (S * D * TO, 4 * (S + 1) * D * TO),
+            "kan_conv2d_bwd_dw_reduce": reduce_work(S, D * TO),
         }
         row = {"H": H, "C": C, "O": O, "batch": B, "layers": n, "S": S}
         for name in names:
@@ -550,18 +635,16 @@ def phase_train_times(kc, knots, gen, dev, card):
             "tflops_issued": round(2 * issued / ms["kan_conv2d_bwd_dw"][0]
                                   / 1e9, 2)})
         totals["kan_conv2d_bwd_dw"]["dense_bound_ms"] += n * dense_ms
-        red_row = row["kan_conv2d_bwd_dw_reduce"]
-        red_row.update({
-            "config": {key: rcfg[key] for key in RED_TILE},
-            "bound_share": round(red_row["bound_ms"] / ms[
-                "kan_conv2d_bwd_dw_reduce"][0], 4),
-            "vs_sum": round(ms["kan_conv2d_bwd_dw_reduce"][0]
-                            / lib["kan_conv2d_bwd_dw_reduce"], 4)})
+        red_row(row["kan_conv2d_bwd_dw_reduce"], rcfg, red,
+                totals["kan_conv2d_bwd_dw_reduce"], n)
         rows.append(row)
         print(f"[time] {json.dumps(row)}", flush=True)
     for name in names:
         t = totals[name]
         t["bound_ms"] = max(t["op_ms"], t["byte_ms"])
+        if name == "kan_conv2d_bwd_dw_reduce":
+            print_red_totals("[time]", name, t, card)
+            continue
         dense = f" (dense {t['dense_bound_ms']:.3f} ms)" \
             if "dense_bound_ms" in t else ""
         print(f"[time] {name} per train step at batch {B}: kernel "
@@ -569,13 +652,6 @@ def phase_train_times(kc, knots, gen, dev, card):
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms"
               f"{dense}, {100 * t['bound_ms'] / t['ms']:.1f}% of the bound "
               f"(on {card})", flush=True)
-    print(f"[time] kan_conv2d_bwd_dw_reduce per train step, earlier timer "
-          f"(events around the host's loop, no preload): kernel "
-          f"{old_timer['ms']:.3f} ms, sum(0) {old_timer['library_ms']:.3f} "
-          f"ms; preloaded (device time): kernel "
-          f"{totals['kan_conv2d_bwd_dw_reduce']['ms']:.3f} ms, sum(0) "
-          f"{totals['kan_conv2d_bwd_dw_reduce']['library_ms']:.3f} ms",
-          flush=True)
     return ips, totals, rows
 
 
@@ -825,12 +901,12 @@ def wav_bound(name, B, H, C, O, S, N):
         "wav_conv2d_bwd_dx": max(2 * fmas / PEAK_FP32_FLOPS, exps / PEAK_EXP),
         "wav_conv2d_bwd_param": max(4 * fmas / PEAK_FP32_FLOPS,
                                     exps / PEAK_EXP),
-        "wav_conv2d_bwd_reduce": S * N / PEAK_FP32_FLOPS,
+        "wav_conv2d_bwd_reduce": reduce_work(S, N)[0] / PEAK_FP32_FLOPS,
     }[name] * 1e3
-    nbytes = 4 * {"wav_conv2d_fwd": x + p + g,
-                  "wav_conv2d_bwd_dx": 2 * x + p + g,
-                  "wav_conv2d_bwd_param": x + g + p + S * N,
-                  "wav_conv2d_bwd_reduce": (S + 1) * N}[name]
+    nbytes = {"wav_conv2d_fwd": 4 * (x + p + g),
+              "wav_conv2d_bwd_dx": 4 * (2 * x + p + g),
+              "wav_conv2d_bwd_param": 4 * (x + g + p + S * N),
+              "wav_conv2d_bwd_reduce": reduce_work(S, N)[1]}[name]
     return ops_ms, nbytes / PEAK_BYTES * 1e3
 
 
@@ -841,7 +917,8 @@ def phase_wav_times(wc, gen, dev, card):
     F = torch.nn.functional
     totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
                                 "byte_ms"), 0.0) for n in wc.KERNELS}
-    old_timer = {"ms": 0.0, "library_ms": 0.0}
+    totals["wav_conv2d_bwd_reduce"].update(warm_l2_ms=0.0,
+                                           library_warm_l2_ms=0.0)
     rows = []
     B, spec = TIME_BATCH, ("mexican_hat", 1)
     for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
@@ -850,6 +927,8 @@ def phase_wav_times(wc, gen, dev, card):
         cfg = wc.param_launch_config(B, H, H, C, O, 3, 1)
         part = wc.param_partials(x, w, t, s, g, *spec)
         rcfg = wc.reduce_launch_config(*part.shape)
+        red = reduction_times("wav_conv2d_bwd_reduce", wc.reduce_partials,
+                              wc.reduce_reference, part)
         ms = {
             "wav_conv2d_fwd": (
                 cuda_ms(lambda: wc.wav_conv2d(x, w, t, s,
@@ -857,19 +936,19 @@ def phase_wav_times(wc, gen, dev, card):
                                               padding=1)),
                 cuda_ms(lambda: wc.wav_conv2d_reference(
                     x, w, t, s, wavelet_type=spec[0], padding=1),
-                    iters=3, warmup=1)),
+                    iters=3, warmup=1, what=("wav_conv2d_fwd", "plain_ms"))),
             "wav_conv2d_bwd_dx": (
                 cuda_ms(lambda: wc.input_grad(x, w, t, s, g, *spec)),
                 cuda_ms(lambda: wc.input_grad_reference(x, w, t, s, g, *spec),
-                        iters=3, warmup=1)),
+                        iters=3, warmup=1,
+                        what=("wav_conv2d_bwd_dx", "plain_ms"))),
             "wav_conv2d_bwd_param": (
                 cuda_ms(lambda: wc.param_partials(x, w, t, s, g, *spec)),
                 cuda_ms(lambda: wc.param_grads_reference(x, w, t, s, g,
                                                          *spec),
-                        iters=3, warmup=1)),
-            "wav_conv2d_bwd_reduce": (
-                cuda_ms(lambda: wc.reduce_partials(part)),
-                cuda_ms(lambda: wc.reduce_reference(part), iters=5)),
+                        iters=3, warmup=1,
+                        what=("wav_conv2d_bwd_param", "plain_ms"))),
+            "wav_conv2d_bwd_reduce": (red["ms"], red["plain_ms"]),
         }
         # yardsticks the port never calls: cuDNN's grouped conv (groups=O)
         # over an already materialized psi, forward and backward, and one
@@ -886,17 +965,17 @@ def phase_wav_times(wc, gen, dev, card):
                 mask)
 
         lib = {"wav_conv2d_fwd": cuda_ms(
-                   lambda: F.conv2d(psi, wn, padding=1, groups=O), iters=5),
+                   lambda: F.conv2d(psi, wn, padding=1, groups=O), iters=5,
+                   what=("wav_conv2d_fwd", "library_ms")),
                "wav_conv2d_bwd_dx": cuda_ms(lambda: conv_bwd(
-                   [True, False, False]), iters=5),
+                   [True, False, False]), iters=5,
+                   what=("wav_conv2d_bwd_dx", "library_ms")),
                "wav_conv2d_bwd_param": cuda_ms(lambda: conv_bwd(
-                   [False, True, False]), iters=5),
-               "wav_conv2d_bwd_reduce": cuda_ms(lambda: part.sum(0))}
+                   [False, True, False]), iters=5,
+                   what=("wav_conv2d_bwd_param", "library_ms")),
+               "wav_conv2d_bwd_reduce": red["library_ms"]}
         del psi, gn
         n = VGG16_SMALL_CONVS.count((H, C, O))
-        for key, fn in (("ms", lambda: wc.reduce_partials(part)),
-                        ("library_ms", lambda: part.sum(0))):
-            old_timer[key] += n * cuda_ms(fn, preload=False)
         row = {"H": H, "C": C, "O": O, "batch": B, "layers": n,
                "S": cfg["S"]}
         for name in wc.KERNELS:
@@ -911,30 +990,21 @@ def phase_wav_times(wc, gen, dev, card):
                            ("library_ms", lib[name]), ("op_ms", op_ms),
                            ("byte_ms", byte_ms)):
                 totals[name][key] += layers * v
-        red_row = row["wav_conv2d_bwd_reduce"]
-        red_row.update({
-            "config": {key: rcfg[key] for key in RED_TILE},
-            "bound_share": round(red_row["bound_ms"] / ms[
-                "wav_conv2d_bwd_reduce"][0], 4),
-            "vs_sum": round(ms["wav_conv2d_bwd_reduce"][0]
-                            / lib["wav_conv2d_bwd_reduce"], 4)})
+        red_row(row["wav_conv2d_bwd_reduce"], rcfg, red,
+                totals["wav_conv2d_bwd_reduce"], n)
         rows.append(row)
         print(f"[wav time] {json.dumps(row)}", flush=True)
     for name in wc.KERNELS:
         t = totals[name]
         t["bound_ms"] = max(t["op_ms"], t["byte_ms"])
+        if name == "wav_conv2d_bwd_reduce":
+            print_red_totals("[wav time]", name, t, card)
+            continue
         print(f"[wav time] {name} per {'forward' if name == 'wav_conv2d_fwd' else 'train step'} "
               f"at batch {B}: kernel {t['ms']:.3f} ms, plain "
               f"{t['plain_ms']:.3f} ms, cuDNN over materialized psi "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms (on "
               f"{card})", flush=True)
-    red = totals["wav_conv2d_bwd_reduce"]
-    print(f"[wav time] wav_conv2d_bwd_reduce per train step, earlier timer "
-          f"(events around the host's loop, no preload): kernel "
-          f"{old_timer['ms']:.3f} ms, sum(0) {old_timer['library_ms']:.3f} "
-          f"ms; preloaded (device time): kernel {red['ms']:.3f} ms, sum(0) "
-          f"{red['library_ms']:.3f} ms, {100 * red['bound_ms'] / red['ms']:.1f}"
-          f"% of the bound", flush=True)
     # the launch floor: an empty kernel (a sleep of 0 cycles) in a
     # preloaded queue, 13 of them as per step
     empty = cuda_ms(lambda: torch.cuda._sleep(0), iters=100)
@@ -948,7 +1018,9 @@ def phase_wav_times(wc, gen, dev, card):
 def kernel_entry(name, source, replaces, launches, err, t, times_are,
                  shapes, **extra):
     """One kernel's entry of the {"kernels": [...]} line; ``launches`` per
-    main path ({"serve": n, "train": n}), ``t`` the timing totals."""
+    main path ({"serve": n, "train": n}), ``t`` the timing totals;
+    ``host_bound`` lists the fields whose reading the host may have set
+    (see cuda_ms)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, **extra,
             "launches": launches["serve"] + launches["train"],
@@ -958,6 +1030,7 @@ def kernel_entry(name, source, replaces, launches, err, t, times_are,
             "bound_by": "operations" if t["op_ms"] >= t["byte_ms"]
             else "bytes",
             "library_ms": round(t["library_ms"], 4), "times_are": times_are,
+            "host_bound": sorted(HOST_BOUND.get(name, ())),
             "shapes": shapes}
 
 
@@ -1050,13 +1123,15 @@ def main():
         k_ms = cuda_ms(lambda: kc.kan_conv2d(x, bw, pw, knots, 3, 3, 1,
                                              "silu"))
         p_ms = cuda_ms(lambda: kc.kan_conv2d_reference(
-            x, bw, pw, knots, 3, 3, 1, "silu"), iters=5, warmup=1)
+            x, bw, pw, knots, 3, 3, 1, "silu"), iters=5, warmup=1,
+            what=("kan_conv2d_fwd", "plain_ms"))
         E = torch.cat(bspline_basis_unrolled_list(x, knots, 3)
                       + [torch.nn.functional.silu(x)], -1)
         E = E.permute(0, 3, 1, 2).contiguous()
         w = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O)
         w = w.reshape((K + 1) * C, 3, 3, O).permute(3, 0, 1, 2).contiguous()
-        l_ms = cuda_ms(lambda: torch.nn.functional.conv2d(E, w, padding=1))
+        l_ms = cuda_ms(lambda: torch.nn.functional.conv2d(E, w, padding=1),
+                       what=("kan_conv2d_fwd", "library_ms"))
         del E
         # the bound counts the (pixel, tap) pairs whose input lies in the
         # image, as the backward's does: a pad tap adds zero; the dense
@@ -1156,7 +1231,9 @@ def main():
         f"sum over the VGG16_small convs of one train step at batch "
         f"{TIME_BATCH}",
         [{k: r[k] for k in ("H", "C", "O", "S")} | r[name] for r in bwd_rows],
-        **{key: round(t[key], 4) for key in ("dense_bound_ms",) if key in t},
+        **{key: round(t[key], 4) for key in ("dense_bound_ms", "warm_l2_ms",
+                                             "library_warm_l2_ms")
+           if key in t},
         **({"entry_source": "convkan_tpu_torch/csrc/" + kc.BWD_SOURCE}
            if name in red_names else {}))
         for name, t in bwd.items()]
@@ -1165,7 +1242,9 @@ def main():
         src = "convkan_tpu_torch/csrc/" + (wc.SOURCE if fwd else
                                             wc.BWD_SOURCE)
         extra = {"entry_source": src, "empty_kernel_ms_x13": round(
-            13 * empty_ms, 4)} if name in red_names else {}
+            13 * empty_ms, 4), **{key: round(wav_totals[name][key], 4) for key
+                                  in ("warm_l2_ms", "library_warm_l2_ms")}} \
+            if name in red_names else {}
         kernels.append(kernel_entry(
             name, RED_SOURCE if name in red_names else src,
             WAV_REPLACES if fwd else WAV_BWD_REPLACES,
