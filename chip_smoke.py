@@ -28,9 +28,11 @@ Phases (the first failed check exits non-zero):
      beside it) and the share of the bound the kernel reaches;
   6. backward kernels vs their plain versions on the card, at the 9
      VGG16_small conv shapes (batch 64), ragged shapes (C = 13 with O = 5,
-     O = 48, batch 1023) and the 2x2 layer at batch 1024, and a GELU case;
-     each case prints its weight-gradient tile and its reduction's launch
-     (VW, Gw, Gc, blocks): each kernel wrapper (data gradient,
+     O = 48, batch 1023; for the data-gradient tile batches 37 and 41 on
+     4x4 and 3x3 planes, odd H, kernel 5 with pad 2, pad 0) and the 2x2
+     layer at batch 1024, and a GELU case; each case prints its
+     data-gradient tile, its weight-gradient tile and its reduction's
+     launch (VW, Gw, Gc, blocks): each kernel wrapper (data gradient,
      weight-gradient partials, their reduction) and the autograd path's
      dx, d base_w, d poly_w, against float64 autograd of the plain version
      (tolerance at BWD_TOL); the reduction bit-exact against its plain
@@ -47,10 +49,13 @@ Phases (the first failed check exits non-zero):
      after warm-up, each ending in a host readback of the loss) and, per
      conv shape at batch 1024, each backward kernel, its plain version,
      one cuDNN convolution_backward over a materialized basis (a yardstick
-     the port never calls) and the bound; for the weight gradient also its
-     tile (CC, BN, PW, threads, S, blocks), the multiply-adds it issues
-     over the interior pairs the bound counts, the dense bound and the
-     share of the bound it reaches; for the reduction, first its result on
+     the port never calls) and the bound; for the data gradient also its
+     tile (skip or dense TH/NB, NG, CC, OC, stages, blocks), the
+     multiply-adds it issues over the interior pairs the bound counts, the
+     share of the bound it reaches and its rate on issued work; for the
+     weight gradient its tile (CC, BN, PW, threads, S, blocks), the same
+     issued/interior, the dense bound, the share and the rate; for the
+     reduction, first its result on
      these batch-1024 partials bit-exact against its plain version and two
      calls bit-identical, then its launch, its time beside sum(0)'s on a
      cold L2 (the share of the bound) and on a warm one.
@@ -125,6 +130,9 @@ BWD_REPLACES = "convkan_tpu/kernels/wide_kan_conv.py:344"
 # the weight-gradient tile's entries of dw_launch_config that phases 6 and 8
 # print
 DW_TILE = ("CC", "BN", "PW", "threads", "S", "blocks")
+# the data-gradient tile's entries of dx_launch_config that phases 6 and 8
+# print
+DX_TILE = ("skip", "TH", "NB", "NG", "CC", "OC", "stages", "blocks")
 # the ordered reduction's launch (reduce_launch_config) that phases 6, 8, 10
 # and 14 print
 RED_TILE = ("VW", "Gw", "Gc", "blocks")
@@ -276,10 +284,10 @@ def reduction_times(name, reduce, reference, part) -> dict:
     return times
 
 
-def conv_inputs(gen, B, H, C, O, scale=1.0):
+def conv_inputs(gen, B, H, C, O, scale=1.0, k=3):
     x = (torch.rand(B, H, H, C, generator=gen) * 2 - 1) * scale
-    bw = torch.randn(3, 3, C, O, generator=gen) * 0.1
-    pw = torch.randn(3, 3, C * 8, O, generator=gen) * 0.1
+    bw = torch.randn(k, k, C, O, generator=gen) * 0.1
+    pw = torch.randn(k, k, C * 8, O, generator=gen) * 0.1
     return x, bw, pw
 
 
@@ -301,6 +309,13 @@ def bwd_close(got, want):
 
 def dw_tile(cfg) -> str:
     return ", ".join(f"{key} {cfg[key]}" for key in DW_TILE)
+
+
+def dx_tile(cfg) -> str:
+    """The data-gradient tile: skip or dense (rows per image slot TH,
+    image slots NB), image groups NG, channels CC, output channels per
+    chunk OC, chunks in flight, blocks."""
+    return ", ".join(f"{key} {cfg[key]}" for key in DX_TILE)
 
 
 def red_tile(cfg) -> str:
@@ -336,27 +351,36 @@ def phase_backward(kc, knots, gen, dev):
     """6. each backward kernel and the autograd path against float64
     autograd of the plain version on the card; returns max |err| per
     kernel."""
-    cases = [(64, H, C, O, "silu")
+    cases = [(64, H, C, O, "silu", 3, 1)
              for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
-    cases += [(3, 7, 13, 5, "silu"), (8, 16, 16, 32, "gelu")]
+    cases += [(3, 7, 13, 5, "silu", 3, 1), (8, 16, 16, 32, "gelu", 3, 1)]
     # ragged edges of the weight-gradient tile: B not a multiple of the
     # split, 216-column tiles, C not a multiple of the channel chunk, and
     # the 2x2 layer at the real batch
-    cases += [(1023, 8, 32, 64, "silu"), (64, 8, 16, 48, "silu"),
-              (64, 16, 13, 32, "silu"), (1024, 2, 128, 128, "silu")]
+    cases += [(1023, 8, 32, 64, "silu", 3, 1), (64, 8, 16, 48, "silu", 3, 1),
+              (64, 16, 13, 32, "silu", 3, 1),
+              (1024, 2, 128, 128, "silu", 3, 1)]
+    # ... and of the data-gradient tile: B not a multiple of the image group
+    # (pad taps skipped at 4x4 and 3x3), odd H with C % 8 and O = 5, O = 48,
+    # kernel 5 with pad 2, pad 0 (Ho < H)
+    cases += [(37, 4, 16, 32, "silu", 3, 1), (41, 3, 6, 8, "gelu", 3, 1),
+              (3, 9, 13, 5, "silu", 3, 1), (5, 8, 8, 48, "silu", 3, 1),
+              (2, 8, 6, 16, "silu", 5, 2), (3, 6, 8, 12, "silu", 3, 0)]
     errs = {"kan_conv2d_bwd_dx": 0.0, "kan_conv2d_bwd_dw": 0.0,
             "kan_conv2d_bwd_dw_reduce": 0.0}
     # the reduced dW against float64 (BWD_TOL, the grouped order's
     # rounding included) beside the bit-exact check against the plain
     # version in the kernel's order
     red64 = 0.0
-    for B, H, C, O, act in cases:
-        x, bw, pw = conv_inputs(gen, B, H, C, O)
-        g = torch.randn(B, H, H, O, generator=gen)
+    for B, H, C, O, act, k, pad in cases:
+        x, bw, pw = conv_inputs(gen, B, H, C, O, k=k)
+        Ho = H + 2 * pad - k + 1
+        g = torch.randn(B, Ho, Ho, O, generator=gen)
         x, bw, pw, g = (t.to(dev) for t in (x, bw, pw, g))
-        spec = (knots, 3, 3, 1, act)
-        w_all = kc.pack_w_all(bw, pw, C=C, K=8, k=3, O=O)
-        cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, 8)
+        spec = (knots, 3, k, pad, act)
+        w_all = kc.pack_w_all(bw, pw, C=C, K=8, k=k, O=O)
+        cfg = kc.dw_launch_config(B, H, H, C, O, k, pad, 8)
+        xcfg = kc.dx_launch_config(B, H, H, C, O, k, pad, 8)
         dx = kc.input_grad(x, w_all, g, *spec)
         part = kc.weight_partials(x, g, *spec)
         dw = kc.reduce_partials(part)
@@ -378,8 +402,9 @@ def phase_backward(kc, knots, gen, dev):
         auto = [bwd_close(a, b) for a, b in zip(got, want)]
         ok = ok_dx and ok_dw and e_red == 0.0 and ok64 and \
             all(o for _, o in auto)
-        print(f"[backward] B={B} {H}x{H} C={C} O={O} {act} (dW tile "
-              f"{dw_tile(cfg)}; reduce {red_tile(rcfg)}): "
+        print(f"[backward] B={B} {H}x{H} C={C} O={O} {act} k={k} pad={pad} "
+              f"(dx tile {dx_tile(xcfg)}; dW tile {dw_tile(cfg)}; reduce "
+              f"{red_tile(rcfg)}): "
               f"dx {e_dx:.3e}, dW partials {e_dw:.3e}, reduce {e_red:.1e} "
               f"(reduced dW vs float64 {e64:.3e}); "
               f"autograd dx/dbase_w/dpoly_w "
@@ -388,7 +413,7 @@ def phase_backward(kc, knots, gen, dev):
         for t in (dx, part, *got):
             check(bool(torch.isfinite(t).all()), "backward output not finite")
         check(ok, f"backward kernels disagree with the plain version (B={B} "
-                  f"H={H} C={C} O={O} {act})")
+                  f"H={H} C={C} O={O} {act} k={k} pad={pad})")
         for name, e in (("kan_conv2d_bwd_dx", max(e_dx, auto[0][0])),
                         ("kan_conv2d_bwd_dw",
                          max(e_dw, auto[1][0], auto[2][0])),
@@ -453,8 +478,17 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
         return losses, grads, ends
 
     mod.reset_launches()
-    losses_gpu, grads_gpu, snaps_gpu = run(model_gpu, dev)
-    torch.cuda.synchronize()
+    # cuDNN's deterministic algorithms for the GPU steps: the WavKAN base
+    # conv's weight gradient may otherwise take one with atomics, and the
+    # lockstep comparison of later steps starts from a state that then
+    # differs from run to run
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses_gpu, grads_gpu, snaps_gpu = run(model_gpu, dev)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     counts = dict(mod.launches)
     losses_cpu, grads_cpu, snaps_cpu = run(
         model_cpu, "cpu", snaps_gpu[:-1] if lockstep else None)
@@ -635,6 +669,19 @@ def phase_train_times(kc, knots, gen, dev, card):
             "tflops_issued": round(2 * issued / ms["kan_conv2d_bwd_dw"][0]
                                   / 1e9, 2)})
         totals["kan_conv2d_bwd_dw"]["dense_bound_ms"] += n * dense_ms
+        # the data gradient's tile and what it issues: its (pixel, tap)
+        # pairs (pad pairs and idle pixel slots included) times whole
+        # channel blocks, K+1 and whole chunks of output channels
+        xcfg = kc.dx_launch_config(B, H, H, C, O, 3, 1, K)
+        x_issued = xcfg["pairs"] * -(-C // xcfg["CC"]) * xcfg["CC"] * \
+            (K + 1) * -(-O // xcfg["OC"]) * xcfg["OC"]
+        x_ms = ms["kan_conv2d_bwd_dx"][0]
+        dx_row = row["kan_conv2d_bwd_dx"]
+        dx_row.update({
+            "tile": {key: xcfg[key] for key in DX_TILE},
+            "issued_over_interior": round(x_issued / (flops / 2), 4),
+            "bound_share": round(dx_row["bound_ms"] / x_ms, 4),
+            "tflops_issued": round(2 * x_issued / x_ms / 1e9, 2)})
         red_row(row["kan_conv2d_bwd_dw_reduce"], rcfg, red,
                 totals["kan_conv2d_bwd_dw_reduce"], n)
         rows.append(row)

@@ -41,10 +41,14 @@
 // count (about 0.36 GFLOP per image each over KAN-VGG16_small), on float32
 // operands outside the tensor cores (67 TFLOP/s); bytes are a few MB per
 // layer.  What the design does about it:
-//   * dx: the haloed g tile of an output-channel chunk and the weight slices
-//     of all k*k taps for the block's channels are staged in shared memory
-//     once per chunk; per four output channels a thread does 4 float4 g
-//     loads + (K+1) float4 weight loads for 4*(K+1)*4 = 144 FMAs.
+//   * dx: a block of 256 pixels x 8 channels; a thread keeps ONE channel's
+//     K+1 = 9 dE values for 8 pixels (72 sums); the g tile of a chunk of 8
+//     output channels and the weight slices of all k*k taps are staged with
+//     16-byte cp.async, double-buffered across chunks (one barrier per
+//     chunk); per tap and pair of output channels a thread loads 8 float2s
+//     of g and 9 of W for 8 x 9 x 2 = 144 FMAs.  Where the plane has at most
+//     16 pixels, a warp holds one position of 32 images and skips the taps
+//     whose g lies off the plane (no pad pair computed).
 //   * dW: each thread keeps ONE input channel's K+1 = 9 expanded rows x 8
 //     columns of sums (72) in registers; per pixel the channel's 9 E values
 //     (two float4s and a float, the same address for every thread of that
@@ -62,11 +66,11 @@
 //     pixels and are summed in shared memory in slice order at the end (one
 //     launch, a fixed order).  dZ is gathered one float4 (one tap, 4 output
 //     channels) per load when O % 4 == 0.
-// Later work, in order: a haloed g tile per chunk shared by the taps and
-// double-buffered with cp.async; skipping pad pairs; fusing the dW
-// reduction into the weight kernel (once its own split is redesigned);
-// tensor cores (3xTF32 wgmma); only the ORDER+1 non-zero basis rows per
-// value.
+// Later work, in order: for dW, a haloed g tile per chunk shared by the
+// taps and double-buffered with cp.async, skipping pad pairs, fusing the
+// reduction into the weight kernel (once its own split is redesigned); for
+// both, tensor cores (3xTF32 wgmma) and only the ORDER+1 non-zero basis rows
+// per value.
 //
 // Numerics: the basis values come from kan_bspline.cuh, the forward's own
 // code (explicitly rounded float32 operations, true IEEE divides), so the E
@@ -80,6 +84,7 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "cp_async.cuh"
 #include "kan_bspline.cuh"
 #include "ordered_sum.cuh"
 
@@ -88,17 +93,33 @@ namespace {
 using namespace kan;
 
 constexpr int kThreads = 256;
-constexpr int kDxTM = 4;          // dx: pixels per thread
-constexpr int kDxThreadsM = 32;   // dx: pixel slots of threads
-constexpr int kDxMaxCC = 8;       // dx: channels per block (one per thread)
+constexpr int kDxTM = 8;                      // dx: pixels per thread
+constexpr int kDxLanes = 8;                   // dx: channel lanes (CC <= 8)
+constexpr int kDxSlots = kThreads / kDxLanes;  // dx: pixel slots
+constexpr int kDxPixels = kDxSlots * kDxTM;   // dx: pixels per block
+constexpr int kDxGroup = 32;                  // dx skip: images per warp
 constexpr int kDwMaxThreads = 256;  // dW: threads of a block at most
 constexpr int kDwTN = 8;            // dW: columns per thread (two float4s)
 
 struct DxShape {
   int B, H, W, C, O, k, pad, Ho, Wo;
-  int TH, NB, CC, OC;  // block tile: input rows, images, channels, O chunk
-  int tileH, tileW;    // haloed g tile: TH + k - 1 rows, W + k - 1 columns
-  int gs;              // floats per staged pixel / weight row: OC padded
+  int skip;          // 1: a warp per (position, 32 images), pad taps skipped
+  int lw, lth, lp;   // dense: log2 of Wv (W rounded up to a power of two),
+                     // of TH (rows per image slot), of P = TH*Wv slots
+  int NB, NBt;       // dense: image slots (NB*P = 256), planes of the tile
+  int NG;            // skip: groups of 32 images whose g planes are staged
+  int lcc, loc;      // log2 of CC (channels per block), of OC/4 (float4s of
+                     // output channels per chunk)
+  int stages;        // chunks staged at once: 2 (double-buffered) or 1
+  int tileR, tileC;  // g tile radices: dense TH' + k - 1, W + k - 1 (TH' =
+                     // min(TH, H)); skip Wo, NG*32
+  int tilePix;       // g pixels staged per chunk
+  int tilePitch;     // g pixels per float4 of output channels: tilePix and
+                     // what slots past the image read (dense)
+  int rowChunks;     // dense: row tiles per image
+  int groups;        // skip: image groups, ceil(B / 32)
+  int tilesM;        // blocks along the pixels (grid x)
+  int dq[8];         // tile pixels from a thread's pixel q = 0 to pixel q
 };
 
 struct DwShape {
@@ -179,8 +200,49 @@ __device__ __forceinline__ int bspline_span_grad(float x, const float* kn,
 }
 
 // ------------------------------------------------------------ data gradient
-// Block: NB images x TH input rows x all W columns x CC channels; thread
-// (tm, tn) owns channel c0 + tn of pixels tm, tm + 32, tm + 64, tm + 96.
+// skip mode: the slot of warp w among its block's 8 (w < 4: w; else
+// 4 + ((w - 4) ^ 1)).  Warps w and w + 4 share an SM sub-partition; on a
+// 4x4 plane, whose block holds two rows of positions, a corner (4 taps)
+// then shares with a centre position (9) and an edge (6) with an edge: at
+// most 13 taps per sub-partition, not 15.
+__device__ __forceinline__ int dx_warp_slot(int w) { return w ^ (w >> 2); }
+
+// Block: 256 input pixels x CC channels (CC <= 8, a power of two), grid y
+// over the channel blocks.  Thread t is pixel slot pm = t >> 3 and channel
+// lane tn = t & 7 (lanes tn >= CC idle): it owns channel c0 + tn of the
+// block's pixels m = pm + 32q, q = 0..7, and keeps their 8 x (K+1) dE sums
+// in registers.  The 256 pixel slots are laid out so that pixel q lies a
+// block-uniform dq[q] tile pixels after pixel 0 (kernel arguments: the
+// loads need one address register per thread, not eight):
+//   dense: NB image slots x TH rows x Wv columns, Wv = W and TH rounded up
+//     to powers of two (slots past the image idle; none on VGG16_small), m =
+//     (nb*TH + r)*Wv + c; g is staged as the haloed tile of the rows (NBt
+//     planes of (min(TH, H) + k - 1) x (W + k - 1) pixels, zero off the
+//     output frame), and tap (di, dj) of a pixel reads the tile di*tileC + dj
+//     pixels before its tap-(0, 0) entry;
+//   skip (planes of at most 16 pixels; the fallback of large kernels):
+//     warp w holds ONE input position of 32 images (slot = 8*block +
+//     dx_warp_slot(w) enumerates (image group, position)), pixel slot a =
+//     pm & 3 images a, a+4, ..., a+28; g is staged as the whole output
+//     planes of the block's NG groups of 32 images, position-major,
+//     image-minor, without a halo, and a warp skips the taps whose g lies
+//     off the output plane: uniform over the warp, so no pad pair is
+//     computed.
+// Output channels are staged OC at a time (two float4s; one for O = 4 or a
+// fallback tile): the g tile as [o4][pixel] float4s and the weight slices
+// of all k*k taps as [tap][kk][o4][channel] float4s, so that a warp's four
+// pixel slots read four neighbouring float4s of g and its eight lanes eight
+// neighbouring float4s of W (no bank conflict; each a broadcast).  Every
+// staged float4 is one 16-byte cp.async (zero-fill off the frame and past
+// O); chunk n+1 is in flight while chunk n is consumed (double-buffered,
+// one barrier per chunk).  Per tap and pair of output channels a thread
+// loads 8 float2s of g and 9 of W for 8 x 9 x 2 = 144 FMAs: the same bytes
+// per FMA as float4 loads with half the operand registers live, within the
+// 128 registers that two blocks of 256 threads per SM allow (the float4
+// form measured slower on the H100).
+// Index work: the g tile's table and each warp's valid taps are built once
+// per block, the pixel layouts decode by shifts, the staging loops advance
+// pointers by addition and the tap loop multiplies: no divide in any loop.
 template <int NK, int ORDER, int ACT>
 __global__ void __launch_bounds__(kThreads, 2)
     kan_conv2d_bwd_dx_kernel(const float* __restrict__ x,
@@ -191,50 +253,125 @@ __global__ void __launch_bounds__(kThreads, 2)
   constexpr int K = NK - ORDER - 1;
   constexpr int K1 = K + 1;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ float knS[kMaxKnots];
 
   const int k = s.k;
   const int T = k * k;
-  const int R9 = K1 * s.CC;  // weight rows of the block: kk*CC + cl
-  const int GS = s.gs;
-  const int tilePlane = s.tileH * s.tileW;
-  const int tilePix = s.NB * tilePlane;
-  float* Gs = smem;                   // [tilePix][GS]: haloed g chunk
-  float* Ws = Gs + tilePix * GS;      // [T][R9][GS]: weight chunk
-  int* rowG = reinterpret_cast<int*>(Ws + T * R9 * GS);  // [R9]: kk*C + cl
-  __shared__ float knS[kMaxKnots];
-
-  const int rowChunks = (s.H + s.TH - 1) / s.TH;
-  const int b0 = (blockIdx.x / rowChunks) * s.NB;
-  const int i0 = (blockIdx.x % rowChunks) * s.TH;
-  const int c0 = blockIdx.y * s.CC;
+  const int lcc = s.lcc, loc = s.loc;
+  const int CC = 1 << lcc, OC4 = 1 << loc;
+  const int gF4 = s.tilePitch << loc;             // float4s of a g chunk
+  const int stageF4 = gF4 + ((T * K1) << (lcc + loc));  // ... and weights
+  int* gOff = reinterpret_cast<int*>(smem4 + s.stages * stageF4);
+  // [tilePix]: g element offset of tile pixel p, or -1 (zero)
+  const int tapWords = (T + 31) >> 5;
+  unsigned* tapOk = reinterpret_cast<unsigned*>(gOff + s.tilePix);
+  // skip: [8][tapWords]: bit tap of warp w's words, g on the output plane
 
   const int tid = threadIdx.x;
-  const int tn = tid % s.CC;
-  const int tm = tid / s.CC;
-  const bool active = tm < kDxThreadsM;
-  const int pixPerImg = s.TH * s.W;
-  const int MT = s.NB * pixPerImg;
+  const int tn = tid & (kDxLanes - 1);
+  const int pm = tid >> 3;
+  const int c0 = blockIdx.y << lcc;
+  const int P = s.H * s.W;
 
-  // tile offset of each pixel's g at tap (0, 0): row ti + k - 1, column
-  // j + k - 1; tap (di, dj) reads (di * tileW + dj) pixels before it
-  int gbase[kDxTM];
-  bool valid[kDxTM];
-#pragma unroll
-  for (int q = 0; q < kDxTM; ++q) {
-    const int m = tm + q * kDxThreadsM;
-    const int nb = m / pixPerImg;
-    const int rem = m - nb * pixPerImg;
-    const int ti = rem / s.W;
-    const int j = rem - ti * s.W;
-    valid[q] = active && m < MT && b0 + nb < s.B && i0 + ti < s.H;
-    gbase[q] = valid[q] ? (nb * tilePlane + (ti + k - 1) * s.tileW + j + k - 1)
-                        : (k - 1) * s.tileW + k - 1;  // a safe dummy
-    gbase[q] *= GS;
+  // where the block's pixels are: dense, images b0.. and rows i0..; skip,
+  // the warp slots 8*blockIdx.x.. over (image group, position)
+  int b0, i0 = 0, gbase;  // gbase: the tile pixel of pixel q = 0, tap (0, 0)
+  const int slot0 = blockIdx.x * (kThreads / 32);
+  const int igB = slot0 / P;
+  if (s.skip) {
+    b0 = igB * kDxGroup;
+    const int slot = slot0 + dx_warp_slot(tid >> 5);  // this warp's
+    const int ig = slot / P, pos = slot - ig * P, i = pos / s.W;
+    const int iw = slot < s.groups * P ? i + s.pad : -s.Ho;  // off-plane
+    const int jw = pos - i * s.W + s.pad;
+    gbase = (iw * s.Wo + jw) * s.tileC + (ig - igB) * kDxGroup + (pm & 3);
+    if ((tid & 31) == 0) {
+      unsigned* bits = tapOk + (tid >> 5) * tapWords;
+      for (int w = 0; w < tapWords; ++w) bits[w] = 0u;
+      for (int di = 0, tap = 0; di < k; ++di)
+        for (int dj = 0; dj < k; ++dj, ++tap)
+          if ((unsigned)(iw - di) < (unsigned)s.Ho &&
+              (unsigned)(jw - dj) < (unsigned)s.Wo)
+            bits[tap >> 5] |= 1u << (tap & 31);
+    }
+  } else {
+    const int bg = blockIdx.x / s.rowChunks;
+    b0 = bg * s.NB;
+    i0 = (blockIdx.x - bg * s.rowChunks) << s.lth;
+    const int nb = pm >> s.lp, r = (pm >> s.lw) & ((1 << s.lth) - 1);
+    gbase = (nb * s.tileR + r + k - 1) * s.tileC + (pm & ((1 << s.lw) - 1)) +
+            k - 1;
   }
-  for (int r = tid; r < R9; r += kThreads)
-    rowG[r] = (r / s.CC) * s.C + r % s.CC;
-  if (tid < kMaxKnots) knS[tid] = kn.v[tid];
+  {
+    // the g tile's table: pixel p = (d2*tileR + d1)*tileC + d0 is dense
+    // (plane, row, column), skip (output row, output column, image); pixels
+    // tid, tid + 256, ... by a mixed-radix counter
+    const int R0 = s.tileC, R1 = s.tileR;
+    int d0 = tid % R0, d1 = tid / R0;
+    int d2 = d1 / R1;
+    d1 -= d2 * R1;
+    const int s0 = kThreads % R0, s12 = kThreads / R0;
+    const int s2 = s12 / R1, s1 = s12 - s2 * R1;
+    const int gRow0 = i0 + s.pad - (k - 1), gCol0 = s.pad - (k - 1);
+    for (int p = tid; p < s.tilePix; p += kThreads) {
+      const int b = b0 + (s.skip ? d0 : d2);
+      const int oi = s.skip ? d2 : gRow0 + d1;
+      const int oj = s.skip ? d1 : gCol0 + d0;
+      gOff[p] = b < s.B && (unsigned)oi < (unsigned)s.Ho &&
+                        (unsigned)oj < (unsigned)s.Wo
+                    ? ((b * s.Ho + oi) * s.Wo + oj) * s.O
+                    : -1;
+      d0 += s0;
+      if (d0 >= R0) { d0 -= R0; ++d1; }
+      d1 += s1;
+      if (d1 >= R1) { d1 -= R1; ++d2; }
+      d2 += s2;
+    }
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kMaxKnots; ++i) knS[i] = kn.v[i];
+  }
+
+  // chunk of output channels oc0 .. oc0 + 4*OC4 - 1 into buf: g float4 o4
+  // of tile pixel p at buf[o4*tilePitch + p]; W_all row kk*C + c0 + cl,
+  // columns tap*O + oc0 + 4*o4 .. +3 at buf[gF4 + ((tap*K1 + kk)*OC4 +
+  // o4)*CC + cl]
+  const size_t wCols = (size_t)T * s.O;
+  auto stage = [&](int oc0, float4* buf) {
+    {
+      const int o4 = tid & (OC4 - 1), oo = oc0 + 4 * o4, step = kThreads >> loc;
+      const bool colOk = oo < s.O;
+      const float* src = g + (colOk ? oo : 0);
+      float4* dst = buf + o4 * s.tilePitch + (tid >> loc);
+      const int* offp = gOff + (tid >> loc);
+      const int* const end = gOff + s.tilePix;
+#pragma unroll 1
+      for (; offp < end; offp += step, dst += step) {
+        const int off = *offp;
+        const bool ok = off >= 0 && colOk;
+        cp_async16(dst, src + (ok ? off : 0), ok);
+      }
+    }
+    // thread e < K1*CC*OC4 copies entry e = (kk*OC4 + o4)*CC + cl of every
+    // tap's slice
+    const int lr = lcc + loc;
+    if (tid < (K1 << lr)) {
+      const int cl = tid & (CC - 1), o4 = (tid >> lcc) & (OC4 - 1);
+      const int kk = tid >> lr, oo = oc0 + 4 * o4;
+      const bool ok = c0 + cl < s.C && oo < s.O;
+      const float* src =
+          ok ? w_all + (size_t)(kk * s.C + c0 + cl) * wCols + oo : w_all;
+      float4* dst = buf + gF4 + tid;
+#pragma unroll 1
+      for (int tap = 0; tap < T; ++tap) {
+        cp_async16(dst, src, ok);
+        dst += K1 << lr;
+        src += ok ? s.O : 0;
+      }
+    }
+    cp_async_commit();
+  };
 
   float acc[kDxTM][K1];
 #pragma unroll
@@ -242,77 +379,84 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int kk = 0; kk < K1; ++kk) acc[q][kk] = 0.0f;
 
-  const size_t wCols = (size_t)T * s.O;
-  const int gRow0 = i0 + s.pad - (k - 1);  // g row of tile row 0
-  const int gCol0 = s.pad - (k - 1);       // g column of tile column 0
-  for (int oc0 = 0; oc0 < s.O; oc0 += s.OC) {
-    __syncthreads();  // rowG is ready; the previous chunk's readers are done
-    for (int idx = tid; idx < tilePix * s.OC; idx += kThreads) {
-      const int pix = idx / s.OC;
-      const int o = idx - pix * s.OC;
-      const int nb = pix / tilePlane;
-      const int rem = pix - nb * tilePlane;
-      const int gr = rem / s.tileW;
-      const int gc = rem - gr * s.tileW;
-      const int b = b0 + nb, gi = gRow0 + gr, gj = gCol0 + gc, oo = oc0 + o;
-      float v = 0.0f;
-      if (b < s.B && gi >= 0 && gi < s.Ho && gj >= 0 && gj < s.Wo && oo < s.O)
-        v = __ldg(&g[(((size_t)b * s.Ho + gi) * s.Wo + gj) * s.O + oo]);
-      Gs[pix * GS + o] = v;
-    }
-    for (int idx = tid; idx < T * R9 * s.OC; idx += kThreads) {
-      const int o = idx % s.OC;
-      const int tr = idx / s.OC;
-      const int tap = tr / R9;
-      const int r = tr - tap * R9;
-      const int cl = r % s.CC;
-      float v = 0.0f;
-      if (c0 + cl < s.C && oc0 + o < s.O)
-        v = __ldg(&w_all[(size_t)(rowG[r] + c0) * wCols + (size_t)tap * s.O +
-                         oc0 + o]);
-      Ws[tr * GS + o] = v;
-    }
-    __syncthreads();
-    if (active) {
-      for (int tap = 0; tap < T; ++tap) {
-        const int di = tap / k, dj = tap - (tap / k) * k;
-        const int shift = (di * s.tileW + dj) * GS;
-        const float* Wt = Ws + (tap * R9 + tn) * GS;  // row kk*CC + tn
-        for (int o = 0; o < s.OC; o += 4) {
-          float4 wv[K1];
+  // tile pixels between taps: one tap row, one tap column
+  const int sR = s.skip ? s.tileR * s.tileC : s.tileC;
+  const int sC = s.skip ? s.tileC : 1;
+  const int nChunks = (s.O + (4 << loc) - 1) >> (loc + 2);
+  __syncthreads();  // the table is in
+  stage(0, smem4);
+  for (int n = 0; n < nChunks; ++n) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk n is in; every reader of the other buffer done
+    const float4* cur = smem4 + (n & (s.stages - 1)) * stageF4;
+    if (s.stages == 2 && n + 1 < nChunks)
+      stage((n + 1) << (loc + 2), smem4 + ((n + 1) & 1) * stageF4);
+    const float4* Wl = cur + gF4 + tn;
+    for (int di = 0, tap = 0; di < k; ++di) {
+      for (int dj = 0; dj < k; ++dj, ++tap) {
+        if (s.skip &&
+            !((tapOk[(tid >> 5) * tapWords + (tap >> 5)] >> (tap & 31)) & 1u))
+          continue;  // the warp's g at this tap lies off the plane
+        const float4* Gq = cur + gbase - (di * sR + dj * sC);
+        for (int o4 = 0; o4 < OC4; ++o4) {
+          const float4* Gt = Gq + o4 * s.tilePitch;
+          const float4* Wt = Wl + ((tap * K1) << (lcc + loc)) + (o4 << lcc);
 #pragma unroll
-          for (int kk = 0; kk < K1; ++kk)
-            wv[kk] = *reinterpret_cast<const float4*>(Wt + kk * s.CC * GS + o);
+          for (int hf = 0; hf < 2; ++hf) {
+            const float2* Gt2 = reinterpret_cast<const float2*>(Gt) + hf;
+            const float2* Wt2 = reinterpret_cast<const float2*>(Wt) + hf;
+            float2 gv[kDxTM];
 #pragma unroll
-          for (int q = 0; q < kDxTM; ++q) {
-            const float4 gv =
-                *reinterpret_cast<const float4*>(Gs + gbase[q] - shift + o);
+            for (int q = 0; q < kDxTM; ++q) gv[q] = Gt2[2 * s.dq[q]];
 #pragma unroll
             for (int kk = 0; kk < K1; ++kk) {
-              acc[q][kk] = fmaf(gv.x, wv[kk].x, acc[q][kk]);
-              acc[q][kk] = fmaf(gv.y, wv[kk].y, acc[q][kk]);
-              acc[q][kk] = fmaf(gv.z, wv[kk].z, acc[q][kk]);
-              acc[q][kk] = fmaf(gv.w, wv[kk].w, acc[q][kk]);
+              const float2 wv = Wt2[2 * (kk << (lcc + loc))];
+#pragma unroll
+              for (int q = 0; q < kDxTM; ++q) {
+                acc[q][kk] = fmaf(gv[q].x, wv.x, acc[q][kk]);
+                acc[q][kk] = fmaf(gv[q].y, wv.y, acc[q][kk]);
+              }
             }
           }
         }
       }
     }
+    if (s.stages == 1 && n + 1 < nChunks) {
+      __syncthreads();  // every reader of the one buffer is done
+      stage((n + 1) << (loc + 2), smem4);
+    }
   }
 
   // epilogue: the chain rule through the basis and the base activation
   const int c = c0 + tn;
-  if (!active || c >= s.C) return;
+  if (tn >= CC || c >= s.C) return;
+  // pixel q: skip, image bq + 4q at (iq, jq); dense, slot m = pm + 32q
+  int bq = 0, iq = 0, jq = 0;
+  bool slotOn = true;
+  if (s.skip) {
+    const int slot = slot0 + dx_warp_slot(tid >> 5);
+    const int ig = slot / P, pos = slot - ig * P;
+    iq = pos / s.W;
+    jq = pos - iq * s.W;
+    bq = ig * kDxGroup + (pm & 3);
+    slotOn = slot < s.groups * P;
+  }
 #pragma unroll
   for (int q = 0; q < kDxTM; ++q) {
-    if (!valid[q]) continue;
-    const int m = tm + q * kDxThreadsM;
-    const int nb = m / pixPerImg;
-    const int rem = m - nb * pixPerImg;
-    const int ti = rem / s.W;
-    const int j = rem - ti * s.W;
-    const size_t at =
-        (((size_t)(b0 + nb) * s.H + (i0 + ti)) * s.W + j) * s.C + c;
+    int b, i, j;
+    if (s.skip) {
+      b = bq + 4 * q;
+      i = iq;
+      j = jq;
+    } else {
+      const int m = pm + kDxSlots * q;
+      b = b0 + (m >> s.lp);
+      i = i0 + ((m >> s.lw) & ((1 << s.lth) - 1));
+      j = m & ((1 << s.lw) - 1);
+      if ((m >> s.lp) >= s.NBt || i - i0 >= s.tileR - (k - 1)) continue;
+    }
+    if (!slotOn || b >= s.B || i >= s.H || j >= s.W) continue;
+    const size_t at = (((size_t)b * s.H + i) * s.W + j) * s.C + c;
     const float xv = __ldg(&x[at]);
     float D[ORDER + 1];
     const int j0 = bspline_span_grad<NK, ORDER>(xv, knS, D) - ORDER;
@@ -322,8 +466,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int kk = 0; kk < K; ++kk)
 #pragma unroll
-      for (int m = 0; m <= ORDER; ++m)
-        if (kk == j0 + m) sum = fmaf(acc[q][kk], D[m], sum);
+      for (int mm = 0; mm <= ORDER; ++mm)
+        if (kk == j0 + mm) sum = fmaf(acc[q][kk], D[mm], sum);
     dx[at] = sum;
   }
 }
@@ -532,11 +676,13 @@ cudaError_t grant_smem(Kernel kernel, size_t smem, size_t* granted) {
   return cudaSuccess;
 }
 
+// the staged chunks (g tile with what idle slots read past it, weight
+// slices; OC/4 float4s per entry) and the g tile's table (one int a pixel)
 size_t dx_smem(const DxShape& s, int K1) {
-  return sizeof(float) *
-             ((size_t)s.NB * s.tileH * s.tileW * s.gs +
-              (size_t)s.k * s.k * K1 * s.CC * s.gs) +
-         sizeof(int) * (size_t)K1 * s.CC;
+  const size_t chunk = ((size_t)s.tilePitch + (size_t)s.k * s.k * K1 *
+                                                  (1 << s.lcc)) << s.loc;
+  return sizeof(float4) * s.stages * chunk + sizeof(int) * (size_t)s.tilePix +
+         sizeof(unsigned) * (kThreads / 32) * ((s.k * s.k + 31) / 32);
 }
 
 // the staged chunk (expanded input, gathered g, pixel table), or the
@@ -559,9 +705,7 @@ cudaError_t launch_dx(const float* x, const float* w_all, const float* g,
   const size_t smem = dx_smem(s, NK - ORDER);
   const cudaError_t err = grant_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return err;
-  const int rowChunks = (s.H + s.TH - 1) / s.TH;
-  const dim3 grid(rowChunks * ((s.B + s.NB - 1) / s.NB),
-                  (s.C + s.CC - 1) / s.CC);
+  const dim3 grid(s.tilesM, (s.C + (1 << s.lcc) - 1) >> s.lcc);
   kernel<<<grid, kThreads, smem, stream>>>(x, w_all, g, dx, s, kn);
   return cudaGetLastError();
 }
@@ -584,32 +728,88 @@ cudaError_t launch_dw(const float* x, const float* g, float* partial,
 
 extern "C" {
 
+// log2 of v, or -1 unless v is a power of two in 1..2^30
+int log2_exact(int v) {
+  for (int l = 0; l <= 30; ++l)
+    if (v == 1 << l) return l;
+  return -1;
+}
+
 // Data gradient dx (B, H, W, C) of the KAN conv for g (B, Ho, Wo, O).
 // Returns a cudaError_t (0 = success); cudaErrorInvalidValue for a tile or
-// spline the build does not carry.  The Python wrapper chooses TH/NB/CC/OC
-// (kernels/kan_conv2d.py, dx_launch_config) and validates every tensor.
+// spline the build does not carry.  The Python wrapper chooses the tile
+// (kernels/kan_conv2d.py, dx_launch_config: skip; dense TH (rows per image
+// slot) and NB (image slots), NB*TH*Wv = 256 for Wv = W rounded up to a
+// power of two, or skip NG; CC; OC; stages) and validates every tensor;
+// O % 4 == 0 and w_all and g 16-byte aligned (the wrapper pads and copies).
 int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
                       void* dx, int B, int H, int W, int C, int O, int k,
-                      int pad, int TH, int NB, int CC, int OC,
-                      const float* knots, int n_knots, int order, int act,
-                      void* stream) {
-  DxShape s;
+                      int pad, int skip, int TH, int NB, int NG, int CC,
+                      int OC, int stages, const float* knots, int n_knots,
+                      int order, int act, void* stream) {
+  DxShape s = {};
   s.B = B; s.H = H; s.W = W; s.C = C; s.O = O; s.k = k; s.pad = pad;
   s.Ho = H + 2 * pad - k + 1;
   s.Wo = W + 2 * pad - k + 1;
-  s.TH = TH; s.NB = NB; s.CC = CC; s.OC = OC;
-  s.tileH = TH + k - 1;
-  s.tileW = W + k - 1;
-  // OC rounded to an odd number of float4s, so the CC channels' weight
-  // rows read by neighbouring threads fall in different banks
-  s.gs = (OC / 4) % 2 == 1 ? OC : OC + 4;
+  s.skip = skip; s.NB = NB; s.NG = NG; s.stages = stages;
+  s.lcc = CC <= 8 ? log2_exact(CC) : -1;
+  s.loc = OC == 4 || OC == 8 ? log2_exact(OC / 4) : -1;
+  const int K1 = n_knots - order;
   Knots kn;
-  if (CC <= 0 || CC > kDxMaxCC || OC <= 0 || OC % 4 != 0 || TH <= 0 ||
-      NB <= 0 || NB * TH * W > kDxThreadsM * kDxTM || s.Ho <= 0 ||
-      s.Wo <= 0 || (act != 0 && act != 1) || !load_knots(knots, n_knots, &kn))
+  if (s.lcc < 0 || s.loc < 0 || (stages != 1 && stages != 2) || O % 4 != 0 ||
+      s.Ho <= 0 || s.Wo <= 0 || W > kDxPixels || (act != 0 && act != 1) ||
+      reinterpret_cast<size_t>(w_all) % 16 != 0 ||
+      reinterpret_cast<size_t>(g) % 16 != 0 ||
+      (long long)B * H * W * C >= (1LL << 31) ||
+      (long long)B * s.Ho * s.Wo * O >= (1LL << 31) ||
+      (long long)K1 * C * k * k * O >= (1LL << 31) ||
+      !load_knots(knots, n_knots, &kn))
     return (int)cudaErrorInvalidValue;
-  if (dx_smem(s, n_knots - order) > 227 * 1024)
-    return (int)cudaErrorInvalidValue;
+  const int P = H * W;
+  if (skip) {
+    // NG must hold every image group that the 8 warp slots of a block
+    // reach (as in the forward's skip tile)
+    const int warps = kThreads / 32;
+    s.groups = (B + kDxGroup - 1) / kDxGroup;
+    int need = 1;
+    for (int b = 0; b < P; ++b) {
+      const int lo = b * warps / P, hi = (b * warps + warps - 1) / P;
+      if (hi - lo + 1 > need) need = hi - lo + 1;
+    }
+    if (need > s.groups) need = s.groups;
+    if (NG < need) return (int)cudaErrorInvalidValue;
+    s.tileR = s.Wo;
+    s.tileC = NG * kDxGroup;
+    s.tilePix = s.tilePitch = s.Ho * s.Wo * s.tileC;
+    s.tilesM = (s.groups * P + warps - 1) / warps;
+    for (int q = 0; q < kDxTM; ++q) s.dq[q] = 4 * q;
+  } else {
+    int Wv = 1;
+    while (Wv < W) Wv *= 2;
+    s.lw = log2_exact(Wv);
+    s.lth = log2_exact(TH);
+    if (s.lth < 0 || NB < 1 || NB * TH * Wv != kDxPixels ||
+        (NB > 1 && TH < H))
+      return (int)cudaErrorInvalidValue;
+    s.lp = s.lw + s.lth;
+    // the planes of the tile: every image slot's where pixel slots span
+    // images (P < 32), else at most B (the idle slots' dq is 0)
+    s.NBt = (1 << s.lp) < kDxSlots || NB < B ? NB : B;
+    const int rows = TH < H ? TH : H;
+    s.tileR = rows + k - 1;
+    s.tileC = W + k - 1;
+    s.tilePix = s.NBt * s.tileR * s.tileC;
+    s.tilePitch = s.tilePix + (TH - rows) * s.tileC + (Wv - W);
+    s.rowChunks = (H + TH - 1) / TH;
+    s.tilesM = ((B + NB - 1) / NB) * s.rowChunks;
+    for (int q = 0; q < kDxTM; ++q) {
+      const int m = kDxSlots * q, nb = m >> s.lp;
+      s.dq[q] = nb < s.NBt ? (nb * s.tileR + ((m >> s.lw) & (TH - 1))) *
+                                     s.tileC + (m & (Wv - 1))
+                           : 0;
+    }
+  }
+  if (dx_smem(s, K1) > 227 * 1024) return (int)cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
   const float* wp = static_cast<const float*>(w_all);
   const float* gp = static_cast<const float*>(g);

@@ -71,6 +71,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "kan_bspline.cuh"
 
 namespace cg = cooperative_groups;
@@ -121,30 +122,6 @@ struct Geo {
 // whose taps inside the image overlap only at the centre tap.
 __device__ __forceinline__ int warp_slot(int w) {
   return w < kWarps / 2 ? w : kWarps + kWarps / 2 - 1 - w;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float comp(const float4& v, int u) {

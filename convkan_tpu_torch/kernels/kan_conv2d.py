@@ -21,6 +21,7 @@ from a kernel to a plain version.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import threading
 
 import numpy as np
@@ -45,9 +46,13 @@ SKIP_POSITIONS = 16              # pad taps skipped when Ho*Wo <= this
 TARGET_BLOCKS = 4 * 132          # two waves of two blocks per SM (H100 SXM)
 SMEM_LIMIT = 227 * 1024          # dynamic shared memory a block may use
 SMEM_TWO_BLOCKS = 112 * 1024     # ... with two blocks on an SM
-# data-gradient tile: 32 pixel slots x 4 pixels per thread, one channel per
-# thread (at most 8), output channels staged 16 at a time
-DX_PIXELS, DX_MAX_CC, DX_OC = 128, 8, 16
+# data-gradient tile: 32 pixel slots x 8 pixels per thread x 8 channel lanes
+# (CC <= 8 channels, a power of two), output channels staged DX_OC at a
+# time, two chunks in flight; where the input plane has at most
+# SKIP_POSITIONS pixels, a warp holds one position of DX_GROUP images and
+# skips the pad taps
+DX_SLOTS, DX_TM, DX_MAX_CC, DX_OC, DX_GROUP = 32, 8, 8, 8, 32
+DX_PIXELS = DX_SLOTS * DX_TM
 # weight-gradient tile: a thread sums one channel's K+1 expanded rows x
 # DW_TN columns, a block CC <= DW_MAX_CC channels x BN columns in at most
 # DW_THREADS threads, over chunks of DW_P pixels; the batch is split so that
@@ -67,6 +72,8 @@ RED_TARGET_BLOCKS, RED_CLUSTER_GRID, RED_CLUSTER_LEAF = 4 * 132, 132, 32
 
 # the forward tile's entries of launch_config, in the C entry's order
 FWD_TILE = ("BN", "skip", "TH", "TW", "NB", "NG", "CC", "S")
+# ... and the data-gradient tile's of dx_launch_config
+DX_TILE = ("skip", "TH", "NB", "NG", "CC", "OC", "stages")
 
 KERNELS = ("kan_conv2d_fwd", "kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
            "kan_conv2d_bwd_dw_reduce")
@@ -323,26 +330,99 @@ def launch_config(B, H, W, C, O, k, pad, K) -> dict:
     raise NotImplementedError("tile does not fit in shared memory")
 
 
+def dx_smem(tile: int, pitch: int, taps: int, K1: int, CC: int, OC: int,
+            stages: int) -> int:
+    """Dynamic shared memory of a data-gradient block (mirrors dx_smem in
+    the C source): ``stages`` chunks of the g tile (``pitch`` pixels: the
+    ``tile`` staged and what idle slots read past it) and the weight slices
+    of all taps, OC/4 float4s per entry, the tile's table (one int per
+    staged pixel) and each warp's valid taps (a bit per tap)."""
+    return 16 * stages * (OC // 4) * (pitch + taps * K1 * CC) + 4 * tile + \
+        4 * WARPS * -(-taps // 32)
+
+
+def dx_geometry(B, H, W, k, pad, skip: int, TH: int, NB: int,
+                NG: int) -> dict:
+    """The data-gradient block's pixel layout (mirrors the C entry): the g
+    tile's radices ``tileR`` x ``tileC`` and ``tile`` (pixels staged),
+    ``pitch``, ``planes`` (dense: image planes staged), ``tiles`` (blocks
+    along the pixels) and ``dq``: the tile pixels from a thread's pixel
+    q = 0 to its pixel q, the same for every thread."""
+    Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
+    if skip:
+        groups, P = -(-B // DX_GROUP), H * W
+        tile = Ho * Wo * NG * DX_GROUP
+        return {"tileR": Wo, "tileC": NG * DX_GROUP, "tile": tile,
+                "pitch": tile, "planes": 0, "tiles": -(-groups * P // WARPS),
+                "dq": [4 * q for q in range(DX_TM)]}
+    Wv = 1 << (W - 1).bit_length()
+    P = TH * Wv
+    planes = NB if P < DX_SLOTS else min(NB, B)
+    rows = min(TH, H)
+    tileR, tileC = rows + k - 1, W + k - 1
+    tile = planes * tileR * tileC
+    dq = []
+    for q in range(DX_TM):
+        m = DX_SLOTS * q
+        dq.append((m // P * tileR + m % P // Wv) * tileC + m % Wv
+                  if m // P < planes else 0)
+    return {"tileR": tileR, "tileC": tileC, "tile": tile,
+            "pitch": tile + (TH - rows) * tileC + Wv - W, "planes": planes,
+            "tiles": -(-B // NB) * -(-H // TH), "dq": dq}
+
+
 def dx_launch_config(B, H, W, C, O, k, pad, K) -> dict:
-    """Block tile for the data-gradient kernel: NB images x TH input rows
-    (all W columns, at most DX_PIXELS pixels), CC channels (one per
-    thread), OC output channels staged per pass.  Raises
-    NotImplementedError for a shape whose tile does not fit."""
+    """Block tile for the data-gradient kernel: DX_PIXELS input pixels x CC
+    channels (one channel lane per thread, CC <= DX_MAX_CC a power of two),
+    OC output channels per staged chunk (8, or 4 for O <= 4), ``stages``
+    chunks in flight.  Either ``skip`` (H*W <= SKIP_POSITIONS: a warp per
+    (position, DX_GROUP images), NG image groups' g planes staged without a
+    halo, pad taps skipped) or dense (NB image slots x TH rows x Wv
+    columns, TH and Wv = W rounded up to powers of two, 256 slots; the
+    haloed g tile of the block's rows), with the skip tile as the dense
+    one's fallback.  Two blocks' shared memory per SM where it can, else
+    one's; within a budget and a tile, OC is cut first, then stages, then
+    CC.  Returns the kernel's arguments and, for the tests,
+    the layout of ``dx_geometry``, ``blocks``, ``smem`` and ``pairs``: the
+    (pixel, tap) pairs the kernel computes per channel block, pad pairs and
+    idle pixel slots included.  Raises NotImplementedError for a row wider
+    than a block or a shape whose tile does not fit."""
     if W > DX_PIXELS:
         raise NotImplementedError(f"input width {W} > {DX_PIXELS} pixels per "
                                   "data-gradient block")
-    if H * W >= DX_PIXELS:
-        TH, NB = min(H, DX_PIXELS // W), 1
-    else:
-        TH, NB = H, min(B, DX_PIXELS // (H * W))
-    OC = min(DX_OC, -(-O // 4) * 4)
-    gs = OC if (OC // 4) % 2 else OC + 4
-    tile = NB * (TH + k - 1) * (W + k - 1)
-    for CC in range(min(C, DX_MAX_CC), 0, -1):
-        # haloed g tile, the weight rows of all taps, one int row table
-        if 4 * (gs * (tile + k * k * (K + 1) * CC) + (K + 1) * CC) \
-                <= SMEM_LIMIT:
-            return {"TH": TH, "NB": NB, "CC": CC, "OC": OC}
+    K1, T, P = K + 1, k * k, H * W
+    groups = -(-B // DX_GROUP)
+    skip = {"skip": 1, "TH": 0, "NB": 0, "NG": skip_groups(P, groups)}
+    Wv = 1 << (W - 1).bit_length()
+    TH = min(1 << (H - 1).bit_length(), DX_PIXELS // Wv)
+    dense = {"skip": 0, "TH": TH, "NB": DX_PIXELS // (TH * Wv), "NG": 0}
+    # the skip tile where the plane is small, else the dense one and, for
+    # large kernels on planes of few rows, the skip tile as a fallback
+    tiles = [skip] if P <= SKIP_POSITIONS else [dense, skip]
+    CC0 = 1
+    while CC0 < min(C, DX_MAX_CC):
+        CC0 *= 2
+    ccs = [CC0 >> i for i in range(CC0.bit_length())]
+    ocs = (DX_OC, 4) if O > 4 else (4,)
+    for budget in (SMEM_TWO_BLOCKS, SMEM_LIMIT):
+        for tile in tiles:
+            geo = dx_geometry(B, H, W, k, pad, **tile)
+            for CC, stages, OC in itertools.product(ccs, (2, 1), ocs):
+                smem = dx_smem(geo["tile"], geo["pitch"], T, K1, CC, OC,
+                               stages)
+                if smem > budget:
+                    continue
+                if tile["skip"]:  # the taps whose g lies on the plane
+                    Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
+                    pairs = DX_GROUP * groups * sum(
+                        0 <= i + pad - di < Ho and 0 <= j + pad - dj < Wo
+                        for i, j, di, dj in itertools.product(
+                            range(H), range(W), range(k), range(k)))
+                else:
+                    pairs = geo["tiles"] * DX_PIXELS * T
+                return {**tile, "CC": CC, "OC": OC, "stages": stages, **geo,
+                        "blocks": geo["tiles"] * -(-C // CC), "smem": smem,
+                        "pairs": pairs}
     raise NotImplementedError("data-gradient tile does not fit in shared "
                               "memory")
 
@@ -457,9 +537,9 @@ _ARGTYPES = {
     # order act; stream
     "kan_conv2d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    # x, w_all, g, dx; B H W C O k pad TH NB CC OC; knots; n_knots order
-    # act; stream
-    "kan_conv2d_bwd_dx": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+    # x, w_all, g, dx; B H W C O k pad skip TH NB NG CC OC stages; knots;
+    # n_knots order act; stream
+    "kan_conv2d_bwd_dx": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     # x, g, partial; B H W C O k pad CC BN P S ips PW; knots; n_knots
     # order act; stream
@@ -551,12 +631,26 @@ def input_grad(x, w_all, g, knots, order: int, k: int, pad: int, act: str):
         cfg = dx_launch_config(B, H, W, C, O, k, pad, K)
     except NotImplementedError as e:
         raise NotImplementedError(f"{desc}: {e}") from None
+    # the kernel stages g and W_all as float4s of output channels: O is
+    # padded with zero columns to a multiple of 4, and both are 16-byte
+    # aligned
+    O4 = -(-O // 4) * 4
+    if O4 != O:
+        g = torch.nn.functional.pad(g, (0, O4 - O))
+        w_all = torch.nn.functional.pad(
+            w_all.reshape(-1, k * k, O), (0, O4 - O)).reshape(-1, k * k * O4)
+    if max(x.numel(), g.numel(), w_all.numel()) >= 2 ** 31:
+        raise NotImplementedError(f"{desc}: tensor too large")
+    if g.data_ptr() % 16:
+        g = g.clone()
+    if w_all.data_ptr() % 16 or not w_all.is_contiguous():
+        w_all = w_all.clone(memory_format=torch.contiguous_format)
     dx = torch.empty_like(x)
     kn, kn_ptr = _knots_arg(knots)
     _launch("kan_conv2d_bwd_dx",
             (x.data_ptr(), w_all.data_ptr(), g.data_ptr(), dx.data_ptr(), B, H,
-             W, C, O, k, pad, cfg["TH"], cfg["NB"], cfg["CC"], cfg["OC"],
-             kn_ptr, len(kn), order, ACTS[act], _stream(x)), desc)
+             W, C, O4, k, pad, *(cfg[key] for key in DX_TILE), kn_ptr,
+             len(kn), order, ACTS[act], _stream(x)), desc)
     return dx
 
 

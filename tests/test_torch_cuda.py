@@ -84,25 +84,33 @@ def test_cuda_refuses_float64_and_unported_spline():
                       "silu")
 
 
-def _bwd_inputs(B, H, C, O, seed):
+def _bwd_inputs(B, H, C, O, seed, k=3, pad=1):
     rng = np.random.RandomState(seed)
+    Ho = H + 2 * pad - k + 1
     x = rng.uniform(-3, 3, (B, H, H, C)).astype(np.float32)
     x.reshape(-1)[:len(KNOTS)] = KNOTS          # exact knots occur
-    bw = rng.normal(0, 0.2, (3, 3, C, O)).astype(np.float32)
-    pw = rng.normal(0, 0.2, (3, 3, C * 8, O)).astype(np.float32)
-    g = rng.normal(0, 1, (B, H, H, O)).astype(np.float32)
+    bw = rng.normal(0, 0.2, (k, k, C, O)).astype(np.float32)
+    pw = rng.normal(0, 0.2, (k, k, C * 8, O)).astype(np.float32)
+    g = rng.normal(0, 1, (B, Ho, Ho, O)).astype(np.float32)
     return (torch.from_numpy(a).cuda() for a in (x, bw, pw, g))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,C,O,act", [
-    (4, 32, 3, 16, "silu"), (3, 8, 32, 64, "silu"), (5, 2, 128, 128, "silu"),
-    (2, 5, 6, 9, "gelu"),      # ragged: O not a multiple of 4, odd H
-    (3, 7, 13, 5, "silu"),     # ragged channel chunks
-    (16, 8, 16, 48, "silu"),   # 216-column weight-gradient tiles
-    (8, 16, 13, 32, "silu"),   # C not a multiple of the channel chunk
+@pytest.mark.parametrize("B,H,C,O,act,k,pad", [
+    (4, 32, 3, 16, "silu", 3, 1), (3, 8, 32, 64, "silu", 3, 1),
+    (5, 2, 128, 128, "silu", 3, 1),
+    (2, 5, 6, 9, "gelu", 3, 1),    # ragged: O not a multiple of 4, odd H
+    (3, 7, 13, 5, "silu", 3, 1),   # ragged channel chunks
+    (16, 8, 16, 48, "silu", 3, 1),  # 216-column weight-gradient tiles
+    (8, 16, 13, 32, "silu", 3, 1),  # C not a multiple of the channel chunk
+    # the data-gradient tile's ragged edges: B not a multiple of the image
+    # group (pad taps skipped at 4x4 and 3x3), odd H with C % 8 and O = 5,
+    # O = 48, kernel 5 with pad 2, pad 0 (Ho < H)
+    (37, 4, 16, 32, "silu", 3, 1), (41, 3, 6, 8, "gelu", 3, 1),
+    (3, 9, 13, 5, "silu", 3, 1), (5, 8, 8, 48, "silu", 3, 1),
+    (2, 8, 6, 16, "silu", 5, 2), (3, 6, 8, 12, "silu", 3, 0),
 ])
-def test_cuda_backward_matches_plain_version(B, H, C, O, act):
+def test_cuda_backward_matches_plain_version(B, H, C, O, act, k, pad):
     """dx, d base_w and d poly_w of the CUDA path against autograd of the
     plain version in float64 on the card.  Float32 sums of up to
     B*H*W products per dW entry in another order: rtol = atol = 1e-4."""
@@ -111,10 +119,10 @@ def test_cuda_backward_matches_plain_version(B, H, C, O, act):
     from convkan_tpu_torch.device import set_full_f32
 
     set_full_f32()
-    x, bw, pw, g = _bwd_inputs(B, H, C, O, seed=B * 100 + C)
+    x, bw, pw, g = _bwd_inputs(B, H, C, O, seed=B * 100 + C, k=k, pad=pad)
     leaves = [t.clone().requires_grad_(True) for t in (x, bw, pw)]
     kc.reset_launches()
-    y = kc.kan_conv2d(*leaves, KNOTS, 3, 3, 1, act)
+    y = kc.kan_conv2d(*leaves, KNOTS, 3, k, pad, act)
     got = torch.autograd.grad(y, leaves, g)
     torch.cuda.synchronize()
     assert kc.launches == {"kan_conv2d_fwd": 1, "kan_conv2d_bwd_dx": 1,
@@ -122,7 +130,7 @@ def test_cuda_backward_matches_plain_version(B, H, C, O, act):
                            "kan_conv2d_bwd_dw_reduce": 1}
     ref_leaves = [t.double().requires_grad_(True) for t in (x, bw, pw)]
     ref = torch.autograd.grad(kc.kan_conv2d_reference(
-        *ref_leaves, KNOTS, 3, 3, 1, act), ref_leaves, g.double())
+        *ref_leaves, KNOTS, 3, k, pad, act), ref_leaves, g.double())
     for name, a, b in zip(("dx", "dbase_w", "dpoly_w"), got, ref):
         torch.testing.assert_close(a, b.float(), rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f"{name}: {m}")
@@ -132,10 +140,12 @@ def test_cuda_backward_matches_plain_version(B, H, C, O, act):
 @pytest.mark.parametrize("B,H,C,O", [
     (1023, 8, 32, 64),     # B not a multiple of the split's images
     (1024, 2, 128, 128),   # the 2x2 layer at the real batch
+    (1024, 4, 64, 128),    # a 4x4 layer at the real batch (skip tiles)
 ])
 def test_cuda_backward_matches_plain_version_at_full_batch(B, H, C, O):
     """The weight-gradient partials and the autograd path's gradients at
-    batch 1023-1024 against float64 autograd of the plain version.  A dW
+    batch 1023-1024 against float64 autograd of the plain version, and two
+    data-gradient calls bit-identical.  A dW
     entry sums up to B*H*W = 65,472 float32 products, so it is held as
     chip_smoke.py's phase 6 holds it (see _within: 1e-4 of the largest
     entry + 1e-4 relative)."""
@@ -164,6 +174,10 @@ def test_cuda_backward_matches_plain_version_at_full_batch(B, H, C, O):
     for name, a, b in zip(("dx", "dbase_w", "dpoly_w"), got, ref):
         ok, err = _within(a, b)
         assert ok, f"{name}: max |diff| {err}"
+    # each dx element is summed by one thread in a fixed order
+    w_all = kc.pack_w_all(bw, pw, C=C, K=8, k=3, O=O)
+    assert torch.equal(kc.input_grad(x, w_all, g, *spec),
+                       kc.input_grad(x, w_all, g, *spec))
 
 
 @pytest.mark.cuda

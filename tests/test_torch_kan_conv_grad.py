@@ -133,16 +133,31 @@ def test_cpu_tensors_never_launch_backward_kernels():
 
 def test_backward_launch_configs_tile_vgg16_small():
     """Every VGG16_small conv shape gets data- and weight-gradient tiles
-    that fit: the weight gradient's rows are whole channels (no padded
-    row), its column tiles cut 9*O exactly (no padded column), at most
-    DW_THREADS threads in whole warps, shared memory for two blocks per
-    SM, at least two blocks per SM at batch 1024, and a split count that
-    depends on the shape only."""
+    that fit.  The data gradient: 8 channels x 8 output channels per chunk,
+    two chunks in flight, shared memory for two blocks per SM; the pad taps
+    skipped on the 4x4 and 2x2 planes (every (pixel, tap) pair it computes
+    an interior one at batch 1024), elsewhere NB x TH x W = 256 pixel slots
+    with no idle slot; about two blocks per SM at batch 1024.  The weight
+    gradient's rows are whole channels (no padded row), its column tiles
+    cut 9*O exactly (no padded column), at most DW_THREADS threads in
+    whole warps, shared memory for two blocks per SM, at least two blocks
+    per SM at batch 1024, and a split count that depends on the shape
+    only."""
     for H, C, O in VGG16_SMALL:
         for B in (1, 16, 64, 1024):
             dx = kc.dx_launch_config(B, H, H, C, O, 3, 1, K)
-            assert dx["NB"] * dx["TH"] * H <= kc.DX_PIXELS
-            assert dx["CC"] == min(C, kc.DX_MAX_CC) and dx["OC"] % 4 == 0
+            assert dx["smem"] <= kc.SMEM_TWO_BLOCKS
+            assert (dx["OC"], dx["stages"]) == (kc.DX_OC, 2)
+            assert dx["CC"] == min(kc.DX_MAX_CC, 1 << (C - 1).bit_length())
+            assert dx["skip"] == (H <= 4)
+            if not dx["skip"]:
+                assert dx["NB"] * dx["TH"] * H == kc.DX_PIXELS
+            if B == 1024:
+                assert dx["blocks"] >= 256
+                if C > 3:   # the first conv has no data gradient
+                    interior = B * ((3 * H - 2) ** 2)
+                    assert dx["pairs"] == interior if dx["skip"] else \
+                        dx["pairs"] == B * H * H * 9
             dw = kc.dw_launch_config(B, H, H, C, O, 3, 1, K)
             CC, BN, PW = dw["CC"], dw["BN"], dw["PW"]
             assert CC <= kc.DW_MAX_CC and C % CC == 0          # rows 9*CC
@@ -399,4 +414,227 @@ def test_dw_kernel_index_mapping_emulation(B, H, W, C, O, k, pad):
         torch.from_numpy(x), torch.from_numpy(g), KNOTS, 3, k, pad, "silu",
         cfg["S"], cfg["ips"]).numpy()
     assert (written == 1).all()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------- the data-gradient kernel's tile
+def _parent_dx_accepts(B, H, W, C, O, k, KK):
+    """The previous data-gradient tile's predicate, written out: at most
+    128 pixels of whole rows per block, the haloed g tile and the weight
+    rows of all taps for some CC <= 8 channels in shared memory, output
+    channels staged 16 at a time and padded to an odd number of float4s."""
+    if W > 128:
+        return False
+    if H * W >= 128:
+        TH, NB = min(H, 128 // W), 1
+    else:
+        TH, NB = H, min(B, 128 // (H * W))
+    OC = min(16, -(-O // 4) * 4)
+    gs = OC if (OC // 4) % 2 else OC + 4
+    tile = NB * (TH + k - 1) * (W + k - 1)
+    return any(4 * (gs * (tile + k * k * (KK + 1) * CC) + (KK + 1) * CC)
+               <= kc.SMEM_LIMIT for CC in range(min(C, 8), 0, -1))
+
+
+def test_dx_launch_config_accepts_every_shape_the_parent_did():
+    """Coverage never shrinks: every shape of the grid that the previous
+    data-gradient tile took gets a tile that the C entry takes (mirrored
+    here), for kernels up to 11 x 11 and up to 64 expanded rows per
+    channel.  (At the edge of shared memory the previous tile also took a
+    few shapes with kernels of 13 x 13 and more, which this tile's 256
+    pixel slots and table do not fit; no configuration of the repo has
+    such a layer.)"""
+    accepted = 0
+    for B, H, W, C, O, k, KK in itertools.product(
+            (1, 5, 33, 1024), (1, 2, 3, 4, 5, 8, 13, 32), (1, 2, 3, 4, 7, 16,
+                                                           32, 100, 128),
+            (1, 3, 8, 13, 128), (1, 4, 5, 16, 48, 128), (1, 3, 5, 7, 11),
+            (3, 8, 63)):
+        pad = k // 2
+        if not _parent_dx_accepts(B, H, W, C, O, k, KK):
+            continue
+        accepted += 1
+        cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, KK)
+        CC, OC = cfg["CC"], cfg["OC"]
+        assert CC in (1, 2, 4, 8) and OC in (4, 8) and cfg["stages"] in (1, 2)
+        if cfg["skip"]:
+            assert cfg["NG"] >= kc.skip_groups(H * W, -(-B // kc.DX_GROUP))
+        else:
+            Wv = 1 << (W - 1).bit_length()
+            assert cfg["NB"] * cfg["TH"] * Wv == kc.DX_PIXELS
+            assert cfg["TH"] & (cfg["TH"] - 1) == 0
+            assert cfg["NB"] == 1 or cfg["TH"] >= H
+        assert cfg["smem"] == kc.dx_smem(
+            cfg["tile"], cfg["pitch"], k * k, KK + 1, CC, OC,
+            cfg["stages"]) <= kc.SMEM_LIMIT
+    assert accepted == 117795
+
+
+def _emulate_dx(x, w_all, g, k, pad, cfg):
+    """csrc/kan_conv2d_bwd.cu ``kan_conv2d_bwd_dx_kernel`` in float64
+    numpy, block by block: the g tile's table (its mixed-radix counter),
+    the staging of every chunk (thread -> g pixels, thread -> weight
+    entry of every tap), the pixel slots (dense: the NB x TH x Wv layout
+    and the uniform dq; skip: warp slot -> (image group, position), its
+    valid taps), the sums and the writes.  Asserts that every staged entry
+    is written once per chunk, that every read lies in the block's shared
+    memory and, for a pixel that is written, in what was staged; returns
+    dE (B, H, W, (K+1)*C) and how often each entry was written."""
+    B, H, W, C = x.shape
+    O = g.shape[-1]
+    K1 = w_all.shape[0] // C
+    T = k * k
+    Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
+    O4 = -(-O // 4) * 4
+    gp = np.zeros((B, Ho, Wo, O4))
+    gp[..., :O] = g
+    wp = np.zeros((K1 * C, T, O4))
+    wp[..., :O] = w_all.reshape(K1 * C, T, O)
+    gflat = gp.reshape(-1)
+    CC, OC, skip = cfg["CC"], cfg["OC"], cfg["skip"]
+    OC4, tileR, tileC = OC // 4, cfg["tileR"], cfg["tileC"]
+    tile, pitch, dq = cfg["tile"], cfg["pitch"], np.array(cfg["dq"])
+    tid = np.arange(kc.THREADS)
+    tn, pm, warp = tid & 7, tid >> 3, tid >> 5
+    P = H * W
+    dE = np.full((B, H, W, K1 * C), np.nan)
+    written = np.zeros((B, H, W, C), dtype=int)
+    for bx, by in itertools.product(range(cfg["tiles"]), range(-(-C // CC))):
+        c0 = by * CC
+        # the pixel slots: b0, i0 and each thread's q = 0 tile pixel
+        slot0 = bx * kc.WARPS
+        igB = slot0 // P
+        if skip:
+            b0, i0 = igB * kc.DX_GROUP, 0
+            slot = slot0 + (warp ^ (warp >> 2))
+            ig, pos = slot // P, slot % P
+            iw = np.where(slot < -(-B // kc.DX_GROUP) * P, pos // W + pad, -Ho)
+            jw = pos % W + pad
+            gbase = (iw * Wo + jw) * tileC + (ig - igB) * kc.DX_GROUP + (pm & 3)
+        else:
+            Wv = 1 << (W - 1).bit_length()
+            lw, lth = Wv.bit_length() - 1, cfg["TH"].bit_length() - 1
+            rowChunks = -(-H // cfg["TH"])
+            b0 = bx // rowChunks * cfg["NB"]
+            i0 = (bx % rowChunks) << lth
+            nb, r = pm >> (lw + lth), (pm >> lw) & (cfg["TH"] - 1)
+            gbase = (nb * tileR + r + k - 1) * tileC + (pm & (Wv - 1)) + k - 1
+        # the g tile's table by the kernel's mixed-radix counter
+        gOff = np.full(tile, -7)
+        d0, d1 = tid % tileC, tid // tileC
+        d2, d1 = d1 // tileR, d1 % tileR
+        s0, s12 = kc.THREADS % tileC, kc.THREADS // tileC
+        s2, s1 = s12 // tileR, s12 % tileR
+        for p0 in range(0, tile, kc.THREADS):
+            p = p0 + tid
+            on = p < tile
+            b = b0 + (d0 if skip else d2)
+            oi = d2 if skip else i0 + pad - (k - 1) + d1
+            oj = d1 if skip else pad - (k - 1) + d0
+            ok = (b < B) & (oi >= 0) & (oi < Ho) & (oj >= 0) & (oj < Wo)
+            gOff[p[on]] = np.where(ok, ((b * Ho + oi) * Wo + oj) * O4, -1)[on]
+            d0 = d0 + s0
+            d1, d0 = d1 + (d0 >= tileC), np.where(d0 >= tileC, d0 - tileC, d0)
+            d1 = d1 + s1
+            d2, d1 = d2 + (d1 >= tileR), np.where(d1 >= tileR, d1 - tileR, d1)
+            d2 = d2 + s2
+        assert (gOff != -7).all()
+        acc = np.zeros((kc.THREADS, kc.DX_TM, K1))
+        for oc0 in range(0, O4, OC):
+            # g: thread tid stages float4 o4 = tid % OC4 of pixels
+            # tid // OC4, + 256 // OC4, ...
+            Gs = np.full((OC4, pitch, 4), np.nan)
+            count = np.zeros((OC4, pitch), dtype=int)
+            for t in range(kc.THREADS):
+                o4, oo = t % OC4, oc0 + 4 * (t % OC4)
+                ps = np.arange(t // OC4, tile, kc.THREADS // OC4)
+                off = gOff[ps]
+                ok = (off >= 0) & (oo < O4)
+                vals = gflat[np.where(ok, off, 0)[:, None] + oo + np.arange(4)]
+                Gs[o4, ps] = np.where(ok[:, None], vals, 0.0)
+                count[o4, ps] += 1
+            assert (count[:, :tile] == 1).all() and (count[:, tile:] == 0).all()
+            # W: thread e < K1*CC*OC4, e = (kk*OC4 + o4)*CC + cl, stages its
+            # entry of every tap at e + tap*K1*CC*OC4
+            E = K1 * CC * OC4
+            e = np.arange(E)
+            cl, o4, kk = e % CC, (e // CC) % OC4, e // (CC * OC4)
+            oo = oc0 + 4 * o4
+            ok = (c0 + cl < C) & (oo < O4)
+            Ws = np.zeros((T, E, 4))
+            rows = kk * C + np.minimum(c0 + cl, C - 1)
+            for tap in range(T):
+                cols = np.minimum(oo, O4 - 4)[:, None] + np.arange(4)
+                Ws[tap] = np.where(ok[:, None], wp[rows[:, None], tap, cols], 0)
+            Ws = Ws.reshape(T, K1, OC4, CC, 4)
+            # the sums: thread (pm, tn), pixel q at tile pixel gbase + dq[q]
+            for tap in range(T):
+                di, dj = divmod(tap, k)
+                if skip:
+                    valid = ((iw - di >= 0) & (iw - di < Ho) & (jw - dj >= 0)
+                             & (jw - dj < Wo))
+                    sh = (di * Wo + dj) * tileC
+                else:
+                    valid = np.ones(kc.THREADS, dtype=bool)
+                    sh = di * tileC + dj
+                idx = gbase[:, None] + dq[None, :] - sh      # (thread, q)
+                assert ((idx[valid] >= 0) & (idx[valid] < pitch)).all()
+                idxc = np.clip(idx, 0, pitch - 1)
+                for u in range(OC4):
+                    gv = Gs[u][idxc]                          # (t, q, 4)
+                    wv = Ws[tap, :, u][:, np.minimum(tn, CC - 1)]  # (K1, t, 4)
+                    wv = np.where((tn < CC)[None, :, None], wv, 0.0)
+                    acc += np.where(valid[:, None, None],
+                                    np.einsum("tqo,kto->tqk", gv, wv), 0.0)
+        # the writes
+        c = c0 + tn
+        for q in range(kc.DX_TM):
+            if skip:
+                b = ig * kc.DX_GROUP + (pm & 3) + 4 * q
+                i, j = pos // W, pos % W
+                ok = slot < -(-B // kc.DX_GROUP) * P
+            else:
+                m = pm + kc.DX_SLOTS * q
+                nbq = m >> (lw + lth)
+                b = b0 + nbq
+                i = i0 + ((m >> lw) & (cfg["TH"] - 1))
+                j = m & (Wv - 1)
+                ok = (nbq < cfg["planes"]) & (i - i0 < tileR - (k - 1))
+            ok = ok & (tn < CC) & (c < C) & (b < B) & (i < H) & (j < W)
+            t = np.nonzero(ok)[0]
+            assert not np.isnan(acc[t, q]).any()
+            for kk in range(K1):
+                dE[b[t], i[t], j[t], kk * C + c[t]] = acc[t, q, kk]
+            np.add.at(written, (b[t], i[t], j[t], c[t]), 1)
+    return dE, written
+
+
+@pytest.mark.parametrize("B,H,W,C,O,k,pad", [
+    (2, H, H, C, O, 3, 1) for H, C, O in VGG16_SMALL[1:]] + [
+    (37, 4, 4, 16, 32, 3, 1),   # B % 32: a skip group of 5 images
+    (41, 3, 3, 6, 8, 3, 1),     # 3x3 skip tiles: a block spans two groups
+    (3, 9, 9, 13, 5, 3, 1),     # odd H, idle rows and columns, C % 8, O % 4
+    (5, 8, 8, 8, 48, 3, 1),     # O = 48: six chunks; B % NB
+    (2, 6, 5, 6, 16, 5, 2),     # kernel 5, pad 2, non-square, OC = 4
+    (3, 6, 6, 8, 12, 3, 0),     # no pad: Ho < H
+    (1, 40, 40, 4, 8, 3, 1),    # Wv = 64: four rows per block, row tiles
+])
+def test_dx_kernel_index_mapping_emulation(B, H, W, C, O, k, pad):
+    """The data-gradient kernel's tiling, emulated in float64, writes every
+    interior dx element exactly once and agrees with the plain version to
+    1e-12."""
+    rng = np.random.RandomState(B * 100 + H * 10 + C)
+    x = rng.uniform(-2.5, 2.5, (B, H, W, C))
+    Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
+    g = rng.normal(0, 1, (B, Ho, Wo, O))
+    w_all = rng.normal(0, 0.2, (9 * C, k * k * O))
+    cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, K)
+    dE, written = _emulate_dx(x, w_all, g, k, pad, cfg)
+    assert (written == 1).all() and not np.isnan(dE).any()
+    xt = torch.from_numpy(x).requires_grad_(True)
+    E = kc.expand(xt, KNOTS, 3, "silu")
+    got = torch.autograd.grad(E, xt, torch.from_numpy(dE))[0].numpy()
+    want = kc.input_grad_reference(
+        torch.from_numpy(x), torch.from_numpy(w_all), torch.from_numpy(g),
+        KNOTS, 3, k, pad, "silu").numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
