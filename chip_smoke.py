@@ -24,12 +24,15 @@ Phases (the first failed check exits non-zero):
   5. times with CUDA events: predict at batch 1024 (images/s) and, per conv
      shape at batch 1024, the kernel, its plain version, one cuDNN conv over
      a materialized basis (a yardstick the port never calls), the bound on
-     the (pixel, tap) pairs whose input lies in the image (the dense bound
+     the (pixel, tap) pairs whose input lies in the image and the rows of
+     E non-zero at x (SPAN_ROWS; the dense bound, every pair and row,
      beside it) and the share of the bound the kernel reaches;
   6. backward kernels vs their plain versions on the card, at the 9
      VGG16_small conv shapes (batch 64), ragged shapes (C = 13 with O = 5,
      O = 48, batch 1023; for the data-gradient tile batches 37 and 41 on
-     4x4 and 3x3 planes, odd H, kernel 5 with pad 2, pad 0) and the 2x2
+     4x4 and 3x3 planes, odd H, kernel 5 with pad 2, pad 0, and kernels
+     37 x 37 whose tiles are the fallbacks at the edge of shared memory:
+     32 pixel slots, and 64 or 32 without the table of g offsets) and the 2x2
      layer at batch 1024, and a GELU case; each case prints its
      data-gradient tile, its weight-gradient tile and its reduction's
      launch (VW, Gw, Gc, blocks): each kernel wrapper (data gradient,
@@ -41,20 +44,23 @@ Phases (the first failed check exits non-zero):
   7. training, the main path: launch counts are zeroed, three train steps
      of VGG16_small (batch 16, dropout 0.5 at the head) run on the GPU and
      on the CPU from one state_dict with the same crop offsets, flips and
-     dropout masks; losses and parameters are compared, every KAN conv's
-     poly_w gradient must be non-zero, and the counts read: per step 13
+     dropout masks; losses and parameter updates are compared, the GPU's
+     first-step gradients against the same step in float64 on the CPU
+     (GRAD_TOL), every KAN conv's poly_w gradient must be non-zero, and
+     the counts read: per step 13
      forward, 12 data-gradient (the first conv's input is the image), 13
      weight-gradient and 13 reduction launches;
   8. times: the train step at batch 1024 (images/s, median of 12 steps
      after warm-up, each ending in a host readback of the loss) and, per
      conv shape at batch 1024, each backward kernel, its plain version,
      one cuDNN convolution_backward over a materialized basis (a yardstick
-     the port never calls) and the bound; for the data gradient also its
-     tile (skip or dense TH/NB, NG, CC, OC, stages, blocks), the
-     multiply-adds it issues over the interior pairs the bound counts, the
-     share of the bound it reaches and its rate on issued work; for the
-     weight gradient its tile (CC, BN, PW, threads, S, blocks), the same
-     issued/interior, the dense bound, the share and the rate; for the
+     the port never calls), the bound (as phase 5's) and the dense bound;
+     for the data gradient also its tile (skip or dense TH/NB, NG, CC, OC,
+     stages, table, blocks), the multiply-adds it issues over those of the
+     interior pairs with every row, the share of the bound it reaches and
+     its rate on issued work; for the weight gradient its tile (CC, BN, PW,
+     threads, S, blocks), the same issued/interior, the share and the
+     rate; for the
      reduction, first its result on
      these batch-1024 partials bit-exact against its plain version and two
      calls bit-identical, then its launch, its time beside sum(0)'s on a
@@ -74,10 +80,12 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
  12. serving, the main path, as phase 4 with the WavKAN model (served
      logits vs predict within MODEL_TOL);
  13. training, the main path, as phase 7 with the WavKAN model, but each
-     CPU step starts from the GPU run's state before it (in float32 the
+     GPU step starts from the CPU run's state before it (in float32 the
      model's three-step trajectory is chaotic: two float32 runs that sum
-     in other orders part by more than LOSS_RTOL by the third step): per
-     step 13 forward, 12 data-gradient, 13 parameter and 13 reduction
+     in other orders part by more than LOSS_RTOL by the third step; and
+     the CPU's is reproducible, the GPU's not: cuDNN), and
+     every step's GPU gradients are held to float64 from the same start:
+     per step 13 forward, 12 data-gradient, 13 parameter and 13 reduction
      launches, and every conv's wavelet_w, scale and translation gets a
      gradient;
  14. times: predict and the train step at batch 1024 (images/s) and, per
@@ -114,6 +122,14 @@ import torch
 
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores, 700 W
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+# rows of the expanded input E = [B_0(x) .. B_{K-1}(x), act(x)] that a
+# (pixel, channel) needs: the ORDER + 1 = 4 B-splines that are non-zero on
+# x's knot span (every x of the timed inputs, U(-1, 1), lies inside the
+# grid) and act(x).  The KAN-conv bounds count these 5 of the K + 1 = 9
+# rows: the forward and dW multiply by E, dx by its derivative B' (zero
+# off the same span), so no other product changes a result.  The dense
+# bounds count every row of every (pixel, tap) pair.
+SPAN_ROWS = 3 + 2
 # the reductions' cold-L2 timing reads copies of the partials that fill 4x
 # the H100's 50 MB L2
 COLD_L2_BYTES = 4 * 50 * 2**20
@@ -130,9 +146,6 @@ BWD_REPLACES = "convkan_tpu/kernels/wide_kan_conv.py:344"
 # the weight-gradient tile's entries of dw_launch_config that phases 6 and 8
 # print
 DW_TILE = ("CC", "BN", "PW", "threads", "S", "blocks")
-# the data-gradient tile's entries of dx_launch_config that phases 6 and 8
-# print
-DX_TILE = ("skip", "TH", "NB", "NG", "CC", "OC", "stages", "blocks")
 # the ordered reduction's launch (reduce_launch_config) that phases 6, 8, 10
 # and 14 print
 RED_TILE = ("VW", "Gw", "Gc", "blocks")
@@ -143,14 +156,19 @@ RED_SOURCE = "convkan_tpu_torch/csrc/ordered_sum.cuh"
 # |terms|; allowed: BWD_TOL of the largest reference entry + BWD_TOL relative
 BWD_TOL = 1e-4
 # train step GPU vs CPU, float32.  VGG16_small is ill-conditioned in float32
-# (InstanceNorm over 2x2 planes amplifies rounding): two float32 runs that
-# sum in different orders differ in their gradients by percents of a
-# parameter's largest entry.  So: first-step gradients within GRAD_TOL of
-# each parameter's largest entry;
-# losses within LOSS_RTOL relative; and, since AdamW moves every entry by
-# about lr per step whatever its gradient's size (entries near 0 flip sign
-# between the runs), the runs' parameter updates over the three steps must
-# agree to UPDATE_TOL in relative L2 distance
+# (InstanceNorm over 2x2 planes amplifies rounding): at some training
+# states a float32 gradient, on the GPU and on the CPU alike, lies up to
+# 0.19 of a parameter's largest entry from float64 (tools/
+# train_grad_spread.py: WavKAN steps 1-2 started from the GPU's states,
+# which vary from run to run because cuDNN's data gradient of the WavKAN
+# base conv is not deterministic).  So: the GPU's gradients are held to
+# float64 on the CPU from the same start, within GRAD_TOL of each
+# parameter's largest entry (the CPU's float32 reading is printed
+# beside), from starts that are the same in every run (the CPU's float32
+# trajectory, in lockstep); losses within LOSS_RTOL relative; and, since AdamW
+# moves every entry by about lr per step whatever its gradient's size
+# (entries near 0 flip sign between the runs), the runs' parameter updates
+# must agree to UPDATE_TOL in relative L2 distance
 GRAD_TOL, LOSS_RTOL, UPDATE_TOL = 0.1, 1e-3, 0.5
 TRAIN_STEPS, TRAIN_BATCH, TIME_BATCH = 3, 16, 1024
 WAV_REPLACES = "convkan_tpu/kernels/fused_wav_conv.py:351"
@@ -311,11 +329,25 @@ def dw_tile(cfg) -> str:
     return ", ".join(f"{key} {cfg[key]}" for key in DW_TILE)
 
 
-def dx_tile(cfg) -> str:
+def dx_tile(kc, cfg) -> str:
     """The data-gradient tile: skip or dense (rows per image slot TH,
     image slots NB), image groups NG, channels CC, output channels per
-    chunk OC, chunks in flight, blocks."""
-    return ", ".join(f"{key} {cfg[key]}" for key in DX_TILE)
+    chunk OC, chunks in flight, the g offsets' table or none, blocks."""
+    return ", ".join(f"{key} {cfg[key]}" for key in (*kc.DX_TILE, "blocks"))
+
+
+def dx_pairs(kc, cfg, B, H, W, k, pad) -> int:
+    """(pixel, tap) pairs the data-gradient kernel computes per channel
+    block of its tile ``cfg``: dense, every tap of every pixel slot of
+    every block (pad pairs and idle slots included); skip, the taps whose
+    g lies on the output plane, for whole groups of DX_GROUP images."""
+    if not cfg["skip"]:
+        return cfg["tiles"] * kc.DX_PIXELS * k * k
+    Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
+    taps = sum(0 <= i + pad - di < Ho and 0 <= j + pad - dj < Wo
+               for i, j, di, dj in itertools.product(
+                   range(H), range(W), range(k), range(k)))
+    return kc.DX_GROUP * -(-B // kc.DX_GROUP) * taps
 
 
 def red_tile(cfg) -> str:
@@ -366,6 +398,10 @@ def phase_backward(kc, knots, gen, dev):
     cases += [(37, 4, 16, 32, "silu", 3, 1), (41, 3, 6, 8, "gelu", 3, 1),
               (3, 9, 13, 5, "silu", 3, 1), (5, 8, 8, 48, "silu", 3, 1),
               (2, 8, 6, 16, "silu", 5, 2), (3, 6, 8, 12, "silu", 3, 0)]
+    # ... and its fallbacks at the edge of shared memory: kernels 37 x 37
+    # with 32 pixel slots, and with 64 or 32 slots and no table of g offsets
+    cases += [(1, 9, 1, 1, "silu", 37, 18), (1, 14, 1, 1, "gelu", 37, 18),
+              (1, 22, 1, 1, "silu", 37, 18)]
     errs = {"kan_conv2d_bwd_dx": 0.0, "kan_conv2d_bwd_dw": 0.0,
             "kan_conv2d_bwd_dw_reduce": 0.0}
     # the reduced dW against float64 (BWD_TOL, the grouped order's
@@ -403,7 +439,7 @@ def phase_backward(kc, knots, gen, dev):
         ok = ok_dx and ok_dw and e_red == 0.0 and ok64 and \
             all(o for _, o in auto)
         print(f"[backward] B={B} {H}x{H} C={C} O={O} {act} k={k} pad={pad} "
-              f"(dx tile {dx_tile(xcfg)}; dW tile {dw_tile(cfg)}; reduce "
+              f"(dx tile {dx_tile(kc, xcfg)}; dW tile {dw_tile(cfg)}; reduce "
               f"{red_tile(rcfg)}): "
               f"dx {e_dx:.3e}, dW partials {e_dw:.3e}, reduce {e_red:.1e} "
               f"(reduced dW vs float64 {e64:.3e}); "
@@ -424,27 +460,18 @@ def phase_backward(kc, knots, gen, dev):
     return errs
 
 
-def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
-                **model_kw):
-    """7 / 13. the training main path: three train steps on the GPU against
-    the same steps on the CPU; every conv's ``grad_params`` must get a
-    non-zero gradient and ``mod``'s launch counts must be ``want_counts``
-    per step.  With ``lockstep`` each CPU step starts from the GPU run's
-    parameters and optimizer state before that step, and every step's loss,
-    gradients and update are compared (for a model whose float32 trajectory
-    is chaotic); else the CPU runs its own three steps, and the first
-    step's gradients and the update over the three steps are compared.
-    Returns the launch counts of the GPU steps."""
+def train_model(kan_conv, **model_kw):
+    """The phases' VGG16_small (seeded, on the CPU)."""
     from convkan_tpu_torch.models.vgg import vggkan
-    from convkan_tpu_torch.train.data import _synthetic, crop_params
-    from convkan_tpu_torch.train.loop import make_train_step
-    from convkan_tpu_torch.train.state import create_train_state
+    return vggkan(3, 10, arch="VGG16_small", kan_conv=kan_conv,
+                  classifier_type="Linear",
+                  generator=torch.Generator().manual_seed(2), device="cpu",
+                  **model_kw)
 
-    model_cpu = vggkan(3, 10, arch="VGG16_small", kan_conv=kan_conv,
-                       classifier_type="Linear",
-                       generator=torch.Generator().manual_seed(2),
-                       device="cpu", **model_kw)
-    model_gpu = copy.deepcopy(model_cpu).to(dev)
+
+def train_batches():
+    """TRAIN_STEPS seeded batches: (uint8 images, labels, crops, flips)."""
+    from convkan_tpu_torch.train.data import _synthetic, crop_params
     x, y = _synthetic("CIFAR10", TRAIN_STEPS * TRAIN_BATCH, seed=4)
     crops = torch.Generator().manual_seed(6)
     batches = []
@@ -453,57 +480,88 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
         offs, flips = crop_params(TRAIN_BATCH, "cpu", crops)
         batches.append((torch.from_numpy(x[sl]), torch.from_numpy(y[sl]),
                         offs, flips))
+    return batches
 
-    def snapshot(model, state):
-        return ({n: t.detach().cpu().clone()
-                 for n, t in model.state_dict().items()},
-                copy.deepcopy(state.optimizer.state_dict()))
 
-    def run(model, device, starts=None):
-        # a CPU generator on both sides: the same dropout masks (the GPU
-        # run copies each mask to the card)
-        state = create_train_state(model, 1e-3, 1e-3, 0.8, steps_per_epoch=2,
-                                   generator=torch.Generator().manual_seed(7))
-        step = make_train_step(model, "CIFAR10", augment=True)
-        losses, grads, ends = [], [], [snapshot(model, state)]
-        for i, (xb, yb, o, f) in enumerate(batches):
-            if starts is not None:  # start where the GPU run's step i did
-                model.load_state_dict(starts[i][0])
-                state.optimizer.load_state_dict(starts[i][1])
-            losses.append(step(state, xb.to(device), yb.to(device),
-                               offsets=o, flips=f).item())
-            grads.append({n: p.grad.detach().cpu().clone()
-                          for n, p in model.named_parameters()})
-            ends.append(snapshot(model, state))
-        return losses, grads, ends
+def _snapshot(model, state):
+    return ({n: t.detach().cpu().clone()
+             for n, t in model.state_dict().items()},
+            copy.deepcopy(state.optimizer.state_dict()))
 
-    mod.reset_launches()
-    # cuDNN's deterministic algorithms for the GPU steps: the WavKAN base
-    # conv's weight gradient may otherwise take one with atomics, and the
-    # lockstep comparison of later steps starts from a state that then
-    # differs from run to run
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        losses_gpu, grads_gpu, snaps_gpu = run(model_gpu, dev)
-        torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    counts = dict(mod.launches)
-    losses_cpu, grads_cpu, snaps_cpu = run(
-        model_cpu, "cpu", snaps_gpu[:-1] if lockstep else None)
-    print(f"[train] {kan_conv} VGG16_small batch {TRAIN_BATCH}, {TRAIN_STEPS} "
-          f"steps{' in lockstep' if lockstep else ''}: losses GPU "
-          f"{losses_gpu} CPU {losses_cpu}", flush=True)
-    for lg, lc in zip(losses_gpu, losses_cpu):
-        check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
-              f"train loss on the GPU {lg} vs the CPU {lc}")
+
+def train_run(model, device, batches, starts=None):
+    """The train steps of ``batches`` on ``device``; with ``starts``, step i
+    starts from the parameters and optimizer state starts[i].  Returns the
+    losses, each step's gradients (on the CPU) and the snapshots before the
+    first step and after each."""
+    from convkan_tpu_torch.train.loop import make_train_step
+    from convkan_tpu_torch.train.state import create_train_state
+    # a CPU generator on both sides: the same dropout masks (the GPU run
+    # copies each mask to the card)
+    state = create_train_state(model, 1e-3, 1e-3, 0.8, steps_per_epoch=2,
+                               generator=torch.Generator().manual_seed(7))
+    step = make_train_step(model, "CIFAR10", augment=True)
+    losses, grads, ends = [], [], [_snapshot(model, state)]
+    for i, (xb, yb, o, f) in enumerate(batches):
+        if starts is not None:  # start where the GPU run's step i did
+            model.load_state_dict(starts[i][0])
+            state.optimizer.load_state_dict(starts[i][1])
+        losses.append(step(state, xb.to(device), yb.to(device),
+                           offsets=o, flips=f).item())
+        grads.append({n: p.grad.detach().cpu().clone()
+                      for n, p in model.named_parameters()})
+        ends.append(_snapshot(model, state))
+    return losses, grads, ends
+
+
+def grad_readings(grads, refs, steps):
+    """(max |got - want| / max |want|, step, parameter) for every parameter
+    of every step in ``steps``, largest first."""
+    return sorted(((((grads[i][n] - g).abs().max() / g.abs().max()).item(),
+                    i, n) for i in steps for n, g in refs[i].items()),
+                  reverse=True)
+
+
+def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
+                  **model_kw):
+    """The train phases' runs and readings.  Three train steps of the
+    seeded VGG16_small on the GPU and on the CPU (float32) with the same
+    batches, crops, flips and dropout masks, and the compared steps in
+    float64 on the CPU.  With ``lockstep`` every step is compared: the
+    GPU's step i starts from the CPU run's parameters and optimizer state
+    before it (the CPU's float32 trajectory is reproducible; the GPU's is
+    not, since cuDNN's data gradient of the WavKAN base conv is not
+    deterministic) or, with ``gpu_starts``, the CPU's from the GPU's; else
+    each side runs its own steps and the first is compared.  Float64
+    starts each step where the GPU did.  Returns the losses, the GPU
+    steps' launch counts (``mod``), the gradient readings of the GPU
+    against float64, the CPU against float64 and the GPU against the CPU,
+    each (max |diff| / max |reference|, step, parameter) at its worst,
+    the updates' relative L2 distance and max |diff| (GPU vs CPU), the
+    GPU's gradients and the GPU model."""
+    model_cpu = train_model(kan_conv, **model_kw)
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    batches = train_batches()
     steps = range(TRAIN_STEPS) if lockstep else range(1)
-    worst_g = max(((grads_gpu[i][n] - g).abs().max() / g.abs().max()).item()
-                  for i in steps for n, g in grads_cpu[i].items())
+    cpu_first = lockstep and not gpu_starts
+    if cpu_first:
+        losses_cpu, grads_cpu, snaps_cpu = train_run(model_cpu, "cpu",
+                                                     batches)
+    mod.reset_launches()
+    losses_gpu, grads_gpu, snaps_gpu = train_run(
+        model_gpu, dev, batches, snaps_cpu[:-1] if cpu_first else None)
+    torch.cuda.synchronize()
+    counts = dict(mod.launches)
+    if not cpu_first:
+        losses_cpu, grads_cpu, snaps_cpu = train_run(
+            model_cpu, "cpu", batches, snaps_gpu[:-1] if lockstep else None)
+    # where the GPU's step i started
+    starts = snaps_cpu if cpu_first else snaps_gpu
+    _, grads_64, _ = train_run(copy.deepcopy(model_cpu).double(), "cpu",
+                               batches[:len(steps)], starts[:len(steps)])
     # (start, GPU end, CPU end) of each compared update
-    spans = [(snaps_gpu[i][0], snaps_gpu[i + 1][0], snaps_cpu[i + 1][0])
-             for i in range(TRAIN_STEPS)] if lockstep else \
+    spans = [(starts[i][0], snaps_gpu[i + 1][0], snaps_cpu[i + 1][0])
+             for i in steps] if lockstep else \
         [(snaps_cpu[0][0], snaps_gpu[-1][0], snaps_cpu[-1][0])]
     rel = worst = 0.0
     for begin, got, want in spans:
@@ -514,15 +572,46 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
             den += moved.square().sum().item()
             worst = max(worst, (t - want[name]).abs().max().item())
         rel = max(rel, (num / den) ** 0.5)
-    print(f"[train] GPU vs CPU: {'every' if lockstep else 'first'}-step "
-          f"gradients max |diff| {worst_g:.3e} of each parameter's largest "
-          f"entry; parameter updates "
+    return {"losses_gpu": losses_gpu, "losses_cpu": losses_cpu,
+            "counts": counts,
+            "gpu_vs_f64": grad_readings(grads_gpu, grads_64, steps)[0],
+            "cpu_vs_f64": grad_readings(grads_cpu, grads_64, steps)[0],
+            "gpu_vs_cpu": grad_readings(grads_gpu, grads_cpu, steps)[0],
+            "update_rel": rel, "update_worst": worst,
+            "grads_gpu": grads_gpu, "model_gpu": model_gpu}
+
+
+def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
+                **model_kw):
+    """7 / 13. the training main path, by ``train_compare``: the losses
+    (LOSS_RTOL), the GPU's gradients against float64 (GRAD_TOL) and the
+    updates (UPDATE_TOL); every conv's ``grad_params`` must get a non-zero
+    gradient and ``mod``'s launch counts must be ``want_counts`` per step.
+    Returns the launch counts of the GPU steps."""
+    r = train_compare(mod, dev, kan_conv, lockstep, **model_kw)
+    losses_gpu, losses_cpu, counts = (r["losses_gpu"], r["losses_cpu"],
+                                      r["counts"])
+    print(f"[train] {kan_conv} VGG16_small batch {TRAIN_BATCH}, {TRAIN_STEPS} "
+          f"steps{' in lockstep' if lockstep else ''}: losses GPU "
+          f"{losses_gpu} CPU {losses_cpu}", flush=True)
+    for lg, lc in zip(losses_gpu, losses_cpu):
+        check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
+              f"train loss on the GPU {lg} vs the CPU {lc}")
+    worst_g, worst_step, worst_name = r["gpu_vs_f64"]
+    cpu_g, cpu_step, cpu_name = r["cpu_vs_f64"]
+    rel, worst = r["update_rel"], r["update_worst"]
+    print(f"[train] {'every' if lockstep else 'first'}-step gradients vs "
+          f"float64 on the CPU: GPU max |diff| {worst_g:.3e} of each "
+          f"parameter's largest entry (step {worst_step}, {worst_name}); "
+          f"CPU float32 {cpu_g:.3e} (step {cpu_step}, {cpu_name}); GPU vs "
+          f"CPU float32 {r['gpu_vs_cpu'][0]:.3e}", flush=True)
+    print(f"[train] GPU vs CPU: parameter updates "
           f"{'of each step' if lockstep else f'over {TRAIN_STEPS} steps'} "
           f"differ by {rel:.3e} in relative L2 (max |diff| {worst:.3e})",
           flush=True)
-    check(worst_g <= GRAD_TOL, "gradients differ between GPU and CPU")
+    check(worst_g <= GRAD_TOL, "GPU gradients differ from float64")
     check(rel <= UPDATE_TOL, "parameter updates differ between GPU and CPU")
-    convs = [(n, m) for n, m in model_gpu.named_children()
+    convs = [(n, m) for n, m in r["model_gpu"].named_children()
              if n.startswith(("KanConvND", "WavKANConvND"))]
     check(len(convs) == 13, f"{len(convs)} convs in the model")
     for name, m in convs:
@@ -579,7 +668,8 @@ def phase_train_times(kc, knots, gen, dev, card):
              "kan_conv2d_bwd_dw_reduce")
     totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
                                 "byte_ms"), 0.0) for n in names}
-    totals["kan_conv2d_bwd_dw"]["dense_bound_ms"] = 0.0
+    for name in names[:2]:
+        totals[name]["dense_bound_ms"] = 0.0
     totals["kan_conv2d_bwd_dw_reduce"].update(warm_l2_ms=0.0,
                                               library_warm_l2_ms=0.0)
     rows = []
@@ -629,7 +719,12 @@ def phase_train_times(kc, knots, gen, dev, card):
         n = VGG16_SMALL_CONVS.count((H, C, O))
         del E, gn
         D, TO, S = (K + 1) * C, 9 * O, cfg["S"]
-        flops = 2 * B * interior_pairs(H) * D * O
+        # the bound: interior pairs x span rows (SPAN_ROWS); issued work is
+        # read against interior pairs x every row, and the dense bound
+        # counts every pair and row
+        flops = 2 * B * interior_pairs(H) * SPAN_ROWS * C * O
+        interior_macs = B * interior_pairs(H) * D * O
+        dense_flops = 2 * B * H * H * 9 * D * O
         work = {
             "kan_conv2d_bwd_dx": (flops, 4 * (2 * x.numel() + w_all.numel()
                                               + g.numel())),
@@ -653,35 +748,36 @@ def phase_train_times(kc, knots, gen, dev, card):
                 totals[name][key] += layers * v
         # the weight gradient's tile and what it issues: every input pixel
         # times every row (whole channels of its chunks) and column (whole
-        # column tiles) of dW, pad pairs included; the dense bound counts
-        # every (pixel, tap) pair
+        # column tiles) of dW, pad pairs included
         issued = B * H * H * -(-C // cfg["CC"]) * cfg["CC"] * (K + 1) * \
             -(-9 * O // cfg["BN"]) * cfg["BN"]
-        dense_ms = max(2 * B * H * H * 9 * D * O / PEAK_FP32_FLOPS * 1e3,
-                       work["kan_conv2d_bwd_dw"][1] / PEAK_BYTES * 1e3)
         dw_row = row["kan_conv2d_bwd_dw"]
         dw_row.update({
             "tile": {key: cfg[key] for key in DW_TILE},
-            "issued_over_interior": round(issued / (flops / 2), 4),
-            "dense_bound_ms": round(dense_ms, 4),
+            "issued_over_interior": round(issued / interior_macs, 4),
             "bound_share": round(dw_row["bound_ms"] / ms[
                 "kan_conv2d_bwd_dw"][0], 4),
             "tflops_issued": round(2 * issued / ms["kan_conv2d_bwd_dw"][0]
                                   / 1e9, 2)})
-        totals["kan_conv2d_bwd_dw"]["dense_bound_ms"] += n * dense_ms
         # the data gradient's tile and what it issues: its (pixel, tap)
         # pairs (pad pairs and idle pixel slots included) times whole
         # channel blocks, K+1 and whole chunks of output channels
         xcfg = kc.dx_launch_config(B, H, H, C, O, 3, 1, K)
-        x_issued = xcfg["pairs"] * -(-C // xcfg["CC"]) * xcfg["CC"] * \
-            (K + 1) * -(-O // xcfg["OC"]) * xcfg["OC"]
+        x_issued = dx_pairs(kc, xcfg, B, H, H, 3, 1) * \
+            -(-C // xcfg["CC"]) * xcfg["CC"] * (K + 1) * \
+            -(-O // xcfg["OC"]) * xcfg["OC"]
         x_ms = ms["kan_conv2d_bwd_dx"][0]
         dx_row = row["kan_conv2d_bwd_dx"]
         dx_row.update({
-            "tile": {key: xcfg[key] for key in DX_TILE},
-            "issued_over_interior": round(x_issued / (flops / 2), 4),
+            "tile": {key: xcfg[key] for key in (*kc.DX_TILE, "blocks")},
+            "issued_over_interior": round(x_issued / interior_macs, 4),
             "bound_share": round(dx_row["bound_ms"] / x_ms, 4),
             "tflops_issued": round(2 * x_issued / x_ms / 1e9, 2)})
+        for name in names[:2]:
+            dense_ms = max(dense_flops / PEAK_FP32_FLOPS * 1e3,
+                           work[name][1] / PEAK_BYTES * 1e3)
+            row[name]["dense_bound_ms"] = round(dense_ms, 4)
+            totals[name]["dense_bound_ms"] += row[name]["layers"] * dense_ms
         red_row(row["kan_conv2d_bwd_dw_reduce"], rcfg, red,
                 totals["kan_conv2d_bwd_dw_reduce"], n)
         rows.append(row)
@@ -1181,9 +1277,10 @@ def main():
                        what=("kan_conv2d_fwd", "library_ms"))
         del E
         # the bound counts the (pixel, tap) pairs whose input lies in the
-        # image, as the backward's does: a pad tap adds zero; the dense
-        # count (every tap) is printed beside it
-        flops = 2 * B * interior_pairs(H) * (K + 1) * C * O
+        # image, as the backward's does: a pad tap adds zero, and the span
+        # rows of E (SPAN_ROWS); the dense count (every tap, every row) is
+        # printed beside it
+        flops = 2 * B * interior_pairs(H) * SPAN_ROWS * C * O
         dense_flops = 2 * B * H * H * 9 * (K + 1) * C * O
         nbytes = 4 * (x.numel() + bw.numel() + pw.numel() + B * H * H * O)
         op_ms = flops / PEAK_FP32_FLOPS * 1e3
@@ -1211,7 +1308,8 @@ def main():
     print(f"[time] per forward of the 13 convs at batch 1024: kernel "
           f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, cuDNN "
           f"over materialized E {totals['library_ms']:.3f} ms, bound "
-          f"{totals['bound_ms']:.3f} ms on interior pairs (dense "
+          f"{totals['bound_ms']:.3f} ms on interior pairs and span rows "
+          f"(dense "
           f"{totals['dense_bound_ms']:.3f} ms), "
           f"{100 * totals['bound_ms'] / totals['ms']:.1f}% of the bound "
           f"(on {card})", flush=True)

@@ -106,11 +106,15 @@ struct DxShape {
   int skip;          // 1: a warp per (position, 32 images), pad taps skipped
   int lw, lth, lp;   // dense: log2 of Wv (W rounded up to a power of two),
                      // of TH (rows per image slot), of P = TH*Wv slots
-  int NB, NBt;       // dense: image slots (NB*P = 256), planes of the tile
+  int NB, NBt;       // dense: image slots (NB*P = 256, or 128..32 with the
+                     // block's other pixels idle), planes of the tile
   int NG;            // skip: groups of 32 images whose g planes are staged
   int lcc, loc;      // log2 of CC (channels per block), of OC/4 (float4s of
                      // output channels per chunk)
   int stages;        // chunks staged at once: 2 (double-buffered) or 1
+  int table;         // 1: the g tile's offsets in a table built once per
+                     // block; 0 (large kernels at the edge of shared
+                     // memory): counted again at every chunk
   int tileR, tileC;  // g tile radices: dense TH' + k - 1, W + k - 1 (TH' =
                      // min(TH, H)); skip Wo, NG*32
   int tilePix;       // g pixels staged per chunk
@@ -207,6 +211,42 @@ __device__ __forceinline__ int bspline_span_grad(float x, const float* kn,
 // most 13 taps per sub-partition, not 15.
 __device__ __forceinline__ int dx_warp_slot(int w) { return w ^ (w >> 2); }
 
+// A pixel p = (d2*tileR + d1)*tileC + d0 of the g tile: dense (plane, row,
+// column), skip (output row, output column, image); stepped by a fixed
+// number of pixels by addition (the divides are in the constructor only).
+struct TilePixel {
+  int d0, d1, d2, s0, s1, s2;
+  __device__ TilePixel(const DxShape& s, int p, int step) {
+    d0 = p % s.tileC;
+    d1 = p / s.tileC;
+    d2 = d1 / s.tileR;
+    d1 -= d2 * s.tileR;
+    s0 = step % s.tileC;
+    const int s12 = step / s.tileC;
+    s2 = s12 / s.tileR;
+    s1 = s12 - s2 * s.tileR;
+  }
+  __device__ __forceinline__ void next(const DxShape& s) {
+    d0 += s0;
+    if (d0 >= s.tileC) { d0 -= s.tileC; ++d1; }
+    d1 += s1;
+    if (d1 >= s.tileR) { d1 -= s.tileR; ++d2; }
+    d2 += s2;
+  }
+  // g element offset of the pixel for the block at image b0, row i0, or -1
+  // (zero: off the output frame or past the batch)
+  __device__ __forceinline__ int offset(const DxShape& s, int b0,
+                                        int i0) const {
+    const int b = b0 + (s.skip ? d0 : d2);
+    const int oi = s.skip ? d2 : i0 + s.pad - (s.k - 1) + d1;
+    const int oj = s.skip ? d1 : s.pad - (s.k - 1) + d0;
+    return b < s.B && (unsigned)oi < (unsigned)s.Ho &&
+                   (unsigned)oj < (unsigned)s.Wo
+               ? ((b * s.Ho + oi) * s.Wo + oj) * s.O
+               : -1;
+  }
+};
+
 // Block: 256 input pixels x CC channels (CC <= 8, a power of two), grid y
 // over the channel blocks.  Thread t is pixel slot pm = t >> 3 and channel
 // lane tn = t & 7 (lanes tn >= CC idle): it owns channel c0 + tn of the
@@ -216,7 +256,9 @@ __device__ __forceinline__ int dx_warp_slot(int w) { return w ^ (w >> 2); }
 // loads need one address register per thread, not eight):
 //   dense: NB image slots x TH rows x Wv columns, Wv = W and TH rounded up
 //     to powers of two (slots past the image idle; none on VGG16_small), m =
-//     (nb*TH + r)*Wv + c; g is staged as the haloed tile of the rows (NBt
+//     (nb*TH + r)*Wv + c; NB*TH*Wv = 256, or for large kernels 128, 64 or 32
+//     (a smaller haloed tile; pixels m past the layout idle, dq 0); g is
+//     staged as the haloed tile of the rows (NBt
 //     planes of (min(TH, H) + k - 1) x (W + k - 1) pixels, zero off the
 //     output frame), and tap (di, dj) of a pixel reads the tile di*tileC + dj
 //     pixels before its tap-(0, 0) entry;
@@ -243,7 +285,9 @@ __device__ __forceinline__ int dx_warp_slot(int w) { return w ^ (w >> 2); }
 // Index work: the g tile's table and each warp's valid taps are built once
 // per block, the pixel layouts decode by shifts, the staging loops advance
 // pointers by addition and the tap loop multiplies: no divide in any loop.
-template <int NK, int ORDER, int ACT>
+// Without the TABLE (large kernels, where its int per pixel does not fit),
+// each staging thread steps a TilePixel set up once per block instead.
+template <int NK, int ORDER, int ACT, bool TABLE>
 __global__ void __launch_bounds__(kThreads, 2)
     kan_conv2d_bwd_dx_kernel(const float* __restrict__ x,
                              const float* __restrict__ w_all,
@@ -262,9 +306,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int gF4 = s.tilePitch << loc;             // float4s of a g chunk
   const int stageF4 = gF4 + ((T * K1) << (lcc + loc));  // ... and weights
   int* gOff = reinterpret_cast<int*>(smem4 + s.stages * stageF4);
-  // [tilePix]: g element offset of tile pixel p, or -1 (zero)
+  // TABLE [tilePix]: g element offset of tile pixel p, or -1 (zero)
   const int tapWords = (T + 31) >> 5;
-  unsigned* tapOk = reinterpret_cast<unsigned*>(gOff + s.tilePix);
+  unsigned* tapOk =
+      reinterpret_cast<unsigned*>(gOff + (TABLE ? s.tilePix : 0));
   // skip: [8][tapWords]: bit tap of warp w's words, g on the output plane
 
   const int tid = threadIdx.x;
@@ -302,32 +347,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     gbase = (nb * s.tileR + r + k - 1) * s.tileC + (pm & ((1 << s.lw) - 1)) +
             k - 1;
   }
-  {
-    // the g tile's table: pixel p = (d2*tileR + d1)*tileC + d0 is dense
-    // (plane, row, column), skip (output row, output column, image); pixels
-    // tid, tid + 256, ... by a mixed-radix counter
-    const int R0 = s.tileC, R1 = s.tileR;
-    int d0 = tid % R0, d1 = tid / R0;
-    int d2 = d1 / R1;
-    d1 -= d2 * R1;
-    const int s0 = kThreads % R0, s12 = kThreads / R0;
-    const int s2 = s12 / R1, s1 = s12 - s2 * R1;
-    const int gRow0 = i0 + s.pad - (k - 1), gCol0 = s.pad - (k - 1);
-    for (int p = tid; p < s.tilePix; p += kThreads) {
-      const int b = b0 + (s.skip ? d0 : d2);
-      const int oi = s.skip ? d2 : gRow0 + d1;
-      const int oj = s.skip ? d1 : gCol0 + d0;
-      gOff[p] = b < s.B && (unsigned)oi < (unsigned)s.Ho &&
-                        (unsigned)oj < (unsigned)s.Wo
-                    ? ((b * s.Ho + oi) * s.Wo + oj) * s.O
-                    : -1;
-      d0 += s0;
-      if (d0 >= R0) { d0 -= R0; ++d1; }
-      d1 += s1;
-      if (d1 >= R1) { d1 -= R1; ++d2; }
-      d2 += s2;
-    }
+  if (TABLE) {  // the g tile's table: pixels tid, tid + 256, ...
+    TilePixel px(s, tid, kThreads);
+    for (int p = tid; p < s.tilePix; p += kThreads, px.next(s))
+      gOff[p] = px.offset(s, b0, i0);
   }
+  // without the table: this thread's first g pixel of every chunk
+  const TilePixel gPix(s, tid >> loc, kThreads >> loc);
   if (tid == 0) {
 #pragma unroll
     for (int i = 0; i < kMaxKnots; ++i) knS[i] = kn.v[i];
@@ -344,17 +370,28 @@ __global__ void __launch_bounds__(kThreads, 2)
       const bool colOk = oo < s.O;
       const float* src = g + (colOk ? oo : 0);
       float4* dst = buf + o4 * s.tilePitch + (tid >> loc);
-      const int* offp = gOff + (tid >> loc);
-      const int* const end = gOff + s.tilePix;
+      if (TABLE) {
+        const int* offp = gOff + (tid >> loc);
+        const int* const end = gOff + s.tilePix;
 #pragma unroll 1
-      for (; offp < end; offp += step, dst += step) {
-        const int off = *offp;
-        const bool ok = off >= 0 && colOk;
-        cp_async16(dst, src + (ok ? off : 0), ok);
+        for (; offp < end; offp += step, dst += step) {
+          const int off = *offp;
+          const bool ok = off >= 0 && colOk;
+          cp_async16(dst, src + (ok ? off : 0), ok);
+        }
+      } else {
+        TilePixel px = gPix;
+#pragma unroll 1
+        for (int p = tid >> loc; p < s.tilePix;
+             p += step, dst += step, px.next(s)) {
+          const int off = px.offset(s, b0, i0);
+          const bool ok = off >= 0 && colOk;
+          cp_async16(dst, src + (ok ? off : 0), ok);
+        }
       }
     }
-    // thread e < K1*CC*OC4 copies entry e = (kk*OC4 + o4)*CC + cl of every
-    // tap's slice
+    // thread e < K1*CC*OC4 (<= 256: the C entry checks) copies entry e =
+    // (kk*OC4 + o4)*CC + cl of every tap's slice
     const int lr = lcc + loc;
     if (tid < (K1 << lr)) {
       const int cl = tid & (CC - 1), o4 = (tid >> lcc) & (OC4 - 1);
@@ -391,7 +428,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float4* cur = smem4 + (n & (s.stages - 1)) * stageF4;
     if (s.stages == 2 && n + 1 < nChunks)
       stage((n + 1) << (loc + 2), smem4 + ((n + 1) & 1) * stageF4);
-    const float4* Wl = cur + gF4 + tn;
+    // idle lanes (tn >= CC) read lane tn & (CC - 1)'s slices: every read
+    // stays inside the staged chunk
+    const float4* Wl = cur + gF4 + (tn & (CC - 1));
     for (int di = 0, tap = 0; di < k; ++di) {
       for (int dj = 0; dj < k; ++dj, ++tap) {
         if (s.skip &&
@@ -677,12 +716,15 @@ cudaError_t grant_smem(Kernel kernel, size_t smem, size_t* granted) {
 }
 
 // the staged chunks (g tile with what idle slots read past it, weight
-// slices; OC/4 float4s per entry) and the g tile's table (one int a pixel)
+// slices; OC/4 float4s per entry), the g tile's table (one int a pixel)
+// and, skip, each warp's valid taps (a bit a tap)
 size_t dx_smem(const DxShape& s, int K1) {
   const size_t chunk = ((size_t)s.tilePitch + (size_t)s.k * s.k * K1 *
                                                   (1 << s.lcc)) << s.loc;
-  return sizeof(float4) * s.stages * chunk + sizeof(int) * (size_t)s.tilePix +
-         sizeof(unsigned) * (kThreads / 32) * ((s.k * s.k + 31) / 32);
+  return sizeof(float4) * s.stages * chunk +
+         (s.table ? sizeof(int) * (size_t)s.tilePix : 0) +
+         (s.skip ? sizeof(unsigned) * (kThreads / 32) * ((s.k * s.k + 31) / 32)
+                 : 0);
 }
 
 // the staged chunk (expanded input, gathered g, pixel table), or the
@@ -696,11 +738,11 @@ size_t dw_smem(const DwShape& s, int K1) {
   return staged > slices ? staged : slices;
 }
 
-template <int NK, int ORDER, int ACT>
+template <int NK, int ORDER, int ACT, bool TABLE>
 cudaError_t launch_dx(const float* x, const float* w_all, const float* g,
                       float* dx, const DxShape& s, const Knots& kn,
                       cudaStream_t stream) {
-  auto kernel = kan_conv2d_bwd_dx_kernel<NK, ORDER, ACT>;
+  auto kernel = kan_conv2d_bwd_dx_kernel<NK, ORDER, ACT, TABLE>;
   static size_t granted = 48 * 1024;
   const size_t smem = dx_smem(s, NK - ORDER);
   const cudaError_t err = grant_smem(kernel, smem, &granted);
@@ -739,24 +781,27 @@ int log2_exact(int v) {
 // Returns a cudaError_t (0 = success); cudaErrorInvalidValue for a tile or
 // spline the build does not carry.  The Python wrapper chooses the tile
 // (kernels/kan_conv2d.py, dx_launch_config: skip; dense TH (rows per image
-// slot) and NB (image slots), NB*TH*Wv = 256 for Wv = W rounded up to a
-// power of two, or skip NG; CC; OC; stages) and validates every tensor;
+// slot) and NB (image slots), NB*TH*Wv = 256 (or 128, 64, 32 for large
+// kernels) for Wv = W rounded up to a power of two, or skip NG; CC; OC;
+// stages; table) and validates every tensor;
 // O % 4 == 0 and w_all and g 16-byte aligned (the wrapper pads and copies).
 int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
                       void* dx, int B, int H, int W, int C, int O, int k,
                       int pad, int skip, int TH, int NB, int NG, int CC,
-                      int OC, int stages, const float* knots, int n_knots,
-                      int order, int act, void* stream) {
+                      int OC, int stages, int table, const float* knots,
+                      int n_knots, int order, int act, void* stream) {
   DxShape s = {};
   s.B = B; s.H = H; s.W = W; s.C = C; s.O = O; s.k = k; s.pad = pad;
   s.Ho = H + 2 * pad - k + 1;
   s.Wo = W + 2 * pad - k + 1;
-  s.skip = skip; s.NB = NB; s.NG = NG; s.stages = stages;
+  s.skip = skip; s.NB = NB; s.NG = NG; s.stages = stages; s.table = table;
   s.lcc = CC <= 8 ? log2_exact(CC) : -1;
   s.loc = OC == 4 || OC == 8 ? log2_exact(OC / 4) : -1;
   const int K1 = n_knots - order;
   Knots kn;
-  if (s.lcc < 0 || s.loc < 0 || (stages != 1 && stages != 2) || O % 4 != 0 ||
+  if (s.lcc < 0 || s.loc < 0 || (stages != 1 && stages != 2) ||
+      (table != 0 && table != 1) || O % 4 != 0 ||
+      ((n_knots - order) << (s.lcc + s.loc)) > kThreads ||
       s.Ho <= 0 || s.Wo <= 0 || W > kDxPixels || (act != 0 && act != 1) ||
       reinterpret_cast<size_t>(w_all) % 16 != 0 ||
       reinterpret_cast<size_t>(g) % 16 != 0 ||
@@ -788,8 +833,11 @@ int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
     while (Wv < W) Wv *= 2;
     s.lw = log2_exact(Wv);
     s.lth = log2_exact(TH);
-    if (s.lth < 0 || NB < 1 || NB * TH * Wv != kDxPixels ||
-        (NB > 1 && TH < H))
+    // 256 pixel slots, or (large kernels) 128, 64 or 32 with the block's
+    // other pixels idle
+    const int slots = NB * TH * Wv;
+    if (s.lth < 0 || NB < 1 || slots > kDxPixels || slots < kDxSlots ||
+        (slots & (slots - 1)) != 0 || (NB > 1 && TH < H))
       return (int)cudaErrorInvalidValue;
     s.lp = s.lw + s.lth;
     // the planes of the tile: every image slot's where pixel slots span
@@ -809,15 +857,25 @@ int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
                            : 0;
     }
   }
-  if (dx_smem(s, K1) > 227 * 1024) return (int)cudaErrorInvalidValue;
+  // the dynamic shared memory and the knots' static array within the 227
+  // KB a block may have
+  if (dx_smem(s, K1) + sizeof(float) * kMaxKnots > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
   const float* wp = static_cast<const float*>(w_all);
   const float* gp = static_cast<const float*>(g);
   float* dxp = static_cast<float*>(dx);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_knots == 12 && order == 3) {  // grid_size 5, spline_order 3
-    return (int)(act == 0 ? launch_dx<12, 3, 0>(xp, wp, gp, dxp, s, kn, st)
-                          : launch_dx<12, 3, 1>(xp, wp, gp, dxp, s, kn, st));
+    if (table)
+      return (int)(act == 0 ? launch_dx<12, 3, 0, true>(xp, wp, gp, dxp, s,
+                                                        kn, st)
+                            : launch_dx<12, 3, 1, true>(xp, wp, gp, dxp, s,
+                                                        kn, st));
+    return (int)(act == 0 ? launch_dx<12, 3, 0, false>(xp, wp, gp, dxp, s, kn,
+                                                       st)
+                          : launch_dx<12, 3, 1, false>(xp, wp, gp, dxp, s, kn,
+                                                       st));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -21,6 +21,7 @@ from a kernel to a plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 import threading
 
@@ -44,8 +45,9 @@ MAX_BN = 128                     # output channels per forward block
 MAX_SPLITS = 16                  # channel splits of a tile: one cluster
 SKIP_POSITIONS = 16              # pad taps skipped when Ho*Wo <= this
 TARGET_BLOCKS = 4 * 132          # two waves of two blocks per SM (H100 SXM)
-SMEM_LIMIT = 227 * 1024          # dynamic shared memory a block may use
+SMEM_LIMIT = 227 * 1024          # shared memory a block may use
 SMEM_TWO_BLOCKS = 112 * 1024     # ... with two blocks on an SM
+DX_SMEM_STATIC = 4 * 32          # the dx kernel's static knots (of the 227)
 # data-gradient tile: 32 pixel slots x 8 pixels per thread x 8 channel lanes
 # (CC <= 8 channels, a power of two), output channels staged DX_OC at a
 # time, two chunks in flight; where the input plane has at most
@@ -73,7 +75,7 @@ RED_TARGET_BLOCKS, RED_CLUSTER_GRID, RED_CLUSTER_LEAF = 4 * 132, 132, 32
 # the forward tile's entries of launch_config, in the C entry's order
 FWD_TILE = ("BN", "skip", "TH", "TW", "NB", "NG", "CC", "S")
 # ... and the data-gradient tile's of dx_launch_config
-DX_TILE = ("skip", "TH", "NB", "NG", "CC", "OC", "stages")
+DX_TILE = ("skip", "TH", "NB", "NG", "CC", "OC", "stages", "table")
 
 KERNELS = ("kan_conv2d_fwd", "kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
            "kan_conv2d_bwd_dw_reduce")
@@ -331,14 +333,15 @@ def launch_config(B, H, W, C, O, k, pad, K) -> dict:
 
 
 def dx_smem(tile: int, pitch: int, taps: int, K1: int, CC: int, OC: int,
-            stages: int) -> int:
+            stages: int, skip: int, table: int) -> int:
     """Dynamic shared memory of a data-gradient block (mirrors dx_smem in
     the C source): ``stages`` chunks of the g tile (``pitch`` pixels: the
     ``tile`` staged and what idle slots read past it) and the weight slices
-    of all taps, OC/4 float4s per entry, the tile's table (one int per
-    staged pixel) and each warp's valid taps (a bit per tap)."""
-    return 16 * stages * (OC // 4) * (pitch + taps * K1 * CC) + 4 * tile + \
-        4 * WARPS * -(-taps // 32)
+    of all taps, OC/4 float4s per entry, with ``table`` the tile's table
+    (one int per staged pixel) and, for the skip tile, each warp's valid
+    taps (a bit per tap)."""
+    return 16 * stages * (OC // 4) * (pitch + taps * K1 * CC) + \
+        4 * tile * table + (4 * WARPS * -(-taps // 32) if skip else 0)
 
 
 def dx_geometry(B, H, W, k, pad, skip: int, TH: int, NB: int,
@@ -347,14 +350,15 @@ def dx_geometry(B, H, W, k, pad, skip: int, TH: int, NB: int,
     tile's radices ``tileR`` x ``tileC`` and ``tile`` (pixels staged),
     ``pitch``, ``planes`` (dense: image planes staged), ``tiles`` (blocks
     along the pixels) and ``dq``: the tile pixels from a thread's pixel
-    q = 0 to its pixel q, the same for every thread."""
+    q = 0 to its pixel q, the same for every thread (0 for a pixel past
+    the layout's NB*TH*Wv slots, which stays idle)."""
     Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
     if skip:
         groups, P = -(-B // DX_GROUP), H * W
         tile = Ho * Wo * NG * DX_GROUP
         return {"tileR": Wo, "tileC": NG * DX_GROUP, "tile": tile,
                 "pitch": tile, "planes": 0, "tiles": -(-groups * P // WARPS),
-                "dq": [4 * q for q in range(DX_TM)]}
+                "dq": tuple(4 * q for q in range(DX_TM))}
     Wv = 1 << (W - 1).bit_length()
     P = TH * Wv
     planes = NB if P < DX_SLOTS else min(NB, B)
@@ -368,7 +372,7 @@ def dx_geometry(B, H, W, k, pad, skip: int, TH: int, NB: int,
                   if m // P < planes else 0)
     return {"tileR": tileR, "tileC": tileC, "tile": tile,
             "pitch": tile + (TH - rows) * tileC + Wv - W, "planes": planes,
-            "tiles": -(-B // NB) * -(-H // TH), "dq": dq}
+            "tiles": -(-B // NB) * -(-H // TH), "dq": tuple(dq)}
 
 
 def dx_launch_config(B, H, W, C, O, k, pad, K) -> dict:
@@ -380,49 +384,61 @@ def dx_launch_config(B, H, W, C, O, k, pad, K) -> dict:
     halo, pad taps skipped) or dense (NB image slots x TH rows x Wv
     columns, TH and Wv = W rounded up to powers of two, 256 slots; the
     haloed g tile of the block's rows), with the skip tile as the dense
-    one's fallback.  Two blocks' shared memory per SM where it can, else
-    one's; within a budget and a tile, OC is cut first, then stages, then
-    CC.  Returns the kernel's arguments and, for the tests,
-    the layout of ``dx_geometry``, ``blocks``, ``smem`` and ``pairs``: the
-    (pixel, tap) pairs the kernel computes per channel block, pad pairs and
-    idle pixel slots included.  Raises NotImplementedError for a row wider
-    than a block or a shape whose tile does not fit."""
+    one's fallback and, at the edge of shared memory (large kernels),
+    dense layouts of 128, 64 or 32 slots (fewer rows in the haloed tile;
+    the block's other pixels idle), first with the tile's table of g
+    offsets, then without it (``table`` 0: each staging thread counts its
+    pixels' offsets again at every chunk).  Two blocks' shared memory per
+    SM where it can, else one's; within a budget and a tile, OC is cut
+    first, then stages, then CC.  Returns the kernel's arguments, the
+    layout of ``dx_geometry``, ``blocks`` and ``smem`` (a new dict per
+    call, from a cache of the shape's tile).  Raises NotImplementedError
+    for a row wider than a block or a shape whose tile does not fit."""
+    return dict(_dx_tile(B, H, W, C, O, k, pad, K))
+
+
+@functools.lru_cache(maxsize=1024)
+def _dx_tile(B, H, W, C, O, k, pad, K) -> dict:
     if W > DX_PIXELS:
         raise NotImplementedError(f"input width {W} > {DX_PIXELS} pixels per "
                                   "data-gradient block")
     K1, T, P = K + 1, k * k, H * W
-    groups = -(-B // DX_GROUP)
-    skip = {"skip": 1, "TH": 0, "NB": 0, "NG": skip_groups(P, groups)}
+    skip = {"skip": 1, "TH": 0, "NB": 0,
+            "NG": skip_groups(P, -(-B // DX_GROUP)), "table": 1}
     Wv = 1 << (W - 1).bit_length()
-    TH = min(1 << (H - 1).bit_length(), DX_PIXELS // Wv)
-    dense = {"skip": 0, "TH": TH, "NB": DX_PIXELS // (TH * Wv), "NG": 0}
+
+    def dense(slots, table=1):
+        TH = min(1 << (H - 1).bit_length(), slots // Wv)
+        return {"skip": 0, "TH": TH, "NB": slots // (TH * Wv), "NG": 0,
+                "table": table}
+
     # the skip tile where the plane is small, else the dense one and, for
-    # large kernels on planes of few rows, the skip tile as a fallback
-    tiles = [skip] if P <= SKIP_POSITIONS else [dense, skip]
+    # large kernels, the skip tile, dense layouts of fewer slots and the
+    # tiles without their table as fallbacks
+    tiles = [skip] if P <= SKIP_POSITIONS else [dense(DX_PIXELS), skip]
+    small = [] if P <= SKIP_POSITIONS else \
+        [dense(n) for n in (DX_PIXELS // 2, DX_PIXELS // 4, DX_SLOTS)
+         if Wv <= n]
+    small += [{**t, "table": 0} for t in tiles + small]
     CC0 = 1
     while CC0 < min(C, DX_MAX_CC):
         CC0 *= 2
     ccs = [CC0 >> i for i in range(CC0.bit_length())]
     ocs = (DX_OC, 4) if O > 4 else (4,)
-    for budget in (SMEM_TWO_BLOCKS, SMEM_LIMIT):
-        for tile in tiles:
-            geo = dx_geometry(B, H, W, k, pad, **tile)
+    for budget, cands in ((SMEM_TWO_BLOCKS, tiles),
+                          (SMEM_LIMIT - DX_SMEM_STATIC, tiles + small)):
+        for tile in cands:
+            geo = dx_geometry(B, H, W, k, pad, tile["skip"], tile["TH"],
+                              tile["NB"], tile["NG"])
             for CC, stages, OC in itertools.product(ccs, (2, 1), ocs):
-                smem = dx_smem(geo["tile"], geo["pitch"], T, K1, CC, OC,
-                               stages)
-                if smem > budget:
+                if K1 * CC * OC // 4 > THREADS:  # a thread per weight entry
                     continue
-                if tile["skip"]:  # the taps whose g lies on the plane
-                    Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
-                    pairs = DX_GROUP * groups * sum(
-                        0 <= i + pad - di < Ho and 0 <= j + pad - dj < Wo
-                        for i, j, di, dj in itertools.product(
-                            range(H), range(W), range(k), range(k)))
-                else:
-                    pairs = geo["tiles"] * DX_PIXELS * T
-                return {**tile, "CC": CC, "OC": OC, "stages": stages, **geo,
-                        "blocks": geo["tiles"] * -(-C // CC), "smem": smem,
-                        "pairs": pairs}
+                smem = dx_smem(geo["tile"], geo["pitch"], T, K1, CC, OC,
+                               stages, tile["skip"], tile["table"])
+                if smem <= budget:
+                    return {**tile, "CC": CC, "OC": OC, "stages": stages,
+                            **geo, "blocks": geo["tiles"] * -(-C // CC),
+                            "smem": smem}
     raise NotImplementedError("data-gradient tile does not fit in shared "
                               "memory")
 
@@ -537,9 +553,9 @@ _ARGTYPES = {
     # order act; stream
     "kan_conv2d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    # x, w_all, g, dx; B H W C O k pad skip TH NB NG CC OC stages; knots;
-    # n_knots order act; stream
-    "kan_conv2d_bwd_dx": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+    # x, w_all, g, dx; B H W C O k pad skip TH NB NG CC OC stages table;
+    # knots; n_knots order act; stream
+    "kan_conv2d_bwd_dx": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     # x, g, partial; B H W C O k pad CC BN P S ips PW; knots; n_knots
     # order act; stream

@@ -109,6 +109,10 @@ def _bwd_inputs(B, H, C, O, seed, k=3, pad=1):
     (37, 4, 16, 32, "silu", 3, 1), (41, 3, 6, 8, "gelu", 3, 1),
     (3, 9, 13, 5, "silu", 3, 1), (5, 8, 8, 48, "silu", 3, 1),
     (2, 8, 6, 16, "silu", 5, 2), (3, 6, 8, 12, "silu", 3, 0),
+    # ... and its fallbacks for kernels at the edge of shared memory: 32
+    # pixel slots; 64 and 32 slots without the table of g offsets
+    (1, 9, 1, 1, "silu", 37, 18), (1, 14, 1, 1, "gelu", 37, 18),
+    (1, 22, 1, 1, "silu", 37, 18),
 ])
 def test_cuda_backward_matches_plain_version(B, H, C, O, act, k, pad):
     """dx, d base_w and d poly_w of the CUDA path against autograd of the

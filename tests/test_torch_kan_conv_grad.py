@@ -147,7 +147,7 @@ def test_backward_launch_configs_tile_vgg16_small():
         for B in (1, 16, 64, 1024):
             dx = kc.dx_launch_config(B, H, H, C, O, 3, 1, K)
             assert dx["smem"] <= kc.SMEM_TWO_BLOCKS
-            assert (dx["OC"], dx["stages"]) == (kc.DX_OC, 2)
+            assert (dx["OC"], dx["stages"], dx["table"]) == (kc.DX_OC, 2, 1)
             assert dx["CC"] == min(kc.DX_MAX_CC, 1 << (C - 1).bit_length())
             assert dx["skip"] == (H <= 4)
             if not dx["skip"]:
@@ -156,8 +156,9 @@ def test_backward_launch_configs_tile_vgg16_small():
                 assert dx["blocks"] >= 256
                 if C > 3:   # the first conv has no data gradient
                     interior = B * ((3 * H - 2) ** 2)
-                    assert dx["pairs"] == interior if dx["skip"] else \
-                        dx["pairs"] == B * H * H * 9
+                    pairs = _dx_pairs(dx, B, H, H, 3, 1)
+                    assert pairs == interior if dx["skip"] else \
+                        pairs == B * H * H * 9
             dw = kc.dw_launch_config(B, H, H, C, O, 3, 1, K)
             CC, BN, PW = dw["CC"], dw["BN"], dw["PW"]
             assert CC <= kc.DW_MAX_CC and C % CC == 0          # rows 9*CC
@@ -418,6 +419,39 @@ def test_dw_kernel_index_mapping_emulation(B, H, W, C, O, k, pad):
 
 
 # ---------------------------------------- the data-gradient kernel's tile
+def _dx_pairs(cfg, B, H, W, k, pad):
+    """(pixel, tap) pairs the data-gradient kernel computes per channel
+    block: dense, every tap of every pixel slot of every block; skip, the
+    taps whose g lies on the output plane, for whole image groups."""
+    if not cfg["skip"]:
+        return cfg["tiles"] * kc.DX_PIXELS * k * k
+    Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
+    taps = sum(0 <= i + pad - di < Ho and 0 <= j + pad - dj < Wo
+               for i, j, di, dj in itertools.product(
+                   range(H), range(W), range(k), range(k)))
+    return kc.DX_GROUP * -(-B // kc.DX_GROUP) * taps
+
+
+def _dx_entry_takes(cfg, B, H, W, k, KK):
+    """Asserts that the C entry kan_conv2d_bwd_dx takes the tile (its
+    checks, mirrored) and that its shared memory is dx_smem's."""
+    CC, OC = cfg["CC"], cfg["OC"]
+    assert CC in (1, 2, 4, 8) and OC in (4, 8) and cfg["stages"] in (1, 2)
+    assert cfg["table"] in (0, 1)
+    if cfg["skip"]:
+        assert cfg["NG"] >= kc.skip_groups(H * W, -(-B // kc.DX_GROUP))
+    else:
+        Wv = 1 << (W - 1).bit_length()
+        slots = cfg["NB"] * cfg["TH"] * Wv
+        assert slots in (32, 64, 128, 256)
+        assert cfg["TH"] & (cfg["TH"] - 1) == 0
+        assert cfg["NB"] == 1 or cfg["TH"] >= H
+    assert (KK + 1) * CC * OC // 4 <= kc.THREADS
+    assert cfg["smem"] == kc.dx_smem(
+        cfg["tile"], cfg["pitch"], k * k, KK + 1, CC, OC, cfg["stages"],
+        cfg["skip"], cfg["table"]) <= kc.SMEM_LIMIT - kc.DX_SMEM_STATIC
+
+
 def _parent_dx_accepts(B, H, W, C, O, k, KK):
     """The previous data-gradient tile's predicate, written out: at most
     128 pixels of whole rows per block, the haloed g tile and the weight
@@ -440,10 +474,7 @@ def test_dx_launch_config_accepts_every_shape_the_parent_did():
     """Coverage never shrinks: every shape of the grid that the previous
     data-gradient tile took gets a tile that the C entry takes (mirrored
     here), for kernels up to 11 x 11 and up to 64 expanded rows per
-    channel.  (At the edge of shared memory the previous tile also took a
-    few shapes with kernels of 13 x 13 and more, which this tile's 256
-    pixel slots and table do not fit; no configuration of the repo has
-    such a layer.)"""
+    channel (larger kernels: the next test)."""
     accepted = 0
     for B, H, W, C, O, k, KK in itertools.product(
             (1, 5, 33, 1024), (1, 2, 3, 4, 5, 8, 13, 32), (1, 2, 3, 4, 7, 16,
@@ -455,24 +486,43 @@ def test_dx_launch_config_accepts_every_shape_the_parent_did():
             continue
         accepted += 1
         cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, KK)
-        CC, OC = cfg["CC"], cfg["OC"]
-        assert CC in (1, 2, 4, 8) and OC in (4, 8) and cfg["stages"] in (1, 2)
-        if cfg["skip"]:
-            assert cfg["NG"] >= kc.skip_groups(H * W, -(-B // kc.DX_GROUP))
-        else:
-            Wv = 1 << (W - 1).bit_length()
-            assert cfg["NB"] * cfg["TH"] * Wv == kc.DX_PIXELS
-            assert cfg["TH"] & (cfg["TH"] - 1) == 0
-            assert cfg["NB"] == 1 or cfg["TH"] >= H
-        assert cfg["smem"] == kc.dx_smem(
-            cfg["tile"], cfg["pitch"], k * k, KK + 1, CC, OC,
-            cfg["stages"]) <= kc.SMEM_LIMIT
+        _dx_entry_takes(cfg, B, H, W, k, KK)
+        if k <= 5 and KK == 8:   # no fallback where VGG-like layers lie
+            assert cfg["table"] == 1 and (
+                cfg["skip"] or cfg["NB"] * cfg["TH"] *
+                (1 << (W - 1).bit_length()) == kc.DX_PIXELS)
     assert accepted == 117795
+
+
+def test_dx_launch_config_accepts_large_kernels_the_parent_did():
+    """... and for kernels of 13 x 13 up to 61 x 61, where the previous
+    tile took shapes at the edge of shared memory (output channels staged
+    4 at a time): each gets a tile the C entry takes, some only with the
+    fallbacks (dense layouts of 128, 64 or 32 pixel slots, no table of g
+    offsets), and each fallback is reached."""
+    accepted, seen = 0, set()
+    for B, H, W, C, O, k, KK in itertools.product(
+            (1, 33), (1, 3, 4, 5, 8, 13, 32), (1, 3, 13, 16, 32, 100, 128),
+            (1, 13, 128), (1, 4, 5, 48), (13, 17, 25, 37, 49, 61),
+            (3, 8, 20, 63)):
+        pad = k // 2
+        if not _parent_dx_accepts(B, H, W, C, O, k, KK):
+            continue
+        accepted += 1
+        cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, KK)
+        _dx_entry_takes(cfg, B, H, W, k, KK)
+        if not cfg["skip"]:
+            seen.add((cfg["NB"] * cfg["TH"] * (1 << (W - 1).bit_length()),
+                      cfg["table"]))
+    assert accepted == 8235
+    assert seen == {(256, 1), (128, 1), (64, 1), (32, 1), (256, 0),
+                    (128, 0), (64, 0)}
 
 
 def _emulate_dx(x, w_all, g, k, pad, cfg):
     """csrc/kan_conv2d_bwd.cu ``kan_conv2d_bwd_dx_kernel`` in float64
-    numpy, block by block: the g tile's table (its mixed-radix counter),
+    numpy, block by block: the g tile's offsets (the TilePixel counter of
+    the table, or of each staging thread without it),
     the staging of every chunk (thread -> g pixels, thread -> weight
     entry of every tap), the pixel slots (dense: the NB x TH x Wv layout
     and the uniform dq; skip: warp slot -> (image group, position), its
@@ -519,20 +569,28 @@ def _emulate_dx(x, w_all, g, k, pad, cfg):
             i0 = (bx % rowChunks) << lth
             nb, r = pm >> (lw + lth), (pm >> lw) & (cfg["TH"] - 1)
             gbase = (nb * tileR + r + k - 1) * tileC + (pm & (Wv - 1)) + k - 1
-        # the g tile's table by the kernel's mixed-radix counter
+        # the g offsets by the kernel's TilePixel counter: with the table,
+        # built once per block by threads tid, tid + 256, ...; without it,
+        # counted by each staging thread over its pixels tid / OC4,
+        # + 256 / OC4, ... (the OC4 threads of a pixel count the same)
+        start, step = (tid, kc.THREADS) if cfg["table"] else \
+            (tid // OC4, kc.THREADS // OC4)
         gOff = np.full(tile, -7)
-        d0, d1 = tid % tileC, tid // tileC
+        d0, d1 = start % tileC, start // tileC
         d2, d1 = d1 // tileR, d1 % tileR
-        s0, s12 = kc.THREADS % tileC, kc.THREADS // tileC
+        s0, s12 = step % tileC, step // tileC
         s2, s1 = s12 // tileR, s12 % tileR
-        for p0 in range(0, tile, kc.THREADS):
-            p = p0 + tid
+        for p0 in range(0, tile, step):
+            p = p0 + start
+            assert ((d2 * tileR + d1) * tileC + d0 == p).all()
             on = p < tile
             b = b0 + (d0 if skip else d2)
             oi = d2 if skip else i0 + pad - (k - 1) + d1
             oj = d1 if skip else pad - (k - 1) + d0
             ok = (b < B) & (oi >= 0) & (oi < Ho) & (oj >= 0) & (oj < Wo)
-            gOff[p[on]] = np.where(ok, ((b * Ho + oi) * Wo + oj) * O4, -1)[on]
+            off = np.where(ok, ((b * Ho + oi) * Wo + oj) * O4, -1)
+            assert ((gOff[p[on]] == -7) | (gOff[p[on]] == off[on])).all()
+            gOff[p[on]] = off[on]
             d0 = d0 + s0
             d1, d0 = d1 + (d0 >= tileC), np.where(d0 >= tileC, d0 - tileC, d0)
             d1 = d1 + s1
@@ -566,7 +624,7 @@ def _emulate_dx(x, w_all, g, k, pad, cfg):
             for tap in range(T):
                 cols = np.minimum(oo, O4 - 4)[:, None] + np.arange(4)
                 Ws[tap] = np.where(ok[:, None], wp[rows[:, None], tap, cols], 0)
-            Ws = Ws.reshape(T, K1, OC4, CC, 4)
+            Wflat = Ws.reshape(T * E, 4)
             # the sums: thread (pm, tn), pixel q at tile pixel gbase + dq[q]
             for tap in range(T):
                 di, dj = divmod(tap, k)
@@ -582,7 +640,12 @@ def _emulate_dx(x, w_all, g, k, pad, cfg):
                 idxc = np.clip(idx, 0, pitch - 1)
                 for u in range(OC4):
                     gv = Gs[u][idxc]                          # (t, q, 4)
-                    wv = Ws[tap, :, u][:, np.minimum(tn, CC - 1)]  # (K1, t, 4)
+                    # thread lane tn & (CC - 1)'s float4 of entry (tap, kk,
+                    # u): inside the staged slices for every lane
+                    widx = ((tap * K1 + np.arange(K1)[:, None]) * OC4 + u) \
+                        * CC + (tn & (CC - 1))[None, :]       # (K1, t)
+                    assert (widx < T * E).all()
+                    wv = Wflat[widx]                          # (K1, t, 4)
                     wv = np.where((tn < CC)[None, :, None], wv, 0.0)
                     acc += np.where(valid[:, None, None],
                                     np.einsum("tqo,kto->tqk", gv, wv), 0.0)
@@ -629,6 +692,40 @@ def test_dx_kernel_index_mapping_emulation(B, H, W, C, O, k, pad):
     g = rng.normal(0, 1, (B, Ho, Wo, O))
     w_all = rng.normal(0, 0.2, (9 * C, k * k * O))
     cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, K)
+    dE, written = _emulate_dx(x, w_all, g, k, pad, cfg)
+    assert (written == 1).all() and not np.isnan(dE).any()
+    xt = torch.from_numpy(x).requires_grad_(True)
+    E = kc.expand(xt, KNOTS, 3, "silu")
+    got = torch.autograd.grad(E, xt, torch.from_numpy(dE))[0].numpy()
+    want = kc.input_grad_reference(
+        torch.from_numpy(x), torch.from_numpy(w_all), torch.from_numpy(g),
+        KNOTS, 3, k, pad, "silu").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("B,H,W,C,O,k,pad,table", [
+    (1, 9, 9, 1, 1, 37, 18, None),    # kernel 37: 32 pixel slots
+    (1, 14, 14, 1, 1, 37, 18, None),  # ... 64 slots, no table of g offsets
+    (3, 9, 9, 13, 5, 3, 1, 0),        # dense without the table
+    (41, 3, 3, 6, 8, 3, 1, 0),        # skip without the table
+])
+def test_dx_kernel_index_mapping_emulation_fallback_tiles(B, H, W, C, O, k,
+                                                          pad, table):
+    """The same for the fallbacks of large kernels: fewer pixel slots
+    (idle pixels) and no table of g offsets (each staging thread counts
+    its own), as the tile rule picks them or forced on a small shape."""
+    cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, K)
+    if table is not None:
+        cfg["table"] = table
+    elif k == 37:
+        Wv = 1 << (W - 1).bit_length()
+        assert (cfg["NB"] * cfg["TH"] * Wv, cfg["table"]) == \
+            ((32, 1) if H == 9 else (64, 0))
+    rng = np.random.RandomState(B * 100 + H * 10 + C)
+    x = rng.uniform(-2.5, 2.5, (B, H, W, C))
+    Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
+    g = rng.normal(0, 1, (B, Ho, Wo, O))
+    w_all = rng.normal(0, 0.2, (9 * C, k * k * O))
     dE, written = _emulate_dx(x, w_all, g, k, pad, cfg)
     assert (written == 1).all() and not np.isnan(dE).any()
     xt = torch.from_numpy(x).requires_grad_(True)
