@@ -74,7 +74,12 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
  10. backward kernels (data gradient, parameter partials, reduction) and
      the autograd path's dx, dw, dt, ds against float64 autograd of the
      plain version (BWD_TOL; the reduction bit-exact against its grouped
-     plain version, the reduced dw/dt/ds against float64 at BWD_TOL);
+     plain version, the reduced dw/dt/ds against float64 at BWD_TOL), at
+     the 9 VGG16_small shapes (the parameter kernel's compiled row widths
+     32, 16, 8, 4, 2), all 5 wavelets, and its generic rows and ragged
+     tiles (W = 5, 7; C = 13, 5, 3; H = 1; O = 5, 20; pads 0 and 2); the
+     parameter partials of two calls bit-identical; each case prints the
+     parameter kernel's launch (PARAM_TILE);
  11. the WavKAN VGG16_small (head on the last 2x2 map, see WAV_MODEL):
      logits on the GPU vs the CPU (MODEL_TOL), 13 forward launches;
  12. serving, the main path, as phase 4 with the WavKAN model (served
@@ -92,8 +97,12 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
      conv shape at batch 1024, each WavKAN kernel, its plain version, one
      cuDNN grouped convolution (forward, or convolution_backward) over a
      materialized psi (a yardstick the port never calls) and the bound;
-     the reduction as in phase 8, and an empty kernel's time (the launch
-     floor).
+     for the parameter kernel also its launch (channels per thread,
+     threads, row slots, rows per step, pipeline, compiled width, splits,
+     blocks, blocks per SM, waves, shared memory), the (pixel, tap, o, c)
+     it issues over the interior ones, the share of the bound it reaches
+     and its rate on issued work; the reduction as in phase 8, and an
+     empty kernel's time (the launch floor).
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
 a sleep kernel holds the card until the host has issued all timed calls);
 a kernel's timing that the host held back fails, any other is listed
@@ -150,6 +159,10 @@ DW_TILE = ("CC", "BN", "PW", "threads", "S", "blocks")
 # and 14 print
 RED_TILE = ("VW", "Gw", "Gc", "blocks")
 RED_SOURCE = "convkan_tpu_torch/csrc/ordered_sum.cuh"
+# the WavKAN parameter kernel's launch (param_launch_config) that phases 10
+# and 14 print
+PARAM_TILE = ("CT", "threads", "RS", "RB", "pipe", "compiled", "S", "blocks",
+              "blocks_per_sm", "waves", "smem")
 # backward kernels vs float64 autograd of the plain version: a dW entry sums
 # up to B*H*W = 65,536 float32 products at batch 64 (dx: k*k*(K+1)*O <=
 # 10,368) in another order, an error of ~sqrt(n) * 2^-24 of the sum of
@@ -978,22 +991,34 @@ def phase_wav_forward(wc, gen, dev):
 def phase_wav_backward(wc, gen, dev):
     """10. each backward kernel and the autograd path against float64
     autograd of the plain version; returns max |err| per kernel."""
-    cases = [(64, H, H, C, O, "mexican_hat")
+    cases = [(64, H, H, C, O, "mexican_hat", 1)
              for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
-    cases += [(3, 7, 5, 13, 5, "mexican_hat")]
-    cases += [(8, 8, 8, 16, 32, w) for w in WAVELETS[1:]]
+    cases += [(8, 8, 8, 16, 32, w, 1) for w in WAVELETS[1:]]
+    # the parameter kernel's generic rows (W = 5, 7; pads 0 and 2) and
+    # ragged tiles: C = 13, 5, 3 (not a multiple of its 4 channels per
+    # thread), H = 1 (both outer g rows off the frame), O = 5 and 20 (idle
+    # lanes, 4-byte copies), a ragged last split
+    cases += [(3, 7, 5, 13, 5, "mexican_hat", 1),
+              (5, 5, 7, 5, 16, "mexican_hat", 1),
+              (9, 1, 8, 6, 32, "mexican_hat", 1),
+              (4, 6, 4, 3, 8, "mexican_hat", 1),
+              (37, 3, 2, 13, 20, "mexican_hat", 1),
+              (3, 4, 4, 5, 16, "mexican_hat", 0),
+              (2, 3, 5, 4, 12, "mexican_hat", 2)]
     errs = dict.fromkeys(wc.KERNELS[1:], 0.0)
     red64 = 0.0   # the reduced gradients against float64, as in phase 6
-    for B, H, W, C, O, wt in cases:
+    for B, H, W, C, O, wt, pad in cases:
         x, w, t, s = (a.to(dev) for a in wav_inputs(gen, B, H, W, C, O))
-        g = torch.randn(B, H, W, O, generator=gen).to(dev)
-        spec = (wt, 1)
+        g = torch.randn(B, H + 2 * pad - 2, W + 2 * pad - 2, O,
+                        generator=gen).to(dev)
+        spec = (wt, pad)
         wf = w
         if wt == "shannon":  # the kernels take the window folded into w
             wf = w * torch.from_numpy(wc.hamming_window(C)).to(w)[:, None]
-        cfg = wc.param_launch_config(B, H, W, C, O, 3, 1)
+        cfg = wc.param_launch_config(B, H, W, C, O, 3, pad)
         dx = wc.input_grad(x, wf, t, s, g, *spec)
         part = wc.param_partials(x, wf, t, s, g, *spec)
+        same = torch.equal(part, wc.param_partials(x, wf, t, s, g, *spec))
         red = wc.reduce_partials(part)
         torch.cuda.synchronize()
         d64 = [a.double() for a in (x, wf, t, s, g)]
@@ -1006,15 +1031,17 @@ def phase_wav_backward(wc, gen, dev):
         rcfg = wc.reduce_launch_config(*part.shape)
         leaves = [a.clone().requires_grad_(True) for a in (x, w, t, s)]
         got = torch.autograd.grad(wc.wav_conv2d(
-            *leaves, wavelet_type=wt, padding=1), leaves, g)
+            *leaves, wavelet_type=wt, padding=pad), leaves, g)
         ref = [a.double().requires_grad_(True) for a in (x, w, t, s)]
         want = torch.autograd.grad(wc.wav_conv2d_reference(
-            *ref, wavelet_type=wt, padding=1), ref, g.double())
+            *ref, wavelet_type=wt, padding=pad), ref, g.double())
         auto = [bwd_close(a, b) for a, b in zip(got, want)]
-        ok = ok_dx and ok_p and e_red == 0.0 and ok64 and \
+        ok = ok_dx and ok_p and same and e_red == 0.0 and ok64 and \
             all(o for _, o in auto)
-        print(f"[wav backward] B={B} {H}x{W} C={C} O={O} {wt} "
-              f"S={cfg['S']} (reduce {red_tile(rcfg)}): dx {e_dx:.3e}, "
+        print(f"[wav backward] B={B} {H}x{W} C={C} O={O} {wt} pad={pad} "
+              f"(param tile {param_tile(cfg)}; reduce {red_tile(rcfg)}): "
+              f"dx {e_dx:.3e}, param partials of two calls "
+              f"{'bit-identical' if same else 'DIFFERENT'}, "
               f"param partials {e_p:.3e}, reduce {e_red:.1e} (reduced vs "
               f"float64 {e64:.3e}); autograd dx/dw/dt/ds "
               f"{'/'.join(f'{e:.3e}' for e, _ in auto)} "
@@ -1022,7 +1049,7 @@ def phase_wav_backward(wc, gen, dev):
         for a in (dx, part, *got):
             check(bool(torch.isfinite(a).all()), "backward output not finite")
         check(ok, f"WavKAN backward kernels disagree with the plain version "
-                  f"(B={B} {H}x{W} C={C} O={O} {wt})")
+                  f"(B={B} {H}x{W} C={C} O={O} {wt} pad={pad})")
         for name, e in (("wav_conv2d_bwd_dx", max(e_dx, auto[0][0])),
                         ("wav_conv2d_bwd_param",
                          max(e_p, *(a for a, _ in auto[1:]))),
@@ -1051,6 +1078,29 @@ def wav_bound(name, B, H, C, O, S, N):
               "wav_conv2d_bwd_param": 4 * (x + g + p + S * N),
               "wav_conv2d_bwd_reduce": reduce_work(S, N)[1]}[name]
     return ops_ms, nbytes / PEAK_BYTES * 1e3
+
+
+def param_tile(cfg) -> str:
+    """The parameter kernel's launch: channels per thread, threads, row
+    slots, rows per step, cp.async pipeline, compiled row width, splits,
+    blocks, blocks per SM, waves and shared memory."""
+    return ", ".join(f"{key} {cfg[key]}" for key in PARAM_TILE[:-2]) + \
+        f", waves {cfg['waves']:.2f}, smem {cfg['smem']} B"
+
+
+def param_issued(cfg, B, H, W, C, O, pad=1) -> int:
+    """(pixel, tap, o, c) the parameter kernel issues: the taps of each row
+    (compiled widths: those whose g lies on the frame; else every column of
+    the rows on the frame) x whole o tiles x whole channel tiles."""
+    Ho, Wo = H + 2 * pad - 2, W + 2 * pad - 2
+    rows = [sum(0 <= h + pad - di < Ho for di in range(3)) for h in range(H)]
+    if cfg["compiled"]:
+        cols = sum(0 <= j + pad - dj < Wo for j in range(W) for dj in range(3))
+    else:
+        cols = 3 * W
+    ctile = cfg["CT"] * cfg["CG"]
+    return B * sum(rows) * cols * -(-O // cfg["OC"]) * cfg["OC"] * \
+        -(-C // ctile) * ctile
 
 
 def phase_wav_times(wc, gen, dev, card):
@@ -1133,6 +1183,16 @@ def phase_wav_times(wc, gen, dev, card):
                            ("library_ms", lib[name]), ("op_ms", op_ms),
                            ("byte_ms", byte_ms)):
                 totals[name][key] += layers * v
+        # the parameter kernel's launch and what it issues
+        issued = param_issued(cfg, B, H, H, C, O)
+        p_ms = ms["wav_conv2d_bwd_param"][0]
+        p_row = row["wav_conv2d_bwd_param"]
+        p_row.update({
+            "tile": {key: cfg[key] for key in PARAM_TILE},
+            "issued_over_interior": round(
+                issued / (B * interior_pairs(H) * C * O), 4),
+            "bound_share": round(p_row["bound_ms"] / p_ms, 4),
+            "tflops_issued": round(4 * issued / p_ms / 1e9, 2)})
         red_row(row["wav_conv2d_bwd_reduce"], rcfg, red,
                 totals["wav_conv2d_bwd_reduce"], n)
         rows.append(row)

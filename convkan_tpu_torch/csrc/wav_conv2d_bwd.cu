@@ -20,12 +20,17 @@
 //   * wav_conv2d_bwd_param: the parameter gradients, in partial sums over
 //     fixed batch splits,
 //       dw[di,dj,c,o] = sum_q psi(z[q]) * g[q + pad - (di,dj), o]
-//       dt[o,c] = -sum_q psi'(z) * G / s,   ds[o,c] = -sum_q psi'(z) * G * z / s
-//     A thread owns one (o, c) pair and walks the pixels of its split row
-//     by row with a 3x3 window of g in registers (3 new loads per pixel):
-//     one exp per pixel gives psi and psi', which feed 9 FMAs into dw, 9
-//     into G, and the dt / ds sums.  dt and ds live here, not in the data
-//     gradient, so that skipping dx (the first conv) never drops them.
+//       dt[o,c] = -sum_q psi'(z) * G / s
+//       ds[o,c] = -sum_q psi'(z) * G * z / s
+//     A thread owns one output channel o and 4 input channels (4 pairs) and
+//     walks the rows of its split with a 3x3 window of g in registers (3
+//     new loads per pixel serve the 4 pairs, x is one float4): one exp per
+//     pair and pixel gives psi and psi', which feed 9 FMAs into dw, 9 into
+//     G, and the dt / ds sums.  Rows of the widths VGG16_small has are
+//     unrolled at compile time with the pad taps left out; g and x rows are
+//     staged once per block by cp.async into a double-buffered ring (see
+//     the kernel).  dt and ds live here, not in the data gradient, so that
+//     skipping dx (the first conv) never drops them.
 //   * wav_conv2d_bwd_reduce: the partials summed over the splits in a
 //     fixed order, the kernel of csrc/ordered_sum.cuh that the KAN weight
 //     gradient shares (leaves of splits over thread rows and cluster ranks
@@ -47,6 +52,7 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "cp_async.cuh"
 #include "ordered_sum.cuh"
 #include "wav_psi.cuh"
 
@@ -54,6 +60,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kK = 3;  // kernel size the build carries
+// parameter kernel: input channels per thread (one float4 of x), its sums,
+// and the launch bounds (threads, blocks per SM)
+constexpr int kCT = 4;
+constexpr int kParamVals = kCT * (kK * kK + 2);
+constexpr int kParamThreads = 128, kParamMinBlocks = 3;
 
 struct DxShape {
   int B, H, W, C, O, pad, Ho, Wo;
@@ -64,10 +75,14 @@ struct DxShape {
 
 struct ParamShape {
   int B, H, W, C, O, pad, Ho, Wo;
-  int OC, CW, RB, S, ips;  // lanes (output channels), input channels,
-                           // staged rows, splits, images per split
-  int gRow;                // floats of staged g per input row: 3*(W+2)*OC
-  size_t N;                // floats per split: 9*C*O + 2*O*C
+  int lOC, lCG;        // log2 of the lanes (output channels), channel groups
+  int RS, RB, S, ips;  // row slots, rows per step, splits, images per split
+  int HV, uoff, goff;  // virtual rows per image: input row h at uoff + h,
+                       // g row oh at goff + oh
+  int gCols, gCol0;    // staged g columns per row, the first one's ow
+  int NR;              // g rows in the ring
+  int gVec, xVec;      // 16-byte copies of g (O % 4 == 0), of x (C % 4 == 0)
+  size_t N;            // floats per split: 9*C*O + 2*O*C
 };
 
 // ------------------------------------------------------------ data gradient
@@ -195,11 +210,211 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------- parameter gradients
-// Block (o chunk, c chunk, split): thread (ol, cw) owns o = o0 + ol and
-// c = c0 + cw; the split's images are walked RB rows (of all images, in
-// order) at a time.
+// Block (o tile of OC lanes, c tile of CG groups of kCT channels, split):
+// thread (ol, cg, rs), tid = ol + OC * (cg + CG * rs), keeps the sums of
+// output channel o = o0 + ol and the kCT input channels c0 + kCT*cg ..
+// +kCT-1 in registers (ParamAcc): the g window it loads serves kCT pairs,
+// its x is one float4 (channels fastest in shared memory), and the kCT
+// chains of G hide each other's FMA latency.  Row slot rs takes rows rs,
+// rs + RS, ... of each step; the slots' sums are added in slot order at the
+// end (RS > 1 only where O x C is small: the first convs).  The 88 weights
+// and sums of 4 pairs fit only a thread of up to 168 registers: blocks of at
+// most 128 threads, 3 per SM (kParamThreads, kParamMinBlocks); 256-thread
+// blocks at 128 registers spilled.
+//
+// Rows.  A split's images are walked as one sequence of "virtual" rows,
+// HV per image: input row h of image b at b*HV + uoff + h, output row oh of
+// g at b*HV + goff + oh, so that input row u reads the g rows u - 1 .. u + 1
+// (whichever lie on the output frame) for any pad.  A step covers RB
+// consecutive virtual rows.  The g rows live in a ring of NR rows: g row v
+// (split-relative) at slot (v + 1) mod NR; step k reads rows kRB - 1 ..
+// kRB + RB and stages rows kRB + RB + 1 .. kRB + 2RB for step k + 1 (with
+// PIPE, 16- or 4-byte cp.async into a ring of 2RB + 2 rows and a second x
+// buffer while the FMAs run; without, plain loads into RB + 2 rows between
+// two barriers), so every g row and every x row is copied into shared
+// memory once per block.  Small planes: RB covers whole images (one barrier
+// for several).  Positions come from counters (VRow) advanced by
+// block-uniform steps whose quotients and remainders by HV are taken once
+// per block: no divide or modulo by a runtime value inside a loop.
+//
+// Pad taps.  Where pad = 1, W is a compiled width (WT: 32, 16, 8, 4, 2) and
+// the ring is pipelined, g is staged without halo columns and a row runs
+// unrolled over compile-time columns: each pixel's valid taps are template
+// masks (the edge columns peeled), and a g row off the top or bottom of the
+// frame is skipped by one uniform branch per row (4 row variants).  Every other
+// shape (WT = 0) stages g with its two halo columns zero-filled and issues
+// every tap of every row that lies on the frame.
+struct ParamAcc {
+  float wf[kCT][kK][kK];  // w[2 - r][2 - e] for staged g row r, column e
+  float dw[kCT][kK][kK];  // the same index
+  float iv[kCT], nt[kCT];  // 1/s and -t/s: z = x * iv + nt
+  float dt[kCT], ds[kCT];
+};
+
+// quotient and remainder of a block-uniform step by HV, taken once
+struct DivMod {
+  int q, r;
+  __device__ DivMod(int n, int d) : q(n / d), r(n % d) {}
+};
+
+// (image, virtual row) of a split-relative virtual row, advanced by counters
+struct VRow {
+  int b, hv;
+  __device__ __forceinline__ void add(const DivMod& d, int HV) {
+    hv += d.r;
+    b += d.q;
+    if (hv >= HV) {
+      hv -= HV;
+      ++b;
+    }
+  }
+};
+
+__device__ __forceinline__ int ring_add(int slot, int n, int NR) {
+  slot += n;  // slot < NR and n < NR
+  return slot >= NR ? slot - NR : slot;
+}
+
+// one input pixel of the thread's kCT pairs: psi and psi' of each, then
+// the taps of the masks RM (staged g rows r) and EM (window columns e)
+template <int WAV, int RM, int EM>
+__device__ __forceinline__ void param_pixel(ParamAcc& a,
+                                            const float (&win)[kK][kK],
+                                            const float* xp) {
+  const float4 v = *reinterpret_cast<const float4*>(xp);  // a broadcast
+  const float xs[kCT] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int ch = 0; ch < kCT; ++ch) {
+    const float z = fmaf(xs[ch], a.iv[ch], a.nt[ch]);
+    float p, d;
+    wav::psi_dpsi<WAV>(z, &p, &d);
+    float G = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kK; ++r) {
+      if (!((RM >> r) & 1)) continue;
+#pragma unroll
+      for (int e = 0; e < kK; ++e) {
+        if (!((EM >> e) & 1)) continue;
+        G = fmaf(win[r][e], a.wf[ch][r][e], G);
+        a.dw[ch][r][e] = fmaf(p, win[r][e], a.dw[ch][r][e]);
+      }
+    }
+    const float dg = d * G;
+    a.dt[ch] += dg;
+    a.ds[ch] = fmaf(dg, z, a.ds[ch]);
+  }
+}
+
+// one input row of compile-time width W (pad 1, no halo columns): g row r
+// at gr[r] (column stride OC), x at xr (pixel stride CTILE); window column
+// e of pixel j is g column j - 1 + e
+template <int WAV, int W, int RM>
+__device__ __forceinline__ void param_row(ParamAcc& a,
+                                          const float* const (&gr)[kK],
+                                          const float* xr, int OC,
+                                          int CTILE) {
+  float win[kK][kK];
+  const float* gp[kK];
+#pragma unroll
+  for (int r = 0; r < kK; ++r) {
+    gp[r] = gr[r];
+    win[r][0] = 0.0f;
+    win[r][1] = ((RM >> r) & 1) ? gp[r][0] : 0.0f;
+    win[r][2] = ((RM >> r) & 1) ? gp[r][OC] : 0.0f;
+    gp[r] += 2 * OC;
+  }
+  param_pixel<WAV, RM, 6>(a, win, xr);
+#pragma unroll 4
+  for (int j = 1; j < W - 1; ++j) {
+#pragma unroll
+    for (int r = 0; r < kK; ++r) {
+      win[r][0] = win[r][1];
+      win[r][1] = win[r][2];
+      win[r][2] = ((RM >> r) & 1) ? *gp[r] : 0.0f;
+      gp[r] += OC;
+    }
+    param_pixel<WAV, RM, 7>(a, win, xr + j * CTILE);
+  }
+#pragma unroll
+  for (int r = 0; r < kK; ++r) {
+    win[r][0] = win[r][1];
+    win[r][1] = win[r][2];
+  }
+  param_pixel<WAV, RM, 3>(a, win, xr + (W - 1) * CTILE);
+}
+
+// a row of any width (halo columns staged, zero off the frame): window
+// column e of pixel j is staged column j + e; rows off the frame (rm)
+// read nothing and add zeros
 template <int WAV>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void param_row_any(ParamAcc& a,
+                                              const float* const (&gr)[kK],
+                                              const float* xr, int W, int rm,
+                                              int OC, int CTILE) {
+  float win[kK][kK];
+  const float* gp[kK];
+#pragma unroll
+  for (int r = 0; r < kK; ++r) {
+    gp[r] = gr[r];
+    win[r][1] = ((rm >> r) & 1) ? gp[r][0] : 0.0f;
+    win[r][2] = ((rm >> r) & 1) ? gp[r][OC] : 0.0f;
+    gp[r] += 2 * OC;
+  }
+  for (int j = 0; j < W; ++j) {
+#pragma unroll
+    for (int r = 0; r < kK; ++r) {
+      win[r][0] = win[r][1];
+      win[r][1] = win[r][2];
+      win[r][2] = ((rm >> r) & 1) ? *gp[r] : 0.0f;
+      gp[r] += OC;
+    }
+    param_pixel<WAV, 7, 7>(a, win, xr + j * CTILE);
+  }
+}
+
+// the row's variant by its mask of g rows on the frame (pad 1: the middle
+// row always is)
+template <int WAV, int WT>
+__device__ __forceinline__ void param_row_of(ParamAcc& a,
+                                             const float* const (&gr)[kK],
+                                             const float* xr, int W, int rm,
+                                             int OC, int CTILE) {
+  if constexpr (WT == 0) {
+    param_row_any<WAV>(a, gr, xr, W, rm, OC, CTILE);
+  } else if (rm == 7) {
+    param_row<WAV, WT, 7>(a, gr, xr, OC, CTILE);
+  } else if (rm == 6) {
+    param_row<WAV, WT, 6>(a, gr, xr, OC, CTILE);
+  } else if (rm == 3) {
+    param_row<WAV, WT, 3>(a, gr, xr, OC, CTILE);
+  } else {
+    param_row<WAV, WT, 2>(a, gr, xr, OC, CTILE);
+  }
+}
+
+template <bool PIPE>
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool ok) {
+  if (PIPE) {
+    kan::cp_async16(dst, src, ok);
+  } else {
+    *reinterpret_cast<float4*>(dst) =
+        ok ? __ldg(reinterpret_cast<const float4*>(src))
+           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+template <bool PIPE>
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
+  if (PIPE) {
+    kan::cp_async4(dst, src, ok);
+  } else {
+    *dst = ok ? __ldg(src) : 0.0f;
+  }
+}
+
+template <int WAV, int WT, bool PIPE>
+__global__ void __launch_bounds__(kParamThreads, kParamMinBlocks)
     wav_conv2d_bwd_param_kernel(const float* __restrict__ x,
                                 const float* __restrict__ w,
                                 const float* __restrict__ t,
@@ -207,117 +422,239 @@ __global__ void __launch_bounds__(kThreads)
                                 const float* __restrict__ g,
                                 float* __restrict__ partial,
                                 const ParamShape sh) {
-  extern __shared__ float smem[];
-  const int WP = sh.W + kK - 1;
-  float* Gs = smem;                    // [RB][3][WP][OC]
-  float* Xs = Gs + sh.RB * sh.gRow;    // [RB][W][CW]
+  extern __shared__ float4 psmem4[];
+  float* const smem = reinterpret_cast<float*>(psmem4);
+  const int OC = 1 << sh.lOC, CG = 1 << sh.lCG, CTILE = kCT << sh.lCG;
+  const int W = WT > 0 ? WT : sh.W;
+  const int HV = sh.HV, NR = sh.NR, RB = sh.RB, RS = sh.RS;
+  const int gRow = sh.gCols << sh.lOC;  // floats per staged g row
+  const int xRow = W * CTILE;           // floats per staged x row
+  float* const Gs = smem;               // [NR][gCols][OC]
+  // [PIPE ? 2 : 1][RB][W][CTILE], 16-byte aligned
+  float* const Xs = Gs + ((NR * gRow + 3) & ~3);
 
   const int tid = threadIdx.x;
-  const int nThreads = blockDim.x;
-  const int ol = tid % sh.OC;
-  const int cw = tid / sh.OC;
-  const int o = blockIdx.x * sh.OC + ol;
-  const int c = blockIdx.y * sh.CW + cw;
+  const int ol = tid & (OC - 1);
+  const int cg = (tid >> sh.lOC) & (CG - 1);
+  const int rs = tid >> (sh.lOC + sh.lCG);  // >= RS: no pair (fallback)
+  const int o0 = blockIdx.x << sh.lOC;
+  const int cT0 = blockIdx.y * CTILE;
+  const int o = o0 + ol, c0 = cT0 + kCT * cg;
   const int split = blockIdx.z;
-  const bool active = o < sh.O && c < sh.C;
+  const bool active = rs < RS && o < sh.O && c0 < sh.C;
 
-  float wf[kK][kK], dwf[kK][kK];  // index (2 - di, 2 - dj), as in dx
-  float tv = 0.0f, iv = 0.0f, dtA = 0.0f, dsA = 0.0f;
+  ParamAcc a;
 #pragma unroll
-  for (int r = 0; r < kK; ++r)
+  for (int ch = 0; ch < kCT; ++ch) {
+    const int c = c0 + ch;
+    const bool ok = active && c < sh.C;
 #pragma unroll
-    for (int cc = 0; cc < kK; ++cc) {
-      dwf[r][cc] = 0.0f;
-      wf[r][cc] = active ? __ldg(&w[((size_t)((kK - 1 - r) * kK + kK - 1 - cc) *
-                                         sh.C + c) * sh.O + o])
-                         : 0.0f;
-    }
-  if (active) {
-    tv = __ldg(&t[(size_t)o * sh.C + c]);
-    iv = 1.0f / __ldg(&s[(size_t)o * sh.C + c]);
+    for (int r = 0; r < kK; ++r)
+#pragma unroll
+      for (int e = 0; e < kK; ++e) {
+        a.dw[ch][r][e] = 0.0f;
+        a.wf[ch][r][e] =
+            ok ? __ldg(&w[((size_t)((kK - 1 - r) * kK + kK - 1 - e) * sh.C +
+                           c) * sh.O + o])
+               : 0.0f;
+      }
+    const float tv = ok ? __ldg(&t[(size_t)o * sh.C + c]) : 0.0f;
+    const float iv = ok ? 1.0f / __ldg(&s[(size_t)o * sh.C + c]) : 0.0f;
+    a.iv[ch] = iv;
+    a.nt[ch] = -tv * iv;
+    a.dt[ch] = 0.0f;
+    a.ds[ch] = 0.0f;
   }
 
-  // global rows R = b * H + h of the split's images
-  const int rLo = split * sh.ips * sh.H;
-  const int rHi = min(sh.B, (split + 1) * sh.ips) * sh.H;
-  for (int r0 = rLo; r0 < rHi; r0 += sh.RB) {
-    const int nr = min(sh.RB, rHi - r0);
-    __syncthreads();  // the previous rows' readers are done
-    // g rows h + pad - 2 .. h + pad of each input row, columns
-    // pad - 2 .. W - 1 + pad: idx -> (row, r*WP + col, o), o fastest
-    for (int idx = tid; idx < nr * kK * WP * sh.OC; idx += nThreads) {
-      const int oo = idx % sh.OC;
-      const int rest = idx / sh.OC;
-      const int rc = rest % (kK * WP);
-      const int R = r0 + rest / (kK * WP);
-      const int bb = R / sh.H;
-      const int oh = R - bb * sh.H + sh.pad - (kK - 1) + rc / WP;
-      const int ow = rc % WP + sh.pad - (kK - 1);
-      const int og = blockIdx.x * sh.OC + oo;
-      float v = 0.0f;
-      if (og < sh.O && oh >= 0 && oh < sh.Ho && ow >= 0 && ow < sh.Wo)
-        v = __ldg(&g[(((size_t)bb * sh.Ho + oh) * sh.Wo + ow) * sh.O + og]);
-      Gs[idx] = v;
+  // the split's virtual rows, and the block-uniform steps (one divide each)
+  const int img0 = split * sh.ips;
+  const int nV = min(sh.ips, sh.B - img0) * HV;
+  const int nSteps = (nV + RB - 1) / RB;
+  const int nW = blockDim.x >> 5, warp = tid >> 5, lane = tid & 31;
+  const DivMod byStep(RB, HV), byWarps(nW, HV), byWarp(warp, HV),
+      bySlots(RS, HV), bySlot(rs, HV), byOne(1, HV);
+  const int warpsRing = nW % NR, warpRing = warp % NR, slotsRing = RS % NR,
+            slotRing = rs % NR;
+  const int bufStride = RB * xRow;
+  const size_t xImg = (size_t)sh.H * sh.W * sh.C;
+  const size_t gImg = (size_t)sh.Ho * sh.Wo * sh.O;
+
+  // stage step kk (virtual rows kk*RB .. at (b, hv) = at): its x rows into
+  // buffer xb, and the g rows it is the first to need into the ring (step
+  // 0: rows 0 .. RB at slots 1 ..; later steps: kk*RB + 1 .. kk*RB + RB at
+  // slots ring0 + 2 .., ring0 = the slot of row kk*RB - 1).  A warp per row.
+  auto stage = [&](int kk, VRow at, int ring0, float* xb) {
+    {
+      VRow vr = at;
+      vr.add(byWarp, HV);
+      int v = kk * RB + warp;
+      float* dst = xb + warp * xRow;
+      for (int r = warp; r < RB;
+           r += nW, v += nW, vr.add(byWarps, HV), dst += nW * xRow) {
+        const int h = vr.hv - sh.uoff;
+        if (v >= nV || (unsigned)h >= (unsigned)sh.H) continue;
+        const float* src = x + (size_t)(img0 + vr.b) * xImg +
+                           (size_t)h * sh.W * sh.C + cT0;
+        if (sh.xVec) {  // float4 q (the group's channels) of column col
+          for (int e = lane; e < (W << sh.lCG); e += 32) {
+            const int col = e >> sh.lCG, q = e & (CG - 1);
+            const bool ok = cT0 + kCT * q < sh.C;
+            copy16<PIPE>(dst + 4 * e,
+                         ok ? src + (size_t)col * sh.C + kCT * q : x, ok);
+          }
+        } else {
+          for (int e = lane; e < xRow; e += 32) {
+            const int col = e >> (sh.lCG + 2), q = e & (CTILE - 1);
+            const bool ok = cT0 + q < sh.C;
+            copy4<PIPE>(dst + e, ok ? src + (size_t)col * sh.C + q : x, ok);
+          }
+        }
+      }
     }
-    // x rows: idx -> (row, column, channel), channel fastest
-    for (int idx = tid; idx < nr * sh.W * sh.CW; idx += nThreads) {
-      const int cg = blockIdx.y * sh.CW + idx % sh.CW;
-      const int rest = idx / sh.CW;
-      const int R = r0 + rest / sh.W;
-      Xs[idx] = cg < sh.C
-                    ? __ldg(&x[((size_t)R * sh.W + rest % sh.W) * sh.C + cg])
-                    : 0.0f;
+    {
+      const bool first = kk == 0;
+      const int nG = first ? RB + 1 : RB;
+      VRow vr = at;
+      if (!first) vr.add(byOne, HV);
+      vr.add(byWarp, HV);
+      int v = first ? warp : kk * RB + 1 + warp;
+      int slot = ring_add(ring_add(ring0, first ? 1 : 2, NR), warpRing, NR);
+      for (int j = warp; j < nG; j += nW, v += nW, vr.add(byWarps, HV),
+               slot = ring_add(slot, warpsRing, NR)) {
+        const int oh = vr.hv - sh.goff;
+        if (v >= nV || (unsigned)oh >= (unsigned)sh.Ho) continue;
+        const float* src = g + (size_t)(img0 + vr.b) * gImg +
+                           (size_t)oh * sh.Wo * sh.O + o0;
+        float* dst = Gs + slot * gRow;
+        if (sh.gVec) {
+          const int lq = sh.lOC - 2;
+          for (int e = lane; e < (sh.gCols << lq); e += 32) {
+            const int col = e >> lq, q = e & ((1 << lq) - 1);
+            const int ow = col + sh.gCol0;
+            const bool ok =
+                (unsigned)ow < (unsigned)sh.Wo && o0 + 4 * q < sh.O;
+            copy16<PIPE>(dst + 4 * e,
+                         ok ? src + (size_t)ow * sh.O + 4 * q : g, ok);
+          }
+        } else {
+          for (int e = lane; e < gRow; e += 32) {
+            const int col = e >> sh.lOC, q = e & (OC - 1);
+            const int ow = col + sh.gCol0;
+            const bool ok = (unsigned)ow < (unsigned)sh.Wo && o0 + q < sh.O;
+            copy4<PIPE>(dst + e, ok ? src + (size_t)ow * sh.O + q : g, ok);
+          }
+        }
+      }
+    }
+    if (PIPE) kan::cp_async_commit();
+  };
+
+  VRow vs{0, 0};  // step kk's first virtual row
+  int base = 0;   // ring slot of g row kk*RB - 1
+  if (PIPE) stage(0, vs, 0, Xs);
+  for (int kk = 0; kk < nSteps; ++kk) {
+    float* xb = Xs;
+    if (PIPE) {
+      kan::cp_async_wait_all();
+      __syncthreads();  // step kk is in; every reader of step kk - 1 done
+      xb += (kk & 1) * bufStride;
+      if (kk + 1 < nSteps) {
+        VRow vn = vs;
+        vn.add(byStep, HV);
+        stage(kk + 1, vn, ring_add(base, RB, NR),
+              Xs + ((kk + 1) & 1) * bufStride);
+      }
+    } else {
+      __syncthreads();  // every reader of step kk - 1 done
+      stage(kk, vs, base, Xs);
+      __syncthreads();
+    }
+    if (active) {
+      VRow vr = vs;
+      vr.add(bySlot, HV);
+      int v = kk * RB + rs;
+      int slot = ring_add(base, slotRing, NR);
+      const float* xr = xb + rs * xRow + kCT * cg;
+      for (int i = rs; i < RB; i += RS, v += RS, vr.add(bySlots, HV),
+               slot = ring_add(slot, slotsRing, NR), xr += RS * xRow) {
+        const int h = vr.hv - sh.uoff;
+        if (v >= nV || (unsigned)h >= (unsigned)sh.H) continue;
+        // g rows r = 0..2 of this row: output rows h + uoff - goff - 1 + r
+        const int oh0 = h + sh.uoff - sh.goff - 1;
+        int rm = 0;
+#pragma unroll
+        for (int r = 0; r < kK; ++r)
+          rm |= ((unsigned)(oh0 + r) < (unsigned)sh.Ho) << r;
+        const int s1 = ring_add(slot, 1, NR), s2 = ring_add(s1, 1, NR);
+        const float* const gr[kK] = {Gs + slot * gRow + ol,
+                                     Gs + s1 * gRow + ol,
+                                     Gs + s2 * gRow + ol};
+        param_row_of<WAV, WT>(a, gr, xr, W, rm, OC, CTILE);
+      }
+    }
+    vs.add(byStep, HV);
+    base = ring_add(base, RB, NR);
+  }
+
+  const int stride = OC * CG;  // threads between row slots
+  if (RS > 1) {
+    // the row slots' sums added in slot order, kept by slot 0
+    __syncthreads();  // every reader of the staged rows is done
+    const int T = blockDim.x;
+    float* red = smem + tid;  // [kParamVals][T]
+#pragma unroll
+    for (int ch = 0; ch < kCT; ++ch) {
+#pragma unroll
+      for (int r = 0; r < kK; ++r)
+#pragma unroll
+        for (int e = 0; e < kK; ++e)
+          red[((ch * kK + r) * kK + e) * T] = a.dw[ch][r][e];
+      red[(kCT * kK * kK + ch) * T] = a.dt[ch];
+      red[(kCT * kK * kK + kCT + ch) * T] = a.ds[ch];
     }
     __syncthreads();
-    if (!active) continue;
-    for (int rr = 0; rr < nr; ++rr) {
-      const float* gp = Gs + rr * sh.gRow + ol;  // + (r * WP + col) * OC
-      const float* xp = Xs + rr * sh.W * sh.CW + cw;
-      // win[r][cc]: staged g row r, column ww + cc (tap (2 - r, 2 - cc))
-      float win[kK][kK];
+    if (rs == 0) {
 #pragma unroll
-      for (int r = 0; r < kK; ++r) {
-        win[r][0] = 0.0f;
-#pragma unroll
-        for (int cc = 1; cc < kK; ++cc)
-          win[r][cc] = gp[(r * WP + cc - 1) * sh.OC];
-      }
-      for (int ww = 0; ww < sh.W; ++ww) {
-#pragma unroll
-        for (int r = 0; r < kK; ++r) {
-#pragma unroll
-          for (int cc = 0; cc < kK - 1; ++cc) win[r][cc] = win[r][cc + 1];
-          win[r][kK - 1] = gp[(r * WP + ww + kK - 1) * sh.OC];
-        }
-        const float z = (xp[ww * sh.CW] - tv) * iv;
-        float p, d;
-        wav::psi_dpsi<WAV>(z, &p, &d);
-        float G = 0.0f;
+      for (int ch = 0; ch < kCT; ++ch) {
 #pragma unroll
         for (int r = 0; r < kK; ++r)
 #pragma unroll
-          for (int cc = 0; cc < kK; ++cc) {
-            G = fmaf(win[r][cc], wf[r][cc], G);
-            dwf[r][cc] = fmaf(p, win[r][cc], dwf[r][cc]);
+          for (int e = 0; e < kK; ++e) {
+            const float* q = red + ((ch * kK + r) * kK + e) * T;
+            float v = q[0];
+            for (int n = 1; n < RS; ++n) v += q[n * stride];
+            a.dw[ch][r][e] = v;
           }
-        const float dg = d * G;
-        dtA += dg;
-        dsA = fmaf(dg, z, dsA);
+        const float* qt = red + (kCT * kK * kK + ch) * T;
+        const float* qs = red + (kCT * kK * kK + kCT + ch) * T;
+        float vt = qt[0], vsum = qs[0];
+        for (int n = 1; n < RS; ++n) {
+          vt += qt[n * stride];
+          vsum += qs[n * stride];
+        }
+        a.dt[ch] = vt;
+        a.ds[ch] = vsum;
       }
     }
   }
 
-  if (!active) return;
+  if (!active || rs != 0) return;
   float* dst = partial + (size_t)split * sh.N;
-#pragma unroll
-  for (int r = 0; r < kK; ++r)
-#pragma unroll
-    for (int cc = 0; cc < kK; ++cc)
-      dst[((size_t)((kK - 1 - r) * kK + kK - 1 - cc) * sh.C + c) * sh.O + o] =
-          dwf[r][cc];
   const size_t nw = (size_t)kK * kK * sh.C * sh.O;
-  dst[nw + (size_t)o * sh.C + c] = -dtA * iv;
-  dst[nw + (size_t)sh.O * sh.C + (size_t)o * sh.C + c] = -dsA * iv;
+#pragma unroll
+  for (int ch = 0; ch < kCT; ++ch) {
+    const int c = c0 + ch;
+    if (c >= sh.C) break;
+#pragma unroll
+    for (int r = 0; r < kK; ++r)
+#pragma unroll
+      for (int e = 0; e < kK; ++e)
+        dst[((size_t)((kK - 1 - r) * kK + kK - 1 - e) * sh.C + c) * sh.O + o] =
+            a.dw[ch][r][e];
+    dst[nw + (size_t)o * sh.C + c] = -a.dt[ch] * a.iv[ch];
+    dst[nw + (size_t)sh.O * sh.C + (size_t)o * sh.C + c] =
+        -a.ds[ch] * a.iv[ch];
+  }
 }
 
 template <typename Kernel>
@@ -338,8 +675,14 @@ size_t dx_smem(const DxShape& sh) {
                           2 * (size_t)sh.OCH * sh.CL);
 }
 
-size_t param_smem(const ParamShape& sh) {
-  return sizeof(float) * (size_t)sh.RB * (sh.gRow + (size_t)sh.W * sh.CW);
+size_t param_smem(const ParamShape& sh, bool pipe, int threads) {
+  // the g ring (rounded to 16 bytes), the x buffers; the row slots' sums
+  // reuse it at the end
+  const size_t ring = ((size_t)sh.NR * (sh.gCols << sh.lOC) + 3) & ~(size_t)3;
+  const size_t f =
+      ring + (pipe ? 2 : 1) * (size_t)sh.RB * sh.W * (kCT << sh.lCG);
+  const size_t red = sh.RS > 1 ? (size_t)kParamVals * threads : 0;
+  return sizeof(float) * (f > red ? f : red);
 }
 
 struct Ptrs {
@@ -368,19 +711,45 @@ cudaError_t launch_dx_tile(int TW, const Ptrs& p, const DxShape& sh,
   return launch_dx<WAV, 8>(p, sh, st);
 }
 
-template <int WAV>
-cudaError_t launch_param(const Ptrs& p, const ParamShape& sh,
+template <int WAV, int WT, bool PIPE>
+cudaError_t launch_param(const Ptrs& p, const ParamShape& sh, int threads,
                          cudaStream_t st) {
-  auto kernel = wav_conv2d_bwd_param_kernel<WAV>;
+  auto kernel = wav_conv2d_bwd_param_kernel<WAV, WT, PIPE>;
   static size_t granted = 48 * 1024;
-  const size_t smem = param_smem(sh);
+  const size_t smem = param_smem(sh, PIPE, threads);
   const cudaError_t err = grant_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sh.O + sh.OC - 1) / sh.OC, (sh.C + sh.CW - 1) / sh.CW,
-                  sh.S);
-  kernel<<<grid, sh.OC * sh.CW, smem, st>>>(p.x, p.w, p.t, p.s, p.g, p.out,
-                                            sh);
+  const int ctile = kCT << sh.lCG;
+  const dim3 grid((sh.O + (1 << sh.lOC) - 1) >> sh.lOC,
+                  (sh.C + ctile - 1) / ctile, sh.S);
+  kernel<<<grid, threads, smem, st>>>(p.x, p.w, p.t, p.s, p.g, p.out, sh);
   return cudaGetLastError();
+}
+
+bool param_compiled_width(int W, int pad) {
+  return pad == 1 && (W == 2 || W == 4 || W == 8 || W == 16 || W == 32);
+}
+
+template <int WAV>
+cudaError_t launch_param_width(const Ptrs& p, const ParamShape& sh,
+                               int threads, bool pipe, cudaStream_t st) {
+  if (pipe && param_compiled_width(sh.W, sh.pad)) {
+    switch (sh.W) {
+      case 32: return launch_param<WAV, 32, true>(p, sh, threads, st);
+      case 16: return launch_param<WAV, 16, true>(p, sh, threads, st);
+      case 8: return launch_param<WAV, 8, true>(p, sh, threads, st);
+      case 4: return launch_param<WAV, 4, true>(p, sh, threads, st);
+      default: return launch_param<WAV, 2, true>(p, sh, threads, st);
+    }
+  }
+  return pipe ? launch_param<WAV, 0, true>(p, sh, threads, st)
+              : launch_param<WAV, 0, false>(p, sh, threads, st);
+}
+
+int log2_of(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
 }
 
 bool pow2_upto(int v, int hi) { return v > 0 && v <= hi && !(v & (v - 1)); }
@@ -433,33 +802,54 @@ int wav_conv2d_bwd_dx(const void* x, const void* w, const void* t,
 
 // Parameter-gradient partial sums (S, 9*C*O + 2*O*C): [dw (3,3,C,O),
 // dt (O,C), ds (O,C)] of images [q*ips, min(B, q*ips + ips)) for split q.
-// The wrapper chooses OC/CW/RB/S/ips (param_launch_config).
+// The wrapper chooses OC/CG/RS/RB/threads/pipe/S/ips (param_launch_config):
+// blocks of `threads` (whole warps) hold OC output channels x CG groups of
+// 4 input channels x RS row slots and step through RB rows at a time;
+// pipe: cp.async into a double-buffered ring (the compiled widths need it).
 int wav_conv2d_bwd_param(const void* x, const void* w, const void* t,
                          const void* s, const void* g, void* partial, int B,
                          int H, int W, int C, int O, int k, int pad, int OC,
-                         int CW, int RB, int S, int ips, int wavelet,
-                         void* stream) {
+                         int CG, int RS, int RB, int threads, int pipe, int S,
+                         int ips, int wavelet, void* stream) {
   ParamShape sh;
   sh.B = B; sh.H = H; sh.W = W; sh.C = C; sh.O = O; sh.pad = pad;
   sh.Ho = H + 2 * pad - k + 1;
   sh.Wo = W + 2 * pad - k + 1;
-  sh.OC = OC; sh.CW = CW; sh.RB = RB; sh.S = S; sh.ips = ips;
-  sh.gRow = kK * (W + kK - 1) * OC;
+  sh.lOC = log2_of(OC); sh.lCG = log2_of(CG);
+  sh.RS = RS; sh.RB = RB; sh.S = S; sh.ips = ips;
+  sh.uoff = pad > 1 ? pad - 1 : 0;
+  sh.goff = pad < 1 ? 1 : 0;
+  sh.HV = H + 2 * sh.uoff;
+  const bool compiled = pipe && param_compiled_width(W, pad);
+  sh.gCols = compiled ? W : W + kK - 1;
+  sh.gCol0 = compiled ? 0 : pad - (kK - 1);
+  sh.NR = pipe ? 2 * RB + 2 : RB + 2;
+  sh.gVec = O % 4 == 0 && OC >= 4;
+  sh.xVec = C % 4 == 0;
   sh.N = (size_t)kK * kK * C * O + 2 * (size_t)O * C;
-  if (k != kK || !pow2_upto(OC, 32) || !pow2_upto(CW, kThreads) ||
-      OC * CW > kThreads || RB <= 0 || S <= 0 || S > 65535 || ips <= 0 ||
-      (S - 1) * ips >= B || pad < 0 || sh.Ho <= 0 || sh.Wo <= 0 ||
-      wavelet < 0 || wavelet > 4 || param_smem(sh) > 227 * 1024)
+  if (k != kK || !pow2_upto(OC, 32) || !pow2_upto(CG, kThreads) ||
+      threads < 32 || threads > kParamThreads || threads % 32 != 0 ||
+      RS < 1 ||
+      (long)OC * CG * RS > threads || RB < 1 || S <= 0 || S > 65535 ||
+      ips <= 0 || (long)(S - 1) * ips >= B || (long)S * ips < B || pad < 0 ||
+      sh.Ho <= 0 || sh.Wo <= 0 || wavelet < 0 || wavelet > 4 ||
+      param_smem(sh, pipe, threads) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   const Ptrs p = ptrs(x, w, t, s, g, partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (wavelet) {
     case wav::kMexicanHat:
-      return (int)launch_param<wav::kMexicanHat>(p, sh, st);
-    case wav::kMorlet: return (int)launch_param<wav::kMorlet>(p, sh, st);
-    case wav::kDog: return (int)launch_param<wav::kDog>(p, sh, st);
-    case wav::kMeyer: return (int)launch_param<wav::kMeyer>(p, sh, st);
-    default: return (int)launch_param<wav::kShannon>(p, sh, st);
+      return (int)launch_param_width<wav::kMexicanHat>(p, sh, threads, pipe,
+                                                       st);
+    case wav::kMorlet:
+      return (int)launch_param_width<wav::kMorlet>(p, sh, threads, pipe, st);
+    case wav::kDog:
+      return (int)launch_param_width<wav::kDog>(p, sh, threads, pipe, st);
+    case wav::kMeyer:
+      return (int)launch_param_width<wav::kMeyer>(p, sh, threads, pipe, st);
+    default:
+      return (int)launch_param_width<wav::kShannon>(p, sh, threads, pipe,
+                                                    st);
   }
 }
 

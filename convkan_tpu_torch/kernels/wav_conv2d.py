@@ -23,6 +23,7 @@ by the window, and autograd carries dw back through that product.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -41,9 +42,28 @@ THREADS = 256
 SMEM_BUDGET = 96 * 1024          # bytes of shared memory a block may take
 FWD_MAX_CC = 8                   # forward: input channels staged per pass
 DX_MAX_OCH = 32                  # data gradient: output channels per pass
-# parameter kernel: the batch is split so that about TARGET_BLOCKS blocks
-# (4 per SM) are in flight
-TARGET_BLOCKS = 4 * 132
+# parameter kernel (csrc/wav_conv2d_bwd.cu): a thread keeps PARAM_CT input
+# channels' sums (9 dw, dt, ds each) of one output channel; a step gives a
+# thread at least PARAM_PIXELS pixels; rows of the widths PARAM_WIDTHS are
+# compiled (pad 1)
+PARAM_CT = 4
+PARAM_VALS = PARAM_CT * 11
+PARAM_THREADS = 128              # threads of a block, at most
+PARAM_PIXELS = 64
+PARAM_WIDTHS = (2, 4, 8, 16, 32)
+# the H100 SXM: SMs, shared memory per SM and per block (bytes, 1 KB of the
+# SM's kept per block), registers per SM; the kernel's __launch_bounds__
+# (PARAM_THREADS threads, 3 blocks) caps a thread at PARAM_REGS registers
+SMS = 132
+SM_SMEM = 228 * 1024
+BLOCK_SMEM_MAX = 227 * 1024
+SM_REGS = 65536
+PARAM_REGS = 168
+# shared memory a parameter block aims at: 3 of them fit on an SM
+PARAM_SMEM = SM_SMEM // 3 - 1024
+# a split with fewer partials is taken when its cost (_param_split) is
+# within this share of the least
+PARAM_SPLIT_SLACK = 0.05
 
 KERNELS = ("wav_conv2d_fwd", "wav_conv2d_bwd_dx", "wav_conv2d_bwd_param",
            "wav_conv2d_bwd_reduce")
@@ -271,23 +291,91 @@ def dx_launch_config(B, H, W, C, O, k, pad) -> dict:
                               "memory")
 
 
-def param_launch_config(B, H, W, C, O, k, pad) -> dict:
-    """Parameter-gradient block: OC output channels (lanes) x CW input
-    channels, RB input rows staged per pass; S batch splits of ``ips``
-    images.  S depends on the shape only, so a shape always gets the same
-    partial sums and the same reduction order."""
+def _param_smem(W, OC, gcols, threads, cg, rs, rb, pipe) -> int:
+    """Bytes of shared memory of a parameter block: the ring of g rows
+    (2*rb + 2 with pipe, else rb + 2; rounded to 16 bytes) and the x
+    buffers, or the row slots' sums at the end where larger."""
+    ring = ((2 * rb + 2 if pipe else rb + 2) * gcols * OC + 3) // 4 * 4
+    floats = ring + (2 if pipe else 1) * rb * W * PARAM_CT * cg
+    return 4 * max(floats, PARAM_VALS * threads if rs > 1 else 0)
+
+
+def _param_tile(W, C, O, k, pad):
+    """The parameter block: the first that fits of whole-warp blocks of
+    OC lanes (output channels) x CG channel groups x RS row slots,
+    PARAM_THREADS threads first, RB = RS x rows per slot (at least
+    PARAM_PIXELS pixels a slot, halved down to one row) within PARAM_SMEM,
+    then within the block's maximum; last, one warp of one row without the
+    pipeline."""
     OC = min(32, _pow2_at_least(O))
-    CW = min(THREADS // OC, _pow2_at_least(C))
-    per_row = k * (W + k - 1) * OC + W * CW     # g rows and x row, floats
-    RB = min(B * H, SMEM_BUDGET // (4 * per_row))
-    if RB < 1:
-        raise NotImplementedError(f"input width {W} too wide for the "
-                                  "parameter kernel")
-    tiles = -(-O // OC) * -(-C // CW)
-    S = min(B, max(1, -(-TARGET_BLOCKS // tiles)))
-    ips = -(-B // S)
-    return {"OC": OC, "CW": CW, "RB": RB, "S": -(-B // ips), "ips": ips,
-            "N": k * k * C * O + 2 * O * C}
+    CG = min(PARAM_THREADS // OC, _pow2_at_least(-(-C // PARAM_CT)))
+    compiled = pad == 1 and W in PARAM_WIDTHS
+    for budget in (PARAM_SMEM, BLOCK_SMEM_MAX):
+        for threads in (PARAM_THREADS, PARAM_THREADS // 2,
+                        PARAM_THREADS // 4):
+            cg = min(CG, threads // OC)
+            rs = threads // (OC * cg)
+            tr = _pow2_at_least(-(-PARAM_PIXELS // W))
+            while tr >= 1:
+                rb = rs * tr
+                gcols = W if compiled else W + k - 1
+                smem = _param_smem(W, OC, gcols, threads, cg, rs, rb, True)
+                if smem <= budget:
+                    return (OC, cg, rs, rb, threads, True, compiled, smem)
+                tr //= 2
+    smem = _param_smem(W, OC, W + k - 1, 32, 1, 1, 1, False)
+    if smem <= BLOCK_SMEM_MAX:
+        return (OC, 1, 1, 1, 32, False, False, smem)
+    raise NotImplementedError(f"input width {W} too wide for the parameter "
+                              "kernel")
+
+
+def _param_split(B, tiles, fit) -> int:
+    """Images per split.  The blocks share the SMs' issue slots, so a
+    split costs about the blocks of the busiest SM (at least the ``fit``
+    that are resident at once) x images per block; the fewest splits
+    within PARAM_SPLIT_SLACK of the least cost are taken (more splits
+    write and reduce more partials)."""
+    cands = {}
+    for S in range(1, min(B, 65535) + 1):
+        ips = -(-B // S)
+        cands[-(-B // ips)] = ips
+    cost = {S: max(-(-tiles * S // SMS), fit) * ips
+            for S, ips in cands.items()}
+    least = min(cost.values())
+    return cands[min(S for S in cands
+                     if cost[S] <= least * (1 + PARAM_SPLIT_SLACK))]
+
+
+def param_launch_config(B, H, W, C, O, k, pad) -> dict:
+    """Parameter-gradient block (csrc/wav_conv2d_bwd.cu): ``threads`` =
+    OC output channels (lanes) x CG groups of PARAM_CT input channels x RS
+    row slots, stepping through RB rows; ``pipe``: cp.async into a
+    double-buffered ring; ``compiled``: a compiled row width with its pad
+    taps left out.  S batch splits of ``ips`` images, chosen from the
+    blocks that fit on an SM (``blocks_per_sm``: shared memory, registers
+    at PARAM_REGS, threads) so that the busiest SM's share of the blocks
+    is least (``_param_split``; ``waves``: blocks over the slots).  S
+    depends on the shape only, so a shape always gets the same partial
+    sums and the same reduction order.  Raises NotImplementedError where
+    no block fits."""
+    return dict(_param_config(B, H, W, C, O, k, pad))
+
+
+@functools.lru_cache(maxsize=None)
+def _param_config(B, H, W, C, O, k, pad) -> dict:
+    OC, CG, RS, RB, threads, pipe, compiled, smem = _param_tile(W, C, O, k,
+                                                                pad)
+    tiles = -(-O // OC) * -(-C // (PARAM_CT * CG))
+    fit = min(SM_REGS // (threads * PARAM_REGS), SM_SMEM // (smem + 1024),
+              2048 // threads, 32)
+    ips = _param_split(B, tiles, fit)
+    S = -(-B // ips)
+    return {"OC": OC, "CG": CG, "CT": PARAM_CT, "RS": RS, "RB": RB,
+            "threads": threads, "pipe": pipe, "compiled": compiled,
+            "S": S, "ips": ips, "N": k * k * C * O + 2 * O * C,
+            "smem": smem, "blocks_per_sm": fit, "tiles": tiles,
+            "blocks": tiles * S, "waves": tiles * S / (SMS * fit)}
 
 
 # ------------------------------------------------------------- checks
@@ -372,8 +460,9 @@ _ARGTYPES = {
     # x, w, t, s, g, dx; B H W C O k pad TW CL OCH wavelet; stream
     "wav_conv2d_bwd_dx": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
-    # x, w, t, s, g, partial; B H W C O k pad OC CW RB S ips wavelet; stream
-    "wav_conv2d_bwd_param": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+    # x, w, t, s, g, partial; B H W C O k pad OC CG RS RB threads pipe S ips
+    # wavelet; stream
+    "wav_conv2d_bwd_param": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16
     + [ctypes.c_void_p],
     # partial, out; S N VW Gw Gc; stream
     "wav_conv2d_bwd_reduce": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
@@ -468,8 +557,9 @@ def param_partials(x, w, t, s, g, wavelet_type: str, pad: int):
                           device=x.device)
     _launch("wav_conv2d_bwd_param",
             _ptrs(x, w, t, s, g, partial) + (
-                B, H, W, C, O, k, pad, cfg["OC"], cfg["CW"], cfg["RB"],
-                cfg["S"], cfg["ips"], WAVELETS[wavelet_type], _stream(x)),
+                B, H, W, C, O, k, pad, cfg["OC"], cfg["CG"], cfg["RS"],
+                cfg["RB"], cfg["threads"], int(cfg["pipe"]), cfg["S"],
+                cfg["ips"], WAVELETS[wavelet_type], _stream(x)),
             desc)
     return partial
 

@@ -320,9 +320,14 @@ def test_cuda_wav_forward_matches_plain_version(B, H, W, C, O, wavelet_type):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,C,O,wavelet_type", [
-    (4, 32, 32, 3, 16, "mexican_hat"), (3, 8, 8, 32, 64, "mexican_hat"),
+    # the parameter kernel's compiled row widths 32, 16, 8, 4, 2 (C = 3:
+    # not a multiple of its 4 channels per thread)
+    (4, 32, 32, 3, 16, "mexican_hat"), (3, 16, 16, 16, 32, "mexican_hat"),
+    (3, 8, 8, 32, 64, "mexican_hat"), (4, 4, 4, 64, 128, "mexican_hat"),
     (5, 2, 2, 128, 128, "mexican_hat"),
-    (3, 7, 5, 13, 5, "mexican_hat"),   # ragged
+    (3, 7, 5, 13, 5, "mexican_hat"),   # ragged: the generic row width
+    (5, 5, 7, 5, 16, "mexican_hat"),   # W = 7, C = 5
+    (9, 1, 8, 6, 32, "mexican_hat"),   # H = 1: both g rows off the frame
 ] + [(2, 8, 8, 16, 32, w) for w in WAVELETS])
 def test_cuda_wav_backward_matches_plain_version(B, H, W, C, O,
                                                  wavelet_type):
@@ -350,6 +355,33 @@ def test_cuda_wav_backward_matches_plain_version(B, H, W, C, O,
     for name, a, b in zip(("dx", "dw", "dt", "ds"), got, ref):
         ok, err = _within(a, b)
         assert ok, f"{name}: max |diff| {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O,pad", [
+    (3, 4, 4, 5, 16, 0), (2, 3, 5, 4, 12, 2), (37, 3, 2, 13, 20, 1)])
+def test_cuda_wav_param_kernel_other_pads_and_splits(B, H, W, C, O, pad):
+    """The parameter kernel's generic rows at pad 0 and 2 (virtual rows
+    between images) and a ragged split of 4-byte copies (O = 20 over lanes
+    of 32, C = 13), against float64 autograd per split (see _within)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.device import set_full_f32
+    from convkan_tpu_torch.kernels import wav_conv2d as wc
+
+    set_full_f32()
+    x, w, t, s, _ = _wav_inputs(B, H, W, C, O, seed=B + 7 * pad)
+    Ho, Wo = H + 2 * pad - 2, W + 2 * pad - 2
+    g = torch.from_numpy(np.random.RandomState(pad).normal(
+        0, 1, (B, Ho, Wo, O)).astype(np.float32)).cuda()
+    cfg = wc.param_launch_config(B, H, W, C, O, 3, pad)
+    part = wc.param_partials(x, w, t, s, g, "dog", pad)
+    torch.cuda.synchronize()
+    ref = wc.param_partials_reference(
+        *(a.double() for a in (x, w, t, s, g)), "dog", pad, cfg["S"],
+        cfg["ips"])
+    ok, err = _within(part, ref)
+    assert ok, f"partials: max |diff| {err}"
 
 
 @pytest.mark.cuda

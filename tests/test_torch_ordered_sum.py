@@ -24,9 +24,13 @@ WAV_PAIRS = [(cfg["S"], cfg["N"]) for cfg in (
     wc.param_launch_config(1024, H, H, C, O, 3, 1)
     for H, C, O in VGG16_SMALL)]
 # S = 1; S = 7 with N = 45*99 (odd); odd N; N < 4; S = 1023; many splits
-# over a few columns (the most leaves); N % 4 == 0 but not a whole block
+# over a few columns (the most leaves); N % 4 == 0 but not a whole block;
+# and the WavKAN partials of the parameter kernel's earlier split rule
+# (4 blocks per SM of one (o, c) pair per thread)
 RAGGED = [(1, 1000), (7, 45 * 99), (513, 4455), (300, 3), (1023, 37),
-          (1023, 64), (40, 1), (4, 8), (9, 4 * 257)]
+          (1023, 64), (40, 1), (4, 8), (9, 4 * 257), (256, 5632),
+          (128, 11264), (64, 22528), (32, 45056), (17, 90112),
+          (9, 180224)]
 PAIRS = list(dict.fromkeys(KAN_PAIRS + WAV_PAIRS + RAGGED))
 
 
@@ -69,17 +73,19 @@ def test_launch_config_invariants(S, N):
 
 def test_launch_config_spreads_narrow_and_keeps_wide_in_one_pass():
     """The wide, small-S partials (S = 8..32 at N >= 180,224) take one
-    leaf, one pass; the first convs' 512 splits spread over 8 thread rows
-    and 4 cluster ranks (leaves of 16); no other VGG16_small partial pays
-    for a cluster (the launch sweep on the H100, PERF.md)."""
+    leaf, one pass; the first convs' 512 splits (the KAN weight gradient's
+    first, the WavKAN parameter kernel's first three: 32², 32², 16²)
+    spread over 8 thread rows and 4 cluster ranks (leaves of 16); no other
+    VGG16_small partial pays for a cluster (the launch sweep on the H100,
+    PERF.md)."""
     one = [kc.reduce_launch_config(S, N) for S, N in
            KAN_PAIRS[5:] + WAV_PAIRS[7:]]
     assert all(c["Gw"] == c["Gc"] == 1 for c in one)
-    for S, N in (KAN_PAIRS[0], WAV_PAIRS[0], WAV_PAIRS[1]):
+    for S, N in (KAN_PAIRS[0], *WAV_PAIRS[:3]):
         cfg = kc.reduce_launch_config(S, N)
-        assert (cfg["Gw"], cfg["Gc"]) == (8, 4)
+        assert S == 512 and (cfg["Gw"], cfg["Gc"]) == (8, 4)
     assert all(kc.reduce_launch_config(S, N)["Gc"] == 1 for S, N in
-               KAN_PAIRS[1:] + WAV_PAIRS[2:])
+               KAN_PAIRS[1:] + WAV_PAIRS[3:])
 
 
 def emulate_kernel(partial: np.ndarray, cfg: dict):

@@ -176,7 +176,11 @@ def test_wrapper_refuses_bad_inputs():
 def test_launch_configs_tile_vgg16_small_and_config4():
     """Every VGG16_small and config-4 conv shape gets tiles that fit, at
     the batches the card runs; the parameter split depends on the shape
-    only and covers the batch."""
+    only and covers the batch.  At batch 1024 the parameter block is whole
+    warps of pairs (OC x CG x RS threads), cp.async-pipelined over a
+    compiled row width, and small enough that 3 fit an SM's shared memory;
+    its split balances the SMs over the blocks that fit (registers at the
+    launch bounds' cap)."""
     for H, C, O in VGG16_SMALL + CONFIG4:
         for B in (1, 16, 64, 1024):
             f = wc.fwd_launch_config(B, H, H, C, O, 3, 1)
@@ -185,8 +189,28 @@ def test_launch_configs_tile_vgg16_small_and_config4():
             d = wc.dx_launch_config(B, H, H, C, O, 3, 1)
             assert d["CL"] * d["NS"] == wc.THREADS and d["OCH"] >= 1
             p = wc.param_launch_config(B, H, H, C, O, 3, 1)
-            assert p["OC"] * p["CW"] <= wc.THREADS and p["RB"] >= 1
+            assert p["OC"] * p["CG"] * p["RS"] == p["threads"]
+            assert p["threads"] % 32 == 0 and p["RB"] % p["RS"] == 0
+            assert p["pipe"] and p["compiled"] and p["CT"] == wc.PARAM_CT
             assert p["S"] * p["ips"] >= B > (p["S"] - 1) * p["ips"]
             assert p == wc.param_launch_config(B, H, H, C, O, 3, 1)
+            if B < 1024:
+                continue
+            assert p["smem"] <= wc.PARAM_SMEM
+            assert wc.SM_SMEM // (p["smem"] + 1024) >= 3
+            assert p["blocks_per_sm"] == wc.SM_REGS // (
+                p["threads"] * wc.PARAM_REGS)
+            assert p["blocks"] == p["tiles"] * p["S"] >= wc.SMS
+            # the split: no other one puts fewer blocks x images on the
+            # busiest SM (at least the blocks resident at once) by more
+            # than the slack, and none within it has fewer splits
+            def cost(ips):
+                blocks = p["tiles"] * -(-B // ips)
+                return max(-(-blocks // wc.SMS), p["blocks_per_sm"]) * ips
+            least = min(cost(ips) for ips in range(1, B + 1))
+            assert cost(p["ips"]) <= (1 + wc.PARAM_SPLIT_SLACK) * least
+            assert all(-(-B // ips) >= p["S"] for ips in range(1, B + 1)
+                       if cost(ips) <= (1 + wc.PARAM_SPLIT_SLACK) * least)
+            assert p["waves"] <= 1.5
     with pytest.raises(NotImplementedError):
         wc.param_launch_config(1, 4, 100000, 3, 16, 3, 1)   # row too wide
