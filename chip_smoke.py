@@ -76,10 +76,12 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
      plain version (BWD_TOL; the reduction bit-exact against its grouped
      plain version, the reduced dw/dt/ds against float64 at BWD_TOL), at
      the 9 VGG16_small shapes (the parameter kernel's compiled row widths
-     32, 16, 8, 4, 2), all 5 wavelets, and its generic rows and ragged
-     tiles (W = 5, 7; C = 13, 5, 3; H = 1; O = 5, 20; pads 0 and 2); the
-     parameter partials of two calls bit-identical; each case prints the
-     parameter kernel's launch (PARAM_TILE);
+     32, 16, 8, 4, 2; the data gradient's 8, 4, 2), all 5 wavelets (also
+     on the data gradient's compiled 4x4 and 2x2 rows), and the generic
+     rows and ragged tiles (W = 5, 7, 11; C = 13, 5, 3; H = 1, 3, 5; O = 5,
+     9, 20; pads 0 and 2); the data gradient and the parameter partials of
+     two calls bit-identical; each case prints both kernels' launches
+     (DX_TILE, PARAM_TILE);
  11. the WavKAN VGG16_small (head on the last 2x2 map, see WAV_MODEL):
      logits on the GPU vs the CPU (MODEL_TOL), 13 forward launches;
  12. serving, the main path, as phase 4 with the WavKAN model (served
@@ -99,8 +101,11 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
      materialized psi (a yardstick the port never calls) and the bound;
      for the parameter kernel also its launch (channels per thread,
      threads, row slots, rows per step, pipeline, compiled width, splits,
-     blocks, blocks per SM, waves, shared memory), the (pixel, tap, o, c)
-     it issues over the interior ones, the share of the bound it reaches
+     blocks, blocks per SM, waves, shared memory), and for the data
+     gradient its (compiled width, pixels x rows of a tile, channel
+     groups, tile positions and images of a block, threads, blocks, blocks
+     per SM, waves, shared memory): each with the (pixel, tap, o, c) it
+     issues over the interior ones, the share of the bound it reaches
      and its rate on issued work; the reduction as in phase 8, and an
      empty kernel's time (the launch floor).
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
@@ -163,6 +168,10 @@ RED_SOURCE = "convkan_tpu_torch/csrc/ordered_sum.cuh"
 # and 14 print
 PARAM_TILE = ("CT", "threads", "RS", "RB", "pipe", "compiled", "S", "blocks",
               "blocks_per_sm", "waves", "smem")
+# the WavKAN data gradient's launch (dx_launch_config) that phases 10 and 14
+# print
+DX_TILE = ("WT", "P", "RT", "CG", "NPB", "NIB", "threads", "blocks",
+           "blocks_per_sm", "waves", "smem")
 # backward kernels vs float64 autograd of the plain version: a dW entry sums
 # up to B*H*W = 65,536 float32 products at batch 64 (dx: k*k*(K+1)*O <=
 # 10,368) in another order, an error of ~sqrt(n) * 2^-24 of the sum of
@@ -1005,6 +1014,16 @@ def phase_wav_backward(wc, gen, dev):
               (37, 3, 2, 13, 20, "mexican_hat", 1),
               (3, 4, 4, 5, 16, "mexican_hat", 0),
               (2, 3, 5, 4, 12, "mexican_hat", 2)]
+    # the data gradient's compiled rows of 4 and 2 in every wavelet, compiled
+    # widths at odd H (8 and 4 wide) and one taken by the generic tile (2 wide,
+    # H = 5),
+    # O = 9 (4-byte copies of g, a partial chunk), width 11 at pad 0
+    cases += [(6, H, H, C, 32, w, 1) for H, C in ((4, 32), (2, 64))
+              for w in WAVELETS[1:]]
+    cases += [(5, 3, 8, 16, 20, "mexican_hat", 1),
+              (4, 5, 4, 16, 9, "mexican_hat", 1),
+              (4, 5, 2, 16, 9, "mexican_hat", 1),
+              (3, 5, 11, 12, 13, "shannon", 0)]
     errs = dict.fromkeys(wc.KERNELS[1:], 0.0)
     red64 = 0.0   # the reduced gradients against float64, as in phase 6
     for B, H, W, C, O, wt, pad in cases:
@@ -1016,7 +1035,9 @@ def phase_wav_backward(wc, gen, dev):
         if wt == "shannon":  # the kernels take the window folded into w
             wf = w * torch.from_numpy(wc.hamming_window(C)).to(w)[:, None]
         cfg = wc.param_launch_config(B, H, W, C, O, 3, pad)
+        xcfg = wc.dx_launch_config(B, H, W, C, O, 3, pad)
         dx = wc.input_grad(x, wf, t, s, g, *spec)
+        dx_same = torch.equal(dx, wc.input_grad(x, wf, t, s, g, *spec))
         part = wc.param_partials(x, wf, t, s, g, *spec)
         same = torch.equal(part, wc.param_partials(x, wf, t, s, g, *spec))
         red = wc.reduce_partials(part)
@@ -1036,11 +1057,13 @@ def phase_wav_backward(wc, gen, dev):
         want = torch.autograd.grad(wc.wav_conv2d_reference(
             *ref, wavelet_type=wt, padding=pad), ref, g.double())
         auto = [bwd_close(a, b) for a, b in zip(got, want)]
-        ok = ok_dx and ok_p and same and e_red == 0.0 and ok64 and \
-            all(o for _, o in auto)
+        ok = ok_dx and dx_same and ok_p and same and e_red == 0.0 and \
+            ok64 and all(o for _, o in auto)
         print(f"[wav backward] B={B} {H}x{W} C={C} O={O} {wt} pad={pad} "
-              f"(param tile {param_tile(cfg)}; reduce {red_tile(rcfg)}): "
-              f"dx {e_dx:.3e}, param partials of two calls "
+              f"(dx tile {wav_dx_tile(xcfg)}; param tile {param_tile(cfg)}; "
+              f"reduce {red_tile(rcfg)}): dx {e_dx:.3e}, dx of two calls "
+              f"{'bit-identical' if dx_same else 'DIFFERENT'}, param "
+              f"partials of two calls "
               f"{'bit-identical' if same else 'DIFFERENT'}, "
               f"param partials {e_p:.3e}, reduce {e_red:.1e} (reduced vs "
               f"float64 {e64:.3e}); autograd dx/dw/dt/ds "
@@ -1086,6 +1109,29 @@ def param_tile(cfg) -> str:
     blocks, blocks per SM, waves and shared memory."""
     return ", ".join(f"{key} {cfg[key]}" for key in PARAM_TILE[:-2]) + \
         f", waves {cfg['waves']:.2f}, smem {cfg['smem']} B"
+
+
+def wav_dx_tile(cfg) -> str:
+    """The WavKAN data gradient's launch: compiled width (0: segments of
+    8), pixels and rows of a tile, channel groups, tile positions and
+    images of a block, threads, blocks, blocks per SM, waves, shared
+    memory."""
+    return ", ".join(f"{key} {cfg[key]}" for key in DX_TILE[:-2]) + \
+        f", waves {cfg['waves']:.2f}, smem {cfg['smem']} B"
+
+
+def wav_dx_issued(cfg, B, H, W, C, O, pad=1) -> int:
+    """(pixel, tap, o, c) the WavKAN data gradient issues: compiled widths
+    the taps whose g lies on the frame; the generic tile every tap of the
+    pixels of whole segments of 8; x whole groups of 4 channels."""
+    Ho, Wo = H + 2 * pad - 2, W + 2 * pad - 2
+    if cfg["compiled"]:
+        rows = sum(0 <= h + pad - di < Ho for h in range(H) for di in range(3))
+        cols = sum(0 <= j + pad - dj < Wo for j in range(W) for dj in range(3))
+        taps = rows * cols
+    else:
+        taps = 9 * H * -(-W // cfg["P"]) * cfg["P"]
+    return B * taps * O * -(-C // cfg["CT"]) * cfg["CT"]
 
 
 def param_issued(cfg, B, H, W, C, O, pad=1) -> int:
@@ -1183,6 +1229,17 @@ def phase_wav_times(wc, gen, dev, card):
                            ("library_ms", lib[name]), ("op_ms", op_ms),
                            ("byte_ms", byte_ms)):
                 totals[name][key] += layers * v
+        # the data gradient's launch and what it issues (2 flops a tap)
+        xcfg = wc.dx_launch_config(B, H, H, C, O, 3, 1)
+        x_issued = wav_dx_issued(xcfg, B, H, H, C, O)
+        x_ms = ms["wav_conv2d_bwd_dx"][0]
+        x_row = row["wav_conv2d_bwd_dx"]
+        x_row.update({
+            "tile": {key: xcfg[key] for key in DX_TILE},
+            "issued_over_interior": round(
+                x_issued / (B * interior_pairs(H) * C * O), 4),
+            "bound_share": round(x_row["bound_ms"] / x_ms, 4),
+            "tflops_issued": round(2 * x_issued / x_ms / 1e9, 2)})
         # the parameter kernel's launch and what it issues
         issued = param_issued(cfg, B, H, H, C, O)
         p_ms = ms["wav_conv2d_bwd_param"][0]

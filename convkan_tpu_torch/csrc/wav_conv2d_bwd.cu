@@ -11,12 +11,15 @@
 //
 //   * wav_conv2d_bwd_dx: the data gradient
 //       dx[q,c] = sum_o psi'(z) * G / s
-//     A thread owns one channel c of a strip of TW pixels of one input row
-//     and loops over o; the three g rows the strip reads are staged in
-//     shared memory per chunk of output channels (broadcast to the lanes,
-//     which hold neighbouring channels), G is formed in registers and
-//     psi'(z) applied at once.  Only interior pixels are computed (the pad
-//     has no input).
+//     A thread owns 4 input channels (x and the sums as float4s) of a tile
+//     of pixels (a row segment of 8, a row of 4, two rows of 2) and
+//     loops over all of O: per o it loads the 9 taps' weights and the
+//     scale factors of its 4 channels once and each g value of its window
+//     once, so one g load feeds 4 channels' FMAs, and one exp per (pixel,
+//     o, c) gives psi'.  Rows of the widths 8, 4 and 2 (the small planes,
+//     where the pad taps are 8-56% of all) are unrolled with the pad taps
+//     left out; g, the weights and the factors are staged per chunk of 8
+//     output channels by cp.async into a double buffer (see the kernel).
 //   * wav_conv2d_bwd_param: the parameter gradients, in partial sums over
 //     fixed batch splits,
 //       dw[di,dj,c,o] = sum_q psi(z[q]) * g[q + pad - (di,dj), o]
@@ -41,9 +44,13 @@
 // What bounds it on the H100: operations, as in the forward.  Each (input
 // pixel, c, o) costs one wavelet evaluation and 9 FMAs in each of the two
 // kernels (plus 9 for dw); bytes are a few MB per layer.  psi is never
-// stored: both kernels recompute it from x, t and s.  Later work: the data
-// gradient recomputes psi' that the parameter kernel also evaluates; a
-// fused kernel would pay one exp per triple instead of two.
+// stored: both kernels recompute it from x, t and s.  In the data gradient
+// the issue slots go to psi' (about 13 instructions with its exp) and the
+// 9 FMAs per (pixel, o, c); the tile keeps the loads to about 1 and the pad
+// taps out, and the double buffer keeps the staging off the FMAs' path.
+// Later work: the data gradient recomputes psi' that the parameter kernel
+// also evaluates; a fused kernel would pay one exp per triple instead of
+// two.
 //
 // Interface: plain C entry points loaded with ctypes.  Each launches on the
 // caller's stream, allocates nothing, and returns cudaGetLastError().
@@ -60,17 +67,28 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kK = 3;  // kernel size the build carries
-// parameter kernel: input channels per thread (one float4 of x), its sums,
-// and the launch bounds (threads, blocks per SM)
+// input channels per thread (one float4 of x), in both kernels
 constexpr int kCT = 4;
+// parameter kernel: its sums, and the launch bounds (threads, blocks per SM)
 constexpr int kParamVals = kCT * (kK * kK + 2);
 constexpr int kParamThreads = 128, kParamMinBlocks = 3;
+// data gradient: the launch bounds, output channels per staged chunk, and
+// floats per channel group and o in the staged weights: 9 taps, 1/s, -t/s
+// and psi''s factor (float4 each), and one float4 of padding so that the 8
+// groups a quarter warp reads lie in distinct banks
+constexpr int kDxThreads = 128, kDxMinBlocks = 3;
+constexpr int kDxOCH = 8;
+constexpr int kDxGroup = 4 * (kK * kK + 4);
 
 struct DxShape {
   int B, H, W, C, O, pad, Ho, Wo;
-  int CL, NS, OCH;     // lanes (input channels), strips, staged out chans
-  int nSeg, nStrips;   // strips per row, B * H * nSeg
-  int stripStride;     // floats per staged strip: OCH * 3 * (TW+2) + 1
+  int lCG, lNPB;       // log2 of the channel groups, of the tile positions
+  int nSeg, nRG, nRB;  // segments per row, row groups per image, row blocks
+  int NIB, NGR;        // images per block, staged g rows per image
+  int imgStride;       // floats per staged image: NGR * (P + 2) * 8 + 4
+  int gBuf, wStride;   // floats of g per buffer; of weights per o
+  int bufStride, nCh;  // floats per buffer; chunks of kDxOCH output channels
+  int xVec, gVec;      // 16-byte loads of x (C % 4 == 0), of g (O % 4 == 0)
 };
 
 struct ParamShape {
@@ -86,127 +104,324 @@ struct ParamShape {
 };
 
 // ------------------------------------------------------------ data gradient
-template <int WAV, int TW>
-__global__ void __launch_bounds__(kThreads, 2)
+// Block (image block, row segment, row block; channel tile) of 4 warps: lane
+// cg + CG * il of warp wp holds channel group cg (kCT = 4 input channels c0
+// = cT0 + 4 cg .. + 3) of image ib * NIB + il + (32 / CG) * (wp >> lNPB) at
+// tile position (row group) rb * NPB + (wp & (NPB - 1)).  A thread keeps x
+// and the dx sums of a tile of RT rows x P pixels of its 4 channels in
+// registers (float4s) and walks all of O in chunks of kDxOCH: per o, 12
+// float4 loads (9 taps' weights, 1/s, -t/s, psi''s factor) and one g value
+// per tile column and row, each feeding the 4 channels' FMAs.  A warp's
+// lanes share one tile position, so its row mask is uniform, and read g of
+// 32 / CG images at once, in distinct banks (image stride / 4 odd).  Each
+// block sums over all of O in one fixed order: no atomics, no second pass.
+//
+// Tiles.  Compiled widths (pad 1; WT = 8, 4: a row, H >= 2; WT = 2: two
+// rows, H even) take the whole row with no halo: each pixel's valid taps
+// are template masks (the edge columns peeled) and the g rows off the top
+// or bottom of the frame a template mask picked once per warp (VM).  Every
+// other shape (WT = 0; the widths 32 and 16 too) takes segments of 8 pixels
+// of one row with the halo zero-filled and issues every tap.
+//
+// Staging.  Per chunk, the block's rect of g (NIB images x NGR rows x P + 2
+// columns x kDxOCH o, o fastest, zero off the frame) and the chunk's
+// weights (transposed to channels fastest) go into one of two buffers by
+// cp.async; 1/s, -t/s and psi''s factor are stored there by the threads
+// from t and s loaded before the previous chunk's FMAs.  Chunk k + 1 loads
+// while chunk k's FMAs run, one barrier per chunk.  Positions come from
+// counters and shifts; the block's own position takes the only divides.
+template <int P, int RT>
+struct DxTile {
+  float4 x[RT][P];    // x of the tile's pixels, 4 channels each
+  float4 acc[RT][P];  // their dx sums
+};
+
+__device__ __forceinline__ void fma4(float4& a, float g, const float4& w) {
+  a.x = fmaf(g, w.x, a.x);
+  a.y = fmaf(g, w.y, a.y);
+  a.z = fmaf(g, w.z, a.z);
+  a.w = fmaf(g, w.w, a.w);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// the chunk's first `no` output channels for one tile: g of rect row a,
+// column sc at gq[(a * (P + 2) + sc) * kDxOCH] (+1 per o), the weights and
+// factors at wq (+wStride per o).  VM: the rect rows on the frame; EL, ER:
+// the halo columns on the frame (or zero-filled): taps outside are left out
+template <int WAV, int P, int RT, int VM, bool EL, bool ER>
+__device__ __forceinline__ void dx_chunk(DxTile<P, RT>& tl, const float* gq,
+                                         const float* wq, int no,
+                                         int wStride) {
+  constexpr int NGC = P + kK - 1;
+  for (int oo = 0; oo < no; ++oo, ++gq, wq += wStride) {
+    float4 wv[kK][kK];  // w[2 - r][2 - e]: rect row rho + r, column j + e
+#pragma unroll
+    for (int r = 0; r < kK; ++r)
+#pragma unroll
+      for (int e = 0; e < kK; ++e)
+        wv[r][e] = ld4(wq + 4 * ((kK - 1 - r) * kK + kK - 1 - e));
+    const float4 iv = ld4(wq + 4 * kK * kK);
+    const float4 nt = ld4(wq + 4 * kK * kK + 4);
+    const float4 kv = ld4(wq + 4 * kK * kK + 8);
+    float win[RT + kK - 1][kK] = {};  // rect columns sc - 2 .. sc
+#pragma unroll
+    for (int sc = 0; sc < NGC; ++sc) {
+#pragma unroll
+      for (int a = 0; a < RT + kK - 1; ++a) {
+        win[a][0] = win[a][1];
+        win[a][1] = win[a][2];
+        const bool on =
+            ((VM >> a) & 1) && (sc > 0 || EL) && (sc < NGC - 1 || ER);
+        win[a][2] = on ? gq[(a * NGC + sc) * kDxOCH] : 0.0f;
+      }
+      if (sc < kK - 1) continue;
+      const int j = sc - (kK - 1);
+#pragma unroll
+      for (int rho = 0; rho < RT; ++rho) {
+        float4 G = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int r = 0; r < kK; ++r) {
+          if (!((VM >> (rho + r)) & 1)) continue;
+#pragma unroll
+          for (int e = 0; e < kK; ++e) {
+            if ((j + e == 0 && !EL) || (j + e == NGC - 1 && !ER)) continue;
+            fma4(G, win[rho + r][e], wv[r][e]);
+          }
+        }
+        const float4 xv = tl.x[rho][j];
+        float4& a = tl.acc[rho][j];
+        a.x = fmaf(wav::dpsi_by<WAV>(fmaf(xv.x, iv.x, nt.x), kv.x), G.x, a.x);
+        a.y = fmaf(wav::dpsi_by<WAV>(fmaf(xv.y, iv.y, nt.y), kv.y), G.y, a.y);
+        a.z = fmaf(wav::dpsi_by<WAV>(fmaf(xv.z, iv.z, nt.z), kv.z), G.z, a.z);
+        a.w = fmaf(wav::dpsi_by<WAV>(fmaf(xv.w, iv.w, nt.w), kv.w), G.w, a.w);
+      }
+    }
+  }
+}
+
+// WT: 0 (segments of 8, every tap) or a compiled width 8, 4, 2
+template <int WAV, int WT>
+__global__ void __launch_bounds__(kDxThreads, kDxMinBlocks)
     wav_conv2d_bwd_dx_kernel(const float* __restrict__ x,
                              const float* __restrict__ w,
                              const float* __restrict__ t,
                              const float* __restrict__ s,
                              const float* __restrict__ g,
                              float* __restrict__ dx, const DxShape sh) {
-  constexpr int TP = TW + kK - 1;  // g columns a strip reads
-  constexpr int GR = kK * TP;      // floats per (strip, o): 3 rows of TP
-  extern __shared__ float smem[];
-  float* Gs = smem;                              // [NS][OCH][3][TP] (+1)
-  float* Ws = Gs + sh.NS * sh.stripStride;       // [OCH][k*k][CL]
-  float* Ts = Ws + sh.OCH * kK * kK * sh.CL;     // [OCH][CL]
-  float* Is = Ts + sh.OCH * sh.CL;               // [OCH][CL]: 1/s
+  constexpr int P = WT == 0 ? 8 : WT;
+  constexpr int RT = WT == 2 ? 2 : 1;
+  constexpr int NGC = P + kK - 1;
+  constexpr int nW = kDxThreads / 32;
+  extern __shared__ float4 dsmem4[];
+  float* const smem = reinterpret_cast<float*>(dsmem4);
+  const int CG = 1 << sh.lCG, CTILE = kCT << sh.lCG, NPB = 1 << sh.lNPB;
+  const int np = CG >> 2;  // (o, channel) pairs a thread stages: 8*CTILE/128
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = lane & (CG - 1);
+  const int pw = warp & (NPB - 1);
+  const int i = ((warp >> sh.lNPB) << (5 - sh.lCG)) + (lane >> sh.lCG);
+  int bx = blockIdx.x;  // (image block, segment, row block), divided once
+  const int rb = bx % sh.nRB;
+  bx /= sh.nRB;
+  const int seg = bx % sh.nSeg;
+  const int ib = bx / sh.nSeg;
+  const int b = ib * sh.NIB + i;
+  const int rg = rb * NPB + pw;
+  const int h0 = rg * RT, w0 = seg * P;
+  const int cT0 = blockIdx.y * CTILE, c0 = cT0 + kCT * cg;
+  const bool active = b < sh.B && rg < sh.nRG && c0 < sh.C;
+  const int nc = min(kCT, sh.C - c0);
+  // the block's rect: staged row gr is g row ohR + gr, column gc is ow0 + gc
+  const int ohR = rb * NPB * RT + sh.pad - (kK - 1);
+  const int ow0 = w0 + sh.pad - (kK - 1);
 
-  const int tid = threadIdx.x;
-  const int cl = tid % sh.CL;
-  const int sl = tid / sh.CL;
-  const int c = blockIdx.y * sh.CL + cl;
-  const int strip = blockIdx.x * sh.NS + sl;
-  const int perImg = sh.H * sh.nSeg;
-  int b = 0, h = 0, w0 = 0;
-  if (strip < sh.nStrips) {
-    b = strip / perImg;
-    const int rem = strip - b * perImg;
-    h = rem / sh.nSeg;
-    w0 = (rem % sh.nSeg) * TW;
-  }
-  const bool active = strip < sh.nStrips && c < sh.C;
-
-  float xr[TW], acc[TW];
+  DxTile<P, RT> tl;
 #pragma unroll
-  for (int j = 0; j < TW; ++j) {
-    acc[j] = 0.0f;
-    xr[j] = (active && w0 + j < sh.W)
-                ? __ldg(&x[(((size_t)b * sh.H + h) * sh.W + w0 + j) * sh.C + c])
-                : 0.0f;
-  }
-
-  for (int oc0 = 0; oc0 < sh.O; oc0 += sh.OCH) {
-    __syncthreads();  // the previous chunk's readers are done
-    // g rows h + pad - 2 .. h + pad, columns w0 + pad - 2 .. w0 + TW - 1 +
-    // pad, of every strip: idx -> (strip, row*TP + col, o), o fastest
-    const int nG = sh.NS * GR * sh.OCH;
-    for (int idx = tid; idx < nG; idx += kThreads) {
-      const int oo = idx % sh.OCH;
-      const int rest = idx / sh.OCH;
-      const int rc = rest % GR;
-      const int st = rest / GR;
-      const int sg = blockIdx.x * sh.NS + st;
-      const int og = oc0 + oo;
-      float v = 0.0f;
-      if (sg < sh.nStrips && og < sh.O) {
-        const int bb = sg / perImg;
-        const int rem = sg - bb * perImg;
-        const int oh = rem / sh.nSeg + sh.pad - (kK - 1) + rc / TP;
-        const int ow = (rem % sh.nSeg) * TW + sh.pad - (kK - 1) + rc % TP;
-        if (oh >= 0 && oh < sh.Ho && ow >= 0 && ow < sh.Wo)
-          v = __ldg(&g[(((size_t)bb * sh.Ho + oh) * sh.Wo + ow) * sh.O + og]);
+  for (int rho = 0; rho < RT; ++rho)
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      tl.acc[rho][j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const int h = h0 + rho, wc = w0 + j;
+      if (active && h < sh.H && wc < sh.W) {
+        const float* p =
+            x + (((size_t)b * sh.H + h) * sh.W + wc) * sh.C + c0;
+        if (sh.xVec) {
+          v = __ldg(reinterpret_cast<const float4*>(p));
+        } else {
+          v.x = __ldg(p);
+          if (nc > 1) v.y = __ldg(p + 1);
+          if (nc > 2) v.z = __ldg(p + 2);
+          if (nc > 3) v.w = __ldg(p + 3);
+        }
       }
-      Gs[st * sh.stripStride + oo * GR + rc] = v;
+      tl.x[rho][j] = v;
     }
-    // weights: idx -> (o, tap, lane), lane fastest
-    for (int idx = tid; idx < sh.OCH * kK * kK * sh.CL; idx += kThreads) {
-      const int cc = blockIdx.y * sh.CL + idx % sh.CL;
-      const int rest = idx / sh.CL;
-      const int tap = rest % (kK * kK);
-      const int og = oc0 + rest / (kK * kK);
-      Ws[idx] = (cc < sh.C && og < sh.O)
-                    ? __ldg(&w[((size_t)tap * sh.C + cc) * sh.O + og])
-                    : 0.0f;
+
+  const size_t gImg = (size_t)sh.Ho * sh.Wo * sh.O;
+  // this thread's (o, channel) pairs of a chunk: e = tid + 128 q, o = oc0 +
+  // (e & 7), channel cT0 + cl with cl = e >> 3, at float (cl >> 2) *
+  // kDxGroup + (cl & 3) of o's weights (tap at +4 tap; 1/s, -t/s and psi''s
+  // factor at +36, +40, +44)
+  auto pair = [&](int q, int oc0, int& o, int& c, int& off) {
+    const int e = tid + q * kDxThreads;
+    const int cl = e >> 3;
+    o = oc0 + (e & (kDxOCH - 1));
+    c = cT0 + cl;
+    off = sh.gBuf + (e & (kDxOCH - 1)) * sh.wStride + (cl >> 2) * kDxGroup +
+          (cl & 3);
+  };
+  float tp[2] = {0.0f, 0.0f}, sp[2] = {1.0f, 1.0f};
+  auto load_ts = [&](int kk) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q >= np) break;
+      int o, c, off;
+      pair(q, kk * kDxOCH, o, c, off);
+      const bool ok = c < sh.C && o < sh.O;
+      tp[q] = ok ? __ldg(&t[(size_t)o * sh.C + c]) : 0.0f;
+      sp[q] = ok ? __ldg(&s[(size_t)o * sh.C + c]) : 1.0f;
     }
-    for (int idx = tid; idx < sh.OCH * sh.CL; idx += kThreads) {
-      const int cc = blockIdx.y * sh.CL + idx % sh.CL;
-      const int og = oc0 + idx / sh.CL;
-      const bool ok = cc < sh.C && og < sh.O;
-      Ts[idx] = ok ? __ldg(&t[(size_t)og * sh.C + cc]) : 0.0f;
-      Is[idx] = ok ? 1.0f / __ldg(&s[(size_t)og * sh.C + cc]) : 0.0f;
+  };
+  auto store_ts = [&](int kk, float* buf) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q >= np) break;
+      int o, c, off;
+      pair(q, kk * kDxOCH, o, c, off);
+      const bool ok = c < sh.C && o < sh.O;
+      const float iv = ok ? 1.0f / sp[q] : 0.0f;
+      buf[off + 4 * kK * kK] = iv;
+      buf[off + 4 * kK * kK + 4] = -tp[q] * iv;
+      buf[off + 4 * kK * kK + 8] = wav::dpsi_coef<WAV>(iv);
     }
-    __syncthreads();
-    if (!active) continue;
-    const int no = min(sh.OCH, sh.O - oc0);
-    const float* gp = Gs + sl * sh.stripStride;
-    for (int oo = 0; oo < no; ++oo) {
-      // wf[r][cc] = w[2-r][2-cc]: staged g row r, column j + cc meets tap
-      // (2 - r, 2 - cc) at pixel j
-      float wf[kK][kK];
-#pragma unroll
-      for (int r = 0; r < kK; ++r)
-#pragma unroll
-        for (int cc = 0; cc < kK; ++cc)
-          wf[r][cc] = Ws[(oo * kK * kK + (kK - 1 - r) * kK + (kK - 1 - cc)) *
-                             sh.CL + cl];
-      const float tv = Ts[oo * sh.CL + cl];
-      const float iv = Is[oo * sh.CL + cl];
-      float gr[kK][TP];
-#pragma unroll
-      for (int r = 0; r < kK; ++r)
-#pragma unroll
-        for (int col = 0; col < TP; ++col)
-          gr[r][col] = gp[oo * GR + r * TP + col];
-#pragma unroll
-      for (int j = 0; j < TW; ++j) {
-        float G = 0.0f;
-#pragma unroll
-        for (int r = 0; r < kK; ++r)
-#pragma unroll
-          for (int cc = 0; cc < kK; ++cc)
-            G = fmaf(gr[r][j + cc], wf[r][cc], G);
-        const float d = wav::dpsi<WAV>((xr[j] - tv) * iv);
-        acc[j] = fmaf(d * G, iv, acc[j]);
+  };
+  // cp.async of chunk kk's g rect (a warp per staged row, lanes over
+  // (column, o)) and weights (a thread per pair, its 9 taps)
+  auto stage = [&](int kk, float* buf) {
+    const int oc0 = kk * kDxOCH;
+    int i2 = 0, gr = warp;
+    while (gr >= sh.NGR) {
+      gr -= sh.NGR;
+      ++i2;
+    }
+    while (i2 < sh.NIB) {
+      const int b2 = ib * sh.NIB + i2, oh = ohR + gr;
+      const bool rowOk = b2 < sh.B && (unsigned)oh < (unsigned)sh.Ho;
+      const float* src =
+          rowOk ? g + (size_t)b2 * gImg + (size_t)oh * sh.Wo * sh.O + oc0 : g;
+      float* dst = buf + i2 * sh.imgStride + gr * NGC * kDxOCH;
+      if (sh.gVec) {  // float4 q of column col
+        for (int e = lane; e < NGC * (kDxOCH / 4); e += 32) {
+          const int col = e >> 1, q = e & 1, ow = ow0 + col;
+          const bool ok = rowOk && (unsigned)ow < (unsigned)sh.Wo &&
+                          oc0 + 4 * q < sh.O;
+          kan::cp_async16(dst + 4 * e,
+                          ok ? src + (size_t)ow * sh.O + 4 * q : g, ok);
+        }
+      } else {
+        for (int e = lane; e < NGC * kDxOCH; e += 32) {
+          const int col = e >> 3, q = e & (kDxOCH - 1), ow = ow0 + col;
+          const bool ok =
+              rowOk && (unsigned)ow < (unsigned)sh.Wo && oc0 + q < sh.O;
+          kan::cp_async4(dst + e, ok ? src + (size_t)ow * sh.O + q : g, ok);
+        }
+      }
+      gr += nW;
+      while (gr >= sh.NGR) {
+        gr -= sh.NGR;
+        ++i2;
       }
     }
+    const size_t tapStride = (size_t)sh.C * sh.O;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q >= np) break;
+      int o, c, off;
+      pair(q, oc0, o, c, off);
+      const bool ok = c < sh.C && o < sh.O;
+      const float* src = ok ? w + (size_t)c * sh.O + o : w;
+#pragma unroll
+      for (int tap = 0; tap < kK * kK; ++tap)
+        kan::cp_async4(buf + off + 4 * tap, ok ? src + tap * tapStride : w,
+                       ok);
+    }
+    kan::cp_async_commit();
+  };
+
+  // the rect rows of this warp's tile on the frame (compiled widths: pad 1,
+  // Ho = H)
+  int vm = 0;
+#pragma unroll
+  for (int a = 0; a < RT + kK - 1; ++a)
+    vm |= ((unsigned)(h0 - 1 + a) < (unsigned)sh.Ho) << a;
+  const int gOff = i * sh.imgStride + pw * RT * NGC * kDxOCH;
+  const int wOff = sh.gBuf + cg * kDxGroup;
+
+  stage(0, smem);
+  load_ts(0);
+  store_ts(0, smem);
+  for (int kk = 0; kk < sh.nCh; ++kk) {
+    float* const buf = smem + (kk & 1) * sh.bufStride;
+    float* const nbuf = smem + ((kk + 1) & 1) * sh.bufStride;
+    const bool next = kk + 1 < sh.nCh;
+    kan::cp_async_wait_all();
+    __syncthreads();  // chunk kk is in; every reader of chunk kk - 1 done
+    if (next) {
+      stage(kk + 1, nbuf);
+      load_ts(kk + 1);
+    }
+    if (active) {
+      const int no = min(kDxOCH, sh.O - kk * kDxOCH);
+      const float* gq = buf + gOff;
+      const float* wq = buf + wOff;
+      const int ws = sh.wStride;
+      if constexpr (WT == 0) {
+        dx_chunk<WAV, P, RT, 7, true, true>(tl, gq, wq, no, ws);
+      } else if constexpr (RT == 1) {
+        if (vm == 7) {
+          dx_chunk<WAV, P, RT, 7, false, false>(tl, gq, wq, no, ws);
+        } else if (vm == 6) {
+          dx_chunk<WAV, P, RT, 6, false, false>(tl, gq, wq, no, ws);
+        } else {
+          dx_chunk<WAV, P, RT, 3, false, false>(tl, gq, wq, no, ws);
+        }
+      } else {
+        if (vm == 15) {
+          dx_chunk<WAV, P, RT, 15, false, false>(tl, gq, wq, no, ws);
+        } else if (vm == 14) {
+          dx_chunk<WAV, P, RT, 14, false, false>(tl, gq, wq, no, ws);
+        } else if (vm == 7) {
+          dx_chunk<WAV, P, RT, 7, false, false>(tl, gq, wq, no, ws);
+        } else {
+          dx_chunk<WAV, P, RT, 6, false, false>(tl, gq, wq, no, ws);
+        }
+      }
+    }
+    if (next) store_ts(kk + 1, nbuf);
   }
 
   if (!active) return;
 #pragma unroll
-  for (int j = 0; j < TW; ++j)
-    if (w0 + j < sh.W)
-      dx[(((size_t)b * sh.H + h) * sh.W + w0 + j) * sh.C + c] = acc[j];
+  for (int rho = 0; rho < RT; ++rho)
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int h = h0 + rho, wc = w0 + j;
+      if (h >= sh.H || wc >= sh.W) continue;
+      float* p = dx + (((size_t)b * sh.H + h) * sh.W + wc) * sh.C + c0;
+      const float4 v = tl.acc[rho][j];
+      if (sh.xVec) {
+        *reinterpret_cast<float4*>(p) = v;
+      } else {
+        p[0] = v.x;
+        if (nc > 1) p[1] = v.y;
+        if (nc > 2) p[2] = v.z;
+        if (nc > 3) p[3] = v.w;
+      }
+    }
 }
 
 // ---------------------------------------------------- parameter gradients
@@ -670,9 +885,8 @@ cudaError_t grant_smem(Kernel kernel, size_t smem, size_t* granted) {
 }
 
 size_t dx_smem(const DxShape& sh) {
-  return sizeof(float) * ((size_t)sh.NS * sh.stripStride +
-                          (size_t)sh.OCH * kK * kK * sh.CL +
-                          2 * (size_t)sh.OCH * sh.CL);
+  // one buffer per chunk in flight: two where O takes more than one chunk
+  return sizeof(float) * (sh.nCh > 1 ? 2 : 1) * (size_t)sh.bufStride;
 }
 
 size_t param_smem(const ParamShape& sh, bool pipe, int threads) {
@@ -690,25 +904,29 @@ struct Ptrs {
   float* out;
 };
 
-template <int WAV, int TW>
-cudaError_t launch_dx(const Ptrs& p, const DxShape& sh, cudaStream_t st) {
-  auto kernel = wav_conv2d_bwd_dx_kernel<WAV, TW>;
+template <int WAV, int WT>
+cudaError_t launch_dx(const Ptrs& p, const DxShape& sh, unsigned blocks,
+                      cudaStream_t st) {
+  auto kernel = wav_conv2d_bwd_dx_kernel<WAV, WT>;
   static size_t granted = 48 * 1024;
   const size_t smem = dx_smem(sh);
   const cudaError_t err = grant_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sh.nStrips + sh.NS - 1) / sh.NS,
-                  (sh.C + sh.CL - 1) / sh.CL);
-  kernel<<<grid, kThreads, smem, st>>>(p.x, p.w, p.t, p.s, p.g, p.out, sh);
+  const int ctile = kCT << sh.lCG;
+  const dim3 grid(blocks, (sh.C + ctile - 1) / ctile);
+  kernel<<<grid, kDxThreads, smem, st>>>(p.x, p.w, p.t, p.s, p.g, p.out, sh);
   return cudaGetLastError();
 }
 
 template <int WAV>
-cudaError_t launch_dx_tile(int TW, const Ptrs& p, const DxShape& sh,
-                           cudaStream_t st) {
-  if (TW == 2) return launch_dx<WAV, 2>(p, sh, st);
-  if (TW == 4) return launch_dx<WAV, 4>(p, sh, st);
-  return launch_dx<WAV, 8>(p, sh, st);
+cudaError_t launch_dx_width(int WT, const Ptrs& p, const DxShape& sh,
+                            unsigned blocks, cudaStream_t st) {
+  switch (WT) {
+    case 8: return launch_dx<WAV, 8>(p, sh, blocks, st);
+    case 4: return launch_dx<WAV, 4>(p, sh, blocks, st);
+    case 2: return launch_dx<WAV, 2>(p, sh, blocks, st);
+    default: return launch_dx<WAV, 0>(p, sh, blocks, st);
+  }
 }
 
 template <int WAV, int WT, bool PIPE>
@@ -767,36 +985,56 @@ extern "C" {
 
 // Data gradient dx (B, H, W, C) for g (B, Ho, Wo, O).  Returns a
 // cudaError_t (0 = success); cudaErrorInvalidValue for a tile, kernel size
-// or wavelet the build does not carry.  The Python wrapper chooses
-// TW/CL/OCH (kernels/wav_conv2d.py, dx_launch_config) and validates every
-// tensor.
+// or wavelet the build does not carry.  The Python wrapper chooses WT (0 or
+// a compiled width: 8 or 4 with H >= 2, 2 with H even, pad 1), CG (channel
+// groups of 4 per block: 4 or 8) and NPB (tile positions per block: 1, 2,
+// 4) in kernels/wav_conv2d.py, dx_launch_config, and validates every tensor.
 int wav_conv2d_bwd_dx(const void* x, const void* w, const void* t,
                       const void* s, const void* g, void* dx, int B, int H,
-                      int W, int C, int O, int k, int pad, int TW, int CL,
-                      int OCH, int wavelet, void* stream) {
+                      int W, int C, int O, int k, int pad, int WT, int CG,
+                      int NPB, int wavelet, void* stream) {
   DxShape sh;
   sh.B = B; sh.H = H; sh.W = W; sh.C = C; sh.O = O; sh.pad = pad;
   sh.Ho = H + 2 * pad - k + 1;
   sh.Wo = W + 2 * pad - k + 1;
-  sh.CL = CL; sh.OCH = OCH;
-  sh.NS = CL > 0 ? kThreads / CL : 0;
-  if (k != kK || (TW != 2 && TW != 4 && TW != 8) || !pow2_upto(CL, 32) ||
-      OCH <= 0 || pad < 0 || sh.Ho <= 0 || sh.Wo <= 0 || wavelet < 0 ||
-      wavelet > 4)
+  const bool compiled =
+      pad == 1 && W == WT &&
+      (WT == 8 || WT == 4 ? H >= 2 : WT == 2 && H % 2 == 0);
+  if (k != kK || (WT != 0 && !compiled) || (CG != 4 && CG != 8) ||
+      (NPB != 1 && NPB != 2 && NPB != 4) || B <= 0 || C <= 0 || O <= 0 ||
+      pad < 0 || sh.Ho <= 0 || sh.Wo <= 0 || wavelet < 0 || wavelet > 4)
     return (int)cudaErrorInvalidValue;
-  sh.nSeg = (W + TW - 1) / TW;
-  sh.nStrips = B * H * sh.nSeg;
-  sh.stripStride = OCH * kK * (TW + kK - 1) + 1;
-  if (dx_smem(sh) > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int P = WT == 0 ? 8 : WT, RT = WT == 2 ? 2 : 1;
+  sh.lCG = log2_of(CG);
+  sh.lNPB = log2_of(NPB);
+  sh.nSeg = (W + P - 1) / P;
+  sh.nRG = (H + RT - 1) / RT;
+  sh.nRB = (sh.nRG + NPB - 1) / NPB;
+  sh.NIB = (32 / CG) * (4 / NPB);
+  sh.NGR = NPB * RT + kK - 1;
+  sh.imgStride = sh.NGR * (P + kK - 1) * kDxOCH + 4;
+  sh.gBuf = sh.NIB * sh.imgStride;
+  sh.wStride = CG * kDxGroup;
+  sh.bufStride = sh.gBuf + kDxOCH * sh.wStride;
+  sh.nCh = (O + kDxOCH - 1) / kDxOCH;
+  sh.xVec = C % 4 == 0;
+  sh.gVec = O % 4 == 0;
+  const long blocks = (long)((B + sh.NIB - 1) / sh.NIB) * sh.nSeg * sh.nRB;
+  if (blocks > 0x7fffffffL || (C + 4 * CG - 1) / (4 * CG) > 65535 ||
+      dx_smem(sh) > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
   const Ptrs p = ptrs(x, w, t, s, g, dx);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nb = (unsigned)blocks;
   switch (wavelet) {
     case wav::kMexicanHat:
-      return (int)launch_dx_tile<wav::kMexicanHat>(TW, p, sh, st);
-    case wav::kMorlet: return (int)launch_dx_tile<wav::kMorlet>(TW, p, sh, st);
-    case wav::kDog: return (int)launch_dx_tile<wav::kDog>(TW, p, sh, st);
-    case wav::kMeyer: return (int)launch_dx_tile<wav::kMeyer>(TW, p, sh, st);
-    default: return (int)launch_dx_tile<wav::kShannon>(TW, p, sh, st);
+      return (int)launch_dx_width<wav::kMexicanHat>(WT, p, sh, nb, st);
+    case wav::kMorlet:
+      return (int)launch_dx_width<wav::kMorlet>(WT, p, sh, nb, st);
+    case wav::kDog: return (int)launch_dx_width<wav::kDog>(WT, p, sh, nb, st);
+    case wav::kMeyer:
+      return (int)launch_dx_width<wav::kMeyer>(WT, p, sh, nb, st);
+    default: return (int)launch_dx_width<wav::kShannon>(WT, p, sh, nb, st);
   }
 }
 

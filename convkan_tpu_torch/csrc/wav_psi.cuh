@@ -103,4 +103,21 @@ __device__ __forceinline__ float dpsi(float z) {
   return d;
 }
 
+// v * psi'(z) as dpsi_by(z, dpsi_coef(v)): the wavelet's leading constant
+// (mexican_hat's) is folded into the factor, taken once per (o, c), so a
+// call costs no more multiplies than psi'(z) alone
+template <int WAV>
+__device__ __forceinline__ float dpsi_coef(float v) {
+  return WAV == kMexicanHat ? kMexC * v : v;
+}
+
+template <int WAV>
+__device__ __forceinline__ float dpsi_by(float z, float k) {
+  if (WAV == kMexicanHat) {
+    const float z2 = z * z;
+    return k * z * expf(-0.5f * z2) * (3.0f - z2);
+  }
+  return k * dpsi<WAV>(z);
+}
+
 }  // namespace wav

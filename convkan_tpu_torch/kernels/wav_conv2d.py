@@ -41,7 +41,17 @@ KERNEL_SIZES = {3}               # square kernels the compiled code carries
 THREADS = 256
 SMEM_BUDGET = 96 * 1024          # bytes of shared memory a block may take
 FWD_MAX_CC = 8                   # forward: input channels staged per pass
-DX_MAX_OCH = 32                  # data gradient: output channels per pass
+# data gradient (csrc/wav_conv2d_bwd.cu): blocks of DX_THREADS threads; a
+# thread keeps DX_CT input channels of a tile of pixels (a row segment of 8;
+# rows of DX_WIDTHS compiled with their pad taps left out at pad 1: a row of
+# 8 or 4, two rows of 2) and walks O in chunks of DX_OCH output channels,
+# staged with the weights, 1/s, -t/s and psi''s factor (DX_GROUP floats per
+# channel group and o)
+DX_THREADS = 128
+DX_CT = 4
+DX_OCH = 8
+DX_GROUP = 4 * (9 + 4)
+DX_WIDTHS = (2, 4, 8)
 # parameter kernel (csrc/wav_conv2d_bwd.cu): a thread keeps PARAM_CT input
 # channels' sums (9 dw, dt, ds each) of one output channel; a step gives a
 # thread at least PARAM_PIXELS pixels; rows of the widths PARAM_WIDTHS are
@@ -59,6 +69,7 @@ SM_SMEM = 228 * 1024
 BLOCK_SMEM_MAX = 227 * 1024
 SM_REGS = 65536
 PARAM_REGS = 168
+DX_REGS = 168                    # __launch_bounds__(DX_THREADS, 3)
 # shared memory a parameter block aims at: 3 of them fit on an SM
 PARAM_SMEM = SM_SMEM // 3 - 1024
 # a split with fewer partials is taken when its cost (_param_split) is
@@ -277,18 +288,46 @@ def fwd_launch_config(B, H, W, C, O, k, pad) -> dict:
 
 
 def dx_launch_config(B, H, W, C, O, k, pad) -> dict:
-    """Data-gradient block: CL input channels (one per lane) x NS strips of
-    TW input pixels in a row; OCH output channels staged per pass."""
-    TW = _tile(W)
-    CL = min(32, _pow2_at_least(C))
-    NS = THREADS // CL
-    for OCH in range(min(O, DX_MAX_OCH), 0, -1):
-        # g rows of every strip (odd strip stride), weights, t and 1/s
-        if 4 * (NS * (OCH * k * (TW + k - 1) + 1) + OCH * k * k * CL
-                + 2 * OCH * CL) <= SMEM_BUDGET:
-            return {"TW": TW, "CL": CL, "NS": NS, "OCH": OCH}
-    raise NotImplementedError("data-gradient tile does not fit in shared "
-                              "memory")
+    """Data-gradient block (csrc/wav_conv2d_bwd.cu): DX_THREADS threads,
+    lanes of CG channel groups (DX_CT channels each) x 32 / CG images, the
+    warps at NPB tile positions (row groups of RT rows) x 4 / NPB image
+    groups (NIB images a block); a thread's tile is RT rows x P pixels.
+    ``WT``: a compiled width (pad 1: 8 or 4 with H >= 2, 2 with H even;
+    its pad taps left out), else 0 (segments of 8, every tap).  ``smem``:
+    one buffer (two when O takes more than one chunk of DX_OCH) of the
+    block's g rect (NGR rows x P + 2 columns x DX_OCH per image, stride
+    ``img_stride``) and the chunk's weights and factors.  Raises
+    NotImplementedError where the grid or the buffers do not fit."""
+    return dict(_dx_config(B, H, W, C, O, k, pad))
+
+
+@functools.lru_cache(maxsize=None)
+def _dx_config(B, H, W, C, O, k, pad) -> dict:
+    compiled = pad == 1 and W in DX_WIDTHS and (
+        H % 2 == 0 if W == 2 else H >= 2)
+    WT = W if compiled else 0
+    P = WT or 8
+    RT = 2 if WT == 2 else 1
+    CG = 4 if C <= 16 else 8
+    nseg, nrg = -(-W // P), -(-H // RT)
+    NPB = min(4, _pow2_at_least(nrg))
+    NIB = 32 // CG * (4 // NPB)
+    NGR = NPB * RT + k - 1
+    img_stride = NGR * (P + k - 1) * DX_OCH + 4
+    buf = NIB * img_stride + DX_OCH * CG * DX_GROUP
+    nbuf = 2 if O > DX_OCH else 1
+    smem = 4 * nbuf * buf
+    grid = (-(-B // NIB) * nseg * -(-nrg // NPB), -(-C // (DX_CT * CG)))
+    if smem > BLOCK_SMEM_MAX or grid[0] >= 2 ** 31 or grid[1] > 65535:
+        raise NotImplementedError("data-gradient grid or buffers too large")
+    fit = min(SM_REGS // (DX_THREADS * DX_REGS), SM_SMEM // (smem + 1024),
+              2048 // DX_THREADS, 32)
+    blocks = grid[0] * grid[1]
+    return {"WT": WT, "compiled": compiled, "P": P, "RT": RT, "CG": CG,
+            "CT": DX_CT, "NPB": NPB, "NIB": NIB, "NGR": NGR,
+            "img_stride": img_stride, "threads": DX_THREADS, "smem": smem,
+            "grid": grid, "blocks": blocks, "blocks_per_sm": fit,
+            "waves": blocks / (SMS * fit)}
 
 
 def _param_smem(W, OC, gcols, threads, cg, rs, rb, pipe) -> int:
@@ -457,7 +496,7 @@ _ARGTYPES = {
     # x, w, t, s, y; B H W C O k pad T OC CC wavelet; stream
     "wav_conv2d_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
-    # x, w, t, s, g, dx; B H W C O k pad TW CL OCH wavelet; stream
+    # x, w, t, s, g, dx; B H W C O k pad WT CG NPB wavelet; stream
     "wav_conv2d_bwd_dx": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
     # x, w, t, s, g, partial; B H W C O k pad OC CG RS RB threads pipe S ips
@@ -527,8 +566,8 @@ def input_grad(x, w, t, s, g, wavelet_type: str, pad: int):
         raise NotImplementedError(f"{desc}: {e}") from None
     dx = torch.empty_like(x)
     _launch("wav_conv2d_bwd_dx",
-            _ptrs(x, w, t, s, g, dx) + (B, H, W, C, O, k, pad, cfg["TW"],
-                                        cfg["CL"], cfg["OCH"],
+            _ptrs(x, w, t, s, g, dx) + (B, H, W, C, O, k, pad, cfg["WT"],
+                                        cfg["CG"], cfg["NPB"],
                                         WAVELETS[wavelet_type], _stream(x)),
             desc)
     return dx

@@ -385,6 +385,51 @@ def test_cuda_wav_param_kernel_other_pads_and_splits(B, H, W, C, O, pad):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O,pad,wavelet_type", [
+    # the data gradient's compiled row widths 8 (H = 8, 3), 4 (H = 4, 6) and
+    # 2 (two rows: H = 2)
+    (6, 8, 8, 32, 64, 1, "mexican_hat"), (5, 3, 8, 16, 20, 1, "mexican_hat"),
+    (9, 4, 4, 64, 128, 1, "mexican_hat"), (4, 6, 4, 16, 24, 1, "mexican_hat"),
+    (33, 2, 2, 128, 128, 1, "mexican_hat"),
+    # the generic segment of 8: widths 32, 16, 5, 7, 11; C = 3, 5, 13 (not
+    # a multiple of 4); H = 1 and odd H on a compiled width; pads 0 and 2;
+    # O not a multiple of 4 (4-byte copies of g) or of the chunk
+    (3, 32, 32, 16, 16, 1, "mexican_hat"), (3, 16, 16, 32, 32, 1, "dog"),
+    (3, 7, 5, 13, 5, 1, "mexican_hat"), (5, 5, 7, 5, 16, 1, "morlet"),
+    (9, 1, 8, 6, 32, 1, "mexican_hat"), (4, 5, 2, 3, 8, 1, "mexican_hat"),
+    (3, 4, 4, 5, 16, 0, "mexican_hat"), (2, 3, 5, 4, 12, 2, "mexican_hat"),
+    (3, 5, 11, 12, 13, 0, "shannon"),
+] + [(4, 8, 8, 16, 24, 1, w) for w in WAVELETS]
+  + [(6, 4, 4, 32, 16, 1, w) for w in WAVELETS[1:]]
+  + [(7, 2, 2, 64, 32, 1, w) for w in WAVELETS[1:]])
+def test_cuda_wav_dx_kernel_matches_plain_version(B, H, W, C, O, pad,
+                                                  wavelet_type):
+    """The data-gradient kernel alone, one launch, against float64 autograd
+    of the plain version on the card (see _within), and two calls
+    bit-identical (each block sums all of O in one fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.device import set_full_f32
+    from convkan_tpu_torch.kernels import wav_conv2d as wc
+
+    set_full_f32()
+    x, w, t, s, _ = _wav_inputs(B, H, W, C, O, seed=B * 31 + C + pad)
+    Ho, Wo = H + 2 * pad - 2, W + 2 * pad - 2
+    g = torch.from_numpy(np.random.RandomState(O).normal(
+        0, 1, (B, Ho, Wo, O)).astype(np.float32)).cuda()
+    wc.reset_launches()
+    dx = wc.input_grad(x, w, t, s, g, wavelet_type, pad)
+    again = wc.input_grad(x, w, t, s, g, wavelet_type, pad)
+    torch.cuda.synchronize()
+    assert wc.launches["wav_conv2d_bwd_dx"] == 2
+    assert torch.equal(dx, again)
+    ref = wc.input_grad_reference(*(a.double() for a in (x, w, t, s, g)),
+                                  wavelet_type, pad)
+    ok, err = _within(dx, ref)
+    assert ok, f"dx: max |diff| {err}"
+
+
+@pytest.mark.cuda
 def test_cuda_wav_skips_unneeded_dx_and_is_deterministic():
     """No data gradient for an input that needs none; two backward calls
     give bit-identical parameter gradients (fixed split, ordered

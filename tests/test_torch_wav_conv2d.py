@@ -176,7 +176,9 @@ def test_wrapper_refuses_bad_inputs():
 def test_launch_configs_tile_vgg16_small_and_config4():
     """Every VGG16_small and config-4 conv shape gets tiles that fit, at
     the batches the card runs; the parameter split depends on the shape
-    only and covers the batch.  At batch 1024 the parameter block is whole
+    only and covers the batch.  The data-gradient block is whole warps of
+    4-channel groups over a compiled row width on the small planes and, at
+    batch 1024, fits 3 to an SM.  At batch 1024 the parameter block is whole
     warps of pairs (OC x CG x RS threads), cp.async-pipelined over a
     compiled row width, and small enough that 3 fit an SM's shared memory;
     its split balances the SMs over the blocks that fit (registers at the
@@ -187,7 +189,16 @@ def test_launch_configs_tile_vgg16_small_and_config4():
             assert f["OC"] * f["S"] == wc.THREADS and f["CC"] >= 1
             assert f["T"] == (8 if H > 4 else H)
             d = wc.dx_launch_config(B, H, H, C, O, 3, 1)
-            assert d["CL"] * d["NS"] == wc.THREADS and d["OCH"] >= 1
+            # whole warps of 4-channel groups x images, the warps at NPB
+            # tile positions x 4 / NPB image groups; a compiled width with
+            # its pad taps left out on the 8x8, 4x4 and 2x2 planes
+            assert d["threads"] == wc.DX_THREADS and d["threads"] % 32 == 0
+            assert d["CT"] == wc.DX_CT and 32 % d["CG"] == 0
+            assert d["NIB"] * d["CG"] * d["NPB"] == d["threads"]
+            assert d["compiled"] == (H in wc.DX_WIDTHS)
+            assert d["WT"] == (H if d["compiled"] else 0)
+            assert d["grid"][1] * d["CT"] * d["CG"] >= C
+            assert d == wc.dx_launch_config(B, H, H, C, O, 3, 1)
             p = wc.param_launch_config(B, H, H, C, O, 3, 1)
             assert p["OC"] * p["CG"] * p["RS"] == p["threads"]
             assert p["threads"] % 32 == 0 and p["RB"] % p["RS"] == 0
@@ -196,6 +207,12 @@ def test_launch_configs_tile_vgg16_small_and_config4():
             assert p == wc.param_launch_config(B, H, H, C, O, 3, 1)
             if B < 1024:
                 continue
+            # the data gradient: 3 blocks an SM within shared memory and
+            # registers, blocks on every SM
+            assert d["smem"] <= wc.SM_SMEM // 3 - 1024
+            assert d["blocks_per_sm"] == 3 == wc.SM_REGS // (
+                d["threads"] * wc.DX_REGS)
+            assert d["blocks"] >= wc.SMS
             assert p["smem"] <= wc.PARAM_SMEM
             assert wc.SM_SMEM // (p["smem"] + 1024) >= 3
             assert p["blocks_per_sm"] == wc.SM_REGS // (

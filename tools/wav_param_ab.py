@@ -1,23 +1,25 @@
-"""Device times of the WavKAN parameter-gradient kernel
-(``wav_conv2d_bwd_param``) of one checkout of the port, at the 9 distinct
-VGG16_small conv shapes at batch 1024, timed by this checkout's
-``chip_smoke.py`` (``cuda_ms``: a preloaded queue) with its bound
-(``wav_bound``), so that two versions of the kernel are timed the same
-way.  Run on the GPU machine from the repository root, once per tree, in
-the order old, new, new, old:
+"""Device times of one WavKAN backward kernel of one checkout of the
+port: the parameter-gradient kernel (``wav_conv2d_bwd_param``, the
+default) or the data-gradient kernel (``--kernel dx``,
+``wav_conv2d_bwd_dx``), at the distinct VGG16_small conv shapes at batch
+1024, timed by this checkout's ``chip_smoke.py`` (``cuda_ms``: a preloaded
+queue) with its bound (``wav_bound``), so that two versions of a kernel
+are timed the same way.  Run on the GPU machine from the repository root,
+once per tree, in the order old, new, new, old:
 
-    python3 tools/wav_param_ab.py --tree build/ab/v1 --label parent
-    python3 tools/wav_param_ab.py --label new
+    python3 tools/wav_param_ab.py --kernel dx --tree build/ab/v1 --label parent
+    python3 tools/wav_param_ab.py --kernel dx --label new
 
 ``--tree`` is the root of the checkout whose ``convkan_tpu_torch`` is timed
 (default: this one).  Builds only that tree's ``wav_conv2d_bwd.cu`` and
-prints the compiler's registers and spills.  ``--check`` first holds the
-kernel's partials against float64 autograd of the plain version
+prints the compiler's registers and spills of the chosen kernel's
+instantiations.  ``--check`` first holds the kernel's result (the
+parameter partials, or dx) against float64 autograd of the plain version
 (``chip_smoke.bwd_close``: BWD_TOL) at the row widths it compiles, ragged
 shapes and all 5 wavelets, and two calls bit-identical; ``--no-time``
 skips the timing.  Prints one JSON line per shape (ms, bound, share, the
-launch config), the 13-conv total per train step, and the card's name and
-power limit.
+launch config), the total per train step (the data gradient skips the
+first conv), and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -49,12 +51,43 @@ CHECKS = [(4, 32, 32, 3, 16, "mexican_hat", 1),
           (2, 3, 5, 4, 12, "mexican_hat", 2)]
 CHECKS += [(8, 8, 8, 16, 32, w, 1)
            for w in ("morlet", "dog", "meyer", "shannon")]
+# the data gradient's compiled rows of 4 and 2 in the other wavelets, a
+# compiled width at odd H, O = 9 and width 11 at pad 0
+DX_CHECKS = CHECKS + [(6, H, H, C, 32, w, 1) for H, C in ((4, 32), (2, 64))
+                      for w in ("morlet", "dog", "meyer", "shannon")]
+DX_CHECKS += [(5, 3, 8, 16, 20, "mexican_hat", 1),
+              (4, 5, 4, 16, 9, "mexican_hat", 1),
+              (4, 5, 2, 16, 9, "mexican_hat", 1),
+              (3, 5, 11, 12, 13, "shannon", 0)]
+KERNEL_NAMES = {"param": "wav_conv2d_bwd_param", "dx": "wav_conv2d_bwd_dx"}
+
+
+def build_report(log: str, kernel: str):
+    """(instantiation, registers line) of the kernel's entries in a ptxas
+    -v log, demangled where c++filt is there."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and kernel in name and ("registers" in line or
+                                          "spill" in line):
+            out.append((name, line.strip()))
+    names = sorted({n for n, _ in out})
+    try:
+        dem = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+        names = dict(zip(names, dem))
+    except (OSError, subprocess.CalledProcessError):
+        names = {n: n for n in names}
+    return [(names[n], line) for n, line in out]
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--label", default="")
+    ap.add_argument("--kernel", choices=sorted(KERNEL_NAMES), default="param")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--no-time", action="store_true")
     args = ap.parse_args()
@@ -78,33 +111,46 @@ def main():
     print(f"{tag} {card}; timing {Path(wc.__file__).resolve()}", flush=True)
     build.build(wc.BWD_SOURCE)   # named by a hash of the sources
     log = build.library_path(wc.BWD_SOURCE).with_suffix(".log").read_text()
-    for line in log.splitlines():
-        if "param" in line or "registers" in line or "spill" in line:
-            print(f"{tag} [build] {line.strip()}")
+    name = KERNEL_NAMES[args.kernel]
+    for inst, line in build_report(log, name + "_kernel"):
+        print(f"{tag} [build] {inst}: {line}")
     gen = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
+    dx = args.kernel == "dx"
+
+    def run(x, w, t, s, g, wt, pad):
+        if dx:
+            return wc.input_grad(x, w, t, s, g, wt, pad)
+        return wc.param_partials(x, w, t, s, g, wt, pad)
+
+    def config(B, H, W, C, O, pad):
+        if dx:
+            return wc.dx_launch_config(B, H, W, C, O, 3, pad)
+        return wc.param_launch_config(B, H, W, C, O, 3, pad)
+
     if args.check:
-        for B, H, W, C, O, wt, pad in CHECKS:
+        for B, H, W, C, O, wt, pad in DX_CHECKS if dx else CHECKS:
             x, w, t, s = (a.to(dev) for a in smoke.wav_inputs(gen, B, H, W,
                                                               C, O))
             Ho, Wo = H + 2 * pad - 2, W + 2 * pad - 2
             g = torch.randn(B, Ho, Wo, O, generator=gen).to(dev)
-            cfg = wc.param_launch_config(B, H, W, C, O, 3, pad)
-            part = wc.param_partials(x, w, t, s, g, wt, pad)
-            again = wc.param_partials(x, w, t, s, g, wt, pad)
+            cfg = config(B, H, W, C, O, pad)
+            got = run(x, w, t, s, g, wt, pad)
+            again = run(x, w, t, s, g, wt, pad)
             torch.cuda.synchronize()
-            ref = wc.param_partials_reference(
-                *(a.double() for a in (x, w, t, s, g)), wt, pad, cfg["S"],
-                cfg["ips"])
-            err, ok = smoke.bwd_close(part, ref)
-            same = torch.equal(part, again)
-            print(f"{tag} [check] B={B} {H}x{W} C={C} O={O} {wt} pad={pad} "
-                  f"S={cfg['S']}: max|err| {err:.3e} "
+            d64 = [a.double() for a in (x, w, t, s, g)]
+            ref = wc.input_grad_reference(*d64, wt, pad) if dx else \
+                wc.param_partials_reference(*d64, wt, pad, cfg["S"],
+                                            cfg["ips"])
+            err, ok = smoke.bwd_close(got, ref)
+            same = torch.equal(got, again)
+            print(f"{tag} [check] {name} B={B} {H}x{W} C={C} O={O} {wt} "
+                  f"pad={pad}: max|err| {err:.3e} "
                   f"{'bit-identical' if same else 'NOT bit-identical'} "
                   f"{'ok' if ok and same else 'FAIL'}", flush=True)
-            smoke.check(ok and same and bool(torch.isfinite(part).all()),
-                        f"parameter kernel wrong at B={B} {H}x{W} C={C} "
-                        f"O={O} {wt} pad={pad}")
+            smoke.check(ok and same and bool(torch.isfinite(got).all()),
+                        f"{name} wrong at B={B} {H}x{W} C={C} O={O} {wt} "
+                        f"pad={pad}")
     if args.no_time:
         return
     B, total, bound = smoke.TIME_BATCH, 0.0, 0.0
@@ -112,20 +158,21 @@ def main():
         x, w, t, s = (a.to(dev) for a in smoke.wav_inputs(gen, B, H, H, C,
                                                           O))
         g = torch.randn(B, H, H, O, generator=gen).to(dev)
-        cfg = wc.param_launch_config(B, H, H, C, O, 3, 1)
-        ms = smoke.cuda_ms(lambda: wc.param_partials(x, w, t, s, g,
-                                                     "mexican_hat", 1))
-        b_ms = max(smoke.wav_bound("wav_conv2d_bwd_param", B, H, C, O,
-                                   cfg["S"], cfg["N"]))
+        cfg = config(B, H, H, C, O, 1)
+        pcfg = wc.param_launch_config(B, H, H, C, O, 3, 1)
+        ms = smoke.cuda_ms(lambda: run(x, w, t, s, g, "mexican_hat", 1))
+        b_ms = max(smoke.wav_bound(name, B, H, C, O, pcfg["S"], pcfg["N"]))
         n = smoke.VGG16_SMALL_CONVS.count((H, C, O))
+        if dx and (H, C, O) == smoke.VGG16_SMALL_CONVS[0]:
+            n -= 1   # the first conv's input is the image: no dx
         total += n * ms
         bound += n * b_ms
-        print(f"{tag} [param time] " + json.dumps(
+        print(f"{tag} [{args.kernel} time] " + json.dumps(
             {"H": H, "C": C, "O": O, "layers": n, "ms": round(ms, 4),
              "bound_ms": round(b_ms, 4), "share": round(b_ms / ms, 4),
              "config": {k: v for k, v in cfg.items() if k != "N"}}),
             flush=True)
-    print(f"{tag} [param time] wav_conv2d_bwd_param per train step at batch "
+    print(f"{tag} [{args.kernel} time] {name} per train step at batch "
           f"{B}: {total:.3f} ms, bound {bound:.3f} ms, "
           f"{100 * bound / total:.1f}% of the bound (on {card})", flush=True)
 
