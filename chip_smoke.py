@@ -67,10 +67,14 @@ Phases (the first failed check exits non-zero):
      cold L2 (the share of the bound) and on a warm one.
 WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
   9. forward kernel vs its plain version (rtol = atol = TOL): the 9
-     VGG16_small shapes at batch 64, all 5 wavelets at one shape, batch 1,
-     a ragged shape, x scaled to +-3, and the three BASELINE config-4
-     shapes 3->32@32x32, 32->64@16x16, 64->128@8x8; translation and scale
-     moved off their 0 / 1 init;
+     VGG16_small shapes at batch 64, all 5 wavelets at one shape and on
+     each compiled width (8x8, 4x4, 2x2), batch 1, ragged shapes (odd
+     planes on the generic strips, C = 13 and 20: not a multiple of the
+     chunk, O = 5 and 9: not of 4), pads 0 and 2, x scaled to +-3, and the
+     three BASELINE config-4 shapes 3->32@32x32, 32->64@16x16,
+     64->128@8x8; translation and scale moved off their 0 / 1 init; two
+     calls bit-identical in every case, each case's launch (FWD_TILE)
+     printed;
  10. backward kernels (data gradient, parameter partials, reduction) and
      the autograd path's dx, dw, dt, ds against float64 autograd of the
      plain version (BWD_TOL; the reduction bit-exact against its grouped
@@ -99,7 +103,15 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
      conv shape at batch 1024, each WavKAN kernel, its plain version, one
      cuDNN grouped convolution (forward, or convolution_backward) over a
      materialized psi (a yardstick the port never calls) and the bound;
-     for the parameter kernel also its launch (channels per thread,
+     for the forward also its result at batch 1024 (one band of RB = H
+     rows, the launch the train step and predict run) against its plain
+     version on the same inputs (TOL) and two calls bit-identical, its
+     launch (compiled width, strip width, output
+     channels and tile slots of a block, band rows, bands, threads,
+     blocks, blocks per SM, waves, shared memory), the psi and tap FMAs it
+     issues over the interior ones, the share of the bound and its rate
+     on issued taps, and the 13-conv forward at batch 1 (the serving
+     path's small batches); for the parameter kernel also its launch (channels per thread,
      threads, row slots, rows per step, pipeline, compiled width, splits,
      blocks, blocks per SM, waves, shared memory), and for the data
      gradient its (compiled width, pixels x rows of a tile, channel
@@ -107,7 +119,12 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
      per SM, waves, shared memory): each with the (pixel, tap, o, c) it
      issues over the interior ones, the share of the bound it reaches
      and its rate on issued work; the reduction as in phase 8, and an
-     empty kernel's time (the launch floor).
+     empty kernel's time (the launch floor).  The issued work (and the
+     rates and *_over_interior ratios taken from it) is modelled from the
+     launch configuration (wav_fwd_issued, wav_dx_issued, param_issued,
+     dx_pairs), not counted on the card; the forward's model is held
+     against a replay of the kernel's loops by
+     tests/test_torch_wav_fwd_kernel.py.
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
 a sleep kernel holds the card until the host has issued all timed calls);
 a kernel's timing that the host held back fails, any other is listed
@@ -168,6 +185,9 @@ RED_SOURCE = "convkan_tpu_torch/csrc/ordered_sum.cuh"
 # and 14 print
 PARAM_TILE = ("CT", "threads", "RS", "RB", "pipe", "compiled", "S", "blocks",
               "blocks_per_sm", "waves", "smem")
+# the WavKAN forward's launch (fwd_launch_config) that phases 9 and 14 print
+FWD_TILE = ("WT", "TW", "OG", "NT", "RB", "bands", "threads", "blocks",
+            "blocks_per_sm", "waves", "smem")
 # the WavKAN data gradient's launch (dx_launch_config) that phases 10 and 14
 # print
 DX_TILE = ("WT", "P", "RT", "CG", "NPB", "NIB", "threads", "blocks",
@@ -968,31 +988,48 @@ def wav_inputs(gen, B, H, W, C, O, scale=1.0):
 
 
 def phase_wav_forward(wc, gen, dev):
-    """9. the forward kernel against its plain version; returns max |err|."""
-    cases = [(64, H, H, C, O, "mexican_hat", 1.0)
+    """9. the forward kernel against its plain version, and two calls
+    bit-identical; returns max |err|."""
+    cases = [(64, H, H, C, O, "mexican_hat", 1.0, 1)
              for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
-    cases += [(16, 16, 16, 16, 32, w, 1.0) for w in WAVELETS]
-    cases += [(1, 32, 32, 3, 16, "mexican_hat", 1.0),      # batch 1
-              (3, 7, 5, 13, 5, "mexican_hat", 1.0),        # ragged
-              (8, 8, 8, 32, 64, "mexican_hat", 3.0)]       # x scaled to +-3
-    cases += [(64, H, H, C, O, "mexican_hat", 1.0)
+    cases += [(16, 16, 16, 16, 32, w, 1.0, 1) for w in WAVELETS]
+    # each compiled width (its pad taps left out) in every wavelet
+    cases += [(6, H, H, C, 24, w, 1.0, 1) for H, C in ((8, 16), (4, 32),
+                                                     (2, 64))
+              for w in WAVELETS]
+    cases += [(1, 32, 32, 3, 16, "mexican_hat", 1.0, 1),    # batch 1
+              (1, 2, 2, 128, 128, "mexican_hat", 1.0, 1),   # batch 1, 2x2
+              (3, 7, 5, 13, 5, "mexican_hat", 1.0, 1),      # ragged
+              (2, 11, 13, 5, 9, "shannon", 1.0, 1),         # generic, odd
+              (3, 8, 8, 20, 9, "morlet", 1.0, 1),           # C, O ragged
+              (3, 4, 4, 5, 16, "mexican_hat", 1.0, 0),      # pad 0
+              (2, 3, 5, 4, 12, "dog", 1.0, 2),              # pad 2
+              (8, 8, 8, 32, 64, "mexican_hat", 3.0, 1)]     # x scaled
+    cases += [(64, H, H, C, O, "mexican_hat", 1.0, 1)
               for H, C, O in CONFIG4_CONVS]
     max_err = 0.0
-    for B, H, W, C, O, wt, scale in cases:
+    for B, H, W, C, O, wt, scale, pad in cases:
         x, w, t, s = (a.to(dev) for a in wav_inputs(gen, B, H, W, C, O,
                                                     scale))
-        y = wc.wav_conv2d(x, w, t, s, wavelet_type=wt, padding=1)
+        y = wc.wav_conv2d(x, w, t, s, wavelet_type=wt, padding=pad)
+        same = torch.equal(y, wc.wav_conv2d(x, w, t, s, wavelet_type=wt,
+                                            padding=pad))
         torch.cuda.synchronize()
         ref = wc.wav_conv2d_reference(x, w, t, s, wavelet_type=wt,
-                                      padding=1)
+                                      padding=pad)
         err = (y - ref).abs().max().item()
         ok = torch.allclose(y, ref, rtol=TOL, atol=TOL)
-        print(f"[wav kernel] B={B} {H}x{W} C={C} O={O} x*{scale} {wt}: "
-              f"max|err| {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        cfg = wc.fwd_launch_config(B, H, W, C, O, 3, pad)
+        print(f"[wav kernel] B={B} {H}x{W} C={C} O={O} x*{scale} {wt} "
+              f"pad={pad} ({wav_fwd_tile(cfg)}): max|err| {err:.3e}, two "
+              f"calls {'bit-identical' if same else 'DIFFERENT'} "
+              f"{'ok' if ok and same else 'FAIL'}", flush=True)
         check(bool(torch.isfinite(y).all()), "WavKAN kernel output not "
                                              "finite")
         check(ok, f"WavKAN kernel disagrees with the plain version (B={B} "
-                  f"{H}x{W} C={C} O={O} {wt})")
+                  f"{H}x{W} C={C} O={O} {wt} pad={pad})")
+        check(same, f"WavKAN kernel: two calls differ (B={B} {H}x{W} C={C} "
+                    f"O={O} {wt} pad={pad})")
         max_err = max(max_err, err)
     return max_err
 
@@ -1103,6 +1140,39 @@ def wav_bound(name, B, H, C, O, S, N):
     return ops_ms, nbytes / PEAK_BYTES * 1e3
 
 
+def wav_fwd_tile(cfg) -> str:
+    """The WavKAN forward's launch: compiled width (0: strips with a
+    halo), strip width, output channels and tile slots of a block, band
+    rows, bands, threads, blocks, blocks per SM, waves, shared memory."""
+    return ", ".join(f"{key} {cfg[key]}" for key in FWD_TILE[:-2]) + \
+        f", waves {cfg['waves']:.2f}, smem {cfg['smem']} B"
+
+
+def wav_fwd_issued(cfg, B, H, W, C, O, pad=1) -> tuple:
+    """(psi, tap FMAs) the WavKAN forward issues, modelled from its launch
+    configuration (not counted on the card): per virtual row of each band
+    inside the image, the strip's staged columns on the image (psi) and,
+    per tap row whose output row is in the band, its taps (the compiled
+    widths: those on the row; the strips: every column), x whole quads of
+    4 channels x B x O.  tests/test_torch_wav_fwd_kernel.py holds it
+    against the counts of a replay of the kernel's loops."""
+    Ho, Wo = H + 2 * pad - 2, W + 2 * pad - 2
+    TW, TWH, RB = cfg["TW"], cfg["TWH"], cfg["RB"]
+    taps = 3 * TW - 2 if cfg["compiled"] else 3 * TW
+    cq = 4 * sum(-(-min(cfg["CC"], C - c0) // 4)
+                 for c0 in range(0, C, cfg["CC"]))
+    psi = fma = 0
+    for i0 in range(0, Ho, RB):
+        i1 = min(i0 + RB, Ho)
+        for V in range(max(i0, pad), min(i1 + 2, H + pad)):
+            rows = sum(i0 <= V - di < i1 for di in range(3))
+            for j0 in range(0, Wo, TW):
+                c0 = j0 - pad if not cfg["compiled"] else 0
+                psi += sum(0 <= c0 + q < W for q in range(TWH))
+                fma += taps * rows
+    return B * O * cq * psi, B * O * cq * fma
+
+
 def param_tile(cfg) -> str:
     """The parameter kernel's launch: channels per thread, threads, row
     slots, rows per step, cp.async pipeline, compiled row width, splits,
@@ -1152,12 +1222,14 @@ def param_issued(cfg, B, H, W, C, O, pad=1) -> int:
 def phase_wav_times(wc, gen, dev, card):
     """14. per conv shape at batch TIME_BATCH: each WavKAN kernel, its plain
     version, a cuDNN grouped convolution over a materialized psi and the
-    bound; returns (per-kernel totals, rows)."""
+    bound, and the forward's result against its plain version; returns
+    (per-kernel totals, rows)."""
     F = torch.nn.functional
     totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
                                 "byte_ms"), 0.0) for n in wc.KERNELS}
     totals["wav_conv2d_bwd_reduce"].update(warm_l2_ms=0.0,
                                            library_warm_l2_ms=0.0)
+    totals["wav_conv2d_fwd"].update(batch1_ms=0.0, max_abs_err=0.0)
     rows = []
     B, spec = TIME_BATCH, ("mexican_hat", 1)
     for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
@@ -1189,6 +1261,24 @@ def phase_wav_times(wc, gen, dev, card):
                         what=("wav_conv2d_bwd_param", "plain_ms"))),
             "wav_conv2d_bwd_reduce": (red["ms"], red["plain_ms"]),
         }
+        # the forward's batch-TIME_BATCH launch (one band of RB = H rows)
+        # against its plain version on the same inputs, two calls
+        # bit-identical
+        y = wc.wav_conv2d(x, w, t, s, wavelet_type=spec[0], padding=1)
+        same = torch.equal(y, wc.wav_conv2d(x, w, t, s, wavelet_type=spec[0],
+                                            padding=1))
+        ref = wc.wav_conv2d_reference(x, w, t, s, wavelet_type=spec[0],
+                                      padding=1)
+        f_err = (y - ref).abs().max().item()
+        check(bool(torch.isfinite(y).all()), "WavKAN kernel output not finite")
+        check(torch.allclose(y, ref, rtol=TOL, atol=TOL),
+              f"WavKAN kernel disagrees with the plain version (B={B} "
+              f"{H}x{H} C={C} O={O}, max|err| {f_err:.3e})")
+        check(same, f"WavKAN kernel: two calls differ (B={B} {H}x{H} C={C} "
+                    f"O={O})")
+        totals["wav_conv2d_fwd"]["max_abs_err"] = max(
+            totals["wav_conv2d_fwd"]["max_abs_err"], f_err)
+        del y, ref
         # yardsticks the port never calls: cuDNN's grouped conv (groups=O)
         # over an already materialized psi, forward and backward, and one
         # sum
@@ -1229,6 +1319,28 @@ def phase_wav_times(wc, gen, dev, card):
                            ("library_ms", lib[name]), ("op_ms", op_ms),
                            ("byte_ms", byte_ms)):
                 totals[name][key] += layers * v
+        # the forward's launch and what it issues (2 flops a tap), and its
+        # time at batch 1
+        fcfg = wc.fwd_launch_config(B, H, H, C, O, 3, 1)
+        f_psi, f_fma = wav_fwd_issued(fcfg, B, H, H, C, O)
+        f_ms = ms["wav_conv2d_fwd"][0]
+        f_row = row["wav_conv2d_fwd"]
+        x1, w1, t1, s1 = (a.to(dev) for a in wav_inputs(gen, 1, H, H, C, O))
+        b1_ms = cuda_ms(lambda: wc.wav_conv2d(x1, w1, t1, s1,
+                                              wavelet_type=spec[0],
+                                              padding=1))
+        totals["wav_conv2d_fwd"]["batch1_ms"] += n * b1_ms
+        f_row.update({
+            "tile": {key: fcfg[key] for key in FWD_TILE},
+            "psi_over_interior": round(f_psi / (B * H * H * C * O), 4),
+            "fma_over_interior": round(
+                f_fma / (B * interior_pairs(H) * C * O), 4),
+            "bound_share": round(f_row["bound_ms"] / f_ms, 4),
+            "tflops_issued": round(2 * f_fma / f_ms / 1e9, 2),
+            "max_abs_err": f_err,
+            "batch1_ms": round(b1_ms, 4),
+            "batch1_tile": {key: wc.fwd_launch_config(1, H, H, C, O, 3, 1)[
+                key] for key in ("OG", "RB", "bands", "blocks")}})
         # the data gradient's launch and what it issues (2 flops a tap)
         xcfg = wc.dx_launch_config(B, H, H, C, O, 3, 1)
         x_issued = wav_dx_issued(xcfg, B, H, H, C, O)
@@ -1263,8 +1375,12 @@ def phase_wav_times(wc, gen, dev, card):
         print(f"[wav time] {name} per {'forward' if name == 'wav_conv2d_fwd' else 'train step'} "
               f"at batch {B}: kernel {t['ms']:.3f} ms, plain "
               f"{t['plain_ms']:.3f} ms, cuDNN over materialized psi "
-              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms (on "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound (on "
               f"{card})", flush=True)
+        if name == "wav_conv2d_fwd":
+            print(f"[wav time] {name} per forward at batch 1: kernel "
+                  f"{t['batch1_ms']:.4f} ms (on {card})", flush=True)
     # the launch floor: an empty kernel (a sleep of 0 cycles) in a
     # preloaded queue, 13 of them as per step
     empty = cuda_ms(lambda: torch.cuda._sleep(0), iters=100)
@@ -1466,6 +1582,8 @@ def main():
     del wav_model
     wav_ips = time_train_step("WavKAN", dev, card, **WAV_MODEL)
     wav_totals, wav_rows = phase_wav_times(wc, gen, dev, card)
+    wav_fwd_err = max(wav_fwd_err,
+                      wav_totals["wav_conv2d_fwd"].pop("max_abs_err"))
     wav_step_ms = 1e3 * TIME_BATCH / wav_ips
     empty_ms = wav_totals.pop("empty_kernel_ms")
     wav_kernel_ms = sum(t["ms"] for t in wav_totals.values())
@@ -1507,6 +1625,8 @@ def main():
             13 * empty_ms, 4), **{key: round(wav_totals[name][key], 4) for key
                                   in ("warm_l2_ms", "library_warm_l2_ms")}} \
             if name in red_names else {}
+        if fwd:
+            extra = {"batch1_ms": round(wav_totals[name]["batch1_ms"], 4)}
         kernels.append(kernel_entry(
             name, RED_SOURCE if name in red_names else src,
             WAV_REPLACES if fwd else WAV_BWD_REPLACES,

@@ -96,6 +96,22 @@ __device__ __forceinline__ float psi(float z) {
   return p;
 }
 
+// psi(z) without the wavelet's leading constant (mexican_hat's), which a
+// caller applies once to a sum of such terms: psi = psi_scale * psi_core
+template <int WAV>
+__device__ __forceinline__ float psi_core(float z) {
+  if (WAV == kMexicanHat) {
+    const float z2 = z * z;
+    return (z2 - 1.0f) * expf(-0.5f * z2);
+  }
+  return psi<WAV>(z);
+}
+
+template <int WAV>
+__host__ __device__ constexpr float psi_scale() {
+  return WAV == kMexicanHat ? kMexC : 1.0f;
+}
+
 template <int WAV>
 __device__ __forceinline__ float dpsi(float z) {
   float p, d;

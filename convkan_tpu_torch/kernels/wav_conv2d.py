@@ -38,9 +38,20 @@ SOURCE = "wav_conv2d_fwd.cu"
 BWD_SOURCE = "wav_conv2d_bwd.cu"
 WAVELETS = {name: code for code, name in enumerate(WAVELET_TYPES)}
 KERNEL_SIZES = {3}               # square kernels the compiled code carries
-THREADS = 256
-SMEM_BUDGET = 96 * 1024          # bytes of shared memory a block may take
-FWD_MAX_CC = 8                   # forward: input channels staged per pass
+# forward (csrc/wav_conv2d_fwd.cu): blocks of FWD_THREADS threads, OG output
+# channels (lanes, at most FWD_THREADS / FWD_CC) x tile slots; a thread
+# keeps one output channel of a strip (the whole row of the compiled widths
+# FWD_WIDTHS at pad 1, with their pad taps left out; else FWD_TW columns with
+# a halo) over a band of rows, and stages x, the weights, -t/s and 1/s in
+# chunks of FWD_CC input channels (FWD_QUAD floats per o and channel quad,
+# an o's FWD_WSTRIDE).  fwd_launch_config owns this layout: the C entry takes
+# its strides, grid and shared memory and only checks them
+FWD_THREADS = 128
+FWD_CC = 16
+FWD_TW = 8
+FWD_WIDTHS = (2, 4, 8)
+FWD_QUAD = 4 * (9 + 2)
+FWD_WSTRIDE = FWD_CC // 4 * FWD_QUAD + 4
 # data gradient (csrc/wav_conv2d_bwd.cu): blocks of DX_THREADS threads; a
 # thread keeps DX_CT input channels of a tile of pixels (a row segment of 8;
 # rows of DX_WIDTHS compiled with their pad taps left out at pad 1: a row of
@@ -70,6 +81,7 @@ BLOCK_SMEM_MAX = 227 * 1024
 SM_REGS = 65536
 PARAM_REGS = 168
 DX_REGS = 168                    # __launch_bounds__(DX_THREADS, 3)
+FWD_REGS = 128                   # __launch_bounds__(FWD_THREADS, 4)
 # shared memory a parameter block aims at: 3 of them fit on an SM
 PARAM_SMEM = SM_SMEM // 3 - 1024
 # a split with fewer partials is taken when its cost (_param_split) is
@@ -260,31 +272,72 @@ def _pow2_at_least(n: int) -> int:
     return p
 
 
-def _tile(n: int) -> int:
-    """Tile edge (compiled: 2, 4, 8) for an extent of n pixels."""
-    return 2 if n <= 2 else 4 if n <= 4 else 8
-
-
 def _describe(B, H, W, C, O, k, pad, wavelet_type) -> str:
     return (f"WavKAN conv x=({B},{H},{W},{C}) O={O} kernel={k} pad={pad} "
             f"wavelet={wavelet_type!r}")
 
 
 def fwd_launch_config(B, H, W, C, O, k, pad) -> dict:
-    """Forward block: OC output channels (one per lane) x S output tiles of
-    T x T pixels; CC input channels staged per pass.  Raises
-    NotImplementedError for a shape whose tile does not fit."""
+    """Forward block (csrc/wav_conv2d_fwd.cu): FWD_THREADS threads, ``OG``
+    output channels (lanes) x ``NT`` tile slots, a slot a (strip, image); a
+    thread walks the input rows of a band of ``RB`` output rows.  ``WT``: a
+    compiled width (pad 1, W in FWD_WIDTHS: the whole row, ``TW`` = W, its
+    pad taps left out), else 0 (strips of ``TW`` = FWD_TW with a halo of
+    k - 1 columns; ``TWH`` columns staged).  OG balances a chunk's staged x
+    (NT slots' columns) against its weights.  RB is the band that costs
+    least: the busiest SM's blocks (at least the ``blocks_per_sm`` that run
+    at once) x the input rows a band reads, the tallest band on a tie.
+    The config owns the staging layout, which the C entry takes as given
+    (checking only that it holds what the kernel reads): ``slotStride``
+    floats of a slot's staged x (TWH columns of FWD_CC channels, + 4
+    against bank conflicts), ``wStride`` of an o's weights (FWD_WSTRIDE),
+    ``smem`` bytes for two buffers of the slots' x and the weights, and the
+    ``grid``.  Raises NotImplementedError where the launch does not fit."""
+    return dict(_fwd_config(B, H, W, C, O, k, pad))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_config(B, H, W, C, O, k, pad) -> dict:
     Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
-    T = _tile(max(Ho, Wo))
-    OC = min(32, _pow2_at_least(O))
-    S = THREADS // OC
-    P2 = (T + k - 1) ** 2
-    for CC in range(min(C, FWD_MAX_CC), 0, -1):
-        # haloed x tiles (odd tile stride), weights, t and 1/s
-        if 4 * (S * (CC * P2 + 1) + CC * k * k * OC + 2 * CC * OC) \
-                <= SMEM_BUDGET:
-            return {"T": T, "OC": OC, "S": S, "CC": CC}
-    raise NotImplementedError("forward tile does not fit in shared memory")
+    compiled = pad == 1 and W in FWD_WIDTHS
+    WT = W if compiled else 0
+    TW = WT or FWD_TW
+    TWH = TW if compiled else TW + k - 1
+    # the power of two at most sqrt(FWD_THREADS * TWH / (k * k)) keeps the
+    # staged x plus weights near their least (4 o at 4 and 2 staged
+    # columns, 8 at 8 and 10)
+    OG = 1
+    while 2 * OG <= FWD_THREADS // FWD_CC and \
+            (2 * OG) ** 2 * k * k <= FWD_THREADS * TWH:
+        OG *= 2
+    OG = min(OG, _pow2_at_least(O))
+    NT = FWD_THREADS // OG
+    tiles = B * -(-Wo // TW)
+    slot_stride = TWH * FWD_CC + 4
+    smem = 4 * 2 * (NT * slot_stride + OG * FWD_WSTRIDE)
+    fit = min(SM_REGS // (FWD_THREADS * FWD_REGS), SM_SMEM // (smem + 1024),
+              2048 // FWD_THREADS, 32)
+    o_tiles, tile_blocks = -(-O // OG), -(-tiles // NT)
+
+    def cost(RB):
+        blocks = tile_blocks * -(-Ho // RB) * o_tiles
+        return max(-(-blocks // SMS), fit) * min(RB + k - 1, H)
+
+    # Ho, then the powers of two below it, tallest first
+    RB = min([Ho] + [1 << e for e in reversed(range((Ho - 1).bit_length()))],
+             key=cost)
+    bands = -(-Ho // RB)
+    grid = (tile_blocks * bands, o_tiles)
+    if tiles >= 2 ** 31 or grid[0] >= 2 ** 31 or grid[1] > 65535 or \
+            smem > BLOCK_SMEM_MAX:
+        raise NotImplementedError("forward launch does not fit")
+    blocks = grid[0] * grid[1]
+    return {"WT": WT, "compiled": compiled, "TW": TW, "TWH": TWH, "OG": OG,
+            "NT": NT, "RB": RB, "bands": bands, "CC": FWD_CC,
+            "slotStride": slot_stride, "wStride": FWD_WSTRIDE,
+            "threads": FWD_THREADS, "smem": smem, "grid": grid,
+            "blocks": blocks, "blocks_per_sm": fit,
+            "waves": blocks / (SMS * fit)}
 
 
 def dx_launch_config(B, H, W, C, O, k, pad) -> dict:
@@ -493,8 +546,9 @@ def _check_kernel_args(x, w, wavelet_type, pad) -> str:
 
 # ---------------------------------------------------------- launching
 _ARGTYPES = {
-    # x, w, t, s, y; B H W C O k pad T OC CC wavelet; stream
-    "wav_conv2d_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+    # x, w, t, s, y; B H W C O k pad WT OG RB slotStride wStride grid smem
+    # wavelet; stream
+    "wav_conv2d_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
     + [ctypes.c_void_p],
     # x, w, t, s, g, dx; B H W C O k pad WT CG NPB wavelet; stream
     "wav_conv2d_bwd_dx": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
@@ -543,9 +597,11 @@ def _fwd(x, w, t, s, wavelet_type, pad, cfg):
     y = torch.empty((B, H + 2 * pad - k + 1, W + 2 * pad - k + 1, O),
                     dtype=torch.float32, device=x.device)
     _launch("wav_conv2d_fwd",
-            _ptrs(x, w, t, s, y) + (B, H, W, C, O, k, pad, cfg["T"],
-                                    cfg["OC"], cfg["CC"],
-                                    WAVELETS[wavelet_type], _stream(x)),
+            _ptrs(x, w, t, s, y) + (B, H, W, C, O, k, pad) +
+            tuple(cfg[key] for key in ("WT", "OG", "RB", "slotStride",
+                                       "wStride")) +
+            tuple(cfg["grid"]) + (cfg["smem"], WAVELETS[wavelet_type],
+                                  _stream(x)),
             _describe(B, H, W, C, O, k, pad, wavelet_type))
     return y
 

@@ -294,13 +294,28 @@ def _within(got, want, tol=1e-4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,W,C,O,wavelet_type", [
-    (4, 32, 32, 3, 16, "mexican_hat"), (3, 8, 8, 32, 64, "mexican_hat"),
-    (5, 2, 2, 128, 128, "mexican_hat"),
-    (2, 5, 7, 6, 9, "mexican_hat"),    # ragged: odd planes, O not 2^n
-] + [(2, 16, 16, 16, 32, w) for w in WAVELETS])
-def test_cuda_wav_forward_matches_plain_version(B, H, W, C, O, wavelet_type):
-    """Float32 sums of up to 9*C products in another order: 1e-4."""
+@pytest.mark.parametrize("B,H,W,C,O,wavelet_type,pad", [
+    (4, 32, 32, 3, 16, "mexican_hat", 1), (3, 8, 8, 32, 64, "mexican_hat", 1),
+    (5, 2, 2, 128, 128, "mexican_hat", 1),
+    (2, 5, 7, 6, 9, "mexican_hat", 1),  # ragged: odd planes, O not 2^n
+    (1, 32, 32, 16, 16, "mexican_hat", 1),   # batch 1
+    (2, 11, 13, 5, 9, "shannon", 1),    # the generic strips, odd widths
+    (3, 8, 8, 20, 5, "dog", 1),         # C, O not multiples of 16, of 4
+    (3, 4, 4, 5, 16, "mexican_hat", 0), (2, 3, 5, 4, 12, "morlet", 2),
+    # batch 1024: one band of the whole plane (RB = H), as the train step
+    # and predict launch it, on the strips and each compiled width
+    (1024, 32, 32, 3, 16, "mexican_hat", 1),
+    (1024, 16, 16, 16, 32, "mexican_hat", 1),
+    (1024, 8, 8, 32, 64, "mexican_hat", 1),
+    (1024, 4, 4, 64, 128, "mexican_hat", 1),
+] + [(2, 16, 16, 16, 32, w, 1) for w in WAVELETS]
+  # each compiled width (8, 4, 2: pad taps left out) in every wavelet
+  + [(3, H, H, C, 24, w, 1) for H, C in ((8, 16), (4, 32), (2, 64))
+     for w in WAVELETS])
+def test_cuda_wav_forward_matches_plain_version(B, H, W, C, O, wavelet_type,
+                                                pad):
+    """Float32 sums of up to 9*C products in another order: 1e-4; two
+    calls bit-identical (a fixed order of sums, no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     from convkan_tpu_torch.device import set_full_f32
@@ -310,12 +325,14 @@ def test_cuda_wav_forward_matches_plain_version(B, H, W, C, O, wavelet_type):
     x, w, t, s, _ = _wav_inputs(B, H, W, C, O, seed=B * 100 + C,
                                 xscale=3.0 if O == 9 else 1.0)
     wc.reset_launches()
-    y = wc.wav_conv2d(x, w, t, s, wavelet_type=wavelet_type, padding=1)
+    y = wc.wav_conv2d(x, w, t, s, wavelet_type=wavelet_type, padding=pad)
     torch.cuda.synchronize()
     assert wc.launches["wav_conv2d_fwd"] == 1
     ref = wc.wav_conv2d_reference(x, w, t, s, wavelet_type=wavelet_type,
-                                  padding=1)
+                                  padding=pad)
     torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, wc.wav_conv2d(x, w, t, s, wavelet_type=wavelet_type,
+                                        padding=pad))
 
 
 @pytest.mark.cuda

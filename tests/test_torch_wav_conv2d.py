@@ -186,8 +186,13 @@ def test_launch_configs_tile_vgg16_small_and_config4():
     for H, C, O in VGG16_SMALL + CONFIG4:
         for B in (1, 16, 64, 1024):
             f = wc.fwd_launch_config(B, H, H, C, O, 3, 1)
-            assert f["OC"] * f["S"] == wc.THREADS and f["CC"] >= 1
-            assert f["T"] == (8 if H > 4 else H)
+            # whole warps of OG output channels x NT tile slots; a compiled
+            # width (the whole row) on the 8x8, 4x4 and 2x2 planes, else
+            # strips of 8; bands of rows that cover the plane
+            assert f["OG"] * f["NT"] == f["threads"] == wc.FWD_THREADS
+            assert f["compiled"] == (H in wc.FWD_WIDTHS)
+            assert f["TW"] == (H if f["compiled"] else wc.FWD_TW)
+            assert f["bands"] * f["RB"] >= H and f["CC"] == wc.FWD_CC
             d = wc.dx_launch_config(B, H, H, C, O, 3, 1)
             # whole warps of 4-channel groups x images, the warps at NPB
             # tile positions x 4 / NPB image groups; a compiled width with

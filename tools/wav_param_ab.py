@@ -1,25 +1,29 @@
-"""Device times of one WavKAN backward kernel of one checkout of the
-port: the parameter-gradient kernel (``wav_conv2d_bwd_param``, the
-default) or the data-gradient kernel (``--kernel dx``,
-``wav_conv2d_bwd_dx``), at the distinct VGG16_small conv shapes at batch
-1024, timed by this checkout's ``chip_smoke.py`` (``cuda_ms``: a preloaded
-queue) with its bound (``wav_bound``), so that two versions of a kernel
-are timed the same way.  Run on the GPU machine from the repository root,
-once per tree, in the order old, new, new, old:
+"""Device times of one WavKAN kernel of one checkout of the port: the
+parameter-gradient kernel (``wav_conv2d_bwd_param``, the default), the
+data-gradient kernel (``--kernel dx``, ``wav_conv2d_bwd_dx``) or the
+forward (``--kernel fwd``, ``wav_conv2d_fwd``), at the distinct
+VGG16_small conv shapes at ``--batch`` (default 1024), timed by this
+checkout's ``chip_smoke.py`` (``cuda_ms``: a preloaded queue) with its
+bound (``wav_bound``), so that two versions of a kernel are timed the same
+way.  Run on the GPU machine from the repository root, once per tree, in
+the order old, new, new, old:
 
     python3 tools/wav_param_ab.py --kernel dx --tree build/ab/v1 --label parent
     python3 tools/wav_param_ab.py --kernel dx --label new
 
 ``--tree`` is the root of the checkout whose ``convkan_tpu_torch`` is timed
-(default: this one).  Builds only that tree's ``wav_conv2d_bwd.cu`` and
+(default: this one).  Builds only that tree's source of the kernel
+(``wav_conv2d_bwd.cu``, or ``wav_conv2d_fwd.cu`` for the forward) and
 prints the compiler's registers and spills of the chosen kernel's
 instantiations.  ``--check`` first holds the kernel's result (the
-parameter partials, or dx) against float64 autograd of the plain version
-(``chip_smoke.bwd_close``: BWD_TOL) at the row widths it compiles, ragged
-shapes and all 5 wavelets, and two calls bit-identical; ``--no-time``
-skips the timing.  Prints one JSON line per shape (ms, bound, share, the
-launch config), the total per train step (the data gradient skips the
-first conv), and the card's name and power limit.
+parameter partials or dx against float64 autograd of the plain version,
+``chip_smoke.bwd_close``: BWD_TOL; the forward against the plain version
+within ``chip_smoke.TOL``) at the row widths it compiles, ragged shapes,
+pads 0 and 2 and all 5 wavelets, and two calls bit-identical;
+``--no-time`` skips the timing.  Prints one JSON line per shape (ms,
+bound, share, the launch config), the total per train step (the data
+gradient skips the first conv) or per forward, and the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -59,7 +63,27 @@ DX_CHECKS += [(5, 3, 8, 16, 20, "mexican_hat", 1),
               (4, 5, 4, 16, 9, "mexican_hat", 1),
               (4, 5, 2, 16, 9, "mexican_hat", 1),
               (3, 5, 11, 12, 13, "shannon", 0)]
-KERNEL_NAMES = {"param": "wav_conv2d_bwd_param", "dx": "wav_conv2d_bwd_dx"}
+# the forward's: each compiled width (8, 4, 2) in every wavelet, the
+# generic strips (32, 16, odd widths), pads 0 and 2, C not a multiple of
+# the chunk or of 4, O not a multiple of 4, batch 1, and at batch 1024
+# (one band of the whole plane, RB = H) each VGG16_small plane
+FWD_CHECKS = [(5, H, H, C, 24, w, 1) for H, C in ((8, 16), (4, 32), (2, 64))
+              for w in ("mexican_hat", "morlet", "dog", "meyer", "shannon")]
+FWD_CHECKS += [(4, 32, 32, 3, 16, "mexican_hat", 1),
+               (3, 16, 16, 32, 32, "mexican_hat", 1),
+               (3, 7, 5, 13, 5, "mexican_hat", 1),
+               (2, 11, 13, 5, 9, "shannon", 1),
+               (3, 4, 4, 5, 16, "mexican_hat", 0),
+               (2, 3, 5, 4, 12, "dog", 2),
+               (1, 32, 32, 16, 16, "mexican_hat", 1),
+               (1, 2, 2, 128, 128, "mexican_hat", 1),
+               (1024, 2, 2, 128, 128, "mexican_hat", 1),
+               (1024, 4, 4, 128, 128, "mexican_hat", 1),
+               (1024, 8, 8, 64, 64, "mexican_hat", 1),
+               (1024, 16, 16, 32, 32, "mexican_hat", 1),
+               (1024, 32, 32, 16, 16, "mexican_hat", 1)]
+KERNEL_NAMES = {"param": "wav_conv2d_bwd_param", "dx": "wav_conv2d_bwd_dx",
+                "fwd": "wav_conv2d_fwd"}
 
 
 def build_report(log: str, kernel: str):
@@ -90,6 +114,7 @@ def main():
     ap.add_argument("--kernel", choices=sorted(KERNEL_NAMES), default="param")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--no-time", action="store_true")
+    ap.add_argument("--batch", type=int, default=1024)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -109,8 +134,10 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     tag = f"[{args.label or 'tree'}]"
     print(f"{tag} {card}; timing {Path(wc.__file__).resolve()}", flush=True)
-    build.build(wc.BWD_SOURCE)   # named by a hash of the sources
-    log = build.library_path(wc.BWD_SOURCE).with_suffix(".log").read_text()
+    fwd = args.kernel == "fwd"
+    source = wc.SOURCE if fwd else wc.BWD_SOURCE
+    build.build(source)   # named by a hash of the sources
+    log = build.library_path(source).with_suffix(".log").read_text()
     name = KERNEL_NAMES[args.kernel]
     for inst, line in build_report(log, name + "_kernel"):
         print(f"{tag} [build] {inst}: {line}")
@@ -119,17 +146,22 @@ def main():
     dx = args.kernel == "dx"
 
     def run(x, w, t, s, g, wt, pad):
+        if fwd:
+            return wc.wav_conv2d(x, w, t, s, wavelet_type=wt, padding=pad)
         if dx:
             return wc.input_grad(x, w, t, s, g, wt, pad)
         return wc.param_partials(x, w, t, s, g, wt, pad)
 
     def config(B, H, W, C, O, pad):
+        if fwd:
+            return wc.fwd_launch_config(B, H, W, C, O, 3, pad)
         if dx:
             return wc.dx_launch_config(B, H, W, C, O, 3, pad)
         return wc.param_launch_config(B, H, W, C, O, 3, pad)
 
     if args.check:
-        for B, H, W, C, O, wt, pad in DX_CHECKS if dx else CHECKS:
+        for B, H, W, C, O, wt, pad in (FWD_CHECKS if fwd else
+                                        DX_CHECKS if dx else CHECKS):
             x, w, t, s = (a.to(dev) for a in smoke.wav_inputs(gen, B, H, W,
                                                               C, O))
             Ho, Wo = H + 2 * pad - 2, W + 2 * pad - 2
@@ -138,14 +170,21 @@ def main():
             got = run(x, w, t, s, g, wt, pad)
             again = run(x, w, t, s, g, wt, pad)
             torch.cuda.synchronize()
-            d64 = [a.double() for a in (x, w, t, s, g)]
-            ref = wc.input_grad_reference(*d64, wt, pad) if dx else \
-                wc.param_partials_reference(*d64, wt, pad, cfg["S"],
-                                            cfg["ips"])
-            err, ok = smoke.bwd_close(got, ref)
+            if fwd:
+                ref = wc.wav_conv2d_reference(x, w, t, s, wavelet_type=wt,
+                                              padding=pad)
+                err = (got - ref).abs().max().item()
+                ok = torch.allclose(got, ref, rtol=smoke.TOL, atol=smoke.TOL)
+            else:
+                d64 = [a.double() for a in (x, w, t, s, g)]
+                ref = wc.input_grad_reference(*d64, wt, pad) if dx else \
+                    wc.param_partials_reference(*d64, wt, pad, cfg["S"],
+                                                cfg["ips"])
+                err, ok = smoke.bwd_close(got, ref)
             same = torch.equal(got, again)
+            band = f" RB={cfg['RB']}" if fwd else ""
             print(f"{tag} [check] {name} B={B} {H}x{W} C={C} O={O} {wt} "
-                  f"pad={pad}: max|err| {err:.3e} "
+                  f"pad={pad}{band}: max|err| {err:.3e} "
                   f"{'bit-identical' if same else 'NOT bit-identical'} "
                   f"{'ok' if ok and same else 'FAIL'}", flush=True)
             smoke.check(ok and same and bool(torch.isfinite(got).all()),
@@ -153,7 +192,7 @@ def main():
                         f"pad={pad}")
     if args.no_time:
         return
-    B, total, bound = smoke.TIME_BATCH, 0.0, 0.0
+    B, total, bound = args.batch, 0.0, 0.0
     for H, C, O in dict.fromkeys(smoke.VGG16_SMALL_CONVS):
         x, w, t, s = (a.to(dev) for a in smoke.wav_inputs(gen, B, H, H, C,
                                                           O))
@@ -172,7 +211,8 @@ def main():
              "bound_ms": round(b_ms, 4), "share": round(b_ms / ms, 4),
              "config": {k: v for k, v in cfg.items() if k != "N"}}),
             flush=True)
-    print(f"{tag} [{args.kernel} time] {name} per train step at batch "
+    print(f"{tag} [{args.kernel} time] {name} per "
+          f"{'forward' if fwd else 'train step'} at batch "
           f"{B}: {total:.3f} ms, bound {bound:.3f} ms, "
           f"{100 * bound / total:.1f}% of the bound (on {card})", flush=True)
 
