@@ -1,6 +1,6 @@
 """GPU smoke test of convkan_tpu_torch: serves and trains KAN-VGG16_small,
-with B-spline KAN convs and with WavKAN convs, on one CUDA card through the
-hand-written kernels and checks every step.
+with B-spline KAN convs, with WavKAN convs and with ChebyKAN convs, on one
+CUDA card through the hand-written kernels and checks every step.
 
     python3 chip_smoke.py
 
@@ -125,6 +125,32 @@ WavKAN (the psi-conv kernels, mexican_hat unless a case says otherwise):
      dx_pairs), not counted on the card; the forward's model is held
      against a replay of the kernel's loops by
      tests/test_torch_wav_fwd_kernel.py.
+ChebyKAN (the KAN-conv kernels' Chebyshev instantiations, degree 3, no
+base path; the phases reuse the KAN phases' functions with the basis
+descriptor):
+ 15. the forward kernel against its plain version (TOL), the data gradient
+     and the reduced weight gradient against float64 autograd of the plain
+     version (BWD_TOL; the reduction bit-exact against its grouped plain
+     version; the autograd path's dx and d poly_w too) at the 9 VGG16_small
+     shapes at batch 64 (and the weight-gradient partials split by split),
+     once more at batch 1024 (the tiles the step launches), and with |x| up
+     to 10 (the clamp of tanh holds t: dx exactly 0 there); every kernel's
+     result of two calls bit-identical;
+ 16. the ChebyKAN VGG16_small (head on the last 2x2 map, see CHEBY_MODEL):
+     logits of the GPU and of the CPU in float32 against the CPU in float64
+     (the GPU within CHEBY_F32 times the CPU's distance + MODEL_TOL: the
+     model's float32 logits are worse conditioned than MODEL_TOL), 13
+     forward launches;
+ 17. serving, the main path, as phase 4 (served logits vs predict within
+     phase 16's tolerance);
+ 18. training, the main path, as phase 13 (three steps in lockstep, every
+     step's gradients held to float64): per step 13 forward, 12
+     data-gradient, 13 weight-gradient and 13 reduction launches;
+ 19. times: predict and the train step at batch 1024 (images/s) and, per
+     conv shape at batch 1024, each Chebyshev kernel (forward, data
+     gradient, weight gradient, reduction) as phases 5 and 8 time the
+     B-spline's, with bounds over all 4 rows (every T_n is non-zero), and
+     the 13-conv forward at batch 1.
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
 a sleep kernel holds the card until the host has issued all timed calls);
 a kernel's timing that the host held back fails, any other is listed
@@ -227,6 +253,19 @@ PEAK_EXP = 132 * 16 * 1.98e9
 # Linear bias for every image and the trunk gets no gradient (the JAX model
 # alike).  The convs, and so the kernels' shapes and launches, are the same.
 WAV_MODEL = {"expected_feature_shape": (2, 2)}
+# The ChebyKAN phases' model keeps the 2x2 map too: a ChebyKAN conv has no
+# PReLU after its InstanceNorm either (the same degenerate (1, 1) head).
+CHEBY_MODEL = {"expected_feature_shape": (2, 2)}
+# all 4 rows of the Chebyshev E of degree 3 are non-zero at every x (T_0 = 1):
+# its bounds count every row of the interior pairs
+CHEBY_ROWS = 4
+# The ChebyKAN VGG16_small's float32 logits are worse conditioned than
+# MODEL_TOL: on the CPU alone, float32 lies 2.1e-3 to 3.7e-3 from float64 at
+# the seeded init (5 seeds, 64 images; a 1e-7 relative change of the input
+# moves its float32 logits by 4.7e-3), against 3.4e-5 for the B-spline
+# model and 2.6e-4 for WavKAN's.  Phase 16 holds the GPU's logits to
+# float64 within CHEBY_F32 times the CPU float32's distance, plus MODEL_TOL.
+CHEBY_F32 = 2
 
 
 # readings that cuda_ms could not hold to device time: kernel name -> fields
@@ -344,10 +383,14 @@ def reduction_times(name, reduce, reference, part) -> dict:
     return times
 
 
-def conv_inputs(gen, B, H, C, O, scale=1.0, k=3):
+def conv_inputs(gen, B, H, C, O, scale=1.0, k=3, basis=None):
+    """x U(-scale, scale), base_w (None without a base path) and poly_w
+    N(0, 0.1) for ``basis`` (default: the B-spline, K = 8)."""
+    K = 8 if basis is None else basis.K
     x = (torch.rand(B, H, H, C, generator=gen) * 2 - 1) * scale
-    bw = torch.randn(k, k, C, O, generator=gen) * 0.1
-    pw = torch.randn(k, k, C * 8, O, generator=gen) * 0.1
+    bw = None if basis is not None and basis.act is None else \
+        torch.randn(k, k, C, O, generator=gen) * 0.1
+    pw = torch.randn(k, k, C * K, O, generator=gen) * 0.1
     return x, bw, pw
 
 
@@ -421,10 +464,81 @@ def print_red_totals(tag, name, t, card):
           f"(on {card})", flush=True)
 
 
+def backward_case(kc, basis, x, bw, pw, g, k, pad, partials=True,
+                  twice=False, tag="[backward]"):
+    """One backward case on the card: each kernel wrapper (data gradient,
+    weight-gradient partials, their reduction) and the autograd path's
+    gradients against float64 autograd of the plain version (BWD_TOL); the
+    reduction bit-exact against its plain version in the kernel's grouped
+    order, and the reduced dW against float64 (BWD_TOL, the grouped order's
+    rounding included).  ``partials`` False: the partials are held to
+    float64 through the reduced dW only (at batch 1024, where each of the
+    splits would take a float64 autograd of its own); ``twice``: the data
+    gradient and the partials of two calls must be bit-identical.  Prints
+    the case (its data-gradient tile, weight-gradient tile and reduction
+    launch) and fails on a disagreement; returns max |err| per kernel, the
+    reduced dW's against float64, and dx of the wrapper and of the autograd
+    path."""
+    B, H, _, C = x.shape
+    O = pw.shape[-1]
+    spec = (basis, k, pad)
+    w_all = kc.pack_w_all(bw, pw, C=C, K=basis.K, k=k, O=O)
+    cfg = kc.dw_launch_config(B, H, H, C, O, k, pad, basis.R)
+    xcfg = kc.dx_launch_config(B, H, H, C, O, k, pad, basis.R)
+    dx = kc.input_grad(x, w_all, g, *spec)
+    part = kc.weight_partials(x, g, *spec)
+    dw = kc.reduce_partials(part)
+    same = not twice or (
+        torch.equal(dx, kc.input_grad(x, w_all, g, *spec))
+        and torch.equal(part, kc.weight_partials(x, g, *spec)))
+    torch.cuda.synchronize()
+    e_dx, ok_dx = bwd_close(dx, kc.input_grad_reference(
+        x.double(), w_all.double(), g.double(), *spec))
+    e_red = (dw - kc.reduce_reference(part)).abs().max().item()
+    e64, ok64 = bwd_close(dw, kc.weight_grad_reference(
+        x.double(), g.double(), *spec))
+    e_dw, ok_dw = bwd_close(part, kc.weight_partials_reference(
+        x.double(), g.double(), *spec, cfg["S"], cfg["ips"])) if partials \
+        else (e64, ok64)
+    rcfg = kc.reduce_launch_config(part.shape[0], part[0].numel())
+    base = bw is not None
+    ts = (x, bw, pw) if base else (x, pw)
+
+    def conv(fn, leaves):
+        return fn(leaves[0], leaves[1] if base else None, leaves[-1], *spec)
+
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    got = torch.autograd.grad(conv(kc.kan_conv2d, leaves), leaves, g)
+    ref = [t.double().requires_grad_(True) for t in ts]
+    want = torch.autograd.grad(conv(kc.kan_conv2d_reference, ref), ref,
+                               g.double())
+    auto = [bwd_close(a, b) for a, b in zip(got, want)]
+    ok = ok_dx and ok_dw and e_red == 0.0 and ok64 and same and \
+        all(o for _, o in auto)
+    print(f"{tag} B={B} {H}x{H} C={C} O={O} {basis} k={k} pad={pad} "
+          f"(dx tile {dx_tile(kc, xcfg)}; dW tile {dw_tile(cfg)}; reduce "
+          f"{red_tile(rcfg)}): "
+          f"dx {e_dx:.3e}, dW partials {e_dw:.3e}"
+          f"{'' if partials else ' (reduced)'}, reduce {e_red:.1e} "
+          f"(reduced dW vs float64 {e64:.3e}); "
+          f"autograd {'dx/dbase_w/dpoly_w' if base else 'dx/dpoly_w'} "
+          f"{'/'.join(f'{e:.3e}' for e, _ in auto)}"
+          f"{'' if not twice else '; two calls bit-identical' if same else '; two calls DIFFERENT'} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    for t in (dx, part, *got):
+        check(bool(torch.isfinite(t).all()), "backward output not finite")
+    check(ok, f"backward kernels disagree with the plain version (B={B} "
+              f"H={H} C={C} O={O} {basis} k={k} pad={pad})")
+    errs = {"kan_conv2d_bwd_dx": max(e_dx, auto[0][0]),
+            "kan_conv2d_bwd_dw": max(e_dw, *(e for e, _ in auto[1:])),
+            "kan_conv2d_bwd_dw_reduce": e_red}
+    return errs, e64, dx, got[0]
+
+
 def phase_backward(kc, knots, gen, dev):
     """6. each backward kernel and the autograd path against float64
-    autograd of the plain version on the card; returns max |err| per
-    kernel."""
+    autograd of the plain version on the card (``backward_case``);
+    returns max |err| per kernel."""
     cases = [(64, H, C, O, "silu", 3, 1)
              for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
     cases += [(3, 7, 13, 5, "silu", 3, 1), (8, 16, 16, 32, "gelu", 3, 1)]
@@ -444,58 +558,18 @@ def phase_backward(kc, knots, gen, dev):
     # with 32 pixel slots, and with 64 or 32 slots and no table of g offsets
     cases += [(1, 9, 1, 1, "silu", 37, 18), (1, 14, 1, 1, "gelu", 37, 18),
               (1, 22, 1, 1, "silu", 37, 18)]
-    errs = {"kan_conv2d_bwd_dx": 0.0, "kan_conv2d_bwd_dw": 0.0,
-            "kan_conv2d_bwd_dw_reduce": 0.0}
-    # the reduced dW against float64 (BWD_TOL, the grouped order's
-    # rounding included) beside the bit-exact check against the plain
-    # version in the kernel's order
+    errs = dict.fromkeys(("kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
+                          "kan_conv2d_bwd_dw_reduce"), 0.0)
     red64 = 0.0
     for B, H, C, O, act, k, pad in cases:
         x, bw, pw = conv_inputs(gen, B, H, C, O, k=k)
         Ho = H + 2 * pad - k + 1
         g = torch.randn(B, Ho, Ho, O, generator=gen)
         x, bw, pw, g = (t.to(dev) for t in (x, bw, pw, g))
-        spec = (knots, 3, k, pad, act)
-        w_all = kc.pack_w_all(bw, pw, C=C, K=8, k=k, O=O)
-        cfg = kc.dw_launch_config(B, H, H, C, O, k, pad, 8)
-        xcfg = kc.dx_launch_config(B, H, H, C, O, k, pad, 8)
-        dx = kc.input_grad(x, w_all, g, *spec)
-        part = kc.weight_partials(x, g, *spec)
-        dw = kc.reduce_partials(part)
-        torch.cuda.synchronize()
-        e_dx, ok_dx = bwd_close(dx, kc.input_grad_reference(
-            x.double(), w_all.double(), g.double(), *spec))
-        e_dw, ok_dw = bwd_close(part, kc.weight_partials_reference(
-            x.double(), g.double(), *spec, cfg["S"], cfg["ips"]))
-        e_red = (dw - kc.reduce_reference(part)).abs().max().item()
-        e64, ok64 = bwd_close(dw, kc.weight_grad_reference(
-            x.double(), g.double(), *spec))
+        case, e64, _, _ = backward_case(
+            kc, kc.bspline_basis(knots, 3, act), x, bw, pw, g, k, pad)
         red64 = max(red64, e64)
-        rcfg = kc.reduce_launch_config(part.shape[0], part[0].numel())
-        leaves = [t.clone().requires_grad_(True) for t in (x, bw, pw)]
-        got = torch.autograd.grad(kc.kan_conv2d(*leaves, *spec), leaves, g)
-        ref = [t.double().requires_grad_(True) for t in (x, bw, pw)]
-        want = torch.autograd.grad(kc.kan_conv2d_reference(*ref, *spec), ref,
-                                   g.double())
-        auto = [bwd_close(a, b) for a, b in zip(got, want)]
-        ok = ok_dx and ok_dw and e_red == 0.0 and ok64 and \
-            all(o for _, o in auto)
-        print(f"[backward] B={B} {H}x{H} C={C} O={O} {act} k={k} pad={pad} "
-              f"(dx tile {dx_tile(kc, xcfg)}; dW tile {dw_tile(cfg)}; reduce "
-              f"{red_tile(rcfg)}): "
-              f"dx {e_dx:.3e}, dW partials {e_dw:.3e}, reduce {e_red:.1e} "
-              f"(reduced dW vs float64 {e64:.3e}); "
-              f"autograd dx/dbase_w/dpoly_w "
-              f"{'/'.join(f'{e:.3e}' for e, _ in auto)} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        for t in (dx, part, *got):
-            check(bool(torch.isfinite(t).all()), "backward output not finite")
-        check(ok, f"backward kernels disagree with the plain version (B={B} "
-                  f"H={H} C={C} O={O} {act} k={k} pad={pad})")
-        for name, e in (("kan_conv2d_bwd_dx", max(e_dx, auto[0][0])),
-                        ("kan_conv2d_bwd_dw",
-                         max(e_dw, auto[1][0], auto[2][0])),
-                        ("kan_conv2d_bwd_dw_reduce", e_red)):
+        for name, e in case.items():
             errs[name] = max(errs[name], e)
     print(f"[backward] reduced dW vs float64 autograd: max |err| "
           f"{red64:.3e} (within BWD_TOL in every case)", flush=True)
@@ -701,10 +775,14 @@ def time_train_step(kan_conv, dev, card, **model_kw):
     return ips
 
 
-def phase_train_times(kc, knots, gen, dev, card):
-    """8. the train step at batch TIME_BATCH and the backward kernels per
-    conv shape; returns (images/s, per-kernel totals, rows)."""
-    ips = time_train_step("KAN", dev, card)
+def phase_train_times(kc, basis, rows_nz, kan_conv, gen, dev, card,
+                      tag="[time]", suffix="", **model_kw):
+    """8 / 19. the train step at batch TIME_BATCH (of the ``kan_conv`` model)
+    and the backward kernels per conv shape for ``basis``, whose bound
+    counts ``rows_nz`` rows of E per interior pair (host-bound readings
+    recorded under the kernel's name + ``suffix``); returns (images/s,
+    per-kernel totals, rows)."""
+    ips = time_train_step(kan_conv, dev, card, **model_kw)
 
     names = ("kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
              "kan_conv2d_bwd_dw_reduce")
@@ -715,35 +793,35 @@ def phase_train_times(kc, knots, gen, dev, card):
     totals["kan_conv2d_bwd_dw_reduce"].update(warm_l2_ms=0.0,
                                               library_warm_l2_ms=0.0)
     rows = []
-    B, K = TIME_BATCH, 8
+    B, K, R = TIME_BATCH, basis.K, basis.R
     for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
-        x, bw, pw = (t.to(dev) for t in conv_inputs(gen, B, H, C, O))
+        x, bw, pw = (None if t is None else t.to(dev) for t in conv_inputs(
+            gen, B, H, C, O, basis=basis))
         g = torch.randn(B, H, H, O, generator=gen).to(dev)
-        spec = (knots, 3, 3, 1, "silu")
+        spec = (basis, 3, 1)
         w_all = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O)
-        cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, K)
+        cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, R)
         part = kc.weight_partials(x, g, *spec)
         rcfg = kc.reduce_launch_config(part.shape[0], part[0].numel())
-        red = reduction_times("kan_conv2d_bwd_dw_reduce", kc.reduce_partials,
-                              kc.reduce_reference, part)
+        red = reduction_times("kan_conv2d_bwd_dw_reduce" + suffix,
+                              kc.reduce_partials, kc.reduce_reference, part)
         ms = {
             "kan_conv2d_bwd_dx": (
                 cuda_ms(lambda: kc.input_grad(x, w_all, g, *spec)),
                 cuda_ms(lambda: kc.input_grad_reference(x, w_all, g, *spec),
                         iters=3, warmup=1,
-                        what=("kan_conv2d_bwd_dx", "plain_ms"))),
+                        what=("kan_conv2d_bwd_dx" + suffix, "plain_ms"))),
             "kan_conv2d_bwd_dw": (
                 cuda_ms(lambda: kc.weight_partials(x, g, *spec)),
                 cuda_ms(lambda: kc.weight_grad_reference(x, g, *spec),
                         iters=3, warmup=1,
-                        what=("kan_conv2d_bwd_dw", "plain_ms"))),
+                        what=("kan_conv2d_bwd_dw" + suffix, "plain_ms"))),
             "kan_conv2d_bwd_dw_reduce": (red["ms"], red["plain_ms"]),
         }
         # yardsticks the port never calls: cuDNN's backward over an already
         # materialized basis (dE and dW of the convolution), and one sum
-        E = kc.expand(x, knots, 3, "silu").permute(0, 3, 1, 2).contiguous()
-        w = w_all.reshape((K + 1) * C, 3, 3, O).permute(3, 0, 1, 2) \
-            .contiguous()
+        E = kc.expand(x, basis).permute(0, 3, 1, 2).contiguous()
+        w = w_all.reshape(R * C, 3, 3, O).permute(3, 0, 1, 2).contiguous()
         gn = g.permute(0, 3, 1, 2).contiguous()
 
         def conv_bwd(mask):
@@ -753,18 +831,18 @@ def phase_train_times(kc, knots, gen, dev, card):
 
         lib = {"kan_conv2d_bwd_dx": cuda_ms(lambda: conv_bwd(
                    [True, False, False]), iters=10,
-                   what=("kan_conv2d_bwd_dx", "library_ms")),
+                   what=("kan_conv2d_bwd_dx" + suffix, "library_ms")),
                "kan_conv2d_bwd_dw": cuda_ms(lambda: conv_bwd(
                    [False, True, False]), iters=10,
-                   what=("kan_conv2d_bwd_dw", "library_ms")),
+                   what=("kan_conv2d_bwd_dw" + suffix, "library_ms")),
                "kan_conv2d_bwd_dw_reduce": red["library_ms"]}
         n = VGG16_SMALL_CONVS.count((H, C, O))
         del E, gn
-        D, TO, S = (K + 1) * C, 9 * O, cfg["S"]
-        # the bound: interior pairs x span rows (SPAN_ROWS); issued work is
-        # read against interior pairs x every row, and the dense bound
-        # counts every pair and row
-        flops = 2 * B * interior_pairs(H) * SPAN_ROWS * C * O
+        D, TO, S = R * C, 9 * O, cfg["S"]
+        # the bound: interior pairs x the rows non-zero at x (rows_nz);
+        # issued work is read against interior pairs x every row, and the
+        # dense bound counts every pair and row
+        flops = 2 * B * interior_pairs(H) * rows_nz * C * O
         interior_macs = B * interior_pairs(H) * D * O
         dense_flops = 2 * B * H * H * 9 * D * O
         work = {
@@ -791,7 +869,7 @@ def phase_train_times(kc, knots, gen, dev, card):
         # the weight gradient's tile and what it issues: every input pixel
         # times every row (whole channels of its chunks) and column (whole
         # column tiles) of dW, pad pairs included
-        issued = B * H * H * -(-C // cfg["CC"]) * cfg["CC"] * (K + 1) * \
+        issued = B * H * H * -(-C // cfg["CC"]) * cfg["CC"] * R * \
             -(-9 * O // cfg["BN"]) * cfg["BN"]
         dw_row = row["kan_conv2d_bwd_dw"]
         dw_row.update({
@@ -803,10 +881,10 @@ def phase_train_times(kc, knots, gen, dev, card):
                                   / 1e9, 2)})
         # the data gradient's tile and what it issues: its (pixel, tap)
         # pairs (pad pairs and idle pixel slots included) times whole
-        # channel blocks, K+1 and whole chunks of output channels
-        xcfg = kc.dx_launch_config(B, H, H, C, O, 3, 1, K)
+        # channel blocks, R and whole chunks of output channels
+        xcfg = kc.dx_launch_config(B, H, H, C, O, 3, 1, R)
         x_issued = dx_pairs(kc, xcfg, B, H, H, 3, 1) * \
-            -(-C // xcfg["CC"]) * xcfg["CC"] * (K + 1) * \
+            -(-C // xcfg["CC"]) * xcfg["CC"] * R * \
             -(-O // xcfg["OC"]) * xcfg["OC"]
         x_ms = ms["kan_conv2d_bwd_dx"][0]
         dx_row = row["kan_conv2d_bwd_dx"]
@@ -823,16 +901,16 @@ def phase_train_times(kc, knots, gen, dev, card):
         red_row(row["kan_conv2d_bwd_dw_reduce"], rcfg, red,
                 totals["kan_conv2d_bwd_dw_reduce"], n)
         rows.append(row)
-        print(f"[time] {json.dumps(row)}", flush=True)
+        print(f"{tag} {json.dumps(row)}", flush=True)
     for name in names:
         t = totals[name]
         t["bound_ms"] = max(t["op_ms"], t["byte_ms"])
         if name == "kan_conv2d_bwd_dw_reduce":
-            print_red_totals("[time]", name, t, card)
+            print_red_totals(tag, name, t, card)
             continue
         dense = f" (dense {t['dense_bound_ms']:.3f} ms)" \
             if "dense_bound_ms" in t else ""
-        print(f"[time] {name} per train step at batch {B}: kernel "
+        print(f"{tag} {name} per train step at batch {B}: kernel "
               f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms"
               f"{dense}, {100 * t['bound_ms'] / t['ms']:.1f}% of the bound "
@@ -840,9 +918,14 @@ def phase_train_times(kc, knots, gen, dev, card):
     return ips, totals, rows
 
 
-def phase_model(mod, kan_conv, fwd_name, dev, imgs, **model_kw):
-    """3 / 11. VGG16_small with seeded weights on the card against the same
-    state_dict on the CPU; returns the GPU model (eval mode)."""
+def phase_model(mod, kan_conv, fwd_name, dev, imgs, f64=False, **model_kw):
+    """3 / 11 / 16. VGG16_small with seeded weights on the card against the
+    same state_dict on the CPU (MODEL_TOL); returns the GPU model (eval
+    mode) and the tolerance its logits were held to.  With ``f64`` (a model
+    whose float32 logits are worse conditioned than MODEL_TOL, see
+    CHEBY_F32) the GPU's and the CPU's float32 logits are both held to the
+    CPU's float64 ones, the GPU's within CHEBY_F32 times the CPU's float32
+    distance plus MODEL_TOL."""
     from convkan_tpu_torch.models.vgg import vggkan
     from convkan_tpu_torch.train.data import normalize_batch
 
@@ -867,10 +950,23 @@ def phase_model(mod, kan_conv, fwd_name, dev, imgs, **model_kw):
     check(bool(torch.isfinite(got).all()), "model logits not finite")
     check((got - got[0]).abs().max().item() > 1e-3,
           "the logits are the same for every image")
-    check(torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL),
-          "model logits on the GPU disagree with the CPU")
     check(n_launch == 13, f"expected 13 kernel launches, got {n_launch}")
-    return model_gpu
+    if not f64:
+        check(torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL),
+              "model logits on the GPU disagree with the CPU")
+        return model_gpu, MODEL_TOL
+    with torch.inference_mode():
+        exact = copy.deepcopy(model_cpu).double()(normalize_batch(
+            torch.from_numpy(imgs), "CIFAR10").double())
+    e_cpu = (want.double() - exact).abs().max().item()
+    e_gpu = (got.double() - exact).abs().max().item()
+    tol = CHEBY_F32 * e_cpu + MODEL_TOL
+    print(f"[model] {kan_conv} logits vs float64 on the CPU: GPU max|err| "
+          f"{e_gpu:.3e}, CPU float32 {e_cpu:.3e} (allowed: {CHEBY_F32} x the "
+          f"CPU's + MODEL_TOL = {tol:.3e})", flush=True)
+    check(e_gpu <= tol, "model logits on the GPU further from float64 than "
+                        "the CPU's float32 allows")
+    return model_gpu, tol
 
 
 def phase_serve(mod, kan_conv, fwd_name, imgs, tol=TOL, **model_kw):
@@ -1391,6 +1487,138 @@ def phase_wav_times(wc, gen, dev, card):
     return totals, rows
 
 
+def phase_forward_times(kc, basis, rows_nz, gen, dev, card, tag="[time]",
+                        suffix="", batch1=False):
+    """5 / 19. per conv shape at batch TIME_BATCH: the forward kernel for
+    ``basis``, its plain version, one cuDNN conv over a materialized basis
+    (a yardstick the port never calls), the bound on the (pixel, tap) pairs
+    whose input lies in the image (a pad tap adds zero, as the backward's
+    bounds count them) and ``rows_nz`` rows of E per channel (the dense
+    bound, every pair and row, beside it) and the share of the bound the
+    kernel reaches; with ``batch1`` also each shape's kernel at batch 1
+    (single requests on the serving path).  Returns (totals, rows)."""
+    name = "kan_conv2d_fwd" + suffix
+    shapes = []
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+              "op_ms": 0.0, "byte_ms": 0.0, "dense_bound_ms": 0.0,
+              **({"batch1_ms": 0.0} if batch1 else {})}
+    B, K, R = TIME_BATCH, basis.K, basis.R
+    spec = (basis, 3, 1)
+    for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
+        x, bw, pw = (None if t is None else t.to(dev) for t in conv_inputs(
+            gen, B, H, C, O, basis=basis))
+        k_ms = cuda_ms(lambda: kc.kan_conv2d(x, bw, pw, *spec))
+        p_ms = cuda_ms(lambda: kc.kan_conv2d_reference(x, bw, pw, *spec),
+                       iters=5, warmup=1, what=(name, "plain_ms"))
+        E = kc.expand(x, basis).permute(0, 3, 1, 2).contiguous()
+        w = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O)
+        w = w.reshape(R * C, 3, 3, O).permute(3, 0, 1, 2).contiguous()
+        l_ms = cuda_ms(lambda: torch.nn.functional.conv2d(E, w, padding=1),
+                       what=(name, "library_ms"))
+        del E
+        flops = 2 * B * interior_pairs(H) * rows_nz * C * O
+        dense_flops = 2 * B * H * H * 9 * R * C * O
+        nbytes = 4 * (x.numel() + pw.numel() + B * H * H * O
+                      + (0 if bw is None else bw.numel()))
+        op_ms = flops / PEAK_FP32_FLOPS * 1e3
+        byte_ms = nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(op_ms, byte_ms)
+        dense_bound_ms = max(dense_flops / PEAK_FP32_FLOPS * 1e3, byte_ms)
+        cfg = kc.launch_config(B, H, H, C, O, 3, 1, R)
+        n = VGG16_SMALL_CONVS.count((H, C, O))
+        row = {"H": H, "C": C, "O": O, "batch": B, "layers": n,
+               "tile": {key: cfg[key] for key in kc.FWD_TILE + ("blocks",)},
+               "kernel_ms": round(k_ms, 4), "plain_ms": round(p_ms, 4),
+               "library_ms": round(l_ms, 4), "bound_ms": round(bound_ms, 4),
+               "dense_bound_ms": round(dense_bound_ms, 4),
+               "bound_share": round(bound_ms / k_ms, 4),
+               "gflops": round(flops / 1e9, 3),
+               "dense_gflops": round(dense_flops / 1e9, 3),
+               "tflops": round(flops / k_ms / 1e9, 2)}
+        if batch1:
+            x1, bw1, pw1 = (None if t is None else t.to(dev) for t in
+                            conv_inputs(gen, 1, H, C, O, basis=basis))
+            b1_ms = cuda_ms(lambda: kc.kan_conv2d(x1, bw1, pw1, *spec))
+            row["batch1_ms"] = round(b1_ms, 4)
+            totals["batch1_ms"] += n * b1_ms
+        shapes.append(row)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                       ("bound_ms", bound_ms), ("library_ms", l_ms),
+                       ("op_ms", op_ms), ("byte_ms", byte_ms),
+                       ("dense_bound_ms", dense_bound_ms)):
+            totals[key] += n * v
+        print(f"{tag} {json.dumps(row)}", flush=True)
+    print(f"{tag} per forward of the 13 convs at batch {B}: kernel "
+          f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, cuDNN "
+          f"over materialized E {totals['library_ms']:.3f} ms, bound "
+          f"{totals['bound_ms']:.3f} ms on interior pairs and "
+          f"{rows_nz} rows of E (dense "
+          f"{totals['dense_bound_ms']:.3f} ms), "
+          f"{100 * totals['bound_ms'] / totals['ms']:.1f}% of the bound "
+          f"(on {card})", flush=True)
+    if batch1:
+        print(f"{tag} per forward of the 13 convs at batch 1: kernel "
+              f"{totals['batch1_ms']:.4f} ms (on {card})", flush=True)
+    return totals, shapes
+
+
+def phase_cheby_kernels(kc, gen, dev):
+    """15. the Chebyshev instantiations against their plain versions: the
+    forward (TOL) and ``backward_case`` (BWD_TOL against float64) at the 9
+    VGG16_small shapes at batch 64 and at batch 1024 (there the partials are
+    held to float64 through the reduced dW), with |x| up to 10 in one case
+    per batch (dx exactly 0 where the clamp holds t), every kernel's result
+    of two calls bit-identical.  Returns max |err| per kernel (the
+    forward's under "kan_conv2d_fwd")."""
+    basis = kc.cheby_basis(3)
+    cases = [(B, H, C, O, 1.0) for B in (64, TIME_BATCH)
+             for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
+    cases += [(64, 8, 32, 64, 10.0), (TIME_BATCH, 4, 64, 128, 10.0)]
+    errs = dict.fromkeys(kc.KERNELS, 0.0)
+    red64 = 0.0
+    for B, H, C, O, scale in cases:
+        x, _, pw = conv_inputs(gen, B, H, C, O, scale, basis=basis)
+        g = torch.randn(B, H, H, O, generator=gen)
+        x, pw, g = (t.to(dev) for t in (x, pw, g))
+        y = kc.kan_conv2d(x, None, pw, basis, 3, 1)
+        same = torch.equal(y, kc.kan_conv2d(x, None, pw, basis, 3, 1))
+        torch.cuda.synchronize()
+        ref = kc.kan_conv2d_reference(x, None, pw, basis, 3, 1)
+        err = (y - ref).abs().max().item()
+        ok = torch.allclose(y, ref, rtol=TOL, atol=TOL)
+        cfg = kc.launch_config(B, H, H, C, O, 3, 1, basis.R)
+        print(f"[cheby kernel] B={B} {H}x{H} C={C} O={O} x*{scale} "
+              f"(BN {cfg['BN']}, {'skip' if cfg['skip'] else 'dense'}, CC "
+              f"{cfg['CC']}, S {cfg['S']}, {cfg['blocks']} blocks): "
+              f"max|err| {err:.3e}, two calls "
+              f"{'bit-identical' if same else 'DIFFERENT'} "
+              f"{'ok' if ok and same else 'FAIL'}", flush=True)
+        check(bool(torch.isfinite(y).all()), "Chebyshev kernel output not "
+                                             "finite")
+        check(ok, f"Chebyshev kernel disagrees with the plain version (B={B} "
+                  f"H={H} C={C} O={O} x*{scale})")
+        check(same, f"Chebyshev kernel: two calls differ (B={B} H={H} C={C} "
+                    f"O={O})")
+        errs["kan_conv2d_fwd"] = max(errs["kan_conv2d_fwd"], err)
+        del y, ref
+        case, e64, dx, dx_auto = backward_case(
+            kc, basis, x, None, pw, g, 3, 1, partials=B < TIME_BATCH,
+            twice=True, tag="[cheby backward]")
+        red64 = max(red64, e64)
+        for name, e in case.items():
+            errs[name] = max(errs[name], e)
+        if scale > 8.5:  # past |x| ~ 8.3 the clamp holds t: dx is 0
+            clamped = x.abs() > 8.5
+            check(bool(clamped.any()) and not dx[clamped].any()
+                  and not dx_auto[clamped].any(),
+                  "Chebyshev dx not 0 where the clamp holds t")
+            print(f"[cheby backward] dx exactly 0 at the "
+                  f"{int(clamped.sum())} inputs past the clamp", flush=True)
+    print(f"[cheby backward] reduced dW vs float64 autograd: max |err| "
+          f"{red64:.3e} (within BWD_TOL in every case)", flush=True)
+    return errs
+
+
 def kernel_entry(name, source, replaces, launches, err, t, times_are,
                  shapes, **extra):
     """One kernel's entry of the {"kernels": [...]} line; ``launches`` per
@@ -1413,8 +1641,7 @@ def kernel_entry(name, source, replaces, launches, err, t, times_are,
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
-    from convkan_tpu_torch.basis.bspline import (
-        bspline_basis_unrolled_list, make_bspline_grid)
+    from convkan_tpu_torch.basis.bspline import make_bspline_grid
     from convkan_tpu_torch.device import set_full_f32
     from convkan_tpu_torch.kernels import build
     from convkan_tpu_torch.kernels import kan_conv2d as kc
@@ -1441,11 +1668,13 @@ def main():
     for src in sources:
         log = build.library_path(src).with_suffix(".log").read_text()
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or \
+                    "spill" in line:
                 print(f"[build] {src}: {line.strip()}")
 
     dev = torch.device("cuda")
     knots = tuple(float(v) for v in make_bspline_grid(5, 3))
+    silu = kc.bspline_basis(knots, 3, "silu")
     gen = torch.Generator().manual_seed(0)
 
     # ------------------------------------------ 2. kernel vs plain version
@@ -1466,12 +1695,13 @@ def main():
             flat = x.view(-1)
             flat[: 4 * len(knots)] = torch.tensor(knots).repeat(4)
         x, bw, pw = x.to(dev), bw.to(dev), pw.to(dev)
-        y = kc.kan_conv2d(x, bw, pw, knots, 3, 3, 1, act)
+        basis = kc.bspline_basis(knots, 3, act)
+        y = kc.kan_conv2d(x, bw, pw, basis, 3, 1)
         torch.cuda.synchronize()
-        ref = kc.kan_conv2d_reference(x, bw, pw, knots, 3, 3, 1, act)
+        ref = kc.kan_conv2d_reference(x, bw, pw, basis, 3, 1)
         err = (y - ref).abs().max().item()
         ok = torch.allclose(y, ref, rtol=TOL, atol=TOL)
-        cfg = kc.launch_config(B, H, H, C, O, 3, 1, 8)
+        cfg = kc.launch_config(B, H, H, C, O, 3, 1, basis.R)
         print(f"[kernel] B={B} {H}x{H} C={C} O={O} x*{scale} {act} "
               f"(BN {cfg['BN']}, {'skip' if cfg['skip'] else 'dense'}, CC "
               f"{cfg['CC']}, S {cfg['S']}, {cfg['blocks']} blocks): "
@@ -1483,79 +1713,24 @@ def main():
 
     # ---------------------------------------------------------- 3. model
     imgs = np.random.RandomState(0).randint(0, 256, (64, 32, 32, 3), np.uint8)
-    model_gpu = phase_model(kc, "KAN", "kan_conv2d_fwd", dev, imgs)
+    model_gpu, _ = phase_model(kc, "KAN", "kan_conv2d_fwd", dev, imgs)
     # ------------------------------------------- 4. serving (main path)
     n_main = phase_serve(kc, "KAN", "kan_conv2d_fwd", imgs)
 
     # ---------------------------------------------------------- 5. times
     predict_ips = time_predict(model_gpu, "KAN", card)
     del model_gpu
-    shapes = []
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-              "op_ms": 0.0, "byte_ms": 0.0, "dense_bound_ms": 0.0}
-    for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
-        B, K = 1024, 8
-        x, bw, pw = (t.to(dev) for t in conv_inputs(gen, B, H, C, O))
-        k_ms = cuda_ms(lambda: kc.kan_conv2d(x, bw, pw, knots, 3, 3, 1,
-                                             "silu"))
-        p_ms = cuda_ms(lambda: kc.kan_conv2d_reference(
-            x, bw, pw, knots, 3, 3, 1, "silu"), iters=5, warmup=1,
-            what=("kan_conv2d_fwd", "plain_ms"))
-        E = torch.cat(bspline_basis_unrolled_list(x, knots, 3)
-                      + [torch.nn.functional.silu(x)], -1)
-        E = E.permute(0, 3, 1, 2).contiguous()
-        w = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O)
-        w = w.reshape((K + 1) * C, 3, 3, O).permute(3, 0, 1, 2).contiguous()
-        l_ms = cuda_ms(lambda: torch.nn.functional.conv2d(E, w, padding=1),
-                       what=("kan_conv2d_fwd", "library_ms"))
-        del E
-        # the bound counts the (pixel, tap) pairs whose input lies in the
-        # image, as the backward's does: a pad tap adds zero, and the span
-        # rows of E (SPAN_ROWS); the dense count (every tap, every row) is
-        # printed beside it
-        flops = 2 * B * interior_pairs(H) * SPAN_ROWS * C * O
-        dense_flops = 2 * B * H * H * 9 * (K + 1) * C * O
-        nbytes = 4 * (x.numel() + bw.numel() + pw.numel() + B * H * H * O)
-        op_ms = flops / PEAK_FP32_FLOPS * 1e3
-        byte_ms = nbytes / PEAK_BYTES * 1e3
-        bound_ms = max(op_ms, byte_ms)
-        dense_bound_ms = max(dense_flops / PEAK_FP32_FLOPS * 1e3, byte_ms)
-        cfg = kc.launch_config(B, H, H, C, O, 3, 1, K)
-        n = VGG16_SMALL_CONVS.count((H, C, O))
-        row = {"H": H, "C": C, "O": O, "batch": B, "layers": n,
-               "tile": {key: cfg[key] for key in kc.FWD_TILE + ("blocks",)},
-               "kernel_ms": round(k_ms, 4), "plain_ms": round(p_ms, 4),
-               "library_ms": round(l_ms, 4), "bound_ms": round(bound_ms, 4),
-               "dense_bound_ms": round(dense_bound_ms, 4),
-               "bound_share": round(bound_ms / k_ms, 4),
-               "gflops": round(flops / 1e9, 3),
-               "dense_gflops": round(dense_flops / 1e9, 3),
-               "tflops": round(flops / k_ms / 1e9, 2)}
-        shapes.append(row)
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms),
-                       ("bound_ms", bound_ms), ("library_ms", l_ms),
-                       ("op_ms", op_ms), ("byte_ms", byte_ms),
-                       ("dense_bound_ms", dense_bound_ms)):
-            totals[key] += n * v
-        print(f"[time] {json.dumps(row)}", flush=True)
-    print(f"[time] per forward of the 13 convs at batch 1024: kernel "
-          f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, cuDNN "
-          f"over materialized E {totals['library_ms']:.3f} ms, bound "
-          f"{totals['bound_ms']:.3f} ms on interior pairs and span rows "
-          f"(dense "
-          f"{totals['dense_bound_ms']:.3f} ms), "
-          f"{100 * totals['bound_ms'] / totals['ms']:.1f}% of the bound "
-          f"(on {card})", flush=True)
+    totals, shapes = phase_forward_times(kc, silu, SPAN_ROWS, gen, dev, card)
 
     # ------------------------------------ 6. backward kernels vs plain
     bwd_err = phase_backward(kc, knots, gen, dev)
     # ------------------------------------------ 7. training (main path)
-    train_counts = phase_train(
-        kc, dev, "KAN", {"kan_conv2d_fwd": 13, "kan_conv2d_bwd_dx": 12,
-                         "kan_conv2d_bwd_dw": 13,
-                         "kan_conv2d_bwd_dw_reduce": 13}, ["poly_w"])
+    train_want = {"kan_conv2d_fwd": 13, "kan_conv2d_bwd_dx": 12,
+                  "kan_conv2d_bwd_dw": 13, "kan_conv2d_bwd_dw_reduce": 13}
+    train_counts = phase_train(kc, dev, "KAN", train_want, ["poly_w"])
     # ---------------------------------------------- 8. training times
-    ips, bwd, bwd_rows = phase_train_times(kc, knots, gen, dev, card)
+    ips, bwd, bwd_rows = phase_train_times(kc, silu, SPAN_ROWS, "KAN", gen,
+                                           dev, card)
     step_ms = 1e3 * TIME_BATCH / ips
     kernel_ms = totals["ms"] + sum(t["ms"] for t in bwd.values())
     print(f"[time] train step {step_ms:.3f} ms at batch {TIME_BATCH}: KAN-conv "
@@ -1567,8 +1742,8 @@ def main():
     # ------------------------------------------------------------ WavKAN
     wav_fwd_err = phase_wav_forward(wc, gen, dev)                    # 9
     wav_bwd_err = phase_wav_backward(wc, gen, dev)                   # 10
-    wav_model = phase_model(wc, "WavKAN", "wav_conv2d_fwd", dev, imgs,  # 11
-                            **WAV_MODEL)
+    wav_model, _ = phase_model(wc, "WavKAN", "wav_conv2d_fwd", dev,  # 11
+                               imgs, **WAV_MODEL)
     # the WavKAN model's float32 logits are worse conditioned than the KAN
     # model's: served logits are held to MODEL_TOL, as phase 11 holds them
     wav_serve = phase_serve(wc, "WavKAN", "wav_conv2d_fwd", imgs,    # 12
@@ -1592,31 +1767,70 @@ def main():
           f"{wav_totals['wav_conv2d_fwd']['ms']:.3f}), the rest "
           f"{wav_step_ms - wav_kernel_ms:.3f} ms; predict "
           f"{wav_predict_ips:.1f} images/s (on {card})", flush=True)
+
+    # ---------------------------------------------------------- ChebyKAN
+    cheby = kc.cheby_basis(3)
+    suffix = f"[{cheby.kind}{cheby.order}]"   # its entries' names end so
+    cheby_err = phase_cheby_kernels(kc, gen, dev)                    # 15
+    cheby_model, cheby_tol = phase_model(                            # 16
+        kc, "ChebyKAN", "kan_conv2d_fwd", dev, imgs, f64=True, **CHEBY_MODEL)
+    # served logits held to phase 16's tolerance: the engine's batches run
+    # other tiles (other sums) than predict's, at the same float32 floor
+    cheby_serve = phase_serve(kc, "ChebyKAN", "kan_conv2d_fwd", imgs,  # 17
+                              tol=cheby_tol, **CHEBY_MODEL)
+    cheby_train = phase_train(kc, dev, "ChebyKAN", train_want,        # 18
+                              ["poly_w"], lockstep=True, **CHEBY_MODEL)
+    cheby_predict_ips = time_predict(cheby_model, "ChebyKAN", card)   # 19
+    del cheby_model
+    cheby_fwd, cheby_shapes = phase_forward_times(
+        kc, cheby, CHEBY_ROWS, gen, dev, card, tag="[cheby time]",
+        suffix=suffix, batch1=True)
+    cheby_ips, cheby_bwd, cheby_rows = phase_train_times(
+        kc, cheby, CHEBY_ROWS, "ChebyKAN", gen, dev, card,
+        tag="[cheby time]", suffix=suffix, **CHEBY_MODEL)
+    cheby_step_ms = 1e3 * TIME_BATCH / cheby_ips
+    cheby_kernel_ms = cheby_fwd["ms"] + sum(t["ms"]
+                                            for t in cheby_bwd.values())
+    print(f"[cheby time] train step {cheby_step_ms:.3f} ms at batch "
+          f"{TIME_BATCH}: Chebyshev KAN-conv kernels {cheby_kernel_ms:.3f} ms "
+          f"(forward {cheby_fwd['ms']:.3f}), the rest "
+          f"{cheby_step_ms - cheby_kernel_ms:.3f} ms; predict "
+          f"{cheby_predict_ips:.1f} images/s (on {card})", flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    kernels = [kernel_entry(
-        "kan_conv2d_fwd", "convkan_tpu_torch/csrc/" + kc.SOURCE, REPLACES,
-        {"serve": n_main, "train": train_counts["kan_conv2d_fwd"]}, max_err,
-        totals, "sum over the 13 VGG16_small convs at batch 1024", shapes,
-        also_replaces=ALSO_REPLACES,
-        dense_bound_ms=round(totals["dense_bound_ms"], 4),
-        predict_images_per_s=round(predict_ips, 1))]
-    # the reductions' kernel lives in csrc/ordered_sum.cuh, built into each
-    # backward source's library behind its C entry
+    def kan_entries(suffix, fwd, shapes_, fwd_err, n_serve, counts, bwd_,
+                    rows_, bwd_err_, predict, fwd_extra):
+        """The four KAN-conv kernels' entries of one basis."""
+        entries = [kernel_entry(
+            "kan_conv2d_fwd" + suffix, "convkan_tpu_torch/csrc/" + kc.SOURCE,
+            REPLACES, {"serve": n_serve, "train": counts["kan_conv2d_fwd"]},
+            fwd_err, fwd, "sum over the 13 VGG16_small convs at batch 1024",
+            shapes_, also_replaces=ALSO_REPLACES,
+            dense_bound_ms=round(fwd["dense_bound_ms"], 4),
+            predict_images_per_s=round(predict, 1), **fwd_extra)]
+        # the reduction's kernel lives in csrc/ordered_sum.cuh, built into
+        # the backward source's library behind its C entry
+        red = "kan_conv2d_bwd_dw_reduce"
+        entries += [kernel_entry(
+            name + suffix, RED_SOURCE if name == red
+            else "convkan_tpu_torch/csrc/" + kc.BWD_SOURCE, BWD_REPLACES,
+            {"serve": 0, "train": counts[name]}, bwd_err_[name], t,
+            f"sum over the VGG16_small convs of one train step at batch "
+            f"{TIME_BATCH}",
+            [{k: r[k] for k in ("H", "C", "O", "S")} | r[name]
+             for r in rows_],
+            **{key: round(t[key], 4) for key in ("dense_bound_ms",
+                                                 "warm_l2_ms",
+                                                 "library_warm_l2_ms")
+               if key in t},
+            **({"entry_source": "convkan_tpu_torch/csrc/" + kc.BWD_SOURCE}
+               if name == red else {}))
+            for name, t in bwd_.items()]
+        return entries
+
+    kernels = kan_entries("", totals, shapes, max_err, n_main, train_counts,
+                          bwd, bwd_rows, bwd_err, predict_ips, {})
     red_names = ("kan_conv2d_bwd_dw_reduce", "wav_conv2d_bwd_reduce")
-    kernels += [kernel_entry(
-        name, RED_SOURCE if name in red_names
-        else "convkan_tpu_torch/csrc/" + kc.BWD_SOURCE, BWD_REPLACES,
-        {"serve": 0, "train": train_counts[name]}, bwd_err[name], t,
-        f"sum over the VGG16_small convs of one train step at batch "
-        f"{TIME_BATCH}",
-        [{k: r[k] for k in ("H", "C", "O", "S")} | r[name] for r in bwd_rows],
-        **{key: round(t[key], 4) for key in ("dense_bound_ms", "warm_l2_ms",
-                                             "library_warm_l2_ms")
-           if key in t},
-        **({"entry_source": "convkan_tpu_torch/csrc/" + kc.BWD_SOURCE}
-           if name in red_names else {}))
-        for name, t in bwd.items()]
     for name in wc.KERNELS:
         fwd = name == "wav_conv2d_fwd"
         src = "convkan_tpu_torch/csrc/" + (wc.SOURCE if fwd else
@@ -1636,6 +1850,12 @@ def main():
             f"{'forward' if fwd else 'train step'} at batch {TIME_BATCH}",
             [{k: r[k] for k in ("H", "C", "O", "S")} | r[name]
              for r in wav_rows], **extra))
+    kernels += kan_entries(
+        suffix, cheby_fwd, cheby_shapes, cheby_err["kan_conv2d_fwd"],
+        cheby_serve, cheby_train, cheby_bwd, cheby_rows, cheby_err,
+        cheby_predict_ips,
+        {"batch1_ms": round(cheby_fwd["batch1_ms"], 4),
+         "train_images_per_s": round(cheby_ips, 1)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,298 @@
+// kan_basis.cuh — the per-channel expansion of a KAN conv's input in
+// float32, shared by csrc/kan_conv2d_fwd.cu and csrc/kan_conv2d_bwd.cu, so
+// that the backward recomputes exactly the basis values the forward used.
+//
+// A basis policy gives R, the rows of E per input channel, and three device
+// functions over the parameters p (the kernels' copy of them in shared
+// memory), each of which the kernels call once per (pixel, channel):
+//   expand(x, p, dst, stride, col)  row r of x at dst[r * stride + col]
+//                                   (the forward's tile of CC channels);
+//   store(x, p, dst)                row r of x at dst[r] (the weight
+//                                   gradient's tile);
+//   grad(x, p, acc)                 sum_r acc[r] * dE_r/dx (the data
+//                                   gradient's epilogue).
+// Two policies:
+//   * BSpline<NK, ORDER, ACT>: E = [B_0(x) .. B_{K-1}(x), act(x)], the bases
+//     of basis/bspline.py's Cox-de Boor recurrence over NK knots at degree
+//     ORDER (K = NK - ORDER - 1) and the base path's SiLU (ACT 0) or GELU
+//     (ACT 1); R = K + 1; p = the knots.
+//   * Cheby<DEG>: E = [T_0(t) .. T_DEG(t)], t = min(max(tanh x, lo), hi),
+//     by the recurrence T_n = 2t T_{n-1} - T_{n-2} of basis/poly.py's
+//     chebyshev_basis_recurrence_list; no base path; R = DEG + 1; p = {lo,
+//     hi}, the float32 values of -1 + eps and 1 - eps.
+// Built without --use_fast_math: the B-spline recurrence needs true IEEE
+// divides, and expf/erff/tanhf the accurate versions.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace kan {
+
+constexpr int kMaxKnots = 32;
+
+// The basis parameters (the knots, or Chebyshev's clamp bounds) as a kernel
+// argument (by value); kernels copy them to shared memory, since
+// bspline_span indexes them dynamically.
+struct Knots {
+  float v[kMaxKnots];
+};
+
+inline bool load_knots(const float* knots, int n_knots, Knots* kn) {
+  if (n_knots > kMaxKnots) return false;
+  for (int i = 0; i < kMaxKnots; ++i) kn->v[i] = i < n_knots ? knots[i] : 0.0f;
+  return true;
+}
+
+template <int ACT>
+__device__ __forceinline__ float base_act(float x) {
+  if (ACT == 0) return x / (1.0f + expf(-x));                        // SiLU
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));      // GELU
+}
+
+// d act / dx: SiLU' = s (1 + x (1 - s)); GELU' (erf) = Phi(x) + x phi(x)
+template <int ACT>
+__device__ __forceinline__ float base_act_grad(float x) {
+  if (ACT == 0) {
+    const float s = 1.0f / (1.0f + expf(-x));
+    return s * (1.0f + x * (1.0f - s));
+  }
+  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752440f));
+  const float pdf = expf(-0.5f * x * x) * 0.39894228040143267794f;
+  return cdf + x * pdf;
+}
+
+// The B-spline bases at x, the values of the full Cox-de Boor recurrence
+// (every basis at every level, as basis/bspline.py computes them) bit for
+// bit for finite x, evaluating only the ORDER+1 bases over the knot interval
+// j that holds x: every other basis is exactly 0 in the full recurrence, and
+// adding a zero term leaves a float32 sum unchanged.  ORDER*(ORDER+1)
+// divides instead of two per basis and level (12 instead of 54 for 12 knots
+// and order 3), with the recurrence's explicitly rounded operations (no FMA
+// contraction) and its zero guard on the knot deltas.
+// Returns j (-1: x outside the grid or not finite, all bases 0); N[m] is
+// basis j - ORDER + m.
+template <int NK, int ORDER>
+__device__ __forceinline__ int bspline_span(float x, const float* kn,
+                                            float* N) {
+  int j = -1;
+#pragma unroll
+  for (int i = 0; i < NK - 1; ++i)
+    if (x >= kn[i] && x < kn[i + 1]) j = i;
+  N[0] = 1.0f;
+#pragma unroll
+  for (int k = 1; k <= ORDER; ++k) {
+    float nw[ORDER + 1];
+#pragma unroll
+    for (int m = 0; m <= k; ++m) {
+      const int i = j - k + m;  // basis i of level k (exists for i <= NK-2-k)
+      float v = 0.0f;
+      if (i >= 0 && i <= NK - 2 - k) {
+        float dr = __fsub_rn(kn[i + k], kn[i]);
+        float dd = __fsub_rn(kn[i + k + 1], kn[i + 1]);
+        if (dr == 0.0f) dr = 1.0f;
+        if (dd == 0.0f) dd = 1.0f;
+        if (m >= 1)  // b_i of level k-1 is N[m-1]
+          v = __fmul_rn(__fdiv_rn(__fsub_rn(x, kn[i]), dr), N[m - 1]);
+        if (m <= k - 1) {  // b_{i+1} of level k-1 is N[m]
+          const float t2 =
+              __fmul_rn(__fdiv_rn(__fsub_rn(kn[i + k + 1], x), dd), N[m]);
+          v = m >= 1 ? __fadd_rn(v, t2) : t2;
+        }
+      }
+      nw[m] = v;
+    }
+#pragma unroll
+    for (int m = 0; m <= k; ++m) N[m] = nw[m];
+  }
+  return j;
+}
+
+// d B_i / dx over the same knot span, carried through the recurrence with
+// the values (the degree-0 indicator has derivative 0):
+//   b_i <- a b_i + c b_{i+1},   a = (x - t_i)/dr,  c = (t_{i+k+1} - x)/dd
+//   d_i <- b_i/dr + a d_i - b_{i+1}/dd + c d_{i+1}
+// with the same f32-rounded knot deltas, zero guard and IEEE divides.
+// Returns j as bspline_span does; D[m] is the derivative of basis
+// j - ORDER + m.
+template <int NK, int ORDER>
+__device__ __forceinline__ int bspline_span_grad(float x, const float* kn,
+                                                 float* D) {
+  int j = -1;
+#pragma unroll
+  for (int i = 0; i < NK - 1; ++i)
+    if (x >= kn[i] && x < kn[i + 1]) j = i;
+  float N[ORDER + 1];
+  N[0] = 1.0f;
+  D[0] = 0.0f;
+#pragma unroll
+  for (int k = 1; k <= ORDER; ++k) {
+    float nw[ORDER + 1], nd[ORDER + 1];
+#pragma unroll
+    for (int m = 0; m <= k; ++m) {
+      const int i = j - k + m;
+      float v = 0.0f, dv = 0.0f;
+      if (i >= 0 && i <= NK - 2 - k) {
+        float dr = __fsub_rn(kn[i + k], kn[i]);
+        float dd = __fsub_rn(kn[i + k + 1], kn[i + 1]);
+        if (dr == 0.0f) dr = 1.0f;
+        if (dd == 0.0f) dd = 1.0f;
+        if (m >= 1) {
+          const float a = __fdiv_rn(__fsub_rn(x, kn[i]), dr);
+          v = __fmul_rn(a, N[m - 1]);
+          dv = __fdiv_rn(N[m - 1], dr) + a * D[m - 1];
+        }
+        if (m <= k - 1) {
+          const float c = __fdiv_rn(__fsub_rn(kn[i + k + 1], x), dd);
+          const float t2 = __fmul_rn(c, N[m]);
+          v = m >= 1 ? __fadd_rn(v, t2) : t2;
+          dv += c * D[m] - __fdiv_rn(N[m], dd);
+        }
+      }
+      nw[m] = v;
+      nd[m] = dv;
+    }
+#pragma unroll
+    for (int m = 0; m <= k; ++m) {
+      N[m] = nw[m];
+      D[m] = nd[m];
+    }
+  }
+  return j;
+}
+
+// The B-spline policy: only the ORDER+1 bases of x's knot span are
+// evaluated (bspline_span), the rest of the row is 0; the base path's row
+// last.
+template <int NK, int ORDER, int ACT>
+struct BSpline {
+  static constexpr int K = NK - ORDER - 1;
+  static constexpr int R = K + 1;
+
+  // the span's bases selected into their rows by static indices
+  __device__ __forceinline__ static void expand(float x, const float* kn,
+                                                float* dst, int stride,
+                                                int col) {
+    float N[ORDER + 1];
+    const int j = bspline_span<NK, ORDER>(x, kn, N);
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      float v = 0.0f;
+#pragma unroll
+      for (int m = 0; m <= ORDER; ++m)
+        if (kk == j - ORDER + m) v = N[m];
+      dst[kk * stride + col] = v;
+    }
+    dst[K * stride + col] = base_act<ACT>(x);
+  }
+
+  // zeros, then the span's bases stored at their rows
+  __device__ __forceinline__ static void store(float x, const float* kn,
+                                               float* dst) {
+    float N[ORDER + 1];
+    const int j = bspline_span<NK, ORDER>(x, kn, N);
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) dst[kk] = 0.0f;
+    if (j >= 0) {
+#pragma unroll
+      for (int m = 0; m <= ORDER; ++m) {
+        const int kk = j - ORDER + m;
+        if (kk >= 0 && kk < K) dst[kk] = N[m];
+      }
+    }
+    dst[K] = base_act<ACT>(x);
+  }
+
+  // basis kk = j0 + m has derivative D[m]; the others have 0 (static
+  // register indices only)
+  __device__ __forceinline__ static float grad(float x, const float* kn,
+                                               const float* acc) {
+    float D[ORDER + 1];
+    const int j0 = bspline_span_grad<NK, ORDER>(x, kn, D) - ORDER;
+    float sum = acc[K] * base_act_grad<ACT>(x);
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+      for (int mm = 0; mm <= ORDER; ++mm)
+        if (kk == j0 + mm) sum = fmaf(acc[kk], D[mm], sum);
+    return sum;
+  }
+};
+
+// The Chebyshev policy: every row is dense (T_0 = 1 at every x: E is zero
+// on the pad only because the kernels mask the pad AFTER the expansion).
+// The recurrence is explicitly rounded (no FMA contraction), in the order
+// of operations of the plain version: T_n = (2 t) T_{n-1} - T_{n-2}.
+template <int DEG>
+struct Cheby {
+  static_assert(DEG >= 1, "degree 0 is not compiled");
+  static constexpr int K = DEG + 1;
+  static constexpr int R = K;
+
+  __device__ __forceinline__ static void expand(float x, const float* p,
+                                                float* dst, int stride,
+                                                int col) {
+    const float t = fminf(fmaxf(tanhf(x), p[0]), p[1]);
+    const float t2 = __fmul_rn(2.0f, t);
+    float e[R];
+    e[0] = 1.0f;
+    e[1] = t;
+#pragma unroll
+    for (int n = 2; n <= DEG; ++n)
+      e[n] = __fsub_rn(__fmul_rn(t2, e[n - 1]), e[n - 2]);
+#pragma unroll
+    for (int n = 0; n < R; ++n) dst[n * stride + col] = e[n];
+  }
+
+  __device__ __forceinline__ static void store(float x, const float* p,
+                                               float* dst) {
+    expand(x, p, dst, 1, 0);
+  }
+
+  // sum_n acc[n] T'_n(t) (1 - tanh^2 x), zero where the clamp holds t
+  // (|x| past about 8.3 in float32): T'_0 = 0, T'_1 = 1, T'_n = 2 T_{n-1}
+  // + 2t T'_{n-1} - T'_{n-2}
+  __device__ __forceinline__ static float grad(float x, const float* p,
+                                               const float* acc) {
+    const float th = tanhf(x);
+    if (!(th > p[0] && th < p[1])) return 0.0f;
+    float T[R], D[R];
+    T[0] = 1.0f;
+    T[1] = th;
+    D[0] = 0.0f;
+    D[1] = 1.0f;
+    float sum = acc[1];
+#pragma unroll
+    for (int n = 2; n <= DEG; ++n) {
+      T[n] = 2.0f * th * T[n - 1] - T[n - 2];
+      D[n] = 2.0f * T[n - 1] + 2.0f * th * D[n - 1] - D[n - 2];
+      sum = fmaf(acc[n], D[n], sum);
+    }
+    return sum * (1.0f - th * th);
+  }
+};
+
+// Calls f(Basis{}) with the policy of a C entry's basis code and returns
+// what f returns; cudaErrorInvalidValue for a basis the build does not
+// carry.  Codes (kernels/kan_conv2d.py COMPILED): 0 and 1, the B-spline of
+// 12 knots (grid 5) at order 3 with SiLU and GELU; 2, Chebyshev of degree 3
+// (its two clamp bounds as the parameters).
+template <class F>
+cudaError_t with_basis(int code, int n_params, int order, F&& f) {
+  if (code == 0 && n_params == 12 && order == 3) return f(BSpline<12, 3, 0>{});
+  if (code == 1 && n_params == 12 && order == 3) return f(BSpline<12, 3, 1>{});
+  if (code == 2 && n_params == 2 && order == 3) return f(Cheby<3>{});
+  return cudaErrorInvalidValue;
+}
+
+// R of a C entry's basis, or -1 for one the build does not carry
+inline int basis_rows(int code, int n_params, int order) {
+  int rows = -1;
+  with_basis(code, n_params, order, [&](auto b) {
+    rows = decltype(b)::R;
+    return cudaSuccess;
+  });
+  return rows;
+}
+
+}  // namespace kan

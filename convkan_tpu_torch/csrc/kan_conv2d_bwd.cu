@@ -1,31 +1,35 @@
-// kan_conv2d_bwd — B-spline KAN convolution backward for Hopper (sm_90a).
+// kan_conv2d_bwd — KAN convolution backward for Hopper (sm_90a), over the
+// per-channel basis policies of kan_basis.cuh (B-spline with its base path,
+// Chebyshev without one).
 //
 // Replaces the Pallas TPU kernel convkan_tpu/kernels/wide_kan_conv.py,
 // _make_core -> bwd_kernel (run_bwd, the custom_vjp backward of the wide
 // KAN conv).  The forward is csrc/kan_conv2d_fwd.cu; the function is
 //   y[b,i,j,o] = sum_{di,dj} sum_r E[b,i+di,j+dj,r] * W_all[r, (di*k+dj)*O+o]
-//   E = [B_0(x) .. B_{K-1}(x), act(x)] on the zero-padded frame, zero on the
-//   pad AFTER expansion; W_all rows kk*C + c, columns tap-major.
+//   E = [P_0(x) .. P_{K-1}(x)(, act(x))] (R rows per channel) on the
+//   zero-padded frame, zero on the pad AFTER expansion; W_all rows kk*C + c,
+//   columns tap-major.
 // Given g = dL/dy (B, Ho, Wo, O) this file computes, as three kernels:
 //
 //   * kan_conv2d_bwd_dx: the data gradient.  For every interior input pixel
 //     p and channel c,
 //       dE[p, kk*C+c] = sum_taps sum_o g[p - tap + pad, o] * W_all[kk*C+c, tap*O+o]
 //     (a transposed convolution, reduction k*k*O), and in the epilogue
-//       dx[p, c] = sum_kk dE[p, kk*C+c] * B'_kk(x) + dE[p, K*C+c] * act'(x).
+//       dx[p, c] = sum_r dE[p, r*C+c] * E'_r(x)       (Basis::grad)
 //     dE lives only in registers: a thread owns ONE channel of a few
-//     pixels and keeps all K+1 of its dE values, so the chain rule through
+//     pixels and keeps all R of its dE values, so the chain rule through
 //     the basis runs in the same thread.  Pad pixels need no dE (the mask
-//     zeroes them), so only interior pixels are computed.  B' is the
-//     derivative of the forward's Cox-de Boor recurrence carried along with
-//     it (the degree-0 indicator has derivative 0), and act' is computed
-//     from x: no act(x) tensor is materialized.
+//     zeroes them), so only interior pixels are computed.  For the B-spline
+//     B' is the derivative of the forward's Cox-de Boor recurrence carried
+//     along with it (the degree-0 indicator has derivative 0), and act' is
+//     computed from x: no act(x) tensor is materialized; for Chebyshev T'_n
+//     is carried along the recurrence, times tanh' inside the clamp.
 //   * kan_conv2d_bwd_dw: the weight gradient, in partial sums.
 //       dW[r, tap*O+o] = sum_{b,i,j} E[b, i+di, j+dj, r] * g[b, i, j, o]
 //     written as a sum over interior input pixels p of E[p, r] * dZ[p, n],
 //     dZ[p, tap*O+o] = g[p - tap + pad, o] (zero off the output frame).  E is
 //     recomputed per pixel chunk in shared memory (never stored to global
-//     memory); a block owns the (K+1)*CC rows of CC whole channels x a
+//     memory); a block owns the R*CC rows of CC whole channels x a
 //     BN-column tile of dW and one of S contiguous batch splits, and
 //     writes its partial sum.
 //   * kan_conv2d_bwd_dw_reduce: dW = sum over the S partials in a fixed
@@ -37,30 +41,32 @@
 //     anywhere).
 //
 // What bounds it on the H100: arithmetic, as in the forward.  dx and dW each
-// cost 2 * (interior pixel, tap) pairs * (K+1)*C * O FLOPs, the forward's
-// count (about 0.36 GFLOP per image each over KAN-VGG16_small), on float32
+// cost 2 * (interior pixel, tap) pairs * R*C * O FLOPs, the forward's
+// count (about 0.36 GFLOP per image each over B-spline KAN-VGG16_small), on
+// float32
 // operands outside the tensor cores (67 TFLOP/s); bytes are a few MB per
 // layer.  What the design does about it:
 //   * dx: a block of 256 pixels x 8 channels; a thread keeps ONE channel's
-//     K+1 = 9 dE values for 8 pixels (72 sums); the g tile of a chunk of 8
+//     R dE values for 8 pixels (72 sums at the B-spline's R = 9, 32 at
+//     Chebyshev's 4); the g tile of a chunk of 8
 //     output channels and the weight slices of all k*k taps are staged with
 //     16-byte cp.async, double-buffered across chunks (one barrier per
 //     chunk); per tap and pair of output channels a thread loads 8 float2s
 //     of g and 9 of W for 8 x 9 x 2 = 144 FMAs.  Where the plane has at most
 //     16 pixels, a warp holds one position of 32 images and skips the taps
 //     whose g lies off the plane (no pad pair computed).
-//   * dW: each thread keeps ONE input channel's K+1 = 9 expanded rows x 8
-//     columns of sums (72) in registers; per pixel the channel's 9 E values
-//     (two float4s and a float, the same address for every thread of that
-//     channel) and two float4s of dZ feed 72 FMAs.  Rows are whole
+//   * dW: each thread keeps ONE input channel's R expanded rows x 8
+//     columns of sums (72 at R = 9) in registers; per pixel the channel's R
+//     E values (float4s and single floats, the same address for every
+//     thread of that channel) and two float4s of dZ feed 8R FMAs.  Rows are whole
 //     channels, so no row is padded.  The column tile BN is a multiple of 8
 //     that divides k*k*O where it can (144 at O = 16, 2 x 144 at O = 32,
 //     3 x 192 at O = 64, 6 x 192 at O = 128: no padded column), as wide as
 //     the block's threads cover: the basis (with its IEEE divides, the
 //     costliest part per value) is recomputed once per column tile, and
-//     only the ORDER+1 bases that can be non-zero at x are evaluated
-//     (bspline_span of kan_bspline.cuh: 12 divides instead of 54 for grid 5,
-//     order 3).  A block has CC*BN/8 threads rounded up to whole warps; where
+//     for the B-spline only the ORDER+1 bases that can be non-zero at x are
+//     evaluated (bspline_span of kan_basis.cuh: 12 divides instead of 54
+//     for grid 5, order 3).  A block has CC*BN/8 threads rounded up to whole warps; where
 //     that fills at most half of 256 (few channels, as in the first conv:
 //     3 x 18 threads), PW = 256 / (CC*BN/8) copies of it split each chunk's
 //     pixels and are summed in shared memory in slice order at the end (one
@@ -72,10 +78,10 @@
 // both, tensor cores (3xTF32 wgmma) and only the ORDER+1 non-zero basis rows
 // per value.
 //
-// Numerics: the basis values come from kan_bspline.cuh, the forward's own
-// code (explicitly rounded float32 operations, true IEEE divides), so the E
-// recomputed here is bit-identical to the forward's for finite x.  Build
-// WITHOUT --use_fast_math.
+// Numerics: the basis values come from kan_basis.cuh, the forward's own
+// code (explicitly rounded float32 operations, true IEEE divides, accurate
+// tanhf), so the E recomputed here is bit-identical to the forward's for
+// finite x.  Build WITHOUT --use_fast_math.
 //
 // Interface: plain C entry points loaded with ctypes.  Each launches on the
 // caller's stream, allocates nothing, and returns cudaGetLastError().
@@ -85,7 +91,7 @@
 #include <stddef.h>
 
 #include "cp_async.cuh"
-#include "kan_bspline.cuh"
+#include "kan_basis.cuh"
 #include "ordered_sum.cuh"
 
 namespace {
@@ -133,74 +139,9 @@ struct DwShape {
   int PW, threads;        // pixel slices; PW*CC*BN/8 in whole warps
 };
 
-// dW: floats per channel of an expanded pixel, K+1 rounded up to float4s
-__host__ __device__ constexpr int dw_channel_stride(int K1) {
-  return (K1 + 3) / 4 * 4;
-}
-
-// d act / dx: SiLU' = s (1 + x (1 - s)); GELU' (erf) = Phi(x) + x phi(x)
-template <int ACT>
-__device__ __forceinline__ float base_act_grad(float x) {
-  if (ACT == 0) {
-    const float s = 1.0f / (1.0f + expf(-x));
-    return s * (1.0f + x * (1.0f - s));
-  }
-  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752440f));
-  const float pdf = expf(-0.5f * x * x) * 0.39894228040143267794f;
-  return cdf + x * pdf;
-}
-
-// d B_i / dx over the same knot span, carried through the recurrence with
-// the values (the degree-0 indicator has derivative 0):
-//   b_i <- a b_i + c b_{i+1},   a = (x - t_i)/dr,  c = (t_{i+k+1} - x)/dd
-//   d_i <- b_i/dr + a d_i - b_{i+1}/dd + c d_{i+1}
-// with the same f32-rounded knot deltas, zero guard and IEEE divides.
-// Returns j as bspline_span does; D[m] is the derivative of basis
-// j - ORDER + m.
-template <int NK, int ORDER>
-__device__ __forceinline__ int bspline_span_grad(float x, const float* kn,
-                                                 float* D) {
-  int j = -1;
-#pragma unroll
-  for (int i = 0; i < NK - 1; ++i)
-    if (x >= kn[i] && x < kn[i + 1]) j = i;
-  float N[ORDER + 1];
-  N[0] = 1.0f;
-  D[0] = 0.0f;
-#pragma unroll
-  for (int k = 1; k <= ORDER; ++k) {
-    float nw[ORDER + 1], nd[ORDER + 1];
-#pragma unroll
-    for (int m = 0; m <= k; ++m) {
-      const int i = j - k + m;
-      float v = 0.0f, dv = 0.0f;
-      if (i >= 0 && i <= NK - 2 - k) {
-        float dr = __fsub_rn(kn[i + k], kn[i]);
-        float dd = __fsub_rn(kn[i + k + 1], kn[i + 1]);
-        if (dr == 0.0f) dr = 1.0f;
-        if (dd == 0.0f) dd = 1.0f;
-        if (m >= 1) {
-          const float a = __fdiv_rn(__fsub_rn(x, kn[i]), dr);
-          v = __fmul_rn(a, N[m - 1]);
-          dv = __fdiv_rn(N[m - 1], dr) + a * D[m - 1];
-        }
-        if (m <= k - 1) {
-          const float c = __fdiv_rn(__fsub_rn(kn[i + k + 1], x), dd);
-          const float t2 = __fmul_rn(c, N[m]);
-          v = m >= 1 ? __fadd_rn(v, t2) : t2;
-          dv += c * D[m] - __fdiv_rn(N[m], dd);
-        }
-      }
-      nw[m] = v;
-      nd[m] = dv;
-    }
-#pragma unroll
-    for (int m = 0; m <= k; ++m) {
-      N[m] = nw[m];
-      D[m] = nd[m];
-    }
-  }
-  return j;
+// dW: floats per channel of an expanded pixel, R rounded up to float4s
+__host__ __device__ constexpr int dw_channel_stride(int R) {
+  return (R + 3) / 4 * 4;
 }
 
 // ------------------------------------------------------------ data gradient
@@ -250,8 +191,8 @@ struct TilePixel {
 // Block: 256 input pixels x CC channels (CC <= 8, a power of two), grid y
 // over the channel blocks.  Thread t is pixel slot pm = t >> 3 and channel
 // lane tn = t & 7 (lanes tn >= CC idle): it owns channel c0 + tn of the
-// block's pixels m = pm + 32q, q = 0..7, and keeps their 8 x (K+1) dE sums
-// in registers.  The 256 pixel slots are laid out so that pixel q lies a
+// block's pixels m = pm + 32q, q = 0..7, and keeps their 8 x R dE sums in
+// registers.  The 256 pixel slots are laid out so that pixel q lies a
 // block-uniform dq[q] tile pixels after pixel 0 (kernel arguments: the
 // loads need one address register per thread, not eight):
 //   dense: NB image slots x TH rows x Wv columns, Wv = W and TH rounded up
@@ -272,13 +213,14 @@ struct TilePixel {
 //     computed.
 // Output channels are staged OC at a time (two float4s; one for O = 4 or a
 // fallback tile): the g tile as [o4][pixel] float4s and the weight slices
-// of all k*k taps as [tap][kk][o4][channel] float4s, so that a warp's four
+// of all k*k taps as [tap][r][o4][channel] float4s, so that a warp's four
 // pixel slots read four neighbouring float4s of g and its eight lanes eight
 // neighbouring float4s of W (no bank conflict; each a broadcast).  Every
 // staged float4 is one 16-byte cp.async (zero-fill off the frame and past
 // O); chunk n+1 is in flight while chunk n is consumed (double-buffered,
 // one barrier per chunk).  Per tap and pair of output channels a thread
-// loads 8 float2s of g and 9 of W for 8 x 9 x 2 = 144 FMAs: the same bytes
+// loads 8 float2s of g and R of W for 8 x R x 2 FMAs (144 at R = 9): the
+// same bytes
 // per FMA as float4 loads with half the operand registers live, within the
 // 128 registers that two blocks of 256 threads per SM allow (the float4
 // form measured slower on the H100).
@@ -287,15 +229,14 @@ struct TilePixel {
 // pointers by addition and the tap loop multiplies: no divide in any loop.
 // Without the TABLE (large kernels, where its int per pixel does not fit),
 // each staging thread steps a TilePixel set up once per block instead.
-template <int NK, int ORDER, int ACT, bool TABLE>
+template <class Basis, bool TABLE>
 __global__ void __launch_bounds__(kThreads, 2)
     kan_conv2d_bwd_dx_kernel(const float* __restrict__ x,
                              const float* __restrict__ w_all,
                              const float* __restrict__ g,
                              float* __restrict__ dx, const DxShape s,
                              const Knots kn) {
-  constexpr int K = NK - ORDER - 1;
-  constexpr int K1 = K + 1;
+  constexpr int K1 = Basis::R;  // rows of E per channel
   extern __shared__ float4 smem4[];
   __shared__ float knS[kMaxKnots];
 
@@ -360,7 +301,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   // chunk of output channels oc0 .. oc0 + 4*OC4 - 1 into buf: g float4 o4
-  // of tile pixel p at buf[o4*tilePitch + p]; W_all row kk*C + c0 + cl,
+  // of tile pixel p at buf[o4*tilePitch + p]; W_all row kk*C + c0 + cl (kk
+  // < R = K1),
   // columns tap*O + oc0 + 4*o4 .. +3 at buf[gF4 + ((tap*K1 + kk)*OC4 +
   // o4)*CC + cl]
   const size_t wCols = (size_t)T * s.O;
@@ -466,7 +408,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 
-  // epilogue: the chain rule through the basis and the base activation
+  // epilogue: the chain rule through the basis (and the base activation)
   const int c = c0 + tn;
   if (tn >= CC || c >= s.C) return;
   // pixel q: skip, image bq + 4q at (iq, jq); dense, slot m = pm + 32q
@@ -496,18 +438,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     if (!slotOn || b >= s.B || i >= s.H || j >= s.W) continue;
     const size_t at = (((size_t)b * s.H + i) * s.W + j) * s.C + c;
-    const float xv = __ldg(&x[at]);
-    float D[ORDER + 1];
-    const int j0 = bspline_span_grad<NK, ORDER>(xv, knS, D) - ORDER;
-    float sum = acc[q][K] * base_act_grad<ACT>(xv);
-    // basis kk = j0 + m has derivative D[m]; the others have 0 (static
-    // register indices only)
-#pragma unroll
-    for (int kk = 0; kk < K; ++kk)
-#pragma unroll
-      for (int mm = 0; mm <= ORDER; ++mm)
-        if (kk == j0 + mm) sum = fmaf(acc[q][kk], D[mm], sum);
-    dx[at] = sum;
+    dx[at] = Basis::grad(__ldg(&x[at]), knS, acc[q]);
   }
 }
 
@@ -517,17 +448,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 // split*ips + ips), summed over their interior pixels in chunks of P.
 // Thread t is pixel slice t / (CC*G) (G = BN/8 column groups), channel
 // cl = t % CC and column group tn = (t / CC) % G of the slice: it keeps
-// channel cl's K+1 expanded rows x columns {tn*4 .. tn*4+3, BN/2 + tn*4 ..
+// channel cl's R expanded rows x columns {tn*4 .. tn*4+3, BN/2 + tn*4 ..
 // BN/2 + tn*4+3} in registers and sums pixels slice, slice + PW, ... of
 // each chunk.  The PW slices' tiles are added in slice order at the end.
-template <int NK, int ORDER, int ACT>
+template <class Basis>
 __global__ void __launch_bounds__(kDwMaxThreads, 2)
     kan_conv2d_bwd_dw_kernel(const float* __restrict__ x,
                              const float* __restrict__ g,
                              float* __restrict__ partial, const DwShape s,
                              const Knots kn) {
-  constexpr int K = NK - ORDER - 1;
-  constexpr int K1 = K + 1;
+  constexpr int K1 = Basis::R;  // rows of E per channel
   constexpr int ES = dw_channel_stride(K1);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -602,19 +532,8 @@ __global__ void __launch_bounds__(kDwMaxThreads, 2)
       if (pixB[p] >= 0 && c < s.C) {
         const float xv = __ldg(
             &x[(((size_t)pixB[p] * s.H + pixH[p]) * s.W + pixW[p]) * s.C + c]);
-        float N[ORDER + 1];
-        const int j = bspline_span<NK, ORDER>(xv, knS, N);
-#pragma unroll
-        for (int kk = 0; kk < K; ++kk) Ep[kk] = 0.0f;
-        if (j >= 0) {
-#pragma unroll
-          for (int m = 0; m <= ORDER; ++m) {
-            const int kk = j - ORDER + m;
-            if (kk >= 0 && kk < K) Ep[kk] = N[m];
-          }
-        }
-        Ep[K] = base_act<ACT>(xv);
-      } else {
+        Basis::store(xv, knS, Ep);
+      } else {  // the mask: E is zero on the pad and past C
 #pragma unroll
         for (int kk = 0; kk < K1; ++kk) Ep[kk] = 0.0f;
       }
@@ -641,7 +560,7 @@ __global__ void __launch_bounds__(kDwMaxThreads, 2)
       const float* Zp = Zs + tn * 4;
 #pragma unroll 2
       for (int p = slice; p < s.P; p += s.PW) {
-        // the channel's K+1 values: float4s, then single floats
+        // the channel's R values: float4s, then single floats
         float e[K1];
 #pragma unroll
         for (int v = 0; v < K1 / 4; ++v) {
@@ -718,8 +637,8 @@ cudaError_t grant_smem(Kernel kernel, size_t smem, size_t* granted) {
 // the staged chunks (g tile with what idle slots read past it, weight
 // slices; OC/4 float4s per entry), the g tile's table (one int a pixel)
 // and, skip, each warp's valid taps (a bit a tap)
-size_t dx_smem(const DxShape& s, int K1) {
-  const size_t chunk = ((size_t)s.tilePitch + (size_t)s.k * s.k * K1 *
+size_t dx_smem(const DxShape& s, int R) {
+  const size_t chunk = ((size_t)s.tilePitch + (size_t)s.k * s.k * R *
                                                   (1 << s.lcc)) << s.loc;
   return sizeof(float4) * s.stages * chunk +
          (s.table ? sizeof(int) * (size_t)s.tilePix : 0) +
@@ -729,22 +648,22 @@ size_t dx_smem(const DxShape& s, int K1) {
 
 // the staged chunk (expanded input, gathered g, pixel table), or the
 // slices' tiles handed to slice 0 at the end, whichever is larger
-size_t dw_smem(const DwShape& s, int K1) {
+size_t dw_smem(const DwShape& s, int R) {
   const size_t staged =
-      sizeof(float) * (size_t)s.P * (dw_channel_stride(K1) * s.CC + s.BN) +
+      sizeof(float) * (size_t)s.P * (dw_channel_stride(R) * s.CC + s.BN) +
       3 * sizeof(int) * (size_t)s.P;
   const size_t slices =
-      sizeof(float) * (size_t)(s.PW - 1) * K1 * s.CC * s.BN;
+      sizeof(float) * (size_t)(s.PW - 1) * R * s.CC * s.BN;
   return staged > slices ? staged : slices;
 }
 
-template <int NK, int ORDER, int ACT, bool TABLE>
+template <class Basis, bool TABLE>
 cudaError_t launch_dx(const float* x, const float* w_all, const float* g,
                       float* dx, const DxShape& s, const Knots& kn,
                       cudaStream_t stream) {
-  auto kernel = kan_conv2d_bwd_dx_kernel<NK, ORDER, ACT, TABLE>;
+  auto kernel = kan_conv2d_bwd_dx_kernel<Basis, TABLE>;
   static size_t granted = 48 * 1024;
-  const size_t smem = dx_smem(s, NK - ORDER);
+  const size_t smem = dx_smem(s, Basis::R);
   const cudaError_t err = grant_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return err;
   const dim3 grid(s.tilesM, (s.C + (1 << s.lcc) - 1) >> s.lcc);
@@ -752,12 +671,12 @@ cudaError_t launch_dx(const float* x, const float* w_all, const float* g,
   return cudaGetLastError();
 }
 
-template <int NK, int ORDER, int ACT>
+template <class Basis>
 cudaError_t launch_dw(const float* x, const float* g, float* partial,
                       const DwShape& s, const Knots& kn, cudaStream_t stream) {
-  auto kernel = kan_conv2d_bwd_dw_kernel<NK, ORDER, ACT>;
+  auto kernel = kan_conv2d_bwd_dw_kernel<Basis>;
   static size_t granted = 48 * 1024;
-  const size_t smem = dw_smem(s, NK - ORDER);
+  const size_t smem = dw_smem(s, Basis::R);
   const cudaError_t err = grant_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.C + s.CC - 1) / s.CC,
@@ -779,7 +698,7 @@ int log2_exact(int v) {
 
 // Data gradient dx (B, H, W, C) of the KAN conv for g (B, Ho, Wo, O).
 // Returns a cudaError_t (0 = success); cudaErrorInvalidValue for a tile or
-// spline the build does not carry.  The Python wrapper chooses the tile
+// basis the build does not carry (the basis arguments as the forward's).  The Python wrapper chooses the tile
 // (kernels/kan_conv2d.py, dx_launch_config: skip; dense TH (rows per image
 // slot) and NB (image slots), NB*TH*Wv = 256 (or 128, 64, 32 for large
 // kernels) for Wv = W rounded up to a power of two, or skip NG; CC; OC;
@@ -788,8 +707,8 @@ int log2_exact(int v) {
 int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
                       void* dx, int B, int H, int W, int C, int O, int k,
                       int pad, int skip, int TH, int NB, int NG, int CC,
-                      int OC, int stages, int table, const float* knots,
-                      int n_knots, int order, int act, void* stream) {
+                      int OC, int stages, int table, const float* params,
+                      int n_params, int order, int basis, void* stream) {
   DxShape s = {};
   s.B = B; s.H = H; s.W = W; s.C = C; s.O = O; s.k = k; s.pad = pad;
   s.Ho = H + 2 * pad - k + 1;
@@ -797,18 +716,18 @@ int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
   s.skip = skip; s.NB = NB; s.NG = NG; s.stages = stages; s.table = table;
   s.lcc = CC <= 8 ? log2_exact(CC) : -1;
   s.loc = OC == 4 || OC == 8 ? log2_exact(OC / 4) : -1;
-  const int K1 = n_knots - order;
+  const int K1 = basis_rows(basis, n_params, order);
   Knots kn;
   if (s.lcc < 0 || s.loc < 0 || (stages != 1 && stages != 2) ||
-      (table != 0 && table != 1) || O % 4 != 0 ||
-      ((n_knots - order) << (s.lcc + s.loc)) > kThreads ||
-      s.Ho <= 0 || s.Wo <= 0 || W > kDxPixels || (act != 0 && act != 1) ||
+      (table != 0 && table != 1) || O % 4 != 0 || K1 < 1 ||
+      (K1 << (s.lcc + s.loc)) > kThreads ||
+      s.Ho <= 0 || s.Wo <= 0 || W > kDxPixels ||
       reinterpret_cast<size_t>(w_all) % 16 != 0 ||
       reinterpret_cast<size_t>(g) % 16 != 0 ||
       (long long)B * H * W * C >= (1LL << 31) ||
       (long long)B * s.Ho * s.Wo * O >= (1LL << 31) ||
       (long long)K1 * C * k * k * O >= (1LL << 31) ||
-      !load_knots(knots, n_knots, &kn))
+      !load_knots(params, n_params, &kn))
     return (int)cudaErrorInvalidValue;
   const int P = H * W;
   if (skip) {
@@ -866,54 +785,44 @@ int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
   const float* gp = static_cast<const float*>(g);
   float* dxp = static_cast<float*>(dx);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_knots == 12 && order == 3) {  // grid_size 5, spline_order 3
-    if (table)
-      return (int)(act == 0 ? launch_dx<12, 3, 0, true>(xp, wp, gp, dxp, s,
-                                                        kn, st)
-                            : launch_dx<12, 3, 1, true>(xp, wp, gp, dxp, s,
-                                                        kn, st));
-    return (int)(act == 0 ? launch_dx<12, 3, 0, false>(xp, wp, gp, dxp, s, kn,
-                                                       st)
-                          : launch_dx<12, 3, 1, false>(xp, wp, gp, dxp, s, kn,
-                                                       st));
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)with_basis(basis, n_params, order, [&](auto b) {
+    return table ? launch_dx<decltype(b), true>(xp, wp, gp, dxp, s, kn, st)
+                 : launch_dx<decltype(b), false>(xp, wp, gp, dxp, s, kn, st);
+  });
 }
 
-// Weight-gradient partial sums (S, (K+1)*C, k*k*O): split s sums images
+// Weight-gradient partial sums (S, R*C, k*k*O): split s sums images
 // [s*ips, min(B, s*ips + ips)).  The wrapper chooses CC/BN/P/S/ips/PW
-// (dw_launch_config); g must be 16-byte aligned when O % 4 == 0.
+// (dw_launch_config); g must be 16-byte aligned when O % 4 == 0.  The
+// basis arguments as the forward's.
 int kan_conv2d_bwd_dw(const void* x, const void* g, void* partial, int B,
                       int H, int W, int C, int O, int k, int pad, int CC,
                       int BN, int P, int S, int ips, int PW,
-                      const float* knots, int n_knots, int order, int act,
+                      const float* params, int n_params, int order, int basis,
                       void* stream) {
   DwShape s;
   s.B = B; s.H = H; s.W = W; s.C = C; s.O = O; s.k = k; s.pad = pad;
   s.Ho = H + 2 * pad - k + 1;
   s.Wo = W + 2 * pad - k + 1;
   s.CC = CC; s.BN = BN; s.P = P; s.S = S; s.ips = ips; s.PW = PW;
-  const int K1 = n_knots - order;
+  const int K1 = basis_rows(basis, n_params, order);
   const long long slots = (long long)PW * CC * (BN / kDwTN);
   s.threads = (int)((slots + 31) / 32 * 32);
   const bool vec = O % 4 == 0;
   Knots kn;
   if (CC <= 0 || BN < kDwTN || BN % kDwTN != 0 || PW <= 0 ||
       slots > kDwMaxThreads || BN / (vec ? 4 : 1) > s.threads || P <= 0 ||
-      S <= 0 || ips <= 0 || s.Ho <= 0 || s.Wo <= 0 ||
-      (act != 0 && act != 1) ||
+      S <= 0 || ips <= 0 || s.Ho <= 0 || s.Wo <= 0 || K1 < 1 ||
       (vec && reinterpret_cast<size_t>(g) % 16 != 0) ||
-      !load_knots(knots, n_knots, &kn) || dw_smem(s, K1) > 227 * 1024)
+      !load_knots(params, n_params, &kn) || dw_smem(s, K1) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
   const float* gp = static_cast<const float*>(g);
   float* pp = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_knots == 12 && order == 3) {
-    return (int)(act == 0 ? launch_dw<12, 3, 0>(xp, gp, pp, s, kn, st)
-                          : launch_dw<12, 3, 1>(xp, gp, pp, s, kn, st));
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)with_basis(basis, n_params, order, [&](auto b) {
+    return launch_dw<decltype(b)>(xp, gp, pp, s, kn, st);
+  });
 }
 
 // dW = the (S, N) partials summed over S in the fixed order of

@@ -1,4 +1,6 @@
-// kan_conv2d_fwd — B-spline KAN convolution forward for Hopper (sm_90a).
+// kan_conv2d_fwd — KAN convolution forward for Hopper (sm_90a), over the
+// per-channel basis policies of kan_basis.cuh (B-spline with its base path,
+// Chebyshev without one).
 //
 // Replaces two Pallas TPU kernels of convkan_tpu, which compute the same
 // function and differ only in how they fit TPU VMEM:
@@ -10,34 +12,37 @@
 //
 // Function (x NHWC float32, y NHWC float32, pre-norm output):
 //   y[b,i,j,o] = sum_{di,dj} sum_r E[b,i+di,j+dj,r] * W_all[r, (di*k+dj)*O+o]
-//   E = [B_0(x) .. B_{K-1}(x), act(x)] on the zero-padded frame, multiplied by
-//   the validity mask: the pad is zero AFTER expansion (B-spline(0) != 0).
-//   W_all rows kk*C+c (basis kk of channel c), then C rows of the base path;
-//   columns tap-major.  This is pack_w_all(..., degree_major=False).
+//   E = [P_0(x) .. P_{K-1}(x)(, act(x))] (R rows per channel: the basis
+//   policy's) on the zero-padded frame, multiplied by the validity mask: the
+//   pad is zero AFTER expansion (B-spline(0) != 0, T_0 = 1 everywhere).
+//   W_all rows kk*C+c (basis kk of channel c), then C rows of the base path
+//   where there is one; columns tap-major.  This is pack_w_all(...,
+//   degree_major=False).
 //
 // What bounds it on the H100: arithmetic.  A (pixel, tap) pair whose input
 // lies on the pad adds zero, so the work that counts is 2 * (interior pixel,
-// tap) pairs * (K+1)*C*O FLOPs: 0.29 GFLOP per image over the 13 layers of
-// KAN-VGG16_small (0.36 counting the pad taps).  Each input is read once and
+// tap) pairs * R*C*O FLOPs: 0.29 GFLOP per image over the 13 layers of
+// KAN-VGG16_small (0.36 counting the pad taps) for the B-spline's R = 9.  Each input is read once and
 // each output written once (a few MB per layer at batch 1024).  Operands are
 // float32, so the ceiling is the FP32 rate outside the tensor cores (67
 // TFLOP/s on an H100 SXM at 700 W): 4.34 ms for the model at batch 1024.
 //
 // The design (an implicit GEMM: M = output pixels, N = output channels, the
-// reduction over taps x (K+1) x C):
+// reduction over taps x R x C):
 //   * A block of 256 threads owns BM pixels x BN channels, BN = O rounded up
 //     to 16..128, so that up to 128 channels the basis of an input tile is
 //     computed once.  It walks the input channels in chunks of CC: a chunk's
-//     input tile is expanded ONCE into (K+1)*CC masked rows in shared memory,
+//     input tile is expanded ONCE into R*CC masked rows in shared memory,
 //     pixel-major with a row stride of an odd number of float4s (neighbouring
 //     pixels in different banks), and every tap reads that tile shifted.
 //   * Each thread keeps 8 pixels x 8 channels of sums in registers (8 x 4 at
 //     BN = 16): per four reduction rows it loads 8 float4s of E and 8 of W
 //     for 256 FMAs, 4 FMAs per float read from shared memory, and a warp's E
 //     loads are broadcasts over the threads that share its pixels.
-//   * The basis: only the ORDER+1 bases that can be non-zero at x are
-//     evaluated (bspline_span of kan_bspline.cuh, 12 IEEE divides instead of
-//     54; bit-identical values), the rest of the row is written zero.
+//   * The basis (Basis::expand of kan_basis.cuh): for the B-spline only the
+//     ORDER+1 bases that can be non-zero at x are evaluated (bspline_span,
+//     12 IEEE divides instead of 54; bit-identical values), the rest of the
+//     row is written zero; Chebyshev's 4 rows of degree 3 are all dense.
 //   * W_all (at most 5.3 MB) stays in the 50 MB L2.  Each tap's slice of the
 //     chunk's rows is copied into shared memory with cp.async (no registers),
 //     double-buffered: the next tap's slice is in flight while the current
@@ -59,9 +64,9 @@
 // Later work: tensor cores (wgmma on TF32/bf16 operands) and TMA staging.
 //
 // Numerics: explicitly rounded float32 basis (no FMA contraction, true IEEE
-// divides); the knots arrive as float32 kernel arguments.  Build WITHOUT
-// --use_fast_math: it would turn the divides approximate and expf into
-// __expf.
+// divides); the knots (or the clamp bounds) arrive as float32 kernel
+// arguments.  Build WITHOUT --use_fast_math: it would turn the divides
+// approximate and expf and tanhf into their approximations.
 //
 // Interface: a plain C entry point loaded with ctypes.  It launches on the
 // caller's stream, allocates nothing, and returns the launch's error.
@@ -72,7 +77,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
-#include "kan_bspline.cuh"
+#include "kan_basis.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -84,7 +89,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTM = 8;                  // output pixels per thread
 constexpr int kMaxCC = 8;               // input channels per chunk
-constexpr int kMaxRS = 76;              // (K+1)*CC padded, K+1 = 9, CC <= 8
+constexpr int kMaxRS = 76;              // R*CC padded, R <= 9, CC <= 8
 constexpr int kMaxSplits = 16;          // channel splits of a tile: a cluster
 constexpr size_t kMaxSmem = 227 * 1024; // dynamic shared memory of a block
 
@@ -94,7 +99,7 @@ struct Shape {
   int TH, TW, NB;    // dense tile: NB images x TH rows x TW columns
   int NG;            // skip tile: NG groups of G images, all their pixels
   int CC, S, nch;    // channels per chunk, channel splits, chunks
-  int rs;            // floats per expanded pixel: (K+1)*CC padded
+  int rs;            // floats per expanded pixel: R*CC padded
   int tileH, tileW;  // dense: rows and columns of the haloed tile
   int tilePix;       // pixels of the expanded tile
   int groups;        // skip: image groups, ceil(B / G)
@@ -179,14 +184,14 @@ __device__ __forceinline__ int decode(const Shape& s, int m, int* tix) {
   return (b * s.Ho + i) * s.Wo + j;
 }
 
-template <int NK, int ORDER, int ACT, int BN>
+template <class Basis, int BN>
 __global__ void __launch_bounds__(kThreads, 2)
     kan_conv2d_fwd_kernel(const float* __restrict__ x,
                           const float* __restrict__ w_all,
                           float* __restrict__ y, const Shape s,
                           const Knots kn) {
   using g = Geo<BN>;
-  constexpr int K = NK - ORDER - 1;
+  constexpr int R = Basis::R;  // rows of E per channel
   constexpr int TN = g::TN, NH = g::NH;
   // steps of the reduction loop unrolled: two at 8 x 4 sums per thread,
   // where registers allow the next step's loads early (timed on the H100)
@@ -194,11 +199,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float knS[kMaxKnots];
-  __shared__ int rowG[kMaxRS];   // slice row rr: W_all row kk*C + cl, or -1
+  __shared__ int rowG[kMaxRS];   // slice row rr: W_all row r*C + cl, or -1
   __shared__ int rowCl[kMaxRS];  // slice row rr: channel cl of the chunk
 
   const int RS = s.rs;
-  const int R = (K + 1) * s.CC;
+  const int RC = R * s.CC;
   float* Es = smem;                    // [tilePix][RS]: expanded, masked input
   float* Ws = smem + s.tilePix * RS;   // [2][RS][BN]: two taps' weight slices
 
@@ -240,13 +245,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   for (int rr = tid; rr < RS; rr += kThreads) {
-    rowG[rr] = rr < R ? (rr / s.CC) * s.C + rr % s.CC : -1;
+    rowG[rr] = rr < RC ? (rr / s.CC) * s.C + rr % s.CC : -1;
     rowCl[rr] = rr % s.CC;
   }
   if (tid < kMaxKnots) knS[tid] = kn.v[tid];
-  // the row padding R..RS-1 of every pixel stays zero for all chunks
-  for (int idx = tid; idx < s.tilePix * (RS - R); idx += kThreads)
-    Es[(idx / (RS - R)) * RS + R + idx % (RS - R)] = 0.0f;
+  // the row padding RC..RS-1 of every pixel stays zero for all chunks
+  for (int idx = tid; idx < s.tilePix * (RS - RC); idx += kThreads)
+    Es[(idx / (RS - RC)) * RS + RC + idx % (RS - RC)] = 0.0f;
 
   float acc[kTM][TN];
 #pragma unroll
@@ -259,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t wCols = (size_t)taps * s.O;
   const int NBt = s.NG * g::G;  // skip: images of the tile
 
-  // the slice of tap `tap` for the chunk at c0 into dst: rows kk*CC + cl,
+  // the slice of tap `tap` for the chunk at c0 into dst: rows r*CC + cl,
   // columns o0..o0+BN-1, zero where no weight is (padding rows, channels
   // past C, columns past O)
   auto stageW = [&](int c0, int tap, float* dst) {
@@ -314,20 +319,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int cl = 0; cl < kMaxCC; ++cl) {
         if (cl >= s.CC) break;
         if (in && c0 + cl < s.C) {
-          float N[ORDER + 1];
-          const int j = bspline_span<NK, ORDER>(xv[cl], knS, N);
+          Basis::expand(xv[cl], knS, Ep, s.CC, cl);
+        } else {  // the mask: E is zero on the pad, whatever the basis at 0
 #pragma unroll
-          for (int kk = 0; kk < K; ++kk) {
-            float v = 0.0f;
-#pragma unroll
-            for (int m = 0; m <= ORDER; ++m)
-              if (kk == j - ORDER + m) v = N[m];
-            Ep[kk * s.CC + cl] = v;
-          }
-          Ep[K * s.CC + cl] = base_act<ACT>(xv[cl]);
-        } else {
-#pragma unroll
-          for (int kk = 0; kk <= K; ++kk) Ep[kk * s.CC + cl] = 0.0f;
+          for (int r = 0; r < R; ++r) Ep[r * s.CC + cl] = 0.0f;
         }
       }
     }
@@ -442,10 +437,10 @@ size_t smem_bytes(const Shape& s, int BN, int BM) {
   return bytes;
 }
 
-template <int NK, int ORDER, int ACT, int BN>
+template <class Basis, int BN>
 cudaError_t launch(const float* x, const float* w_all, float* y,
                    const Shape& s, const Knots& kn, cudaStream_t stream) {
-  auto kernel = kan_conv2d_fwd_kernel<NK, ORDER, ACT, BN>;
+  auto kernel = kan_conv2d_fwd_kernel<Basis, BN>;
   const size_t smem = smem_bytes(s, BN, Geo<BN>::BM);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // raise the dynamic shared-memory cap once per instantiation, as needed
@@ -483,14 +478,14 @@ cudaError_t launch(const float* x, const float* w_all, float* y,
   return cudaLaunchKernelEx(&cfg, kernel, x, w_all, y, s, kn);
 }
 
-template <int NK, int ORDER, int ACT>
+template <class Basis>
 cudaError_t launch_bn(int BN, const float* x, const float* w_all, float* y,
                       const Shape& s, const Knots& kn, cudaStream_t stream) {
   switch (BN) {
-    case 16: return launch<NK, ORDER, ACT, 16>(x, w_all, y, s, kn, stream);
-    case 32: return launch<NK, ORDER, ACT, 32>(x, w_all, y, s, kn, stream);
-    case 64: return launch<NK, ORDER, ACT, 64>(x, w_all, y, s, kn, stream);
-    case 128: return launch<NK, ORDER, ACT, 128>(x, w_all, y, s, kn, stream);
+    case 16: return launch<Basis, 16>(x, w_all, y, s, kn, stream);
+    case 32: return launch<Basis, 32>(x, w_all, y, s, kn, stream);
+    case 64: return launch<Basis, 64>(x, w_all, y, s, kn, stream);
+    case 128: return launch<Basis, 128>(x, w_all, y, s, kn, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -500,14 +495,16 @@ cudaError_t launch_bn(int BN, const float* x, const float* w_all, float* y,
 extern "C" {
 
 // Launches the forward on `stream`.  Returns a cudaError_t (0 = success);
-// cudaErrorInvalidValue for a tile or spline the build does not carry.
+// cudaErrorInvalidValue for a tile or basis the build does not carry.
 // The Python wrapper chooses the tile (kernels/kan_conv2d.py,
 // launch_config: BN; skip; dense TH/TW/NB or skip NG; CC; S) and validates
-// every tensor before calling.
+// every tensor before calling.  The basis: its parameters (the knots, or
+// the clamp bounds), their count, its order (spline order or degree) and
+// its code (kan_basis.cuh, with_basis).
 int kan_conv2d_fwd(const void* x, const void* w_all, void* y, int B, int H,
                    int W, int C, int O, int k, int pad, int BN, int skip,
                    int TH, int TW, int NB, int NG, int CC, int S,
-                   const float* knots, int n_knots, int order, int act,
+                   const float* params, int n_params, int order, int basis,
                    void* stream) {
   Shape s = {};
   s.B = B; s.H = H; s.W = W; s.C = C; s.O = O; s.k = k; s.pad = pad;
@@ -515,15 +512,15 @@ int kan_conv2d_fwd(const void* x, const void* w_all, void* y, int B, int H,
   s.Wo = W + 2 * pad - k + 1;
   s.skip = skip; s.TH = TH; s.TW = TW; s.NB = NB; s.NG = NG;
   s.CC = CC; s.S = S;
-  // (K+1)*CC rounded up to a multiple of 4 floats with an odd number of
+  // R*CC rounded up to a multiple of 4 floats with an odd number of
   // float4s, so neighbouring pixels' float4 loads fall in different banks
-  const int K1 = n_knots - order;
-  s.rs = (K1 * CC + 3) / 4 * 4;
+  const int R = basis_rows(basis, n_params, order);
+  s.rs = (R * CC + 3) / 4 * 4;
   if ((s.rs / 4) % 2 == 0) s.rs += 4;
   s.vecW = O % 4 == 0 && reinterpret_cast<uintptr_t>(w_all) % 16 == 0;
   Knots kn;
-  if (s.Ho <= 0 || s.Wo <= 0 || CC < 1 || CC > kMaxCC || s.rs > kMaxRS ||
-      (act != 0 && act != 1) || !load_knots(knots, n_knots, &kn) ||
+  if (s.Ho <= 0 || s.Wo <= 0 || CC < 1 || CC > kMaxCC || R < 1 ||
+      s.rs > kMaxRS || !load_knots(params, n_params, &kn) ||
       (BN != 16 && BN != 32 && BN != 64 && BN != 128))
     return (int)cudaErrorInvalidValue;
   s.nch = (C + CC - 1) / CC;
@@ -557,11 +554,9 @@ int kan_conv2d_fwd(const void* x, const void* w_all, void* y, int B, int H,
   const float* wp = static_cast<const float*>(w_all);
   float* yp = static_cast<float*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_knots == 12 && order == 3) {  // grid_size 5, spline_order 3
-    return (int)(act == 0 ? launch_bn<12, 3, 0>(BN, xp, wp, yp, s, kn, st)
-                          : launch_bn<12, 3, 1>(BN, xp, wp, yp, s, kn, st));
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)with_basis(basis, n_params, order, [&](auto b) {
+    return launch_bn<decltype(b)>(BN, xp, wp, yp, s, kn, st);
+  });
 }
 
 }  // extern "C"

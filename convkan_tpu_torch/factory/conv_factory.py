@@ -1,6 +1,6 @@
-"""CONV_KAN_FACTORY, port of the ``"KAN"`` and ``"WavKAN"`` keys of
-``convkan_tpu/factory/conv_factory.py``: the reference signatures with
-'same' padding when ``padding`` is None."""
+"""CONV_KAN_FACTORY, port of the ``"KAN"``, ``"ChebyKAN"`` and ``"WavKAN"``
+keys of ``convkan_tpu/factory/conv_factory.py``: the reference signatures
+with 'same' padding when ``padding`` is None."""
 
 from __future__ import annotations
 
@@ -39,6 +39,23 @@ def kan_conv(in_planes, out_planes, kernel_size, spline_order=3, groups=1,
         norm_kwargs=norm_kwargs, generator=generator, device=device)
 
 
+def chebykan_conv(in_planes, out_planes, kernel_size, degree=3, groups=1,
+                  stride=1, dilation=1, padding=None, l1_decay=0.0,
+                  dropout=0.0, base_activation="__default__",
+                  norm_layer=InstanceNorm, *, generator=None, device=None,
+                  **norm_kwargs):
+    """The reference's ``chebykan_conv`` builder (``_poly_conv("cheby")``).
+    ChebyKAN has no base path, so ``base_activation`` is taken and not
+    read, as in the reference."""
+    _no_l1(l1_decay)
+    return KanConvND(
+        family="cheby", input_dim=in_planes, output_dim=out_planes,
+        kernel_size=kernel_size, ndim=2, degree=degree, stride=stride,
+        padding=_pad(padding, kernel_size, dilation), dilation=dilation,
+        groups=groups, dropout=dropout, norm_layer=resolve_norm(norm_layer),
+        norm_kwargs=norm_kwargs, generator=generator, device=device)
+
+
 def wavkan_conv(in_planes, out_planes, kernel_size, groups=1, stride=1,
                 dilation=1, padding=None, l1_decay=0.0, dropout=0.0,
                 wavelet_type="mexican_hat", wav_version="fast",
@@ -57,4 +74,5 @@ def wavkan_conv(in_planes, out_planes, kernel_size, groups=1, stride=1,
 
 
 CONV_KAN_FACTORY: dict[str, Callable] = {"KAN": kan_conv,
+                                         "ChebyKAN": chebykan_conv,
                                          "WavKAN": wavkan_conv}

@@ -1,13 +1,15 @@
-"""B-spline KAN conv: the CUDA kernels' wrappers and their plain PyTorch
-versions, forward and backward.
+"""KAN conv: the CUDA kernels' wrappers and their plain PyTorch versions,
+forward and backward, over a per-channel basis (``Basis``): the B-spline
+with its base path, or the Chebyshev polynomials without one.
 
 ``kan_conv2d`` computes the pre-norm output of a KAN conv (stride 1,
 dilation 1, groups 1, NHWC):
 
     y[b,i,j,o] = sum_{di,dj} sum_r E[b,i+di,j+dj,r] * W_all[r, (di*k+dj)*O+o]
-    E = [B_0(x) .. B_{K-1}(x), act(x)], zero on the pad AFTER expansion
+    E = [P_0(x) .. P_{K-1}(x)(, act(x))], zero on the pad AFTER expansion
 
-which is what ``convkan_tpu/kernels/wide_kan_conv.py`` (``fwd_kernel``) and
+(R = K rows per channel, or K + 1 with the base path's act(x)), which is
+what ``convkan_tpu/kernels/wide_kan_conv.py`` (``fwd_kernel``) and
 ``convkan_tpu/kernels/fused_kan_conv.py`` (``fused_kan_conv2d``) compute on
 the TPU.  On a CUDA tensor it launches ``csrc/kan_conv2d_fwd.cu`` or raises,
 and its gradient (the counterpart of the custom_vjp around ``bwd_kernel``
@@ -21,23 +23,27 @@ from a kernel to a plain version.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import itertools
 import threading
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..basis.bspline import bspline_basis_unrolled_list
+from ..basis.poly import chebyshev_basis_recurrence_list
 from ..ops.conv import conv_nd
 from ..utils.activations import ACTIVATIONS
 
 SOURCE = "kan_conv2d_fwd.cu"
 BWD_SOURCE = "kan_conv2d_bwd.cu"
-# what the compiled kernels carry: (number of knots, spline order) pairs
-# and base activations, by the integer code the C entries take
-SPLINES = {(12, 3)}
-ACTS = {"silu": 0, "gelu": 1}
+# the bases the kernels are compiled for (Basis.key), by the integer code
+# the C entries take: the B-spline of 12 knots at order 3 (grid 5) with a
+# SiLU or GELU base path, and the Chebyshev polynomials of degree 3
+COMPILED = {("bspline", 12, 3, "silu"): 0, ("bspline", 12, 3, "gelu"): 1,
+            ("cheby", 3): 2}
 THREADS, TM = 256, 8             # forward block: threads, pixels per thread
 WARPS = THREADS // 32
 MAX_CHUNK = 8                    # input channels expanded per pass
@@ -55,7 +61,7 @@ DX_SMEM_STATIC = 4 * 32          # the dx kernel's static knots (of the 227)
 # skips the pad taps
 DX_SLOTS, DX_TM, DX_MAX_CC, DX_OC, DX_GROUP = 32, 8, 8, 8, 32
 DX_PIXELS = DX_SLOTS * DX_TM
-# weight-gradient tile: a thread sums one channel's K+1 expanded rows x
+# weight-gradient tile: a thread sums one channel's R expanded rows x
 # DW_TN columns, a block CC <= DW_MAX_CC channels x BN columns in at most
 # DW_THREADS threads, over chunks of DW_P pixels; the batch is split so that
 # the grid stays within DW_TARGET_BLOCKS (6 per SM: close to whole waves
@@ -94,21 +100,91 @@ def _count_launch(name: str) -> None:
         launches[name] += 1
 
 
+@dataclasses.dataclass(frozen=True)
+class Basis:
+    """The expansion of every input channel: ``kind`` "bspline" (``K`` =
+    len(knots) - order - 1 bases of the Cox-de Boor recurrence, spline
+    order ``order``) or "cheby" (T_0 .. T_order of clamp(tanh x, -1 + eps,
+    1 - eps), K = order + 1); ``act`` names the base path's activation,
+    None for none.  Build it with ``bspline_basis`` or ``cheby_basis``."""
+
+    kind: str
+    K: int
+    order: int
+    knots: tuple = ()
+    epsilon: float = 0.0
+    act: Optional[str] = None
+
+    @property
+    def R(self) -> int:
+        """Rows of E per channel: the K bases and the base path's."""
+        return self.K + (self.act is not None)
+
+    @property
+    def key(self) -> tuple:
+        if self.kind == "bspline":
+            return (self.kind, len(self.knots), self.order, self.act)
+        return (self.kind, self.order)
+
+    @property
+    def params(self) -> tuple:
+        """The C entries' float32 parameters: the knots, or the clamp
+        bounds float32(-1 + eps), float32(1 - eps) as jnp.clip takes them."""
+        if self.kind == "bspline":
+            return self.knots
+        return (float(np.float32(-1.0 + self.epsilon)),
+                float(np.float32(1.0 - self.epsilon)))
+
+    def columns(self, x) -> list:
+        """[P_0(x) .. P_{K-1}(x)], each shaped like x, as the TPU kernels
+        build them (the Chebyshev recurrence, not the trig form)."""
+        if self.kind == "bspline":
+            return bspline_basis_unrolled_list(x, self.knots, self.order)
+        return chebyshev_basis_recurrence_list(x, self.order, self.epsilon)
+
+    def __str__(self) -> str:
+        if self.kind == "bspline":
+            return (f"bspline knots={len(self.knots)} order={self.order} "
+                    f"act={self.act!r}")
+        return f"cheby degree={self.order}"
+
+
+def bspline_basis(knots, order: int, act: str) -> Basis:
+    """The B-spline over ``knots`` at spline order ``order``, with the base
+    path act(x)."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown base activation {act!r}")
+    knots = tuple(float(v) for v in knots)
+    return Basis("bspline", len(knots) - order - 1, order, knots=knots,
+                 act=act)
+
+
+def cheby_basis(degree: int, epsilon: float = 1e-7) -> Basis:
+    """The Chebyshev polynomials T_0 .. T_degree of clamp(tanh x), no base
+    path."""
+    return Basis("cheby", degree + 1, degree, epsilon=float(epsilon))
+
+
 def pack_w_all(base_w, poly_w, *, C: int, K: int, k: int, O: int):
-    """(D, k*k*O) combined weights, D = (K+1)*C: rows kk*C + c hold basis kk
-    of channel c, then C rows of the base path; columns (di*k+dj)*O + o.
-    ``poly_w`` is HWIO (k, k, C*K, O) with channel-major rows c*K + kk."""
+    """(D, k*k*O) combined weights, D = K*C, or (K+1)*C with a base path:
+    rows kk*C + c hold basis kk of channel c, then C rows of the base path
+    (``base_w`` None: none); columns (di*k+dj)*O + o.  ``poly_w`` is HWIO
+    (k, k, C*K, O) with channel-major rows c*K + kk."""
     pw = poly_w.reshape(k, k, C, K, O).permute(3, 2, 0, 1, 4)
     pw = pw.reshape(K * C, k * k * O)
+    if base_w is None:
+        return pw.contiguous()
     bw = base_w.permute(2, 0, 1, 3).reshape(C, k * k * O)
     return torch.cat([pw, bw], dim=0).contiguous()
 
 
-def expand(x, knots, order: int, act: str):
-    """E = [B_0(x) .. B_{K-1}(x), act(x)] concatenated on the channel axis
+def expand(x, basis: Basis):
+    """E = [P_0(x) .. P_{K-1}(x)(, act(x))] concatenated on the channel axis
     (column kk*C + c), the rows of ``pack_w_all``'s layout."""
-    cols = bspline_basis_unrolled_list(x, knots, order)
-    return torch.cat(cols + [ACTIVATIONS[act](x)], dim=-1)
+    cols = basis.columns(x)
+    if basis.act is not None:
+        cols = cols + [ACTIVATIONS[basis.act](x)]
+    return torch.cat(cols, dim=-1)
 
 
 def _conv_w_all(E, w_all, k: int, pad: int):
@@ -117,32 +193,29 @@ def _conv_w_all(E, w_all, k: int, pad: int):
     return conv_nd(E, w_hwio, padding=pad).contiguous()
 
 
-def kan_conv2d_reference(x, base_w, poly_w, knots, order: int, k: int,
-                         pad: int, act: str):
-    """Plain PyTorch version: build the basis, concatenate the base path,
-    and convolve (the convolution's zero padding is the mask after
-    expansion).  float32 or float64, any device, differentiable."""
+def kan_conv2d_reference(x, base_w, poly_w, basis: Basis, k: int,
+                         pad: int):
+    """Plain PyTorch version: build the basis, concatenate the base path
+    (if any), and convolve (the convolution's zero padding is the mask
+    after expansion).  float32 or float64, any device, differentiable."""
     C, O = x.shape[-1], poly_w.shape[-1]
-    K = len(knots) - order - 1
-    w_all = pack_w_all(base_w, poly_w, C=C, K=K, k=k, O=O)
-    return _conv_w_all(expand(x, knots, order, act), w_all, k, pad)
+    w_all = pack_w_all(base_w, poly_w, C=C, K=basis.K, k=k, O=O)
+    return _conv_w_all(expand(x, basis), w_all, k, pad)
 
 
-def input_grad_reference(x, w_all, g, knots, order: int, k: int, pad: int,
-                         act: str):
+def input_grad_reference(x, w_all, g, basis: Basis, k: int, pad: int):
     """Plain version of the data-gradient kernel: dL/dx of the reference
     for the output gradient g, by autograd."""
     with torch.enable_grad():
         xr = x.detach().requires_grad_(True)
-        y = _conv_w_all(expand(xr, knots, order, act), w_all.detach(), k, pad)
+        y = _conv_w_all(expand(xr, basis), w_all.detach(), k, pad)
         return torch.autograd.grad(y, xr, g)[0]
 
 
-def weight_grad_reference(x, g, knots, order: int, k: int, pad: int,
-                          act: str):
-    """Plain version of the weight gradient: dL/dW_all ((K+1)*C, k*k*O) of
-    the reference for the output gradient g, by autograd."""
-    E = expand(x.detach(), knots, order, act)
+def weight_grad_reference(x, g, basis: Basis, k: int, pad: int):
+    """Plain version of the weight gradient: dL/dW_all (R*C, k*k*O) of the
+    reference for the output gradient g, by autograd."""
+    E = expand(x.detach(), basis)
     O = g.shape[-1]
     with torch.enable_grad():
         w = torch.zeros(E.shape[-1], k * k * O, dtype=x.dtype,
@@ -150,14 +223,14 @@ def weight_grad_reference(x, g, knots, order: int, k: int, pad: int,
         return torch.autograd.grad(_conv_w_all(E, w, k, pad), w, g)[0]
 
 
-def weight_partials_reference(x, g, knots, order: int, k: int, pad: int,
-                              act: str, splits: int, ips: int):
-    """Plain version of the weight-gradient kernel: the (splits, (K+1)*C,
+def weight_partials_reference(x, g, basis: Basis, k: int, pad: int,
+                              splits: int, ips: int):
+    """Plain version of the weight-gradient kernel: the (splits, R*C,
     k*k*O) partial sums, split s over images [s*ips, s*ips + ips)."""
     return torch.stack([
         weight_grad_reference(x[s * ips:(s + 1) * ips],
-                              g[s * ips:(s + 1) * ips], knots, order, k, pad,
-                              act) for s in range(splits)])
+                              g[s * ips:(s + 1) * ips], basis, k, pad)
+        for s in range(splits)])
 
 
 def reduce_launch_config(S: int, N: int) -> dict:
@@ -234,15 +307,15 @@ def reduce_args(partial, out, cfg) -> tuple:
             cfg["VW"] if aligned else 1, cfg["Gw"], cfg["Gc"])
 
 
-def _describe(B, H, W, C, O, k, pad, n_knots, order, act) -> str:
+def _describe(B, H, W, C, O, k, pad, basis: Basis) -> str:
     return (f"KAN conv x=({B},{H},{W},{C}) O={O} kernel={k} pad={pad} "
-            f"knots={n_knots} order={order} act={act!r}")
+            f"{basis}")
 
 
-def row_stride(K: int, CC: int) -> int:
-    """Floats per pixel of the kernel's expanded tile: (K+1)*CC rounded up
-    to whole float4s, made an odd number of float4s (mirrors the C entry)."""
-    rs = -(-(K + 1) * CC // 4) * 4
+def row_stride(R: int, CC: int) -> int:
+    """Floats per pixel of the kernel's expanded tile: R*CC rounded up to
+    whole float4s, made an odd number of float4s (mirrors the C entry)."""
+    rs = -(-R * CC // 4) * 4
     return rs + 4 if (rs // 4) % 2 == 0 else rs
 
 
@@ -271,7 +344,7 @@ def fwd_smem(tile: int, rs: int, BN: int, BM: int, S: int) -> int:
     return max(nbytes, 4 * BM * BN) if S > 1 else nbytes
 
 
-def launch_config(B, H, W, C, O, k, pad, K) -> dict:
+def launch_config(B, H, W, C, O, k, pad, R) -> dict:
     """The forward's tile.  BN output channels per block (O rounded up to a
     power of two in 16..128); either ``skip`` (Ho*Wo <= SKIP_POSITIONS:
     pixels ordered (position, image), NG image groups of G per block, pad
@@ -280,7 +353,7 @@ def launch_config(B, H, W, C, O, k, pad, K) -> dict:
     splits summed inside one cluster, the largest power of two that keeps
     the grid within TARGET_BLOCKS.  CC minimizes the channels on one
     split's path (ties: the larger CC) within two blocks' shared memory per
-    SM, else one's.
+    SM, else one's.  R: rows of E per channel (``Basis.R``).
     Returns the kernel's arguments and, for the tests, ``rs``, ``tile``
     (pixels), ``tiles`` (blocks along M), ``blocks`` and ``smem``.
     Raises NotImplementedError for a shape whose tile does not fit."""
@@ -315,7 +388,7 @@ def launch_config(B, H, W, C, O, k, pad, K) -> dict:
                 S *= 2
             best = None
             for CC in range(min(C, MAX_CHUNK), 0, -1):
-                rs, nch = row_stride(K, CC), -(-C // CC)
+                rs, nch = row_stride(R, CC), -(-C // CC)
                 s_cc = S
                 while s_cc > nch:  # every split gets a chunk
                     s_cc //= 2
@@ -332,7 +405,7 @@ def launch_config(B, H, W, C, O, k, pad, K) -> dict:
     raise NotImplementedError("tile does not fit in shared memory")
 
 
-def dx_smem(tile: int, pitch: int, taps: int, K1: int, CC: int, OC: int,
+def dx_smem(tile: int, pitch: int, taps: int, R: int, CC: int, OC: int,
             stages: int, skip: int, table: int) -> int:
     """Dynamic shared memory of a data-gradient block (mirrors dx_smem in
     the C source): ``stages`` chunks of the g tile (``pitch`` pixels: the
@@ -340,7 +413,7 @@ def dx_smem(tile: int, pitch: int, taps: int, K1: int, CC: int, OC: int,
     of all taps, OC/4 float4s per entry, with ``table`` the tile's table
     (one int per staged pixel) and, for the skip tile, each warp's valid
     taps (a bit per tap)."""
-    return 16 * stages * (OC // 4) * (pitch + taps * K1 * CC) + \
+    return 16 * stages * (OC // 4) * (pitch + taps * R * CC) + \
         4 * tile * table + (4 * WARPS * -(-taps // 32) if skip else 0)
 
 
@@ -375,7 +448,7 @@ def dx_geometry(B, H, W, k, pad, skip: int, TH: int, NB: int,
             "tiles": -(-B // NB) * -(-H // TH), "dq": tuple(dq)}
 
 
-def dx_launch_config(B, H, W, C, O, k, pad, K) -> dict:
+def dx_launch_config(B, H, W, C, O, k, pad, R) -> dict:
     """Block tile for the data-gradient kernel: DX_PIXELS input pixels x CC
     channels (one channel lane per thread, CC <= DX_MAX_CC a power of two),
     OC output channels per staged chunk (8, or 4 for O <= 4), ``stages``
@@ -392,17 +465,18 @@ def dx_launch_config(B, H, W, C, O, k, pad, K) -> dict:
     SM where it can, else one's; within a budget and a tile, OC is cut
     first, then stages, then CC.  Returns the kernel's arguments, the
     layout of ``dx_geometry``, ``blocks`` and ``smem`` (a new dict per
-    call, from a cache of the shape's tile).  Raises NotImplementedError
-    for a row wider than a block or a shape whose tile does not fit."""
-    return dict(_dx_tile(B, H, W, C, O, k, pad, K))
+    call, from a cache of the shape's tile).  R: rows of E per channel.
+    Raises NotImplementedError for a row wider than a block or a shape
+    whose tile does not fit."""
+    return dict(_dx_tile(B, H, W, C, O, k, pad, R))
 
 
 @functools.lru_cache(maxsize=1024)
-def _dx_tile(B, H, W, C, O, k, pad, K) -> dict:
+def _dx_tile(B, H, W, C, O, k, pad, R) -> dict:
     if W > DX_PIXELS:
         raise NotImplementedError(f"input width {W} > {DX_PIXELS} pixels per "
                                   "data-gradient block")
-    K1, T, P = K + 1, k * k, H * W
+    T, P = k * k, H * W
     skip = {"skip": 1, "TH": 0, "NB": 0,
             "NG": skip_groups(P, -(-B // DX_GROUP)), "table": 1}
     Wv = 1 << (W - 1).bit_length()
@@ -431,9 +505,9 @@ def _dx_tile(B, H, W, C, O, k, pad, K) -> dict:
             geo = dx_geometry(B, H, W, k, pad, tile["skip"], tile["TH"],
                               tile["NB"], tile["NG"])
             for CC, stages, OC in itertools.product(ccs, (2, 1), ocs):
-                if K1 * CC * OC // 4 > THREADS:  # a thread per weight entry
+                if R * CC * OC // 4 > THREADS:  # a thread per weight entry
                     continue
-                smem = dx_smem(geo["tile"], geo["pitch"], T, K1, CC, OC,
+                smem = dx_smem(geo["tile"], geo["pitch"], T, R, CC, OC,
                                stages, tile["skip"], tile["table"])
                 if smem <= budget:
                     return {**tile, "CC": CC, "OC": OC, "stages": stages,
@@ -443,18 +517,18 @@ def _dx_tile(B, H, W, C, O, k, pad, K) -> dict:
                               "memory")
 
 
-def dw_smem(K1: int, CC: int, BN: int, PW: int) -> int:
+def dw_smem(R: int, CC: int, BN: int, PW: int) -> int:
     """Dynamic shared memory of a weight-gradient block (mirrors dw_smem in
-    the C source): the staged chunk (CC channels' K+1 values rounded up to
+    the C source): the staged chunk (CC channels' R values rounded up to
     float4s, BN gathered columns and a 3-int pixel table per pixel), or the
     PW - 1 slices' tiles handed to slice 0, whichever is larger."""
-    staged = 4 * DW_P * (-(-K1 // 4) * 4 * CC + BN) + 12 * DW_P
-    return max(staged, 4 * (PW - 1) * K1 * CC * BN)
+    staged = 4 * DW_P * (-(-R // 4) * 4 * CC + BN) + 12 * DW_P
+    return max(staged, 4 * (PW - 1) * R * CC * BN)
 
 
-def dw_launch_config(B, H, W, C, O, k, pad, K) -> dict:
+def dw_launch_config(B, H, W, C, O, k, pad, R) -> dict:
     """Block tile and batch split for the weight-gradient kernel: CC whole
-    channels (the (K+1)*CC rows, C cut into near-equal chunks of at most
+    channels (the R*CC rows, C cut into near-equal chunks of at most
     DW_MAX_CC), BN of the k*k*O columns, PW pixel slices, P pixels per
     chunk, S splits of ``ips`` images.  BN is a multiple of DW_TN, as wide
     as DW_THREADS threads cover (every column tile recomputes the basis),
@@ -466,7 +540,7 @@ def dw_launch_config(B, H, W, C, O, k, pad, K) -> dict:
     sums and the same reduction order.  Returns the kernel's arguments and,
     for the tests, ``threads``, ``tiles`` (blocks per split), ``blocks``
     and ``smem``."""
-    K1, TO = K + 1, k * k * O
+    TO = k * k * O
     chunks = -(-C // DW_MAX_CC)
     CC = -(-C // chunks)
     vw = 4 if O % 4 == 0 else 1      # columns per gathered load
@@ -475,7 +549,7 @@ def dw_launch_config(B, H, W, C, O, k, pad, K) -> dict:
         # staged pixel takes 3 ints of pixel table, CC channels' values and
         # BN gathered columns
         groups = min(DW_THREADS // CC,
-                     (budget // (4 * DW_P) - 3 - -(-K1 // 4) * 4 * CC)
+                     (budget // (4 * DW_P) - 3 - -(-R // 4) * 4 * CC)
                      // DW_TN)
         if groups < 1:
             continue
@@ -484,10 +558,10 @@ def dw_launch_config(B, H, W, C, O, k, pad, K) -> dict:
             exact = [u for u in (t, t + 1) if TO % (DW_TN * u) == 0]
             BN = TO // exact[0] if exact else DW_TN * -(-TO // (DW_TN * t))
             PW = DW_THREADS // (CC * (BN // DW_TN))
-            while PW > 1 and dw_smem(K1, CC, BN, PW) > budget:
+            while PW > 1 and dw_smem(R, CC, BN, PW) > budget:
                 PW -= 1
             threads = 32 * -(-PW * CC * (BN // DW_TN) // 32)
-            smem = dw_smem(K1, CC, BN, PW)
+            smem = dw_smem(R, CC, BN, PW)
             if smem <= budget and BN // vw <= threads:
                 tiles = chunks * -(-TO // BN)
                 S = min(B, max(1, DW_TARGET_BLOCKS // tiles))
@@ -500,27 +574,31 @@ def dw_launch_config(B, H, W, C, O, k, pad, K) -> dict:
                               "memory")
 
 
-def check_inputs(x, base_w, poly_w, knots, order, k, pad, act, *,
+def check_inputs(x, base_w, poly_w, basis: Basis, k, pad, *,
                  for_kernel: bool):
     """Validate what the caller passes (NHWC x, HWIO weights of matching
-    shapes, contiguous, one device, float32 or float64); ``for_kernel``
-    adds the kernel's own requirements (float32 CUDA tensors, a spline and
-    activation the build carries, a tile that fits) and returns its
-    launch_config."""
+    shapes, ``base_w`` None exactly when the basis has no base path,
+    contiguous, one device, float32 or float64); ``for_kernel`` adds the
+    kernel's own requirements (float32 CUDA tensors, a basis the build
+    carries, a tile that fits) and returns its launch_config."""
     if x.ndim != 4:
         raise ValueError(f"x must be NHWC (4-D), got shape {tuple(x.shape)}")
     B, H, W, C = x.shape
-    K = len(knots) - order - 1
+    K = basis.K
     O = poly_w.shape[-1] if poly_w.ndim == 4 else -1
-    if tuple(base_w.shape) != (k, k, C, O) or \
-            tuple(poly_w.shape) != (k, k, C * K, O):
+    has_base = basis.act is not None
+    if (base_w is None) == has_base or tuple(poly_w.shape) != \
+            (k, k, C * K, O) or \
+            (has_base and tuple(base_w.shape) != (k, k, C, O)):
+        want = f"base_w ({k},{k},{C},O) and " if has_base else "no base_w, "
+        got = "none" if base_w is None else str(tuple(base_w.shape))
         raise ValueError(
-            f"weights must be base_w ({k},{k},{C},O) and poly_w "
-            f"({k},{k},{C * K},O); got {tuple(base_w.shape)} and "
-            f"{tuple(poly_w.shape)}")
+            f"weights must be {want}poly_w ({k},{k},{C * K},O) for {basis}; "
+            f"got base_w {got} and poly_w {tuple(poly_w.shape)}")
     if H + 2 * pad - k + 1 <= 0 or W + 2 * pad - k + 1 <= 0 or pad < 0:
         raise ValueError(f"empty output for {H}x{W}, kernel {k}, pad {pad}")
-    for name, t in (("x", x), ("base_w", base_w), ("poly_w", poly_w)):
+    weights = (("base_w", base_w),) if has_base else ()
+    for name, t in (("x", x), *weights, ("poly_w", poly_w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != x.device:
@@ -531,34 +609,32 @@ def check_inputs(x, base_w, poly_w, knots, order, k, pad, act, *,
                 t.dtype != x.dtype:
             raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}: both "
                             "float32 (or float64 on the CPU) expected")
-    if act not in ACTIVATIONS:
-        raise ValueError(f"unknown base activation {act!r}")
     if for_kernel:
-        desc = _describe(B, H, W, C, O, k, pad, len(knots), order, act)
+        desc = _describe(B, H, W, C, O, k, pad, basis)
         if x.device.type != "cuda":
             raise ValueError(f"the kernel needs CUDA tensors, got {x.device}")
-        if (len(knots), order) not in SPLINES or act not in ACTS:
+        if basis.key not in COMPILED:
             raise NotImplementedError(f"{desc}: not carried by the kernel")
         if max(x.numel(), B * H * W * O, poly_w.numel()) >= 2 ** 31:
             raise NotImplementedError(f"{desc}: tensor too large")
         try:
-            return launch_config(B, H, W, C, O, k, pad, K)
+            return launch_config(B, H, W, C, O, k, pad, basis.R)
         except NotImplementedError as e:
             raise NotImplementedError(f"{desc}: {e}") from None
     return None
 
 
 _ARGTYPES = {
-    # x, w_all, y; B H W C O k pad BN skip TH TW NB NG CC S; knots; n_knots
-    # order act; stream
+    # x, w_all, y; B H W C O k pad BN skip TH TW NB NG CC S; params;
+    # n_params order basis; stream
     "kan_conv2d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     # x, w_all, g, dx; B H W C O k pad skip TH NB NG CC OC stages table;
-    # knots; n_knots order act; stream
+    # params; n_params order basis; stream
     "kan_conv2d_bwd_dx": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    # x, g, partial; B H W C O k pad CC BN P S ips PW; knots; n_knots
-    # order act; stream
+    # x, g, partial; B H W C O k pad CC BN P S ips PW; params; n_params
+    # order basis; stream
     "kan_conv2d_bwd_dw": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     # partial, out; S N VW Gw Gc; stream
@@ -587,26 +663,28 @@ def _launch(name: str, args, desc: str) -> None:
     _count_launch(name)
 
 
-def _knots_arg(knots):
-    kn = np.ascontiguousarray(knots, dtype=np.float32)
-    return kn, kn.ctypes.data_as(ctypes.c_void_p)
+def _basis_args(basis: Basis):
+    """The basis's C arguments: its float32 parameters (kept alive by the
+    returned array), their pointer and count, its order and its code."""
+    p = np.ascontiguousarray(basis.params, dtype=np.float32)
+    return p, (p.ctypes.data_as(ctypes.c_void_p), len(p), basis.order,
+               COMPILED[basis.key])
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fwd(x, w_all, knots, order, k, pad, act, cfg):
+def _fwd(x, w_all, basis, k, pad, cfg):
     B, H, W, C = x.shape
     O = w_all.shape[1] // (k * k)
     y = torch.empty((B, H + 2 * pad - k + 1, W + 2 * pad - k + 1, O),
                     dtype=torch.float32, device=x.device)
-    kn, kn_ptr = _knots_arg(knots)
+    keep, bargs = _basis_args(basis)
     _launch("kan_conv2d_fwd",
             (x.data_ptr(), w_all.data_ptr(), y.data_ptr(), B, H, W, C, O, k,
-             pad, *(cfg[key] for key in FWD_TILE), kn_ptr, len(kn), order,
-             ACTS[act], _stream(x)),
-            _describe(B, H, W, C, O, k, pad, len(kn), order, act))
+             pad, *(cfg[key] for key in FWD_TILE), *bargs, _stream(x)),
+            _describe(B, H, W, C, O, k, pad, basis))
     return y
 
 
@@ -623,28 +701,27 @@ def _check_grad(x, g, k, pad, O):
         raise ValueError("output gradient must be contiguous")
 
 
-def _check_kernel_args(x, O, knots, order, k, pad, act):
+def _check_kernel_args(x, O, basis, k, pad):
     B, H, W, C = x.shape
-    desc = _describe(B, H, W, C, O, k, pad, len(knots), order, act)
+    desc = _describe(B, H, W, C, O, k, pad, basis)
     if x.dtype != torch.float32:
         raise TypeError(f"the kernels take float32, got {x.dtype}")
-    if (len(knots), order) not in SPLINES or act not in ACTS:
+    if basis.key not in COMPILED:
         raise NotImplementedError(f"{desc}: not carried by the kernels")
     return desc
 
 
-def input_grad(x, w_all, g, knots, order: int, k: int, pad: int, act: str):
+def input_grad(x, w_all, g, basis: Basis, k: int, pad: int):
     """dL/dx (B, H, W, C) for the output gradient g.  CUDA tensors: the
     data-gradient kernel; CPU tensors: ``input_grad_reference``."""
     O = w_all.shape[1] // (k * k)
     _check_grad(x, g, k, pad, O)
     if x.device.type == "cpu":
-        return input_grad_reference(x, w_all, g, knots, order, k, pad, act)
-    desc = _check_kernel_args(x, O, knots, order, k, pad, act)
+        return input_grad_reference(x, w_all, g, basis, k, pad)
+    desc = _check_kernel_args(x, O, basis, k, pad)
     B, H, W, C = x.shape
-    K = len(knots) - order - 1
     try:
-        cfg = dx_launch_config(B, H, W, C, O, k, pad, K)
+        cfg = dx_launch_config(B, H, W, C, O, k, pad, basis.R)
     except NotImplementedError as e:
         raise NotImplementedError(f"{desc}: {e}") from None
     # the kernel stages g and W_all as float4s of output channels: O is
@@ -662,42 +739,42 @@ def input_grad(x, w_all, g, knots, order: int, k: int, pad: int, act: str):
     if w_all.data_ptr() % 16 or not w_all.is_contiguous():
         w_all = w_all.clone(memory_format=torch.contiguous_format)
     dx = torch.empty_like(x)
-    kn, kn_ptr = _knots_arg(knots)
+    keep, bargs = _basis_args(basis)
     _launch("kan_conv2d_bwd_dx",
             (x.data_ptr(), w_all.data_ptr(), g.data_ptr(), dx.data_ptr(), B, H,
-             W, C, O4, k, pad, *(cfg[key] for key in DX_TILE), kn_ptr,
-             len(kn), order, ACTS[act], _stream(x)), desc)
+             W, C, O4, k, pad, *(cfg[key] for key in DX_TILE), *bargs,
+             _stream(x)), desc)
     return dx
 
 
-def weight_partials(x, g, knots, order: int, k: int, pad: int, act: str):
-    """The weight gradient's per-split partial sums (S, (K+1)*C, k*k*O)
-    with the split of ``dw_launch_config``.  CUDA tensors: the
-    weight-gradient kernel; CPU tensors: ``weight_partials_reference``."""
+def weight_partials(x, g, basis: Basis, k: int, pad: int):
+    """The weight gradient's per-split partial sums (S, R*C, k*k*O) with
+    the split of ``dw_launch_config``.  CUDA tensors: the weight-gradient
+    kernel; CPU tensors: ``weight_partials_reference``."""
     O = g.shape[-1]
     _check_grad(x, g, k, pad, O)
     B, H, W, C = x.shape
-    K = len(knots) - order - 1
-    desc = _describe(B, H, W, C, O, k, pad, len(knots), order, act)
+    R = basis.R
+    desc = _describe(B, H, W, C, O, k, pad, basis)
     try:
-        cfg = dw_launch_config(B, H, W, C, O, k, pad, K)
+        cfg = dw_launch_config(B, H, W, C, O, k, pad, R)
     except NotImplementedError as e:
         raise NotImplementedError(f"{desc}: {e}") from None
     if x.device.type == "cpu":
-        return weight_partials_reference(x, g, knots, order, k, pad, act,
-                                         cfg["S"], cfg["ips"])
-    _check_kernel_args(x, O, knots, order, k, pad, act)
-    if cfg["S"] * (K + 1) * C * k * k * O >= 2 ** 31:
+        return weight_partials_reference(x, g, basis, k, pad, cfg["S"],
+                                         cfg["ips"])
+    _check_kernel_args(x, O, basis, k, pad)
+    if cfg["S"] * R * C * k * k * O >= 2 ** 31:
         raise NotImplementedError(f"{desc}: partial sums too large")
-    partial = torch.empty((cfg["S"], (K + 1) * C, k * k * O),
+    partial = torch.empty((cfg["S"], R * C, k * k * O),
                           dtype=torch.float32, device=x.device)
     if g.data_ptr() % 16:   # the kernel loads g as float4s
         g = g.clone()
-    kn, kn_ptr = _knots_arg(knots)
+    keep, bargs = _basis_args(basis)
     _launch("kan_conv2d_bwd_dw",
             (x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C, O, k,
              pad, cfg["CC"], cfg["BN"], cfg["P"], cfg["S"], cfg["ips"],
-             cfg["PW"], kn_ptr, len(kn), order, ACTS[act], _stream(x)), desc)
+             cfg["PW"], *bargs, _stream(x)), desc)
     return partial
 
 
@@ -722,27 +799,28 @@ def reduce_partials(partial):
     return out
 
 
-def weight_grad(x, g, knots, order: int, k: int, pad: int, act: str):
-    """dL/dW_all ((K+1)*C, k*k*O) for the output gradient g.  CUDA tensors:
-    the weight-gradient kernel and the ordered reduction (deterministic);
-    CPU tensors: ``weight_grad_reference``."""
+def weight_grad(x, g, basis: Basis, k: int, pad: int):
+    """dL/dW_all (R*C, k*k*O) for the output gradient g.  CUDA tensors: the
+    weight-gradient kernel and the ordered reduction (deterministic); CPU
+    tensors: ``weight_grad_reference``."""
     if x.device.type == "cpu":
         _check_grad(x, g, k, pad, g.shape[-1])
-        return weight_grad_reference(x, g, knots, order, k, pad, act)
-    return reduce_partials(weight_partials(x, g, knots, order, k, pad, act))
+        return weight_grad_reference(x, g, basis, k, pad)
+    return reduce_partials(weight_partials(x, g, basis, k, pad))
 
 
 class _KanConv2dFunction(torch.autograd.Function):
     """The CUDA KAN conv with its backward in the CUDA kernels.  Saves x
     and W_all (E is recomputed, never kept); launches the data gradient
     only when x needs it (never for the first conv, whose input is the
-    image)."""
+    image).  W_all holds the base path's rows only where the basis has
+    one, so no base gradient is formed without it."""
 
     @staticmethod
-    def forward(ctx, x, w_all, knots, order, k, pad, act, cfg):
+    def forward(ctx, x, w_all, basis, k, pad, cfg):
         ctx.save_for_backward(x, w_all)
-        ctx.spec = (knots, order, k, pad, act)
-        return _fwd(x, w_all, knots, order, k, pad, act, cfg)
+        ctx.spec = (basis, k, pad)
+        return _fwd(x, w_all, basis, k, pad, cfg)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -754,25 +832,22 @@ class _KanConv2dFunction(torch.autograd.Function):
             dx = input_grad(x, w_all, g, *ctx.spec)
         if ctx.needs_input_grad[1]:
             dw = weight_grad(x, g, *ctx.spec)
-        return dx, dw, None, None, None, None, None, None
+        return dx, dw, None, None, None, None
 
 
-def kan_conv2d(x, base_w, poly_w, knots, order: int, k: int, pad: int,
-               act: str):
-    """KAN conv pre-norm output (B, Ho, Wo, O) for x (B, H, W, C) NHWC.
-    CUDA tensors: the hand-written kernels (float32 only), forward and,
-    when an input requires grad, backward.  CPU tensors:
-    ``kan_conv2d_reference`` under plain autograd."""
-    cfg = check_inputs(x, base_w, poly_w, knots, order, k, pad, act,
+def kan_conv2d(x, base_w, poly_w, basis: Basis, k: int, pad: int):
+    """KAN conv pre-norm output (B, Ho, Wo, O) for x (B, H, W, C) NHWC;
+    ``base_w`` None for a basis without a base path.  CUDA tensors: the
+    hand-written kernels (float32 only), forward and, when an input
+    requires grad, backward.  CPU tensors: ``kan_conv2d_reference`` under
+    plain autograd."""
+    cfg = check_inputs(x, base_w, poly_w, basis, k, pad,
                        for_kernel=x.device.type != "cpu")
     if x.device.type == "cpu":
-        return kan_conv2d_reference(x, base_w, poly_w, knots, order, k, pad,
-                                    act)
+        return kan_conv2d_reference(x, base_w, poly_w, basis, k, pad)
     C, O = x.shape[-1], poly_w.shape[-1]
-    K = len(knots) - order - 1
     # autograd carries dW_all back to base_w and poly_w through the packing
-    w_all = pack_w_all(base_w, poly_w, C=C, K=K, k=k, O=O)
+    w_all = pack_w_all(base_w, poly_w, C=C, K=basis.K, k=k, O=O)
     if torch.is_grad_enabled() and (x.requires_grad or w_all.requires_grad):
-        return _KanConv2dFunction.apply(x, w_all, tuple(knots), order, k, pad,
-                                        act, cfg)
-    return _fwd(x, w_all, knots, order, k, pad, act, cfg)
+        return _KanConv2dFunction.apply(x, w_all, basis, k, pad, cfg)
+    return _fwd(x, w_all, basis, k, pad, cfg)

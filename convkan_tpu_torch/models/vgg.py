@@ -1,12 +1,13 @@
 """KAN-VGG, port of ``convkan_tpu/models/vgg.py`` (``VGGKAN``, ``vggkan``,
-all five ``cfgs``) with B-spline KAN or WavKAN convs and the ``"Linear"``
-head.
+all five ``cfgs``) with B-spline KAN, ChebyKAN or WavKAN convs and the
+``"Linear"`` head.
 
 Channel-last: NHWC images in, logits out.  Submodules are named like the
 JAX parameter tree (``KanConvND_0`` .. ``KanConvND_{n-1}``, or
 ``WavKANConvND_0`` .. for ``kan_conv="WavKAN"``, and ``Linear_0``),
 so a JAX ``params`` tree maps onto ``state_dict`` keys by flattening
-(utils/from_jax.py).  In train mode the head applies dropout
+(utils/from_jax.py); a ChebyKAN conv has no ``base_w`` and no ``prelu``,
+as in JAX.  In train mode the head applies dropout
 (``dropout_linear``, default 0.5) before ``Linear_0`` and every conv but
 the first applies channel dropout (``conv_dropout``: at a KAN conv's
 output, at a WavKAN conv's wavelet-path input); in eval mode both are the
@@ -58,7 +59,7 @@ class VGGKAN(nn.Module):
                  expected_feature_shape: Tuple[int, int] = (1, 1),
                  width_scale: int = 1, kan_norm_layer: Any = InstanceNorm,
                  std_conv_kernel_size: int = 3, std_conv_padding: int = 1,
-                 conv_dropout: float = 0.0, *,
+                 conv_dropout: float = 0.0, degree: int = 3, *,
                  generator: torch.Generator = None, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -97,6 +98,7 @@ class VGGKAN(nn.Module):
                 "spline_order": spline_order, "grid_size": grid_size,
                 "base_activation": base_activation, "grid_range": grid_range,
                 "l1_decay": l1_decay, "dropout": 0.0 if first else conv_dropout,
+                "degree": degree,
                 "norm_layer": resolve_norm(kan_norm_layer),
                 "padding": std_conv_padding, "groups": groups}
             self.add_module(name, conv(

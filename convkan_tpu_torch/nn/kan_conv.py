@@ -1,18 +1,21 @@
-"""B-spline KAN convolution, port of ``convkan_tpu/nn/kan_conv.py`` for
-family ``kan``, 2-D, groups 1.
+"""KAN convolution, port of ``convkan_tpu/nn/kan_conv.py`` for the families
+``kan`` (B-spline) and ``cheby`` (Chebyshev), 2-D, groups 1.
 
-    y = ChannelDropout(PReLU(InstanceNorm(kan_conv2d(x))))   (dropout: train)
+    kan:    y = ChannelDropout(PReLU(InstanceNorm(kan_conv2d(x))))
+    cheby:  y = ChannelDropout(InstanceNorm(kan_conv2d(x)))   (dropout: train)
 
-``kan_conv2d`` (kernels/kan_conv2d.py) is the conv itself: the B-spline
-basis of every input channel plus act(x), contracted with the weights over
-the k*k taps.  On CUDA its forward and backward are the hand-written
-kernels; on the CPU its plain version under autograd.  Parameters keep the JAX names and shapes: ``base_w`` (k,k,C,O)
-HWIO, ``poly_w`` (k,k,C*K,O) with channel-major rows c*K + kk, ``prelu``
-(groups,).
+``kan_conv2d`` (kernels/kan_conv2d.py) is the conv itself: the basis of
+every input channel (plus act(x) where the family has a base path),
+contracted with the weights over the k*k taps.  On CUDA its forward and
+backward are the hand-written kernels; on the CPU its plain version under
+autograd.  Parameters keep the JAX names and shapes: ``base_w`` (k,k,C,O)
+HWIO (only with a base path), ``poly_w`` (k,k,C*K,O) with channel-major
+rows c*K + kk, ``prelu`` (groups,) (only where PReLU follows the norm).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping, Optional, Tuple
 
 import torch
@@ -20,11 +23,32 @@ from torch import nn
 
 from ..basis.bspline import make_bspline_grid
 from ..device import resolve_device
-from ..kernels.kan_conv2d import kan_conv2d
+from ..kernels.kan_conv2d import bspline_basis, cheby_basis, kan_conv2d
 from ..ops.dropout import channel_dropout
 from ..utils import initializers as init_lib
 from ..utils.activations import ACTIVATIONS
 from ..utils.norms import InstanceNorm, make_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvFamily:
+    """The port's copy of the JAX ``ConvFamily`` fields that the ported
+    families read: a base path or not, what follows the norm, and the
+    poly_w init."""
+
+    name: str
+    has_base: bool = True
+    post: str = "prelu"             # 'prelu' | 'none' after the norm
+    poly_init: str = "ku_linear"    # 'ku_linear' | 'kn_relu'
+
+
+# the ported entries of convkan_tpu/nn/kan_conv.py FAMILIES (layers/
+# kan_layers.py:116-258, layers/cheby_kan_layers.py:39-111)
+FAMILIES: dict[str, ConvFamily] = {
+    "kan": ConvFamily("kan"),
+    "cheby": ConvFamily("cheby", has_base=False, post="none",
+                        poly_init="kn_relu"),
+}
 
 
 def _single(v, what: str) -> int:
@@ -47,13 +71,15 @@ def _act_name(act) -> str:
 
 
 class KanConvND(nn.Module):
-    """KAN convolution (channel-last), family ``kan`` only.
+    """KAN convolution (channel-last), families ``kan`` and ``cheby``.
 
     Args mirror the JAX module: input_dim/output_dim, kernel_size, padding
     (stride, dilation and groups must stay 1), norm_layer, base_activation
-    and the spline hyperparameters.  Parameters are drawn on the CPU from
-    ``generator`` (so one seed gives the same weights on every device) and
-    then moved to ``device``: None means the GPU, and raises without one."""
+    (read by ``kan`` only), the spline hyperparameters (``kan``) and
+    ``degree`` and ``epsilon`` (``cheby``).  Parameters are drawn on the CPU
+    from ``generator`` (so one seed gives the same weights on every device)
+    and then moved to ``device``: None means the GPU, and raises without
+    one."""
 
     def __init__(self, family: str, input_dim: int, output_dim: int,
                  kernel_size, ndim: int = 2, groups: int = 1, padding=0,
@@ -62,48 +88,64 @@ class KanConvND(nn.Module):
                  norm_kwargs: Optional[Mapping[str, Any]] = None,
                  base_activation: Any = "gelu", grid_size: int = 5,
                  spline_order: int = 3,
-                 grid_range: Tuple[float, float] = (-1.0, 1.0), *,
+                 grid_range: Tuple[float, float] = (-1.0, 1.0),
+                 degree: int = 3, epsilon: float = 1e-7, *,
                  generator: torch.Generator = None,
                  device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
         config = (f"KanConvND(family={family!r}, ndim={ndim}, groups={groups},"
                   f" stride={stride}, dilation={dilation})")
-        if family != "kan" or ndim != 2 or groups != 1 or \
+        if family not in FAMILIES or ndim != 2 or groups != 1 or \
                 _single(stride, "stride") != 1 or \
                 _single(dilation, "dilation") != 1:
             raise NotImplementedError(f"{config} is not ported")
         self.family = family
+        self.spec = FAMILIES[family]
         self.input_dim = input_dim
         self.output_dim = output_dim
         self.kernel_size = _single(kernel_size, "kernel_size")
         self.padding = _single(padding, "padding")
         self.dropout = dropout  # channel dropout at the output, train only
-        self.spline_order = spline_order
-        self.act = _act_name(base_activation)
-        self.knots = tuple(float(v) for v in make_bspline_grid(
-            grid_size, spline_order, grid_range))
-        K = len(self.knots) - spline_order - 1
+        if family == "kan":
+            self.basis = bspline_basis(
+                make_bspline_grid(grid_size, spline_order, grid_range),
+                spline_order, _act_name(base_activation))
+        else:
+            self.basis = cheby_basis(degree, epsilon)
+        K = self.basis.K
         self.num_basis = K
         k = self.kernel_size
-        self.base_w = nn.Parameter(torch.zeros(k, k, input_dim, output_dim,
-                                               dtype=dtype))
+        if self.spec.has_base:
+            self.base_w = nn.Parameter(torch.zeros(k, k, input_dim,
+                                                   output_dim, dtype=dtype))
+        else:
+            self.base_w = None
         self.poly_w = nn.Parameter(torch.zeros(k, k, input_dim * K, output_dim,
                                                dtype=dtype))
-        self.prelu = nn.Parameter(torch.full((groups,), 0.25, dtype=dtype))
+        if self.spec.post == "prelu":
+            self.prelu = nn.Parameter(torch.full((groups,), 0.25,
+                                                 dtype=dtype))
         self.norm = make_norm(norm_layer, output_dim, **dict(norm_kwargs or {}))
         if generator is not None:
             self.reset_parameters(generator)
         self.to(device)
 
     def reset_parameters(self, generator: torch.Generator):
-        """JAX init distributions: kaiming_uniform('linear') over HWIO fans
-        for both weights; PReLU slope 0.25."""
+        """JAX init distributions over HWIO fans: kaiming_uniform('linear')
+        for base_w and (``kan``) poly_w, kaiming_normal('relu') for
+        (``cheby``) poly_w; PReLU slope 0.25."""
         ku = init_lib.kaiming_uniform("linear", layout="conv_hwio")
-        ku(self.base_w, generator)
-        ku(self.poly_w, generator)
-        with torch.no_grad():
-            self.prelu.fill_(0.25)
+        if self.base_w is not None:
+            ku(self.base_w, generator)
+        if self.spec.poly_init == "kn_relu":
+            init_lib.kaiming_normal("relu", layout="conv_hwio")(self.poly_w,
+                                                                generator)
+        else:
+            ku(self.poly_w, generator)
+        if self.spec.post == "prelu":
+            with torch.no_grad():
+                self.prelu.fill_(0.25)
 
     def forward(self, x, generator: torch.Generator = None):
         """``generator`` draws the channel-dropout mask in train mode (None:
@@ -111,16 +153,18 @@ class KanConvND(nn.Module):
         if x.shape[-1] != self.input_dim:
             raise ValueError(f"expected {self.input_dim} channels (NHWC), "
                              f"got {tuple(x.shape)}")
-        y = kan_conv2d(x.contiguous(), self.base_w, self.poly_w, self.knots,
-                       self.spline_order, self.kernel_size, self.padding,
-                       self.act)
+        y = kan_conv2d(x.contiguous(), self.base_w, self.poly_w, self.basis,
+                       self.kernel_size, self.padding)
         y = self._post_combine(y)
         if self.training and self.dropout > 0:
             y = channel_dropout(y, self.dropout, generator)
         return y
 
     def _post_combine(self, y):
-        """Norm, then PReLU with the per-group slope repeated per out_g."""
+        """Norm, then (``spec.post`` "prelu") PReLU with the per-group slope
+        repeated per out_g."""
         y = self.norm(y)
+        if self.spec.post == "none":
+            return y
         slope = self.prelu.repeat_interleave(self.output_dim // self.prelu.numel())
         return torch.where(y >= 0, y, slope * y)

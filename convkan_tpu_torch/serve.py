@@ -16,7 +16,12 @@ checkpoint is not ported yet):
     python -m convkan_tpu_torch.serve --model VGGKAN --arch VGG16_small \\
         --dataset CIFAR10 --init_random --port 8421
 
-(add ``--kan_conv WavKAN`` for the WavKAN convs).
+(add ``--kan_conv WavKAN`` for the WavKAN convs, ``--kan_conv ChebyKAN``
+for the Chebyshev convs of degree ``--degree``).  The ChebyKAN trunk ends
+in InstanceNorm with nothing after it, so its head reads the last conv's
+2x2 map (``expected_feature_shape=(2, 2)``): with (1, 1) the average pool
+of that norm is 0 and the logits would be the Linear bias for every
+image.
 
 Endpoints: POST /predict  {"instances": [...uint8 HWC arrays...]}
            -> {"predictions": [[per-class logits]...], "batch": n}
@@ -285,8 +290,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="Serve a convkan_tpu_torch model over HTTP.")
     p.add_argument("--model", default="VGGKAN", choices=["VGGKAN"])
     p.add_argument("--arch", default="VGG16_small")
-    p.add_argument("--kan_conv", default="KAN", choices=["KAN", "WavKAN"],
+    p.add_argument("--kan_conv", default="KAN",
+                   choices=["KAN", "ChebyKAN", "WavKAN"],
                    help="conv family of the VGGKAN trunk (train.py's flag)")
+    p.add_argument("--degree", type=int, default=3,
+                   help="polynomial degree of the ChebyKAN convs")
     p.add_argument("--dataset", default="CIFAR10",
                    choices=["MNIST", "SVHN", "CIFAR10", "CIFAR100"])
     p.add_argument("--seed", type=int, default=42)
@@ -314,10 +322,11 @@ def build_engine(args):
     shape = dataset_input_shape(args.dataset)
     num_classes = 100 if args.dataset == "CIFAR100" else 10
     gen = torch.Generator().manual_seed(args.seed)
+    head = (2, 2) if args.kan_conv == "ChebyKAN" else (1, 1)
     model = vggkan(shape[-1], num_classes, arch=args.arch,
                    kan_conv=args.kan_conv, classifier_type="Linear",
-                   generator=gen,
-                   device=args.device)
+                   degree=args.degree, expected_feature_shape=head,
+                   generator=gen, device=args.device)
     engine = InferenceEngine(
         model, args.dataset, shape,
         buckets=tuple(int(b) for b in args.buckets.split(",")),

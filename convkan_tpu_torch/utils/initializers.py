@@ -24,6 +24,8 @@ def _fans(shape: Sequence[int], layout: str):
 def _gain(nonlinearity: str, a=None) -> float:
     if nonlinearity == "linear":
         return 1.0
+    if nonlinearity == "relu":
+        return math.sqrt(2.0)
     if nonlinearity == "leaky_relu":
         neg = 0.01 if a is None else a
         return math.sqrt(2.0 / (1.0 + neg ** 2))
@@ -44,6 +46,19 @@ def kaiming_uniform(nonlinearity: str = "linear", a=None,
     def init(t: torch.Tensor, generator: torch.Generator):
         fan_in, _ = _fans(t.shape, layout)
         return uniform_(t, math.sqrt(3.0) * g / math.sqrt(fan_in), generator)
+
+    return init
+
+
+def kaiming_normal(nonlinearity: str = "relu", a=None,
+                   layout: str = "conv_hwio"):
+    """torch.nn.init.kaiming_normal_ (fan_in): N(0, gain/sqrt(fan))."""
+    g = _gain(nonlinearity, a)
+
+    def init(t: torch.Tensor, generator: torch.Generator):
+        fan_in, _ = _fans(t.shape, layout)
+        with torch.no_grad():
+            return t.normal_(0.0, g / math.sqrt(fan_in), generator=generator)
 
     return init
 

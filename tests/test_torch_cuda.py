@@ -1,5 +1,5 @@
-"""The CUDA KAN-conv and WavKAN psi-conv kernels (forward and backward)
-against their plain versions, on the card.
+"""The CUDA KAN-conv (B-spline and Chebyshev) and WavKAN psi-conv kernels
+(forward and backward) against their plain versions, on the card.
 
 Marked `cuda`: skips on a host without a GPU.  It imports no JAX, so it
 runs on the GPU machine without the JAX package's conftest:
@@ -17,6 +17,7 @@ from convkan_tpu_torch.kernels.wav_conv2d import (
     param_launch_config as wav_param_launch_config)
 
 KNOTS = tuple(float(v) for v in make_bspline_grid(5, 3))
+BASIS = kc.bspline_basis(KNOTS, 3, "silu")
 
 
 @pytest.mark.cuda
@@ -44,10 +45,11 @@ def test_cuda_kernel_matches_plain_version(B, H, C, O, act):
     pw = rng.normal(0, 0.2, (3, 3, C * 8, O)).astype(np.float32)
     x, bw, pw = (torch.from_numpy(a).cuda() for a in (x, bw, pw))
     kc.reset_launches()
-    y = kc.kan_conv2d(x, bw, pw, KNOTS, 3, 3, 1, act)
+    basis = kc.bspline_basis(KNOTS, 3, act)
+    y = kc.kan_conv2d(x, bw, pw, basis, 3, 1)
     torch.cuda.synchronize()
     assert kc.launches["kan_conv2d_fwd"] == 1
-    ref = kc.kan_conv2d_reference(x, bw, pw, KNOTS, 3, 3, 1, act)
+    ref = kc.kan_conv2d_reference(x, bw, pw, basis, 3, 1)
     torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -57,14 +59,14 @@ def test_cuda_forward_with_channel_splits_is_deterministic():
     order (no atomics): two calls give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
-    assert kc.launch_config(1024, 2, 2, 128, 128, 3, 1, 8)["S"] > 1
+    assert kc.launch_config(1024, 2, 2, 128, 128, 3, 1, 9)["S"] > 1
     rng = np.random.RandomState(5)
     x = rng.uniform(-3, 3, (1024, 2, 2, 128)).astype(np.float32)
     bw = rng.normal(0, 0.2, (3, 3, 128, 128)).astype(np.float32)
     pw = rng.normal(0, 0.2, (3, 3, 128 * 8, 128)).astype(np.float32)
     x, bw, pw = (torch.from_numpy(a).cuda() for a in (x, bw, pw))
-    a = kc.kan_conv2d(x, bw, pw, KNOTS, 3, 3, 1, "silu")
-    b = kc.kan_conv2d(x, bw, pw, KNOTS, 3, 3, 1, "silu")
+    a = kc.kan_conv2d(x, bw, pw, BASIS, 3, 1)
+    b = kc.kan_conv2d(x, bw, pw, BASIS, 3, 1)
     assert torch.equal(a, b)
 
 
@@ -76,12 +78,11 @@ def test_cuda_refuses_float64_and_unported_spline():
     bw = torch.zeros(3, 3, 3, 4, device="cuda")
     pw = torch.zeros(3, 3, 24, 4, device="cuda")
     with pytest.raises(TypeError):
-        kc.kan_conv2d(x.double(), bw.double(), pw.double(), KNOTS, 3, 3, 1,
-                      "silu")
+        kc.kan_conv2d(x.double(), bw.double(), pw.double(), BASIS, 3, 1)
     linear = tuple(float(v) for v in make_bspline_grid(3, 1))  # K = 4
     with pytest.raises(NotImplementedError):
-        kc.kan_conv2d(x, bw, pw[:, :, :12].contiguous(), linear, 1, 3, 1,
-                      "silu")
+        kc.kan_conv2d(x, bw, pw[:, :, :12].contiguous(),
+                      kc.bspline_basis(linear, 1, "silu"), 3, 1)
 
 
 def _bwd_inputs(B, H, C, O, seed, k=3, pad=1):
@@ -126,7 +127,8 @@ def test_cuda_backward_matches_plain_version(B, H, C, O, act, k, pad):
     x, bw, pw, g = _bwd_inputs(B, H, C, O, seed=B * 100 + C, k=k, pad=pad)
     leaves = [t.clone().requires_grad_(True) for t in (x, bw, pw)]
     kc.reset_launches()
-    y = kc.kan_conv2d(*leaves, KNOTS, 3, k, pad, act)
+    basis = kc.bspline_basis(KNOTS, 3, act)
+    y = kc.kan_conv2d(*leaves, basis, k, pad)
     got = torch.autograd.grad(y, leaves, g)
     torch.cuda.synchronize()
     assert kc.launches == {"kan_conv2d_fwd": 1, "kan_conv2d_bwd_dx": 1,
@@ -134,7 +136,7 @@ def test_cuda_backward_matches_plain_version(B, H, C, O, act, k, pad):
                            "kan_conv2d_bwd_dw_reduce": 1}
     ref_leaves = [t.double().requires_grad_(True) for t in (x, bw, pw)]
     ref = torch.autograd.grad(kc.kan_conv2d_reference(
-        *ref_leaves, KNOTS, 3, k, pad, act), ref_leaves, g.double())
+        *ref_leaves, basis, k, pad), ref_leaves, g.double())
     for name, a, b in zip(("dx", "dbase_w", "dpoly_w"), got, ref):
         torch.testing.assert_close(a, b.float(), rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f"{name}: {m}")
@@ -159,8 +161,8 @@ def test_cuda_backward_matches_plain_version_at_full_batch(B, H, C, O):
 
     set_full_f32()
     x, bw, pw, g = _bwd_inputs(B, H, C, O, seed=B + C)
-    spec = (KNOTS, 3, 3, 1, "silu")
-    cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, 8)
+    spec = (BASIS, 3, 1)
+    cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, 9)
     assert cfg["S"] > 1
     ok, err = _within(kc.weight_partials(x, g, *spec),
                       kc.weight_partials_reference(
@@ -193,7 +195,7 @@ def test_cuda_result_has_grad_fn_and_skips_unneeded_dx():
     x, bw, pw, g = _bwd_inputs(2, 8, 4, 8, seed=1)
     bw.requires_grad_(True)
     pw.requires_grad_(True)
-    y = kc.kan_conv2d(x, bw, pw, KNOTS, 3, 3, 1, "silu")
+    y = kc.kan_conv2d(x, bw, pw, BASIS, 3, 1)
     assert y.grad_fn is not None
     kc.reset_launches()
     (y * g).sum().backward()
@@ -212,12 +214,12 @@ def test_cuda_weight_grad_is_deterministic():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     x, bw, pw, g = _bwd_inputs(64, 8, 32, 64, seed=2)
     w_all = kc.pack_w_all(bw, pw, C=32, K=8, k=3, O=64)
-    a = kc.weight_grad(x, g, KNOTS, 3, 3, 1, "silu")
-    b = kc.weight_grad(x, g, KNOTS, 3, 3, 1, "silu")
-    assert kc.dw_launch_config(64, 8, 8, 32, 64, 3, 1, 8)["S"] > 1
+    a = kc.weight_grad(x, g, BASIS, 3, 1)
+    b = kc.weight_grad(x, g, BASIS, 3, 1)
+    assert kc.dw_launch_config(64, 8, 8, 32, 64, 3, 1, 9)["S"] > 1
     assert torch.equal(a, b)
-    dx1 = kc.input_grad(x, w_all, g, KNOTS, 3, 3, 1, "silu")
-    dx2 = kc.input_grad(x, w_all, g, KNOTS, 3, 3, 1, "silu")
+    dx1 = kc.input_grad(x, w_all, g, BASIS, 3, 1)
+    dx2 = kc.input_grad(x, w_all, g, BASIS, 3, 1)
     assert torch.equal(dx1, dx2)
 
 
@@ -233,7 +235,7 @@ def test_cuda_reduce_matches_ordered_sum_bitwise():
 # ragged ones: S = 1, odd N, N < 4, S = 1023, a few columns
 _VGG = [(32, 3, 16), (32, 16, 16), (16, 16, 32), (16, 32, 32), (8, 32, 64),
         (8, 64, 64), (4, 64, 128), (4, 128, 128), (2, 128, 128)]
-REDUCE_PAIRS = [(kc.dw_launch_config(1024, H, H, C, O, 3, 1, 8)["S"],
+REDUCE_PAIRS = [(kc.dw_launch_config(1024, H, H, C, O, 3, 1, 9)["S"],
                  81 * C * O) for H, C, O in _VGG]
 REDUCE_PAIRS += [(cfg["S"], cfg["N"]) for cfg in (
     wav_param_launch_config(1024, H, H, C, O, 3, 1) for H, C, O in _VGG)]
@@ -269,6 +271,88 @@ def test_cuda_reduce_matches_grouped_reference_bitwise(S, N, offset):
     assert torch.equal(a.view(torch.int32), want.view(torch.int32))
     assert torch.equal(b.view(torch.int32), want.view(torch.int32))
     assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+
+
+# ------------------------------------------------ Chebyshev KAN conv
+CHEBY = kc.cheby_basis(3)
+
+
+def _cheby_inputs(B, H, C, O, seed, scale=1.0):
+    """x U(-scale, scale) (scale 10: the clamp of tanh holds many x), poly_w
+    N(0, 0.2) of the 4 rows per channel, g N(0, 1)."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-scale, scale, (B, H, H, C)).astype(np.float32)
+    pw = rng.normal(0, 0.2, (3, 3, C * CHEBY.K, O)).astype(np.float32)
+    g = rng.normal(0, 1, (B, H, H, O)).astype(np.float32)
+    return (torch.from_numpy(a).cuda() for a in (x, pw, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,O,scale", [
+    (4, 32, 3, 16, 1.0), (3, 16, 16, 32, 1.0), (3, 8, 32, 64, 1.0),
+    (5, 4, 64, 128, 1.0), (5, 2, 128, 128, 1.0),
+    (2, 5, 6, 9, 10.0),        # ragged tile, |x| past the clamp
+    (19, 3, 6, 9, 1.0),        # 3x3: a block spans two image groups
+    (70, 1, 16, 32, 1.0),      # 1x1: every tap but the centre on the pad
+    (16, 8, 16, 48, 1.0),      # O not a multiple of the column tile
+    (8, 16, 5, 16, 10.0),      # C not a multiple of the chunk, clamped x
+    (1024, 2, 128, 128, 1.0),  # the 2x2 layer at the real batch
+])
+def test_cuda_cheby_matches_plain_version(B, H, C, O, scale):
+    """The Chebyshev instantiations of the forward, data-gradient and
+    weight-gradient kernels: the forward against the plain version (rtol =
+    atol = 1e-4: float32 sums in another order, tanhf within 2 ulp of
+    torch's tanh), dx and dpoly_w against float64 autograd of the plain
+    version (_within), launches per kernel, and two calls bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.device import set_full_f32
+
+    set_full_f32()
+    x, pw, g = _cheby_inputs(B, H, C, O, seed=B * 10 + C, scale=scale)
+    kc.reset_launches()
+    y = kc.kan_conv2d(x, None, pw, CHEBY, 3, 1)
+    same = torch.equal(y, kc.kan_conv2d(x, None, pw, CHEBY, 3, 1))
+    torch.cuda.synchronize()
+    assert kc.launches["kan_conv2d_fwd"] == 2 and same
+    torch.testing.assert_close(
+        y, kc.kan_conv2d_reference(x, None, pw, CHEBY, 3, 1), rtol=1e-4,
+        atol=1e-4)
+    leaves = [t.clone().requires_grad_(True) for t in (x, pw)]
+    kc.reset_launches()
+    got = torch.autograd.grad(kc.kan_conv2d(leaves[0], None, leaves[1],
+                                            CHEBY, 3, 1), leaves, g)
+    torch.cuda.synchronize()
+    assert kc.launches == dict.fromkeys(kc.KERNELS, 1)
+    ref_leaves = [t.double().requires_grad_(True) for t in (x, pw)]
+    ref = torch.autograd.grad(kc.kan_conv2d_reference(
+        ref_leaves[0], None, ref_leaves[1], CHEBY, 3, 1), ref_leaves,
+        g.double())
+    for name, a, b in zip(("dx", "dpoly_w"), got, ref):
+        ok, err = _within(a, b)
+        assert ok, f"{name}: max |diff| {err}"
+    w_all = kc.pack_w_all(None, pw, C=C, K=CHEBY.K, k=3, O=O)
+    assert torch.equal(kc.input_grad(x, w_all, g, CHEBY, 3, 1),
+                       kc.input_grad(x, w_all, g, CHEBY, 3, 1))
+    assert torch.equal(kc.weight_grad(x, g, CHEBY, 3, 1),
+                       kc.weight_grad(x, g, CHEBY, 3, 1))
+    if scale > 8.5:   # where the clamp holds t, dx is exactly 0
+        clamped = x.abs() > 8.5
+        assert clamped.any() and not got[0][clamped].any()
+
+
+@pytest.mark.cuda
+def test_cuda_cheby_refuses_uncompiled_degree():
+    """Degree 4 has no compiled kernel: NotImplementedError on CUDA, no
+    launch and no fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    x = torch.zeros(1, 4, 4, 3, device="cuda")
+    kc.reset_launches()
+    with pytest.raises(NotImplementedError):
+        kc.kan_conv2d(x, None, torch.zeros(3, 3, 15, 4, device="cuda"),
+                      kc.cheby_basis(4), 3, 1)
+    assert sum(kc.launches.values()) == 0
 
 
 # ----------------------------------------------------- WavKAN psi-conv

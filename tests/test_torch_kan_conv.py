@@ -51,7 +51,7 @@ def test_seeded_init_is_deterministic_with_jax_shapes():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"family": "cheby"}, {"groups": 2}, {"stride": 2}, {"dilation": 2},
+    {"family": "legendre"}, {"groups": 2}, {"stride": 2}, {"dilation": 2},
     {"ndim": 1},
 ])
 def test_unported_configs_raise(kwargs):
@@ -85,4 +85,30 @@ def test_device_rule_without_cuda(monkeypatch):
                      generator=torch.Generator().manual_seed(0))
     kc.reset_launches()
     conv(torch.zeros(1, 4, 4, 3))
+    assert sum(kc.launches.values()) == 0
+
+
+def test_cheby_degree_without_a_kernel_raises_on_cuda(monkeypatch):
+    """A ChebyKAN conv of degree 4 has no compiled kernel: on a CUDA tensor
+    it raises NotImplementedError before any launch, never falling back to
+    the plain version (the tensors are CPU tensors that report themselves
+    as CUDA, so this runs without a card)."""
+    from convkan_tpu_torch.kernels import kan_conv2d as kc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conv = KanConvND("cheby", 3, 4, 3, padding=1, degree=4, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    assert conv.basis.key not in kc.COMPILED and conv.base_w is None
+    x = torch.zeros(1, 4, 4, 3)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda t: torch.device("cuda", 0)))
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version or a kernel was reached")
+
+    monkeypatch.setattr(kc, "kan_conv2d_reference", refuse)
+    monkeypatch.setattr(kc, "_fn", refuse)
+    kc.reset_launches()
+    with pytest.raises(NotImplementedError, match="cheby degree=4"):
+        conv(x)
     assert sum(kc.launches.values()) == 0

@@ -28,6 +28,8 @@ torch.set_num_threads(1)
 
 KNOTS = tuple(float(v) for v in make_bspline_grid(5, 3))
 K = 8
+BASIS = kc.bspline_basis(KNOTS, 3, "silu")
+R = K + 1       # rows of E per channel: the K bases and act(x)
 
 
 def _inputs(B, H, C, O, seed=0, scale=2.5):
@@ -41,7 +43,8 @@ def _inputs(B, H, C, O, seed=0, scale=2.5):
 
 def _port(x, bw, pw, act="silu"):
     return kc.kan_conv2d(torch.from_numpy(x), torch.from_numpy(bw),
-                         torch.from_numpy(pw), KNOTS, 3, 3, 1, act).numpy()
+                         torch.from_numpy(pw), kc.bspline_basis(KNOTS, 3, act),
+                         3, 1).numpy()
 
 
 def _basis_fn(xt):
@@ -76,7 +79,7 @@ def test_pad_is_zero_after_expansion():
     xt = torch.from_numpy(x)
     wrong = kc.kan_conv2d_reference(
         torch.nn.functional.pad(xt, (0, 0, 1, 1, 1, 1)), torch.from_numpy(bw),
-        torch.from_numpy(pw), KNOTS, 3, 3, 0, "silu").numpy()
+        torch.from_numpy(pw), BASIS, 3, 0).numpy()
     assert np.abs(y - wrong)[:, 0].max() > 1e-3   # border rows differ
     np.testing.assert_allclose(y[:, 1:-1, 1:-1], wrong[:, 1:-1, 1:-1],
                                atol=1e-5, rtol=1e-5)
@@ -102,14 +105,14 @@ def test_cpu_tensors_never_touch_the_kernel():
 
 def _args(x, bw, pw):
     return (torch.from_numpy(x), torch.from_numpy(bw), torch.from_numpy(pw),
-            KNOTS, 3, 3, 1, "silu")
+            BASIS, 3, 1)
 
 
 def test_wrapper_refuses_bad_inputs():
     x, bw, pw = _inputs(1, 4, 3, 4)
     xt, bwt, pwt = torch.from_numpy(x), torch.from_numpy(bw), \
         torch.from_numpy(pw)
-    call = lambda *a: kc.kan_conv2d(*a, KNOTS, 3, 3, 1, "silu")  # noqa: E731
+    call = lambda *a: kc.kan_conv2d(*a, BASIS, 3, 1)  # noqa: E731
     with pytest.raises(TypeError):            # half: neither float32 nor float64
         call(xt.half(), bwt.half(), pwt.half())
     with pytest.raises(TypeError):            # mixed dtypes
@@ -140,7 +143,7 @@ def test_launch_config_tiles_vgg16_small():
     4x4 and 2x2 layers, and at batch 1024 at least two blocks per SM."""
     for H, C, O in VGG16_SMALL:
         for B in (1, 8, 64, 1024):
-            cfg = kc.launch_config(B, H, H, C, O, 3, 1, K)
+            cfg = kc.launch_config(B, H, H, C, O, 3, 1, R)
             TN, _, BM, _ = kc.thread_tile(cfg["BN"])
             assert cfg["BN"] == O and kc.TM == 8 and TN == (4 if O == 16
                                                           else 8)
@@ -158,7 +161,7 @@ def test_launch_config_tiles_vgg16_small():
                 assert cfg["blocks"] >= 2 * 132
             assert cfg["S"] == 1 or cfg["blocks"] <= kc.TARGET_BLOCKS
     with pytest.raises(NotImplementedError):     # no tile fits at all
-        kc.launch_config(1, 8, 8, 3, 16, 71, 35, K)
+        kc.launch_config(1, 8, 8, 3, 16, 71, 35, R)
 
 
 def _parent_accepts(B, H, W, C, O, k, pad, K):
@@ -177,7 +180,7 @@ def _parent_accepts(B, H, W, C, O, k, pad, K):
     else:
         TH, NB = Ho, min(B, M // (Ho * Wo))
     tile = NB * (TH + k - 1) * (W + 2 * pad)
-    return any(4 * kc.row_stride(K, CC) * (tile + 2 * BN + 2) <= 227 * 1024
+    return any(4 * kc.row_stride(K + 1, CC) * (tile + 2 * BN + 2) <= 227 * 1024
                for CC in range(min(C, 8), 0, -1))
 
 
@@ -194,7 +197,7 @@ def test_launch_config_accepts_every_shape_the_parent_did():
         if Ho <= 0 or Wo <= 0:
             continue
         try:
-            cfg = kc.launch_config(B, H, W, C, O, k, pad, K)
+            cfg = kc.launch_config(B, H, W, C, O, k, pad, R)
         except NotImplementedError:
             assert not _parent_accepts(B, H, W, C, O, k, pad, K)
             continue
@@ -278,7 +281,8 @@ def _emulate(x, w_all, knots, k, pad, cfg):
     O = w_all.shape[1] // (k * k)
     Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
     dims = (B, H, W, Ho, Wo, k, pad)
-    E = kc.expand(torch.from_numpy(x), knots, 3, "silu").numpy()
+    E = kc.expand(torch.from_numpy(x),
+                  kc.bspline_basis(knots, 3, "silu")).numpy()
     K1 = E.shape[-1] // C
     BN, CC, S = cfg["BN"], cfg["CC"], cfg["S"]
     TN, TPW, BM, G = kc.thread_tile(BN)
@@ -387,12 +391,12 @@ def test_kernel_index_mapping_emulation(B, H, W, C, O, k, pad):
     x = rng.uniform(-2.5, 2.5, (B, H, W, C))
     bw = rng.normal(0, 0.2, (k, k, C, O))
     pw = rng.normal(0, 0.2, (k, k, C * K, O))
-    cfg = kc.launch_config(B, H, W, C, O, k, pad, K)
+    cfg = kc.launch_config(B, H, W, C, O, k, pad, R)
     w_all = kc.pack_w_all(torch.from_numpy(bw), torch.from_numpy(pw), C=C,
                           K=K, k=k, O=O).numpy()
     got, written = _emulate(x, w_all, KNOTS, k, pad, cfg)
     want = kc.kan_conv2d_reference(
         torch.from_numpy(x), torch.from_numpy(bw), torch.from_numpy(pw),
-        KNOTS, 3, k, pad, "silu").numpy()
+        BASIS, k, pad).numpy()
     assert (written == 1).all()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)

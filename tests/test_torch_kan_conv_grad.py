@@ -36,6 +36,8 @@ torch.set_num_threads(1)
 
 KNOTS = tuple(float(v) for v in make_bspline_grid(5, 3))
 K = 8
+BASIS = kc.bspline_basis(KNOTS, 3, "silu")
+R = K + 1       # rows of E per channel: the K bases and act(x)
 # (H, C, O) of the VGG16_small convs (9 distinct shapes)
 VGG16_SMALL = [(32, 3, 16), (32, 16, 16), (16, 16, 32), (16, 32, 32),
                (8, 32, 64), (8, 64, 64), (4, 64, 128), (4, 128, 128),
@@ -54,7 +56,7 @@ def _inputs(B, H, C, O, seed, dtype=np.float32, scale=2.5):
 
 def _port_grads(x, bw, pw, g, act="silu"):
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, bw, pw)]
-    y = kc.kan_conv2d(*leaves, KNOTS, 3, 3, 1, act)
+    y = kc.kan_conv2d(*leaves, kc.bspline_basis(KNOTS, 3, act), 3, 1)
     return [t.numpy() for t in torch.autograd.grad(y, leaves,
                                                    torch.from_numpy(g))]
 
@@ -112,14 +114,14 @@ def test_plain_kernel_versions_agree_with_autograd():
     w_all = kc.pack_w_all(bwt, pwt, C=6, K=K, k=3, O=8)
     wl = w_all.clone().requires_grad_(True)
     xl = xt.clone().requires_grad_(True)
-    y = kc._conv_w_all(kc.expand(xl, KNOTS, 3, "silu"), wl, 3, 1)
+    y = kc._conv_w_all(kc.expand(xl, BASIS), wl, 3, 1)
     want_dx, want_dw = torch.autograd.grad(y, (xl, wl), gt)
-    dx = kc.input_grad(xt, w_all, gt, KNOTS, 3, 3, 1, "silu")
-    dw = kc.weight_grad(xt, gt, KNOTS, 3, 3, 1, "silu")
+    dx = kc.input_grad(xt, w_all, gt, BASIS, 3, 1)
+    dw = kc.weight_grad(xt, gt, BASIS, 3, 1)
     torch.testing.assert_close(dx, want_dx, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(dw, want_dw, rtol=1e-12, atol=1e-12)
-    partial = kc.weight_partials(xt, gt, KNOTS, 3, 3, 1, "silu")
-    cfg = kc.dw_launch_config(5, 4, 4, 6, 8, 3, 1, K)
+    partial = kc.weight_partials(xt, gt, BASIS, 3, 1)
+    cfg = kc.dw_launch_config(5, 4, 4, 6, 8, 3, 1, R)
     assert partial.shape == (cfg["S"], 9 * 6, 9 * 8) and cfg["S"] == 5
     torch.testing.assert_close(kc.reduce_partials(partial), want_dw,
                                rtol=1e-12, atol=1e-12)
@@ -145,7 +147,7 @@ def test_backward_launch_configs_tile_vgg16_small():
     only."""
     for H, C, O in VGG16_SMALL:
         for B in (1, 16, 64, 1024):
-            dx = kc.dx_launch_config(B, H, H, C, O, 3, 1, K)
+            dx = kc.dx_launch_config(B, H, H, C, O, 3, 1, R)
             assert dx["smem"] <= kc.SMEM_TWO_BLOCKS
             assert (dx["OC"], dx["stages"], dx["table"]) == (kc.DX_OC, 2, 1)
             assert dx["CC"] == min(kc.DX_MAX_CC, 1 << (C - 1).bit_length())
@@ -159,7 +161,7 @@ def test_backward_launch_configs_tile_vgg16_small():
                     pairs = _dx_pairs(dx, B, H, H, 3, 1)
                     assert pairs == interior if dx["skip"] else \
                         pairs == B * H * H * 9
-            dw = kc.dw_launch_config(B, H, H, C, O, 3, 1, K)
+            dw = kc.dw_launch_config(B, H, H, C, O, 3, 1, R)
             CC, BN, PW = dw["CC"], dw["BN"], dw["PW"]
             assert CC <= kc.DW_MAX_CC and C % CC == 0          # rows 9*CC
             assert BN % kc.DW_TN == 0 and 9 * O % BN == 0       # columns
@@ -174,12 +176,12 @@ def test_backward_launch_configs_tile_vgg16_small():
             assert dw["S"] == 1 or dw["blocks"] <= kc.DW_TARGET_BLOCKS
             if B == 1024:
                 assert dw["blocks"] >= 2 * 132
-            assert dw == kc.dw_launch_config(B, H, H, C, O, 3, 1, K)
+            assert dw == kc.dw_launch_config(B, H, H, C, O, 3, 1, R)
     # the first conv: 3 channels x 18 column groups, four pixel slices
-    first = kc.dw_launch_config(1024, 32, 32, 3, 16, 3, 1, K)
+    first = kc.dw_launch_config(1024, 32, 32, 3, 16, 3, 1, R)
     assert (first["CC"], first["BN"], first["PW"]) == (3, 144, 4)
     with pytest.raises(NotImplementedError):
-        kc.dx_launch_config(1, 4, 4096, 3, 16, 3, 1, K)   # row too wide
+        kc.dx_launch_config(1, 4, 4096, 3, 16, 3, 1, R)   # row too wide
 
 
 def test_dw_launch_config_accepts_every_shape_the_parent_did():
@@ -193,7 +195,7 @@ def test_dw_launch_config_accepts_every_shape_the_parent_did():
             (1, 3, 5, 16, 48, 64, 100, 104, 128, 256, 1000), (1, 3, 5, 7),
             (3, 8, 20, 63)):
         assert KK + 1 <= 64                   # the parent's predicate
-        cfg = kc.dw_launch_config(B, 8, 8, C, O, k, k // 2, KK)
+        cfg = kc.dw_launch_config(B, 8, 8, C, O, k, k // 2, KK + 1)
         accepted += 1
         CC, BN, PW, T = cfg["CC"], cfg["BN"], cfg["PW"], cfg["threads"]
         TO = k * k * O
@@ -215,16 +217,16 @@ def test_grad_wrappers_refuse_bad_gradients():
     x, bw, pw, g = (torch.from_numpy(a) for a in _inputs(1, 4, 3, 4, seed=0))
     w_all = kc.pack_w_all(bw, pw, C=3, K=K, k=3, O=4)
     with pytest.raises(ValueError):          # wrong output-gradient shape
-        kc.input_grad(x, w_all, g[:, :2], KNOTS, 3, 3, 1, "silu")
+        kc.input_grad(x, w_all, g[:, :2], BASIS, 3, 1)
     with pytest.raises(TypeError):           # dtype differs from x
-        kc.weight_grad(x, g.double(), KNOTS, 3, 3, 1, "silu")
+        kc.weight_grad(x, g.double(), BASIS, 3, 1)
 
 
 def _recurrence_f32(x, knots, order, span_only):
     """float32 emulation of the CUDA basis loops (every operation rounded
     to float32 as __fsub_rn/__fdiv_rn/__fmul_rn/__fadd_rn do): the full
     Cox-de Boor recurrence (every basis at every level), or the
-    span-limited one of csrc/kan_bspline.cuh (bspline_span, which the
+    span-limited one of csrc/kan_basis.cuh (bspline_span, which the
     forward and backward kernels share), for a vector x."""
     f32 = np.float32
     kn = np.asarray(knots, f32)
@@ -303,7 +305,7 @@ def _emulate_dw(x, g, k, pad, cfg):
     B, H, W, C = x.shape
     O = g.shape[-1]
     Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
-    E = kc.expand(torch.from_numpy(x), KNOTS, 3, "silu").numpy()
+    E = kc.expand(torch.from_numpy(x), BASIS).numpy()
     K1 = E.shape[-1] // C
     E = E.reshape(B, H, W, K1, C)
     gpad = np.zeros((B + 1, Ho + 1, Wo + 1, O + 1))   # index -1: a zero
@@ -409,10 +411,10 @@ def test_dw_kernel_index_mapping_emulation(B, H, W, C, O, k, pad):
     x = rng.uniform(-2.5, 2.5, (B, H, W, C))
     Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
     g = rng.normal(0, 1, (B, Ho, Wo, O))
-    cfg = kc.dw_launch_config(B, H, W, C, O, k, pad, K)
+    cfg = kc.dw_launch_config(B, H, W, C, O, k, pad, R)
     got, written = _emulate_dw(x, g, k, pad, cfg)
     want = kc.weight_partials_reference(
-        torch.from_numpy(x), torch.from_numpy(g), KNOTS, 3, k, pad, "silu",
+        torch.from_numpy(x), torch.from_numpy(g), BASIS, k, pad,
         cfg["S"], cfg["ips"]).numpy()
     assert (written == 1).all()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
@@ -485,7 +487,7 @@ def test_dx_launch_config_accepts_every_shape_the_parent_did():
         if not _parent_dx_accepts(B, H, W, C, O, k, KK):
             continue
         accepted += 1
-        cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, KK)
+        cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, KK + 1)
         _dx_entry_takes(cfg, B, H, W, k, KK)
         if k <= 5 and KK == 8:   # no fallback where VGG-like layers lie
             assert cfg["table"] == 1 and (
@@ -509,7 +511,7 @@ def test_dx_launch_config_accepts_large_kernels_the_parent_did():
         if not _parent_dx_accepts(B, H, W, C, O, k, KK):
             continue
         accepted += 1
-        cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, KK)
+        cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, KK + 1)
         _dx_entry_takes(cfg, B, H, W, k, KK)
         if not cfg["skip"]:
             seen.add((cfg["NB"] * cfg["TH"] * (1 << (W - 1).bit_length()),
@@ -691,15 +693,15 @@ def test_dx_kernel_index_mapping_emulation(B, H, W, C, O, k, pad):
     Ho, Wo = H + 2 * pad - k + 1, W + 2 * pad - k + 1
     g = rng.normal(0, 1, (B, Ho, Wo, O))
     w_all = rng.normal(0, 0.2, (9 * C, k * k * O))
-    cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, K)
+    cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, R)
     dE, written = _emulate_dx(x, w_all, g, k, pad, cfg)
     assert (written == 1).all() and not np.isnan(dE).any()
     xt = torch.from_numpy(x).requires_grad_(True)
-    E = kc.expand(xt, KNOTS, 3, "silu")
+    E = kc.expand(xt, BASIS)
     got = torch.autograd.grad(E, xt, torch.from_numpy(dE))[0].numpy()
     want = kc.input_grad_reference(
         torch.from_numpy(x), torch.from_numpy(w_all), torch.from_numpy(g),
-        KNOTS, 3, k, pad, "silu").numpy()
+        BASIS, k, pad).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
@@ -714,7 +716,7 @@ def test_dx_kernel_index_mapping_emulation_fallback_tiles(B, H, W, C, O, k,
     """The same for the fallbacks of large kernels: fewer pixel slots
     (idle pixels) and no table of g offsets (each staging thread counts
     its own), as the tile rule picks them or forced on a small shape."""
-    cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, K)
+    cfg = kc.dx_launch_config(B, H, W, C, O, k, pad, R)
     if table is not None:
         cfg["table"] = table
     elif k == 37:
@@ -729,9 +731,9 @@ def test_dx_kernel_index_mapping_emulation_fallback_tiles(B, H, W, C, O, k,
     dE, written = _emulate_dx(x, w_all, g, k, pad, cfg)
     assert (written == 1).all() and not np.isnan(dE).any()
     xt = torch.from_numpy(x).requires_grad_(True)
-    E = kc.expand(xt, KNOTS, 3, "silu")
+    E = kc.expand(xt, BASIS)
     got = torch.autograd.grad(E, xt, torch.from_numpy(dE))[0].numpy()
     want = kc.input_grad_reference(
         torch.from_numpy(x), torch.from_numpy(w_all), torch.from_numpy(g),
-        KNOTS, 3, k, pad, "silu").numpy()
+        BASIS, k, pad).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)

@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 VGG16_SMALL = [(32, 3, 16), (32, 16, 16), (16, 16, 32), (16, 32, 32),
                (8, 32, 64), (8, 64, 64), (4, 64, 128), (4, 128, 128),
                (2, 128, 128)]
-KAN_PAIRS = [(kc.dw_launch_config(1024, H, H, C, O, 3, 1, 8)["S"],
+KAN_PAIRS = [(kc.dw_launch_config(1024, H, H, C, O, 3, 1, 9)["S"],
               9 * C * 9 * O) for H, C, O in VGG16_SMALL]
 WAV_PAIRS = [(cfg["S"], cfg["N"]) for cfg in (
     wc.param_launch_config(1024, H, H, C, O, 3, 1)

@@ -1,0 +1,91 @@
+"""How far float32 lies from float64 in a VGG16_small of the port, on the
+CPU: the conditioning that ``chip_smoke.py``'s model and train phases
+hold the GPU's float32 readings against.
+
+    python3 tools/f32_spread.py --kan_conv ChebyKAN --seeds 5
+
+For each seed of the model's weights (the (2, 2) head for ChebyKAN and
+WavKAN, as ``chip_smoke.py`` builds them): the max |logit| difference of
+float32 and float64 on ``chip_smoke.py``'s 64 images (eval mode), its
+median over the images, and how far a relative change of 1e-7 of the
+input moves the float32 logits.  Then, for ``chip_smoke.py``'s train model
+and first batch, the first train step's gradients in float32 against
+float64 (max |diff| over each parameter's largest entry, the worst three)
+with each KAN conv's output multiplied by 1 + delta * N(0, 1): how much a
+relative perturbation of the size of float32 sums taken in another order
+(the GPU's kernels) moves them.  Needs no card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from convkan_tpu_torch.models.vgg import vggkan  # noqa: E402
+from convkan_tpu_torch.nn import kan_conv as nk  # noqa: E402
+from convkan_tpu_torch.train.data import normalize_batch  # noqa: E402
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--kan_conv", default="ChebyKAN",
+                   choices=["KAN", "ChebyKAN", "WavKAN"])
+    p.add_argument("--seeds", type=int, default=5)
+    p.add_argument("--threads", type=int, default=8)
+    args = p.parse_args()
+    torch.set_num_threads(args.threads)
+    kw = {} if args.kan_conv == "KAN" else {"expected_feature_shape": (2, 2)}
+    imgs = np.random.RandomState(0).randint(0, 256, (64, 32, 32, 3),
+                                            np.uint8)
+    x = normalize_batch(torch.from_numpy(imgs), "CIFAR10")
+    for seed in range(args.seeds):
+        m = vggkan(3, 10, arch="VGG16_small", kan_conv=args.kan_conv,
+                   classifier_type="Linear", device="cpu",
+                   generator=torch.Generator().manual_seed(seed), **kw).eval()
+        with torch.no_grad():
+            y32 = m(x)
+            y64 = copy.deepcopy(m).double()(x.double())
+            moved = (m(x * (1 + 1e-7)) - y32).abs().max().item()
+        d = (y32.double() - y64).abs().max(dim=1).values
+        print(f"{args.kan_conv} seed {seed}: logits float32 vs float64 max "
+              f"{d.max().item():.3e}, median over images "
+              f"{d.median().item():.3e}; input x (1 + 1e-7) moves float32 "
+              f"by {moved:.3e}; max |logit| {y64.abs().max().item():.3f}",
+              flush=True)
+    if args.kan_conv == "WavKAN":
+        return
+    batch = cs.train_batches()[:1]
+    base = cs.train_model(args.kan_conv, **kw)
+    _, g64, _ = cs.train_run(copy.deepcopy(base).double(), "cpu", batch)
+    conv = nk.kan_conv2d
+    try:
+        for delta in (0.0, 1e-7, 1e-6, 1e-5):
+            gen = torch.Generator().manual_seed(11)
+
+            def noisy(*a, delta=delta, gen=gen):
+                y = conv(*a)
+                return y * (1 + delta * torch.randn(y.shape, generator=gen,
+                                                    dtype=y.dtype))
+
+            nk.kan_conv2d = noisy
+            _, g32, _ = cs.train_run(copy.deepcopy(base), "cpu", batch)
+            worst = cs.grad_readings(g32, g64, range(1))[:3]
+            print(f"{args.kan_conv} train model, first step, conv outputs x "
+                  f"(1 + {delta:g} N(0, 1)): gradients vs float64 "
+                  + ", ".join(f"{n} {e:.3e}" for e, _, n in worst),
+                  flush=True)
+    finally:
+        nk.kan_conv2d = conv
+
+
+if __name__ == "__main__":
+    main()

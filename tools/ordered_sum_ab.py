@@ -64,7 +64,7 @@ def main():
     convs = smoke.VGG16_SMALL_CONVS
     pairs = {
         "kan_conv2d_bwd_dw_reduce": [
-            (kc.dw_launch_config(1024, H, H, C, O, 3, 1, 8)["S"], 81 * C * O)
+            (kc.dw_launch_config(1024, H, H, C, O, 3, 1, 9)["S"], 81 * C * O)
             for H, C, O in convs],
         "wav_conv2d_bwd_reduce": [
             (cfg["S"], cfg["N"]) for cfg in (
