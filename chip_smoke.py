@@ -1,6 +1,7 @@
 """GPU smoke test of convkan_tpu_torch: serves and trains KAN-VGG16_small,
-with B-spline KAN convs, with WavKAN convs and with ChebyKAN convs, on one
-CUDA card through the hand-written kernels and checks every step.
+with B-spline KAN convs, with WavKAN convs, with ChebyKAN convs and with
+GRAMKAN convs, on one CUDA card through the hand-written kernels and checks
+every step.
 
     python3 chip_smoke.py
 
@@ -151,6 +152,34 @@ descriptor):
      gradient, weight gradient, reduction) as phases 5 and 8 time the
      B-spline's, with bounds over all 4 rows (every T_n is non-zero), and
      the 13-conv forward at batch 1.
+GRAMKAN (the KAN-conv kernels' Gram instantiations, degree 3, SiLU on every
+row, a base path, and the learnable operand beta (4 values) read by every
+kernel from device memory; the data-gradient kernel also writes beta's
+gradient in per-block partials, reduced by the same ordered reduction):
+ 20. the forward kernel against its plain version (TOL), the data
+     gradient, the reduced weight gradient and beta's partials and reduced
+     gradient against float64 autograd of the plain version (BWD_TOL; beta's
+     within DBETA_TOL of the sum of |terms| it adds, entries 0 and 3
+     exactly 0), the launch that stores no dx (the first conv's) and the
+     autograd path's beta gradient bit-identical to them, at the 9
+     VGG16_small shapes at batch 64 and once more at batch 1024, beta at
+     GRAM_BETA_SCALE times its init std; every kernel's result of two
+     calls bit-identical;
+ 21. the GRAMKAN VGG16_small (train.py's (1, 1) head: SiLU follows each
+     norm, so the logits see the image): logits on the GPU vs the CPU
+     (MODEL_TOL; its float32 logits lie within 1e-5 of float64 on the
+     CPU, tools/f32_spread.py), 13 forward launches;
+ 22. serving, the main path, as phase 4;
+ 23. training, the main path, as phase 7 (first-step gradients of every
+     parameter, beta_weights included, against float64), with beta's
+     entries 0 and 3 exactly 0 in every conv: per step 13 forward, 13
+     data-gradient (the first conv's for beta alone), 13 weight-gradient
+     and 26 reduction launches (dW and beta per conv);
+ 24. times: predict and the train step at batch 1024 (images/s) and, per
+     conv shape at batch 1024, each Gram kernel as phase 19 times the
+     Chebyshev ones, with bounds over all 5 rows (the data gradient's adds
+     its beta terms) and beta's reduction timed with dW's, and the 13-conv
+     forward at batch 1.
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
 a sleep kernel holds the card until the host has issued all timed calls);
 a kernel's timing that the host held back fails, any other is listed
@@ -266,6 +295,22 @@ CHEBY_ROWS = 4
 # model and 2.6e-4 for WavKAN's.  Phase 16 holds the GPU's logits to
 # float64 within CHEBY_F32 times the CPU float32's distance, plus MODEL_TOL.
 CHEBY_F32 = 2
+# all 5 rows of the Gram E of degree 3 (SiLU(p_0) .. SiLU(p_3), SiLU(x)) are
+# non-zero at every x: its bounds count every row of the interior pairs
+GRAM_ROWS = 5
+# beta in the Gram kernel phases: GRAM_BETA_SCALE times its init std
+# 1/(9 C (degree+1)), so that the beta terms of the recurrence (c_2 beta_1
+# = 2.25 beta_1, c_3 beta_2 = 33.3 beta_2) are not negligible
+GRAM_BETA_SCALE = 100
+# d beta against float64: one entry sums up to B*H*W*C terms (16.8 M at
+# 32x32x16, batch 1024), which can cancel, so each partial row and each
+# reduced entry is held within DBETA_TOL of the sum of |terms| it adds,
+# not of |d beta|
+DBETA_TOL = 1e-4
+# the d beta epilogue's work per interior (pixel, channel) at degree 3: a
+# multiply-add for each of the 3 non-zero dp_n/dbeta[j] ((n, j) = (2, 1),
+# (3, 1), (3, 2)), added to the data gradient's bound
+GRAM_DBETA_FLOPS = 2 * 3
 
 
 # readings that cuda_ms could not hold to device time: kernel name -> fields
@@ -383,6 +428,46 @@ def reduction_times(name, reduce, reference, part) -> dict:
     return times
 
 
+def conv_extra(gen, C, basis):
+    """The basis's learnable operand for a conv of C input channels (None
+    without one): Gram's beta N(0, GRAM_BETA_SCALE x its init std
+    1/(9 C (degree+1)))."""
+    if basis is None or not basis.n_extra:
+        return None
+    std = GRAM_BETA_SCALE / (9 * C * (basis.order + 1))
+    return torch.randn(basis.n_extra, generator=gen) * std
+
+
+def extra_check(kc, basis, x, w_all, g, k, pad, extra, epart, de):
+    """The data gradient's extra partials ``epart`` and their reduction
+    ``de`` against float64 autograd of the plain version, term by term:
+    each partial row within DBETA_TOL of the sum of |terms| it adds (rows
+    grouped as the kernel's blocks, ``extra_blocks``), the reduction
+    bit-exact against its plain version in the kernel's order and within
+    DBETA_TOL of the sum of |terms| of its entry; entries 0 and 3 exactly
+    0.  Returns (max |err| / sum of |terms| of the partials and of the
+    reduction, ok)."""
+    B, H, W, C = x.shape
+    terms = kc.extra_terms_reference(x.double(), w_all.double(), g.double(),
+                                     basis, k, pad, extra.double())
+    cfg = kc.dx_launch_config(B, H, W, C, g.shape[-1], k, pad, basis.R)
+    idx = kc.extra_blocks(B, H, W, C, cfg).reshape(-1).to(terms.device)
+    flat = terms.reshape(-1, basis.n_extra)
+    want = torch.zeros(epart.shape, dtype=torch.float64,
+                       device=terms.device).index_add_(0, idx, flat)
+    scale = torch.zeros_like(want).index_add_(0, idx, flat.abs())
+    e_part = ((epart.double() - want).abs()
+              / scale.clamp_min(1e-300)).max().item()
+    total, total_abs = want.sum(0), scale.sum(0)
+    e_red = ((de.double() - total).abs() / total_abs.clamp_min(1e-300)) \
+        .max().item()
+    zero = [0, basis.n_extra - 1]
+    ok = e_part <= DBETA_TOL and e_red <= DBETA_TOL and \
+        torch.equal(de, kc.reduce_reference(epart)) and \
+        not epart[:, zero].any() and not de[zero].any()
+    return e_part, e_red, ok
+
+
 def conv_inputs(gen, B, H, C, O, scale=1.0, k=3, basis=None):
     """x U(-scale, scale), base_w (None without a base path) and poly_w
     N(0, 0.1) for ``basis`` (default: the B-spline, K = 8)."""
@@ -465,7 +550,7 @@ def print_red_totals(tag, name, t, card):
 
 
 def backward_case(kc, basis, x, bw, pw, g, k, pad, partials=True,
-                  twice=False, tag="[backward]"):
+                  twice=False, tag="[backward]", extra=None):
     """One backward case on the card: each kernel wrapper (data gradient,
     weight-gradient partials, their reduction) and the autograd path's
     gradients against float64 autograd of the plain version (BWD_TOL); the
@@ -478,43 +563,77 @@ def backward_case(kc, basis, x, bw, pw, g, k, pad, partials=True,
     the case (its data-gradient tile, weight-gradient tile and reduction
     launch) and fails on a disagreement; returns max |err| per kernel, the
     reduced dW's against float64, and dx of the wrapper and of the autograd
-    path."""
+    path.  With ``extra`` (the basis's learnable operand) the data gradient
+    also writes its partials, which are held to float64 by
+    ``extra_check``, as are the reduced gradient of the autograd path's
+    operand and of the launch that stores no dx (the first conv's), both
+    bit-identical to the partials' reduction; the returned errors then
+    carry "dbeta_rel" (the worst of ``extra_check``'s two)."""
     B, H, _, C = x.shape
     O = pw.shape[-1]
     spec = (basis, k, pad)
-    w_all = kc.pack_w_all(bw, pw, C=C, K=basis.K, k=k, O=O)
+    ex = () if extra is None else (extra,)
+    ex64 = () if extra is None else (extra.double(),)
+    w_all = kc.pack_w_all(bw, pw, C=C, K=basis.K, k=k, O=O,
+                          degree_major=basis.degree_major)
     cfg = kc.dw_launch_config(B, H, H, C, O, k, pad, basis.R)
     xcfg = kc.dx_launch_config(B, H, H, C, O, k, pad, basis.R)
-    dx = kc.input_grad(x, w_all, g, *spec)
-    part = kc.weight_partials(x, g, *spec)
+
+    def data_grad():
+        if extra is None:
+            return kc.input_grad(x, w_all, g, *spec), None
+        return kc.input_extra_grad(x, w_all, g, *spec, extra)
+
+    dx, epart = data_grad()
+    part = kc.weight_partials(x, g, *spec, *ex)
     dw = kc.reduce_partials(part)
-    same = not twice or (
-        torch.equal(dx, kc.input_grad(x, w_all, g, *spec))
-        and torch.equal(part, kc.weight_partials(x, g, *spec)))
+    if twice:
+        dx2, epart2 = data_grad()
+        same = torch.equal(dx, dx2) and torch.equal(
+            part, kc.weight_partials(x, g, *spec, *ex)) and \
+            (extra is None or torch.equal(epart, epart2))
+    else:
+        same = True
     torch.cuda.synchronize()
     e_dx, ok_dx = bwd_close(dx, kc.input_grad_reference(
-        x.double(), w_all.double(), g.double(), *spec))
+        x.double(), w_all.double(), g.double(), *spec, *ex64))
     e_red = (dw - kc.reduce_reference(part)).abs().max().item()
     e64, ok64 = bwd_close(dw, kc.weight_grad_reference(
-        x.double(), g.double(), *spec))
+        x.double(), g.double(), *spec, *ex64))
     e_dw, ok_dw = bwd_close(part, kc.weight_partials_reference(
-        x.double(), g.double(), *spec, cfg["S"], cfg["ips"])) if partials \
-        else (e64, ok64)
+        x.double(), g.double(), *spec, cfg["S"], cfg["ips"], *ex64)) \
+        if partials else (e64, ok64)
     rcfg = kc.reduce_launch_config(part.shape[0], part[0].numel())
     base = bw is not None
     ts = (x, bw, pw) if base else (x, pw)
+    ts += ex
 
     def conv(fn, leaves):
-        return fn(leaves[0], leaves[1] if base else None, leaves[-1], *spec)
+        return fn(leaves[0], leaves[1] if base else None,
+                  leaves[2 if base else 1], *spec, *leaves[len(ts) - len(ex):])
 
     leaves = [t.clone().requires_grad_(True) for t in ts]
     got = torch.autograd.grad(conv(kc.kan_conv2d, leaves), leaves, g)
     ref = [t.double().requires_grad_(True) for t in ts]
     want = torch.autograd.grad(conv(kc.kan_conv2d_reference, ref), ref,
                                g.double())
-    auto = [bwd_close(a, b) for a, b in zip(got, want)]
+    auto = [bwd_close(a, b) for a, b in zip(got[:len(ts) - len(ex)], want)]
     ok = ok_dx and ok_dw and e_red == 0.0 and ok64 and same and \
         all(o for _, o in auto)
+    extra_msg = ""
+    if extra is not None:
+        de = kc.reduce_partials(epart)
+        e_ep, e_de, ok_de = extra_check(kc, basis, x, w_all, g, k, pad, extra,
+                                        epart, de)
+        # the first conv's launch (dx not stored), and the autograd path's
+        _, epart0 = kc.input_extra_grad(x, w_all, g, *spec, extra,
+                                        need_dx=False)
+        same_de = torch.equal(epart0, epart) and torch.equal(got[-1], de)
+        ok = ok and ok_de and same_de
+        extra_msg = (f"; dbeta partials {e_ep:.3e}, reduced {e_de:.3e} of "
+                     f"the sum of |terms| (entries 0 and {basis.n_extra - 1} "
+                     f"exactly 0: {ok_de}; dx-free launch and autograd "
+                     f"{'bit-identical' if same_de else 'DIFFERENT'})")
     print(f"{tag} B={B} {H}x{H} C={C} O={O} {basis} k={k} pad={pad} "
           f"(dx tile {dx_tile(kc, xcfg)}; dW tile {dw_tile(cfg)}; reduce "
           f"{red_tile(rcfg)}): "
@@ -523,8 +642,8 @@ def backward_case(kc, basis, x, bw, pw, g, k, pad, partials=True,
           f"(reduced dW vs float64 {e64:.3e}); "
           f"autograd {'dx/dbase_w/dpoly_w' if base else 'dx/dpoly_w'} "
           f"{'/'.join(f'{e:.3e}' for e, _ in auto)}"
-          f"{'' if not twice else '; two calls bit-identical' if same else '; two calls DIFFERENT'} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{'' if not twice else '; two calls bit-identical' if same else '; two calls DIFFERENT'}"
+          f"{extra_msg} {'ok' if ok else 'FAIL'}", flush=True)
     for t in (dx, part, *got):
         check(bool(torch.isfinite(t).all()), "backward output not finite")
     check(ok, f"backward kernels disagree with the plain version (B={B} "
@@ -532,6 +651,8 @@ def backward_case(kc, basis, x, bw, pw, g, k, pad, partials=True,
     errs = {"kan_conv2d_bwd_dx": max(e_dx, auto[0][0]),
             "kan_conv2d_bwd_dw": max(e_dw, *(e for e, _ in auto[1:])),
             "kan_conv2d_bwd_dw_reduce": e_red}
+    if extra is not None:
+        errs["dbeta_rel"] = max(e_ep, e_de)
     return errs, e64, dx, got[0]
 
 
@@ -694,16 +815,19 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
             "cpu_vs_f64": grad_readings(grads_cpu, grads_64, steps)[0],
             "gpu_vs_cpu": grad_readings(grads_gpu, grads_cpu, steps)[0],
             "update_rel": rel, "update_worst": worst,
-            "grads_gpu": grads_gpu, "model_gpu": model_gpu}
+            "grads_gpu": grads_gpu, "grads_64": grads_64,
+            "model_gpu": model_gpu}
 
 
 def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
-                **model_kw):
-    """7 / 13. the training main path, by ``train_compare``: the losses
-    (LOSS_RTOL), the GPU's gradients against float64 (GRAD_TOL) and the
-    updates (UPDATE_TOL); every conv's ``grad_params`` must get a non-zero
-    gradient and ``mod``'s launch counts must be ``want_counts`` per step.
-    Returns the launch counts of the GPU steps."""
+                zero_entries=(), **model_kw):
+    """7 / 13 / 18 / 23. the training main path, by ``train_compare``: the
+    losses (LOSS_RTOL), the GPU's gradients against float64 (GRAD_TOL) and
+    the updates (UPDATE_TOL); every conv's ``grad_params`` must get a
+    non-zero gradient, each (parameter, index) of ``zero_entries`` an
+    exactly zero one (with its parameter's reading printed), and ``mod``'s
+    launch counts must be ``want_counts`` per step.  Returns the launch
+    counts of the GPU steps."""
     r = train_compare(mod, dev, kan_conv, lockstep, **model_kw)
     losses_gpu, losses_cpu, counts = (r["losses_gpu"], r["losses_cpu"],
                                       r["counts"])
@@ -735,6 +859,19 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
             grad = getattr(m, pn).grad
             check(grad is not None and bool(grad.abs().sum() > 0),
                   f"{name}.{pn} got no gradient on the GPU")
+        for pn, i in zero_entries:
+            check(getattr(m, pn).grad[i] == 0,
+                  f"{name}.{pn}[{i}] got a non-zero gradient on the GPU")
+    for pn in dict.fromkeys(p for p, _ in zero_entries):
+        worst = max((e, st, n) for e, st, n in grad_readings(
+            r["grads_gpu"], r["grads_64"], range(1 + (TRAIN_STEPS - 1)
+                                                 * lockstep))
+            if n.endswith("." + pn))
+        print(f"[train] {pn}: GPU gradients vs float64 max |diff| "
+              f"{worst[0]:.3e} of the parameter's largest entry (step "
+              f"{worst[1]}, {worst[2]}); entries "
+              f"{[i for q, i in zero_entries if q == pn]} exactly 0 in "
+              f"every conv", flush=True)
     print(f"[train] {kan_conv} kernel launches on the main path "
           f"({TRAIN_STEPS} steps): {counts}", flush=True)
     check(counts == {k: TRAIN_STEPS * v for k, v in want_counts.items()},
@@ -781,7 +918,10 @@ def phase_train_times(kc, basis, rows_nz, kan_conv, gen, dev, card,
     and the backward kernels per conv shape for ``basis``, whose bound
     counts ``rows_nz`` rows of E per interior pair (host-bound readings
     recorded under the kernel's name + ``suffix``); returns (images/s,
-    per-kernel totals, rows)."""
+    per-kernel totals, rows).  A basis with a learnable operand (Gram's
+    beta, ``conv_extra``): its data-gradient kernel also writes the
+    operand's partials (and runs, with dx not stored, at the first conv
+    too), and the reduction's times add the partials' reduction to dW's."""
     ips = time_train_step(kan_conv, dev, card, **model_kw)
 
     names = ("kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
@@ -797,30 +937,58 @@ def phase_train_times(kc, basis, rows_nz, kan_conv, gen, dev, card,
     for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
         x, bw, pw = (None if t is None else t.to(dev) for t in conv_inputs(
             gen, B, H, C, O, basis=basis))
+        beta = conv_extra(gen, C, basis)
+        ex = () if beta is None else (beta.to(dev),)
         g = torch.randn(B, H, H, O, generator=gen).to(dev)
         spec = (basis, 3, 1)
-        w_all = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O)
+        w_all = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O,
+                              degree_major=basis.degree_major)
         cfg = kc.dw_launch_config(B, H, H, C, O, 3, 1, R)
-        part = kc.weight_partials(x, g, *spec)
+        part = kc.weight_partials(x, g, *spec, *ex)
         rcfg = kc.reduce_launch_config(part.shape[0], part[0].numel())
         red = reduction_times("kan_conv2d_bwd_dw_reduce" + suffix,
                               kc.reduce_partials, kc.reduce_reference, part)
+        first = (H, C, O) == VGG16_SMALL_CONVS[0]
+        if ex:
+            # the operand's partials: the first conv's launch stores no dx
+            _, epart = kc.input_extra_grad(x, w_all, g, *spec, *ex)
+            ered = reduction_times("kan_conv2d_bwd_dw_reduce" + suffix,
+                                   kc.reduce_partials, kc.reduce_reference,
+                                   epart)
+
+            def data_grad():
+                return kc.input_extra_grad(x, w_all, g, *spec, *ex,
+                                           need_dx=not first)
+
+            def data_grad_plain():
+                return (kc.input_grad_reference(x, w_all, g, *spec, *ex),
+                        kc.extra_grad_reference(x, w_all, g, *spec, *ex))
+        else:
+            def data_grad():
+                return kc.input_grad(x, w_all, g, *spec)
+
+            def data_grad_plain():
+                return kc.input_grad_reference(x, w_all, g, *spec)
         ms = {
             "kan_conv2d_bwd_dx": (
-                cuda_ms(lambda: kc.input_grad(x, w_all, g, *spec)),
-                cuda_ms(lambda: kc.input_grad_reference(x, w_all, g, *spec),
-                        iters=3, warmup=1,
+                cuda_ms(data_grad),
+                cuda_ms(data_grad_plain, iters=3, warmup=1,
                         what=("kan_conv2d_bwd_dx" + suffix, "plain_ms"))),
             "kan_conv2d_bwd_dw": (
-                cuda_ms(lambda: kc.weight_partials(x, g, *spec)),
-                cuda_ms(lambda: kc.weight_grad_reference(x, g, *spec),
+                cuda_ms(lambda: kc.weight_partials(x, g, *spec, *ex)),
+                cuda_ms(lambda: kc.weight_grad_reference(x, g, *spec, *ex),
                         iters=3, warmup=1,
                         what=("kan_conv2d_bwd_dw" + suffix, "plain_ms"))),
             "kan_conv2d_bwd_dw_reduce": (red["ms"], red["plain_ms"]),
         }
+        if ex:  # one reduction of dW and one of the operand per conv
+            red_extra = {key: ered[key] for key in ("ms", "library_ms",
+                                                    "warm_l2_ms")}
+            red = {key: red[key] + ered[key] for key in red}
+            ms["kan_conv2d_bwd_dw_reduce"] = (red["ms"], red["plain_ms"])
         # yardsticks the port never calls: cuDNN's backward over an already
         # materialized basis (dE and dW of the convolution), and one sum
-        E = kc.expand(x, basis).permute(0, 3, 1, 2).contiguous()
+        E = kc.expand(x, basis, *ex).permute(0, 3, 1, 2).contiguous()
         w = w_all.reshape(R * C, 3, 3, O).permute(3, 0, 1, 2).contiguous()
         gn = g.permute(0, 3, 1, 2).contiguous()
 
@@ -853,9 +1021,23 @@ def phase_train_times(kc, basis, rows_nz, kan_conv, gen, dev, card,
             "kan_conv2d_bwd_dw_reduce": reduce_work(S, D * TO),
         }
         row = {"H": H, "C": C, "O": O, "batch": B, "layers": n, "S": S}
+        if ex:
+            # the operand's terms in the data gradient's epilogue; its
+            # partials written there and reduced; the first conv's launch
+            # reads g and x and writes no dx
+            Se, NE = epart.shape
+            work["kan_conv2d_bwd_dx"] = (
+                flops + GRAM_DBETA_FLOPS * B * H * H * C,
+                4 * ((1 if first else 2) * x.numel() + w_all.numel()
+                     + g.numel() + Se * NE))
+            ew = reduce_work(Se, NE)
+            work["kan_conv2d_bwd_dw_reduce"] = tuple(
+                a + b for a, b in zip(work["kan_conv2d_bwd_dw_reduce"], ew))
+            row["extra_reduce"] = {"S": Se, "N": NE, **{
+                key: round(v, 4) for key, v in red_extra.items()}}
         for name in names:
-            layers = n - 1 if name == "kan_conv2d_bwd_dx" and \
-                (H, C, O) == VGG16_SMALL_CONVS[0] else n
+            layers = n - 1 if name == "kan_conv2d_bwd_dx" and first and \
+                not ex else n
             op_ms = work[name][0] / PEAK_FP32_FLOPS * 1e3
             byte_ms = work[name][1] / PEAK_BYTES * 1e3
             row[name] = {"layers": layers, "ms": round(ms[name][0], 4),
@@ -1496,7 +1678,8 @@ def phase_forward_times(kc, basis, rows_nz, gen, dev, card, tag="[time]",
     bounds count them) and ``rows_nz`` rows of E per channel (the dense
     bound, every pair and row, beside it) and the share of the bound the
     kernel reaches; with ``batch1`` also each shape's kernel at batch 1
-    (single requests on the serving path).  Returns (totals, rows)."""
+    (single requests on the serving path).  A basis with a learnable
+    operand takes ``conv_extra``'s.  Returns (totals, rows)."""
     name = "kan_conv2d_fwd" + suffix
     shapes = []
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
@@ -1507,11 +1690,15 @@ def phase_forward_times(kc, basis, rows_nz, gen, dev, card, tag="[time]",
     for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
         x, bw, pw = (None if t is None else t.to(dev) for t in conv_inputs(
             gen, B, H, C, O, basis=basis))
-        k_ms = cuda_ms(lambda: kc.kan_conv2d(x, bw, pw, *spec))
-        p_ms = cuda_ms(lambda: kc.kan_conv2d_reference(x, bw, pw, *spec),
+        beta = conv_extra(gen, C, basis)
+        ex = () if beta is None else (beta.to(dev),)
+        k_ms = cuda_ms(lambda: kc.kan_conv2d(x, bw, pw, *spec, *ex))
+        p_ms = cuda_ms(lambda: kc.kan_conv2d_reference(x, bw, pw, *spec,
+                                                       *ex),
                        iters=5, warmup=1, what=(name, "plain_ms"))
-        E = kc.expand(x, basis).permute(0, 3, 1, 2).contiguous()
-        w = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O)
+        E = kc.expand(x, basis, *ex).permute(0, 3, 1, 2).contiguous()
+        w = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O,
+                          degree_major=basis.degree_major)
         w = w.reshape(R * C, 3, 3, O).permute(3, 0, 1, 2).contiguous()
         l_ms = cuda_ms(lambda: torch.nn.functional.conv2d(E, w, padding=1),
                        what=(name, "library_ms"))
@@ -1538,7 +1725,7 @@ def phase_forward_times(kc, basis, rows_nz, gen, dev, card, tag="[time]",
         if batch1:
             x1, bw1, pw1 = (None if t is None else t.to(dev) for t in
                             conv_inputs(gen, 1, H, C, O, basis=basis))
-            b1_ms = cuda_ms(lambda: kc.kan_conv2d(x1, bw1, pw1, *spec))
+            b1_ms = cuda_ms(lambda: kc.kan_conv2d(x1, bw1, pw1, *spec, *ex))
             row["batch1_ms"] = round(b1_ms, 4)
             totals["batch1_ms"] += n * b1_ms
         shapes.append(row)
@@ -1616,6 +1803,61 @@ def phase_cheby_kernels(kc, gen, dev):
                   f"{int(clamped.sum())} inputs past the clamp", flush=True)
     print(f"[cheby backward] reduced dW vs float64 autograd: max |err| "
           f"{red64:.3e} (within BWD_TOL in every case)", flush=True)
+    return errs
+
+
+def phase_gram_kernels(kc, gen, dev):
+    """20. the Gram instantiations against their plain versions, with beta
+    at GRAM_BETA_SCALE times its init std (``conv_extra``): the forward
+    (TOL) and ``backward_case`` (BWD_TOL against float64; beta's partials
+    and its reduced gradient against float64 within DBETA_TOL of the sum
+    of |terms|, entries 0 and 3 exactly 0, the dx-free launch of the first
+    conv and the autograd path's bit-identical to them) at the 9
+    VGG16_small shapes at batch 64 and once more at batch 1024 (the tiles
+    the step launches; there the weight partials are held to float64
+    through the reduced dW), every kernel's result of two calls
+    bit-identical.  Returns max |err| per kernel (the forward's under
+    "kan_conv2d_fwd", beta's relative one under "dbeta_rel")."""
+    basis = kc.gram_basis(3)
+    cases = [(B, H, C, O) for B in (64, TIME_BATCH)
+             for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS)]
+    errs = dict.fromkeys((*kc.KERNELS, "dbeta_rel"), 0.0)
+    red64 = 0.0
+    for B, H, C, O in cases:
+        x, bw, pw = conv_inputs(gen, B, H, C, O, basis=basis)
+        beta = conv_extra(gen, C, basis)
+        g = torch.randn(B, H, H, O, generator=gen)
+        x, bw, pw, beta, g = (t.to(dev) for t in (x, bw, pw, beta, g))
+        y = kc.kan_conv2d(x, bw, pw, basis, 3, 1, beta)
+        same = torch.equal(y, kc.kan_conv2d(x, bw, pw, basis, 3, 1, beta))
+        torch.cuda.synchronize()
+        ref = kc.kan_conv2d_reference(x, bw, pw, basis, 3, 1, beta)
+        err = (y - ref).abs().max().item()
+        ok = torch.allclose(y, ref, rtol=TOL, atol=TOL)
+        cfg = kc.launch_config(B, H, H, C, O, 3, 1, basis.R)
+        print(f"[gram kernel] B={B} {H}x{H} C={C} O={O} beta "
+              f"{[round(v, 5) for v in beta.tolist()]} (BN {cfg['BN']}, "
+              f"{'skip' if cfg['skip'] else 'dense'}, CC {cfg['CC']}, S "
+              f"{cfg['S']}, {cfg['blocks']} blocks): max|err| {err:.3e}, "
+              f"two calls {'bit-identical' if same else 'DIFFERENT'} "
+              f"{'ok' if ok and same else 'FAIL'}", flush=True)
+        check(bool(torch.isfinite(y).all()), "Gram kernel output not finite")
+        check(ok, f"Gram kernel disagrees with the plain version (B={B} "
+                  f"H={H} C={C} O={O})")
+        check(same, f"Gram kernel: two calls differ (B={B} H={H} C={C} "
+                    f"O={O})")
+        errs["kan_conv2d_fwd"] = max(errs["kan_conv2d_fwd"], err)
+        del y, ref
+        case, e64, _, _ = backward_case(
+            kc, basis, x, bw, pw, g, 3, 1, partials=B < TIME_BATCH,
+            twice=True, tag="[gram backward]", extra=beta)
+        red64 = max(red64, e64)
+        for name, e in case.items():
+            errs[name] = max(errs[name], e)
+    print(f"[gram backward] reduced dW vs float64 autograd: max |err| "
+          f"{red64:.3e} (within BWD_TOL in every case); dbeta within "
+          f"{errs['dbeta_rel']:.3e} of the sum of |terms| (DBETA_TOL "
+          f"{DBETA_TOL:g})", flush=True)
     return errs
 
 
@@ -1796,6 +2038,39 @@ def main():
           f"(forward {cheby_fwd['ms']:.3f}), the rest "
           f"{cheby_step_ms - cheby_kernel_ms:.3f} ms; predict "
           f"{cheby_predict_ips:.1f} images/s (on {card})", flush=True)
+
+    # ----------------------------------------------------------- GRAMKAN
+    gram = kc.gram_basis(3)
+    gsuffix = f"[{gram.kind}{gram.order}]"    # its entries' names end so
+    gram_err = phase_gram_kernels(kc, gen, dev)                       # 20
+    gram_model, _ = phase_model(kc, "GRAMKAN", "kan_conv2d_fwd", dev,  # 21
+                                imgs)
+    gram_serve = phase_serve(kc, "GRAMKAN", "kan_conv2d_fwd", imgs)   # 22
+    # the first conv's data-gradient kernel runs for beta's gradient alone
+    # (dx not stored); a reduction each for dW and d beta per conv
+    gram_want = {"kan_conv2d_fwd": 13, "kan_conv2d_bwd_dx": 13,
+                 "kan_conv2d_bwd_dw": 13, "kan_conv2d_bwd_dw_reduce": 26}
+    gram_train = phase_train(                                         # 23
+        kc, dev, "GRAMKAN", gram_want, ["base_w", "poly_w", "beta_weights"],
+        zero_entries=[("beta_weights", 0), ("beta_weights", 3)])
+    gram_predict_ips = time_predict(gram_model, "GRAMKAN", card)      # 24
+    del gram_model
+    gram_fwd, gram_shapes = phase_forward_times(
+        kc, gram, GRAM_ROWS, gen, dev, card, tag="[gram time]",
+        suffix=gsuffix, batch1=True)
+    gram_ips, gram_bwd, gram_rows = phase_train_times(
+        kc, gram, GRAM_ROWS, "GRAMKAN", gen, dev, card, tag="[gram time]",
+        suffix=gsuffix)
+    gram_step_ms = 1e3 * TIME_BATCH / gram_ips
+    gram_kernel_ms = gram_fwd["ms"] + sum(t["ms"] for t in gram_bwd.values())
+    print(f"[gram time] train step {gram_step_ms:.3f} ms at batch "
+          f"{TIME_BATCH}: Gram KAN-conv kernels {gram_kernel_ms:.3f} ms "
+          f"(forward {gram_fwd['ms']:.3f}, dx and dbeta "
+          f"{gram_bwd['kan_conv2d_bwd_dx']['ms']:.3f}, dW "
+          f"{gram_bwd['kan_conv2d_bwd_dw']['ms']:.3f}, reductions "
+          f"{gram_bwd['kan_conv2d_bwd_dw_reduce']['ms']:.3f}), the rest "
+          f"{gram_step_ms - gram_kernel_ms:.3f} ms; predict "
+          f"{gram_predict_ips:.1f} images/s (on {card})", flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def kan_entries(suffix, fwd, shapes_, fwd_err, n_serve, counts, bwd_,
@@ -1856,6 +2131,16 @@ def main():
         cheby_predict_ips,
         {"batch1_ms": round(cheby_fwd["batch1_ms"], 4),
          "train_images_per_s": round(cheby_ips, 1)})
+    gram_entries = kan_entries(
+        gsuffix, gram_fwd, gram_shapes, gram_err["kan_conv2d_fwd"],
+        gram_serve, gram_train, gram_bwd, gram_rows, gram_err,
+        gram_predict_ips,
+        {"batch1_ms": round(gram_fwd["batch1_ms"], 4),
+         "train_images_per_s": round(gram_ips, 1)})
+    for entry in gram_entries:  # beta's gradient: the data-gradient kernel
+        if entry["name"] == "kan_conv2d_bwd_dx" + gsuffix:
+            entry["dbeta_err_over_sum_abs_terms"] = gram_err["dbeta_rel"]
+    kernels += gram_entries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,21 @@
 // float32, shared by csrc/kan_conv2d_fwd.cu and csrc/kan_conv2d_bwd.cu, so
 // that the backward recomputes exactly the basis values the forward used.
 //
-// A basis policy gives R, the rows of E per input channel, and three device
-// functions over the parameters p (the kernels' copy of them in shared
-// memory), each of which the kernels call once per (pixel, channel):
+// A basis policy gives R, the rows of E per input channel, kExtras, the
+// length of its learnable operand (0: none), and device functions over p
+// (the kernels' copy in shared memory of the parameters, or of the operand
+// where the policy has one), each of which the kernels call once per
+// (pixel, channel):
 //   expand(x, p, dst, stride, col)  row r of x at dst[r * stride + col]
 //                                   (the forward's tile of CC channels);
 //   store(x, p, dst)                row r of x at dst[r] (the weight
 //                                   gradient's tile);
 //   grad(x, p, acc)                 sum_r acc[r] * dE_r/dx (the data
-//                                   gradient's epilogue).
-// Two policies:
+//                                   gradient's epilogue);
+//   grad_extra(x, p, acc, de)       the same, and adds sum_r acc[r] *
+//                                   dE_r/dp[j] to de[j] (a policy with an
+//                                   operand; its data-gradient epilogue).
+// Three policies:
 //   * BSpline<NK, ORDER, ACT>: E = [B_0(x) .. B_{K-1}(x), act(x)], the bases
 //     of basis/bspline.py's Cox-de Boor recurrence over NK knots at degree
 //     ORDER (K = NK - ORDER - 1) and the base path's SiLU (ACT 0) or GELU
@@ -20,6 +25,11 @@
 //     by the recurrence T_n = 2t T_{n-1} - T_{n-2} of basis/poly.py's
 //     chebyshev_basis_recurrence_list; no base path; R = DEG + 1; p = {lo,
 //     hi}, the float32 values of -1 + eps and 1 - eps.
+//   * Gram<DEG, ACT>: E = [act(p_0(t)) .. act(p_DEG(t)), act(x)], t = tanh
+//     x, by the recurrence p_i = t p_{i-1} - (c_i beta[i-1]) p_{i-2} of
+//     basis/poly.py's gram_basis_cols with the learnable operand beta
+//     (DEG + 1 values, a device array: p = beta) and the SiLU (ACT 0) of
+//     nn/kan_conv.py's "gram" family on every row; R = DEG + 2.
 // Built without --use_fast_math: the B-spline recurrence needs true IEEE
 // divides, and expf/erff/tanhf the accurate versions.
 #pragma once
@@ -168,6 +178,7 @@ template <int NK, int ORDER, int ACT>
 struct BSpline {
   static constexpr int K = NK - ORDER - 1;
   static constexpr int R = K + 1;
+  static constexpr int kExtras = 0;
 
   // the span's bases selected into their rows by static indices
   __device__ __forceinline__ static void expand(float x, const float* kn,
@@ -228,6 +239,7 @@ struct Cheby {
   static_assert(DEG >= 1, "degree 0 is not compiled");
   static constexpr int K = DEG + 1;
   static constexpr int R = K;
+  static constexpr int kExtras = 0;
 
   __device__ __forceinline__ static void expand(float x, const float* p,
                                                 float* dst, int stride,
@@ -272,16 +284,110 @@ struct Cheby {
   }
 };
 
+// c_i of the Gram recurrence, ((m+n)(m-n)n^2) / (m^2/(4n^2-1)) with
+// n = i - 1, m = i, in double and then rounded to float32, as the plain
+// version's Python float meets a float32 beta (c_2 = 2.25, c_3 = 33.33...)
+__host__ __device__ constexpr double gram_coef(int i) {
+  const double n = i - 1, m = i;
+  return ((m + n) * (m - n) * n * n) / (m * m / (4.0 * n * n - 1.0));
+}
+
+// The Gram policy: every row is dense (act(p_0) = act(1) at every x: E is
+// zero on the pad only because the kernels mask the pad AFTER the
+// expansion).  The recurrence is explicitly rounded (no FMA contraction),
+// in the order of operations of the plain version: p_i = t p_{i-1} -
+// (c_i beta[i-1]) p_{i-2}.  p: beta (DEG + 1 values; beta[0] and
+// beta[DEG] never enter, so their gradient is exactly 0).
+template <int DEG, int ACT>
+struct Gram {
+  static_assert(DEG >= 2, "degrees below 2 are not compiled");
+  static constexpr int K = DEG + 1;
+  static constexpr int R = K + 1;
+  static constexpr int kExtras = DEG + 1;
+
+  // t = tanh x and p_0 .. p_DEG
+  __device__ __forceinline__ static float values(float x, const float* b,
+                                                 float* p) {
+    const float t = tanhf(x);
+    p[0] = 1.0f;
+    p[1] = t;
+#pragma unroll
+    for (int i = 2; i <= DEG; ++i)
+      p[i] = __fsub_rn(__fmul_rn(t, p[i - 1]),
+                       __fmul_rn(__fmul_rn((float)gram_coef(i), b[i - 1]),
+                                 p[i - 2]));
+    return t;
+  }
+
+  __device__ __forceinline__ static void expand(float x, const float* b,
+                                                float* dst, int stride,
+                                                int col) {
+    float p[K];
+    values(x, b, p);
+#pragma unroll
+    for (int n = 0; n < K; ++n) dst[n * stride + col] = base_act<ACT>(p[n]);
+    dst[K * stride + col] = base_act<ACT>(x);
+  }
+
+  __device__ __forceinline__ static void store(float x, const float* b,
+                                               float* dst) {
+    expand(x, b, dst, 1, 0);
+  }
+
+  // dx = sum_n acc[n] act'(p_n) p_n'(t) (1 - t^2) + acc[K] act'(x), and
+  // de[j] += sum_n acc[n] act'(p_n) dp_n/dbeta[j], with the derivatives
+  // carried along the recurrence: p_0' = 0, p_1' = 1, p_i' = p_{i-1} + t
+  // p_{i-1}' - c_i beta[i-1] p_{i-2}'; dp_i/dbeta[j] = t dp_{i-1}/dbeta[j]
+  // - c_i beta[i-1] dp_{i-2}/dbeta[j] - [j = i-1] c_i p_{i-2}.
+  __device__ __forceinline__ static float grad_extra(float x, const float* b,
+                                                     const float* acc,
+                                                     float* de) {
+    float p[K], d[K], db[K][K];
+    const float t = values(x, b, p);
+    d[0] = 0.0f;
+    d[1] = 1.0f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) db[0][j] = db[1][j] = 0.0f;
+#pragma unroll
+    for (int i = 2; i <= DEG; ++i) {
+      const float c = (float)gram_coef(i);
+      const float cb = c * b[i - 1];
+      d[i] = p[i - 1] + t * d[i - 1] - cb * d[i - 2];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        db[i][j] = t * db[i - 1][j] - cb * db[i - 2][j] -
+                   (j == i - 1 ? c * p[i - 2] : 0.0f);
+    }
+    float sum = 0.0f;
+#pragma unroll
+    for (int n = 1; n < K; ++n) {
+      const float an = acc[n] * base_act_grad<ACT>(p[n]);
+      sum = fmaf(an, d[n], sum);
+#pragma unroll
+      for (int j = 1; j < DEG; ++j) de[j] = fmaf(an, db[n][j], de[j]);
+    }
+    return fmaf(acc[K], base_act_grad<ACT>(x), sum * (1.0f - t * t));
+  }
+
+  __device__ __forceinline__ static float grad(float x, const float* b,
+                                               const float* acc) {
+    float de[K] = {};
+    return grad_extra(x, b, acc, de);
+  }
+};
+
 // Calls f(Basis{}) with the policy of a C entry's basis code and returns
 // what f returns; cudaErrorInvalidValue for a basis the build does not
 // carry.  Codes (kernels/kan_conv2d.py COMPILED): 0 and 1, the B-spline of
 // 12 knots (grid 5) at order 3 with SiLU and GELU; 2, Chebyshev of degree 3
-// (its two clamp bounds as the parameters).
+// (its two clamp bounds as the parameters); 3, Gram of degree 3 with SiLU
+// (no parameters; beta as the operand).
 template <class F>
 cudaError_t with_basis(int code, int n_params, int order, F&& f) {
   if (code == 0 && n_params == 12 && order == 3) return f(BSpline<12, 3, 0>{});
   if (code == 1 && n_params == 12 && order == 3) return f(BSpline<12, 3, 1>{});
   if (code == 2 && n_params == 2 && order == 3) return f(Cheby<3>{});
+  if (code == 3 && n_params == 0 && order == 3) return f(Gram<3, 0>{});
   return cudaErrorInvalidValue;
 }
 
@@ -293,6 +399,17 @@ inline int basis_rows(int code, int n_params, int order) {
     return cudaSuccess;
   });
   return rows;
+}
+
+// the length of a C entry's basis operand (0: none), or -1 for a basis
+// the build does not carry
+inline int basis_extras(int code, int n_params, int order) {
+  int n = -1;
+  with_basis(code, n_params, order, [&](auto b) {
+    n = decltype(b)::kExtras;
+    return cudaSuccess;
+  });
+  return n;
 }
 
 }  // namespace kan

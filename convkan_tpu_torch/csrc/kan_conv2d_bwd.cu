@@ -1,6 +1,6 @@
 // kan_conv2d_bwd — KAN convolution backward for Hopper (sm_90a), over the
 // per-channel basis policies of kan_basis.cuh (B-spline with its base path,
-// Chebyshev without one).
+// Chebyshev without one, Gram with a learnable operand and a base path).
 //
 // Replaces the Pallas TPU kernel convkan_tpu/kernels/wide_kan_conv.py,
 // _make_core -> bwd_kernel (run_bwd, the custom_vjp backward of the wide
@@ -24,6 +24,15 @@
 //     along with it (the degree-0 indicator has derivative 0), and act' is
 //     computed from x: no act(x) tensor is materialized; for Chebyshev T'_n
 //     is carried along the recurrence, times tanh' inside the clamp.
+//     A basis with a learnable operand (Gram's beta, the Pallas kernel's
+//     extras) also needs its gradient, dbeta[j] = sum over every interior
+//     (pixel, c) of sum_r dE[p, r*C+c] * dE_r/dbeta[j]
+//     (Basis::grad_extra): the epilogue already holds dE, so each thread
+//     sums its pixels' terms, the block sums its threads' in a fixed order
+//     (warp shuffles, then the warps in order) and writes one partial row
+//     per block; the reduction below sums the rows.  The first conv, whose
+//     input is the image, launches this kernel with dx = NULL for the
+//     operand's gradient alone.
 //   * kan_conv2d_bwd_dw: the weight gradient, in partial sums.
 //       dW[r, tap*O+o] = sum_{b,i,j} E[b, i+di, j+dj, r] * g[b, i, j, o]
 //     written as a sum over interior input pixels p of E[p, r] * dZ[p, n],
@@ -32,8 +41,8 @@
 //     memory); a block owns the R*CC rows of CC whole channels x a
 //     BN-column tile of dW and one of S contiguous batch splits, and
 //     writes its partial sum.
-//   * kan_conv2d_bwd_dw_reduce: dW = sum over the S partials in a fixed
-//     order, the shared kernel of csrc/ordered_sum.cuh (a thread owns a
+//   * kan_conv2d_bwd_dw_reduce: dW (and dbeta) = sum over the S partials
+//     in a fixed order, the shared kernel of csrc/ordered_sum.cuh (a thread owns a
 //     float4 of columns; S is cut into leaves summed by the thread rows of a
 //     block and the ranks of a thread-block cluster where N is small,
 //     combined in row order, then rank order).  With the fixed split and
@@ -80,8 +89,8 @@
 //
 // Numerics: the basis values come from kan_basis.cuh, the forward's own
 // code (explicitly rounded float32 operations, true IEEE divides, accurate
-// tanhf), so the E recomputed here is bit-identical to the forward's for
-// finite x.  Build WITHOUT --use_fast_math.
+// tanhf and expf), so the E recomputed here is bit-identical to the
+// forward's for finite x.  Build WITHOUT --use_fast_math.
 //
 // Interface: plain C entry points loaded with ctypes.  Each launches on the
 // caller's stream, allocates nothing, and returns cudaGetLastError().
@@ -188,6 +197,31 @@ struct TilePixel {
   }
 };
 
+// The dx element of thread pixel q (channel c) of the block, or -1 where
+// the pixel is idle or off the image; the epilogue's pixel layout.
+__device__ __forceinline__ long long dx_pixel(const DxShape& s, int q, int pm,
+                                              int b0, int i0, int slot0,
+                                              int tid, int c) {
+  int b, i, j;
+  if (s.skip) {
+    const int P = s.H * s.W;
+    const int slot = slot0 + dx_warp_slot(tid >> 5);
+    const int ig = slot / P, pos = slot - ig * P;
+    if (slot >= s.groups * P) return -1;
+    i = pos / s.W;
+    j = pos - i * s.W;
+    b = ig * kDxGroup + (pm & 3) + 4 * q;
+  } else {
+    const int m = pm + kDxSlots * q;
+    b = b0 + (m >> s.lp);
+    i = i0 + ((m >> s.lw) & ((1 << s.lth) - 1));
+    j = m & ((1 << s.lw) - 1);
+    if ((m >> s.lp) >= s.NBt || i - i0 >= s.tileR - (s.k - 1)) return -1;
+  }
+  if (b >= s.B || i >= s.H || j >= s.W) return -1;
+  return (((long long)b * s.H + i) * s.W + j) * s.C + c;
+}
+
 // Block: 256 input pixels x CC channels (CC <= 8, a power of two), grid y
 // over the channel blocks.  Thread t is pixel slot pm = t >> 3 and channel
 // lane tn = t & 7 (lanes tn >= CC idle): it owns channel c0 + tn of the
@@ -235,7 +269,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                              const float* __restrict__ w_all,
                              const float* __restrict__ g,
                              float* __restrict__ dx, const DxShape s,
-                             const Knots kn) {
+                             const Knots kn, const float* __restrict__ extra,
+                             float* __restrict__ dextra) {
   constexpr int K1 = Basis::R;  // rows of E per channel
   extern __shared__ float4 smem4[];
   __shared__ float knS[kMaxKnots];
@@ -408,6 +443,46 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 
+  if constexpr (Basis::kExtras > 0) {
+    // epilogue: dx (where it is stored) and the operand's gradient terms,
+    // summed over the block in a fixed order into its partial row; the
+    // operand (a few floats) in registers
+    constexpr int NE = Basis::kExtras;
+    float op[NE], de[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      op[e] = __ldg(extra + e);
+      de[e] = 0.0f;
+    }
+    const int c = c0 + tn;
+    if (tn < CC && c < s.C) {
+#pragma unroll
+      for (int q = 0; q < kDxTM; ++q) {
+        const long long at = dx_pixel(s, q, pm, b0, i0, slot0, tid, c);
+        if (at < 0) continue;
+        const float v = Basis::grad_extra(__ldg(&x[at]), op, acc[q], de);
+        if (dx != nullptr) dx[at] = v;
+      }
+    }
+    __syncthreads();  // every reader of the staged chunks is done
+    float* red = reinterpret_cast<float*>(smem4);  // [warp][NE]
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      float v = de[e];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if ((tid & 31) == 0) red[(tid >> 5) * NE + e] = v;
+    }
+    __syncthreads();
+    if (tid < NE) {
+      float v = red[tid];
+      for (int w = 1; w < kThreads / 32; ++w) v += red[w * NE + tid];
+      dextra[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * NE + tid] = v;
+    }
+    return;
+  }
+
   // epilogue: the chain rule through the basis (and the base activation)
   const int c = c0 + tn;
   if (tn >= CC || c >= s.C) return;
@@ -456,7 +531,7 @@ __global__ void __launch_bounds__(kDwMaxThreads, 2)
     kan_conv2d_bwd_dw_kernel(const float* __restrict__ x,
                              const float* __restrict__ g,
                              float* __restrict__ partial, const DwShape s,
-                             const Knots kn) {
+                             const Knots kn, const float* __restrict__ extra) {
   constexpr int K1 = Basis::R;  // rows of E per channel
   constexpr int ES = dw_channel_stride(K1);
   extern __shared__ float4 smem4[];
@@ -499,7 +574,11 @@ __global__ void __launch_bounds__(kDwMaxThreads, 2)
   const int fo = ng - ftap * s.O;
   const int fdi = ftap / k, fdj = ftap - (ftap / k) * k;
 
-  if (tid < kMaxKnots) knS[tid] = kn.v[tid];
+  if constexpr (Basis::kExtras > 0) {  // the operand, read once per block
+    if (tid < Basis::kExtras) knS[tid] = __ldg(extra + tid);
+  } else {
+    if (tid < kMaxKnots) knS[tid] = kn.v[tid];
+  }
 
   float acc[K1][kDwTN];
 #pragma unroll
@@ -660,6 +739,7 @@ size_t dw_smem(const DwShape& s, int R) {
 template <class Basis, bool TABLE>
 cudaError_t launch_dx(const float* x, const float* w_all, const float* g,
                       float* dx, const DxShape& s, const Knots& kn,
+                      const float* extra, float* dextra,
                       cudaStream_t stream) {
   auto kernel = kan_conv2d_bwd_dx_kernel<Basis, TABLE>;
   static size_t granted = 48 * 1024;
@@ -667,13 +747,15 @@ cudaError_t launch_dx(const float* x, const float* w_all, const float* g,
   const cudaError_t err = grant_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return err;
   const dim3 grid(s.tilesM, (s.C + (1 << s.lcc) - 1) >> s.lcc);
-  kernel<<<grid, kThreads, smem, stream>>>(x, w_all, g, dx, s, kn);
+  kernel<<<grid, kThreads, smem, stream>>>(x, w_all, g, dx, s, kn, extra,
+                                           dextra);
   return cudaGetLastError();
 }
 
 template <class Basis>
 cudaError_t launch_dw(const float* x, const float* g, float* partial,
-                      const DwShape& s, const Knots& kn, cudaStream_t stream) {
+                      const DwShape& s, const Knots& kn, const float* extra,
+                      cudaStream_t stream) {
   auto kernel = kan_conv2d_bwd_dw_kernel<Basis>;
   static size_t granted = 48 * 1024;
   const size_t smem = dw_smem(s, Basis::R);
@@ -681,7 +763,7 @@ cudaError_t launch_dw(const float* x, const float* g, float* partial,
   if (err != cudaSuccess) return err;
   const dim3 grid((s.C + s.CC - 1) / s.CC,
                   (s.k * s.k * s.O + s.BN - 1) / s.BN, s.S);
-  kernel<<<grid, s.threads, smem, stream>>>(x, g, partial, s, kn);
+  kernel<<<grid, s.threads, smem, stream>>>(x, g, partial, s, kn, extra);
   return cudaGetLastError();
 }
 
@@ -698,7 +780,10 @@ int log2_exact(int v) {
 
 // Data gradient dx (B, H, W, C) of the KAN conv for g (B, Ho, Wo, O).
 // Returns a cudaError_t (0 = success); cudaErrorInvalidValue for a tile or
-// basis the build does not carry (the basis arguments as the forward's).  The Python wrapper chooses the tile
+// basis the build does not carry (the basis arguments as the forward's).
+// A basis with an operand also writes dextra: (tiles x channel blocks,
+// kExtras) partial sums of its gradient, row blockIdx.y * tiles +
+// blockIdx.x; dx may then be NULL (not stored).  The Python wrapper chooses the tile
 // (kernels/kan_conv2d.py, dx_launch_config: skip; dense TH (rows per image
 // slot) and NB (image slots), NB*TH*Wv = 256 (or 128, 64, 32 for large
 // kernels) for Wv = W rounded up to a power of two, or skip NG; CC; OC;
@@ -708,7 +793,8 @@ int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
                       void* dx, int B, int H, int W, int C, int O, int k,
                       int pad, int skip, int TH, int NB, int NG, int CC,
                       int OC, int stages, int table, const float* params,
-                      int n_params, int order, int basis, void* stream) {
+                      int n_params, int order, int basis, const void* extra,
+                      void* dextra, void* stream) {
   DxShape s = {};
   s.B = B; s.H = H; s.W = W; s.C = C; s.O = O; s.k = k; s.pad = pad;
   s.Ho = H + 2 * pad - k + 1;
@@ -717,8 +803,11 @@ int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
   s.lcc = CC <= 8 ? log2_exact(CC) : -1;
   s.loc = OC == 4 || OC == 8 ? log2_exact(OC / 4) : -1;
   const int K1 = basis_rows(basis, n_params, order);
+  const int NE = basis_extras(basis, n_params, order);
   Knots kn;
   if (s.lcc < 0 || s.loc < 0 || (stages != 1 && stages != 2) ||
+      (NE > 0) != (extra != nullptr) || (NE > 0) != (dextra != nullptr) ||
+      (NE == 0 && dx == nullptr) ||
       (table != 0 && table != 1) || O % 4 != 0 || K1 < 1 ||
       (K1 << (s.lcc + s.loc)) > kThreads ||
       s.Ho <= 0 || s.Wo <= 0 || W > kDxPixels ||
@@ -784,28 +873,33 @@ int kan_conv2d_bwd_dx(const void* x, const void* w_all, const void* g,
   const float* wp = static_cast<const float*>(w_all);
   const float* gp = static_cast<const float*>(g);
   float* dxp = static_cast<float*>(dx);
+  const float* ep = static_cast<const float*>(extra);
+  float* dep = static_cast<float*>(dextra);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_basis(basis, n_params, order, [&](auto b) {
-    return table ? launch_dx<decltype(b), true>(xp, wp, gp, dxp, s, kn, st)
-                 : launch_dx<decltype(b), false>(xp, wp, gp, dxp, s, kn, st);
+    return table ? launch_dx<decltype(b), true>(xp, wp, gp, dxp, s, kn, ep,
+                                                dep, st)
+                 : launch_dx<decltype(b), false>(xp, wp, gp, dxp, s, kn, ep,
+                                                 dep, st);
   });
 }
 
 // Weight-gradient partial sums (S, R*C, k*k*O): split s sums images
 // [s*ips, min(B, s*ips + ips)).  The wrapper chooses CC/BN/P/S/ips/PW
 // (dw_launch_config); g must be 16-byte aligned when O % 4 == 0.  The
-// basis arguments as the forward's.
+// basis arguments (and operand) as the forward's.
 int kan_conv2d_bwd_dw(const void* x, const void* g, void* partial, int B,
                       int H, int W, int C, int O, int k, int pad, int CC,
                       int BN, int P, int S, int ips, int PW,
                       const float* params, int n_params, int order, int basis,
-                      void* stream) {
+                      const void* extra, void* stream) {
   DwShape s;
   s.B = B; s.H = H; s.W = W; s.C = C; s.O = O; s.k = k; s.pad = pad;
   s.Ho = H + 2 * pad - k + 1;
   s.Wo = W + 2 * pad - k + 1;
   s.CC = CC; s.BN = BN; s.P = P; s.S = S; s.ips = ips; s.PW = PW;
   const int K1 = basis_rows(basis, n_params, order);
+  const int NE = basis_extras(basis, n_params, order);
   const long long slots = (long long)PW * CC * (BN / kDwTN);
   s.threads = (int)((slots + 31) / 32 * 32);
   const bool vec = O % 4 == 0;
@@ -813,15 +907,17 @@ int kan_conv2d_bwd_dw(const void* x, const void* g, void* partial, int B,
   if (CC <= 0 || BN < kDwTN || BN % kDwTN != 0 || PW <= 0 ||
       slots > kDwMaxThreads || BN / (vec ? 4 : 1) > s.threads || P <= 0 ||
       S <= 0 || ips <= 0 || s.Ho <= 0 || s.Wo <= 0 || K1 < 1 ||
+      (NE > 0) != (extra != nullptr) ||
       (vec && reinterpret_cast<size_t>(g) % 16 != 0) ||
       !load_knots(params, n_params, &kn) || dw_smem(s, K1) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
   const float* gp = static_cast<const float*>(g);
   float* pp = static_cast<float*>(partial);
+  const float* ep = static_cast<const float*>(extra);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_basis(basis, n_params, order, [&](auto b) {
-    return launch_dw<decltype(b)>(xp, gp, pp, s, kn, st);
+    return launch_dw<decltype(b)>(xp, gp, pp, s, kn, ep, st);
   });
 }
 

@@ -1,6 +1,6 @@
 // kan_conv2d_fwd — KAN convolution forward for Hopper (sm_90a), over the
 // per-channel basis policies of kan_basis.cuh (B-spline with its base path,
-// Chebyshev without one).
+// Chebyshev without one, Gram with a learnable operand and a base path).
 //
 // Replaces two Pallas TPU kernels of convkan_tpu, which compute the same
 // function and differ only in how they fit TPU VMEM:
@@ -42,7 +42,9 @@
 //   * The basis (Basis::expand of kan_basis.cuh): for the B-spline only the
 //     ORDER+1 bases that can be non-zero at x are evaluated (bspline_span,
 //     12 IEEE divides instead of 54; bit-identical values), the rest of the
-//     row is written zero; Chebyshev's 4 rows of degree 3 are all dense.
+//     row is written zero; Chebyshev's 4 rows of degree 3 are all dense, as
+//     are Gram's 5.  Gram's operand beta (changed by every train step) is
+//     read from device memory once per block, never passed by value.
 //   * W_all (at most 5.3 MB) stays in the 50 MB L2.  Each tap's slice of the
 //     chunk's rows is copied into shared memory with cp.async (no registers),
 //     double-buffered: the next tap's slice is in flight while the current
@@ -65,7 +67,7 @@
 //
 // Numerics: explicitly rounded float32 basis (no FMA contraction, true IEEE
 // divides); the knots (or the clamp bounds) arrive as float32 kernel
-// arguments.  Build WITHOUT --use_fast_math: it would turn the divides
+// arguments, Gram's beta as a device pointer.  Build WITHOUT --use_fast_math: it would turn the divides
 // approximate and expf and tanhf into their approximations.
 //
 // Interface: a plain C entry point loaded with ctypes.  It launches on the
@@ -189,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     kan_conv2d_fwd_kernel(const float* __restrict__ x,
                           const float* __restrict__ w_all,
                           float* __restrict__ y, const Shape s,
-                          const Knots kn) {
+                          const Knots kn, const float* __restrict__ extra) {
   using g = Geo<BN>;
   constexpr int R = Basis::R;  // rows of E per channel
   constexpr int TN = g::TN, NH = g::NH;
@@ -248,7 +250,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     rowG[rr] = rr < RC ? (rr / s.CC) * s.C + rr % s.CC : -1;
     rowCl[rr] = rr % s.CC;
   }
-  if (tid < kMaxKnots) knS[tid] = kn.v[tid];
+  if constexpr (Basis::kExtras > 0) {  // the operand, read once per block
+    if (tid < Basis::kExtras) knS[tid] = __ldg(extra + tid);
+  } else {
+    if (tid < kMaxKnots) knS[tid] = kn.v[tid];
+  }
   // the row padding RC..RS-1 of every pixel stays zero for all chunks
   for (int idx = tid; idx < s.tilePix * (RS - RC); idx += kThreads)
     Es[(idx / (RS - RC)) * RS + RC + idx % (RS - RC)] = 0.0f;
@@ -439,7 +445,8 @@ size_t smem_bytes(const Shape& s, int BN, int BM) {
 
 template <class Basis, int BN>
 cudaError_t launch(const float* x, const float* w_all, float* y,
-                   const Shape& s, const Knots& kn, cudaStream_t stream) {
+                   const Shape& s, const Knots& kn, const float* extra,
+                   cudaStream_t stream) {
   auto kernel = kan_conv2d_fwd_kernel<Basis, BN>;
   const size_t smem = smem_bytes(s, BN, Geo<BN>::BM);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -453,7 +460,7 @@ cudaError_t launch(const float* x, const float* w_all, float* y,
   }
   const dim3 grid(s.tilesM, (s.O + BN - 1) / BN, s.S);
   if (s.S == 1) {
-    kernel<<<grid, kThreads, smem, stream>>>(x, w_all, y, s, kn);
+    kernel<<<grid, kThreads, smem, stream>>>(x, w_all, y, s, kn, extra);
     return cudaGetLastError();
   }
   static bool nonPortable = false;  // clusters of more than 8 blocks
@@ -475,17 +482,18 @@ cudaError_t launch(const float* x, const float* w_all, float* y,
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, x, w_all, y, s, kn);
+  return cudaLaunchKernelEx(&cfg, kernel, x, w_all, y, s, kn, extra);
 }
 
 template <class Basis>
 cudaError_t launch_bn(int BN, const float* x, const float* w_all, float* y,
-                      const Shape& s, const Knots& kn, cudaStream_t stream) {
+                      const Shape& s, const Knots& kn, const float* extra,
+                      cudaStream_t stream) {
   switch (BN) {
-    case 16: return launch<Basis, 16>(x, w_all, y, s, kn, stream);
-    case 32: return launch<Basis, 32>(x, w_all, y, s, kn, stream);
-    case 64: return launch<Basis, 64>(x, w_all, y, s, kn, stream);
-    case 128: return launch<Basis, 128>(x, w_all, y, s, kn, stream);
+    case 16: return launch<Basis, 16>(x, w_all, y, s, kn, extra, stream);
+    case 32: return launch<Basis, 32>(x, w_all, y, s, kn, extra, stream);
+    case 64: return launch<Basis, 64>(x, w_all, y, s, kn, extra, stream);
+    case 128: return launch<Basis, 128>(x, w_all, y, s, kn, extra, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -499,13 +507,14 @@ extern "C" {
 // The Python wrapper chooses the tile (kernels/kan_conv2d.py,
 // launch_config: BN; skip; dense TH/TW/NB or skip NG; CC; S) and validates
 // every tensor before calling.  The basis: its parameters (the knots, or
-// the clamp bounds), their count, its order (spline order or degree) and
-// its code (kan_basis.cuh, with_basis).
+// the clamp bounds), their count, its order (spline order or degree), its
+// code (kan_basis.cuh, with_basis) and the device pointer of its operand
+// (Gram's beta; NULL for a basis without one).
 int kan_conv2d_fwd(const void* x, const void* w_all, void* y, int B, int H,
                    int W, int C, int O, int k, int pad, int BN, int skip,
                    int TH, int TW, int NB, int NG, int CC, int S,
                    const float* params, int n_params, int order, int basis,
-                   void* stream) {
+                   const void* extra, void* stream) {
   Shape s = {};
   s.B = B; s.H = H; s.W = W; s.C = C; s.O = O; s.k = k; s.pad = pad;
   s.Ho = H + 2 * pad - k + 1;
@@ -515,11 +524,13 @@ int kan_conv2d_fwd(const void* x, const void* w_all, void* y, int B, int H,
   // R*CC rounded up to a multiple of 4 floats with an odd number of
   // float4s, so neighbouring pixels' float4 loads fall in different banks
   const int R = basis_rows(basis, n_params, order);
+  const int NE = basis_extras(basis, n_params, order);
   s.rs = (R * CC + 3) / 4 * 4;
   if ((s.rs / 4) % 2 == 0) s.rs += 4;
   s.vecW = O % 4 == 0 && reinterpret_cast<uintptr_t>(w_all) % 16 == 0;
   Knots kn;
   if (s.Ho <= 0 || s.Wo <= 0 || CC < 1 || CC > kMaxCC || R < 1 ||
+      (NE > 0) != (extra != nullptr) ||
       s.rs > kMaxRS || !load_knots(params, n_params, &kn) ||
       (BN != 16 && BN != 32 && BN != 64 && BN != 128))
     return (int)cudaErrorInvalidValue;
@@ -553,9 +564,10 @@ int kan_conv2d_fwd(const void* x, const void* w_all, void* y, int B, int H,
   const float* xp = static_cast<const float*>(x);
   const float* wp = static_cast<const float*>(w_all);
   float* yp = static_cast<float*>(y);
+  const float* ep = static_cast<const float*>(extra);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_basis(basis, n_params, order, [&](auto b) {
-    return launch_bn<decltype(b)>(BN, xp, wp, yp, s, kn, st);
+    return launch_bn<decltype(b)>(BN, xp, wp, yp, s, kn, ep, st);
   });
 }
 

@@ -1,6 +1,6 @@
-"""CONV_KAN_FACTORY, port of the ``"KAN"``, ``"ChebyKAN"`` and ``"WavKAN"``
-keys of ``convkan_tpu/factory/conv_factory.py``: the reference signatures
-with 'same' padding when ``padding`` is None."""
+"""CONV_KAN_FACTORY, port of the ``"KAN"``, ``"ChebyKAN"``, ``"GRAMKAN"``
+and ``"WavKAN"`` keys of ``convkan_tpu/factory/conv_factory.py``: the
+reference signatures with 'same' padding when ``padding`` is None."""
 
 from __future__ import annotations
 
@@ -56,6 +56,24 @@ def chebykan_conv(in_planes, out_planes, kernel_size, degree=3, groups=1,
         norm_kwargs=norm_kwargs, generator=generator, device=device)
 
 
+def gramkan_conv(in_planes, out_planes, kernel_size, degree=3, groups=1,
+                 stride=1, dilation=1, padding=None, l1_decay=0.0,
+                 dropout=0.0, base_activation="__default__",
+                 norm_layer=InstanceNorm, *, generator=None, device=None,
+                 **norm_kwargs):
+    """The reference's ``gramkan_conv`` builder (``_poly_conv("gram")``):
+    ``base_activation`` ("__default__": SiLU) acts on every basis row, the
+    base path and the normed output."""
+    _no_l1(l1_decay)
+    return KanConvND(
+        family="gram", input_dim=in_planes, output_dim=out_planes,
+        kernel_size=kernel_size, ndim=2, degree=degree, stride=stride,
+        padding=_pad(padding, kernel_size, dilation), dilation=dilation,
+        groups=groups, dropout=dropout, base_activation=base_activation,
+        norm_layer=resolve_norm(norm_layer), norm_kwargs=norm_kwargs,
+        generator=generator, device=device)
+
+
 def wavkan_conv(in_planes, out_planes, kernel_size, groups=1, stride=1,
                 dilation=1, padding=None, l1_decay=0.0, dropout=0.0,
                 wavelet_type="mexican_hat", wav_version="fast",
@@ -74,5 +92,6 @@ def wavkan_conv(in_planes, out_planes, kernel_size, groups=1, stride=1,
 
 
 CONV_KAN_FACTORY: dict[str, Callable] = {"KAN": kan_conv,
+                                         "GRAMKAN": gramkan_conv,
                                          "ChebyKAN": chebykan_conv,
                                          "WavKAN": wavkan_conv}

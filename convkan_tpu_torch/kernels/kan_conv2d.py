@@ -1,6 +1,7 @@
 """KAN conv: the CUDA kernels' wrappers and their plain PyTorch versions,
 forward and backward, over a per-channel basis (``Basis``): the B-spline
-with its base path, or the Chebyshev polynomials without one.
+with its base path, the Chebyshev polynomials without one, or the Gram
+polynomials with a learnable operand (beta) and a base path.
 
 ``kan_conv2d`` computes the pre-norm output of a KAN conv (stride 1,
 dilation 1, groups 1, NHWC):
@@ -15,9 +16,13 @@ the TPU.  On a CUDA tensor it launches ``csrc/kan_conv2d_fwd.cu`` or raises,
 and its gradient (the counterpart of the custom_vjp around ``bwd_kernel``
 in ``wide_kan_conv.py``) launches the three kernels of
 ``csrc/kan_conv2d_bwd.cu``: the data gradient, the weight gradient in
-per-split partial sums, and their ordered reduction.  On a CPU tensor it
-runs ``kan_conv2d_reference`` under plain autograd.  There is no fallback
-from a kernel to a plain version.
+per-split partial sums, and their ordered reduction.  A basis with a
+learnable operand (``extra``: Gram's beta, the Pallas kernels' ``extras``)
+takes it as a device pointer in every kernel; the data-gradient kernel
+also writes per-block partial sums of its gradient (``dextras``), which
+the same ordered reduction sums.  On a CPU tensor it runs
+``kan_conv2d_reference`` under plain autograd.  There is no fallback from
+a kernel to a plain version.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 from ..basis.bspline import bspline_basis_unrolled_list
-from ..basis.poly import chebyshev_basis_recurrence_list
+from ..basis.poly import chebyshev_basis_recurrence_list, gram_basis_cols
 from ..ops.conv import conv_nd
 from ..utils.activations import ACTIVATIONS
 
@@ -41,9 +46,10 @@ SOURCE = "kan_conv2d_fwd.cu"
 BWD_SOURCE = "kan_conv2d_bwd.cu"
 # the bases the kernels are compiled for (Basis.key), by the integer code
 # the C entries take: the B-spline of 12 knots at order 3 (grid 5) with a
-# SiLU or GELU base path, and the Chebyshev polynomials of degree 3
+# SiLU or GELU base path, the Chebyshev polynomials of degree 3, and the
+# Gram polynomials of degree 3 with SiLU on every row
 COMPILED = {("bspline", 12, 3, "silu"): 0, ("bspline", 12, 3, "gelu"): 1,
-            ("cheby", 3): 2}
+            ("cheby", 3): 2, ("gram", 3, "silu"): 3}
 THREADS, TM = 256, 8             # forward block: threads, pixels per thread
 WARPS = THREADS // 32
 MAX_CHUNK = 8                    # input channels expanded per pass
@@ -104,9 +110,13 @@ def _count_launch(name: str) -> None:
 class Basis:
     """The expansion of every input channel: ``kind`` "bspline" (``K`` =
     len(knots) - order - 1 bases of the Cox-de Boor recurrence, spline
-    order ``order``) or "cheby" (T_0 .. T_order of clamp(tanh x, -1 + eps,
-    1 - eps), K = order + 1); ``act`` names the base path's activation,
-    None for none.  Build it with ``bspline_basis`` or ``cheby_basis``."""
+    order ``order``), "cheby" (T_0 .. T_order of clamp(tanh x, -1 + eps,
+    1 - eps), K = order + 1) or "gram" (act(p_0(t)) .. act(p_order(t)) of
+    the Gram recurrence on t = tanh x with the learnable operand beta,
+    K = order + 1); ``act`` names the base path's activation, None for
+    none (Gram's rows take it too); ``degree_major`` gives poly_w's rows
+    kk*C + c (the family's layout) instead of c*K + kk.  Build it with
+    ``bspline_basis``, ``cheby_basis`` or ``gram_basis``."""
 
     kind: str
     K: int
@@ -114,6 +124,7 @@ class Basis:
     knots: tuple = ()
     epsilon: float = 0.0
     act: Optional[str] = None
+    degree_major: bool = False
 
     @property
     def R(self) -> int:
@@ -121,31 +132,50 @@ class Basis:
         return self.K + (self.act is not None)
 
     @property
+    def n_extra(self) -> int:
+        """Length of the learnable operand (``extra``) the basis takes:
+        Gram's beta (order + 1), or 0 for none."""
+        return self.K if self.kind == "gram" else 0
+
+    @property
     def key(self) -> tuple:
         if self.kind == "bspline":
             return (self.kind, len(self.knots), self.order, self.act)
+        if self.kind == "gram":
+            return (self.kind, self.order, self.act)
         return (self.kind, self.order)
 
     @property
     def params(self) -> tuple:
-        """The C entries' float32 parameters: the knots, or the clamp
-        bounds float32(-1 + eps), float32(1 - eps) as jnp.clip takes them."""
+        """The C entries' float32 parameters: the knots, the clamp bounds
+        float32(-1 + eps), float32(1 - eps) as jnp.clip takes them, or
+        none (Gram's beta is a device operand, not a parameter)."""
         if self.kind == "bspline":
             return self.knots
+        if self.kind == "gram":
+            return ()
         return (float(np.float32(-1.0 + self.epsilon)),
                 float(np.float32(1.0 - self.epsilon)))
 
-    def columns(self, x) -> list:
+    def columns(self, x, extra=None) -> list:
         """[P_0(x) .. P_{K-1}(x)], each shaped like x, as the TPU kernels
-        build them (the Chebyshev recurrence, not the trig form)."""
+        build them (the Chebyshev recurrence, not the trig form; Gram's
+        rows after their activation).  ``extra``: Gram's beta, (K,) or one
+        such row per element of x on a last axis."""
         if self.kind == "bspline":
             return bspline_basis_unrolled_list(x, self.knots, self.order)
+        if self.kind == "gram":
+            act = ACTIVATIONS[self.act]
+            return [act(p) for p in gram_basis_cols(torch.tanh(x),
+                                                    self.order, extra)]
         return chebyshev_basis_recurrence_list(x, self.order, self.epsilon)
 
     def __str__(self) -> str:
         if self.kind == "bspline":
             return (f"bspline knots={len(self.knots)} order={self.order} "
                     f"act={self.act!r}")
+        if self.kind == "gram":
+            return f"gram degree={self.order} act={self.act!r}"
         return f"cheby degree={self.order}"
 
 
@@ -165,12 +195,26 @@ def cheby_basis(degree: int, epsilon: float = 1e-7) -> Basis:
     return Basis("cheby", degree + 1, degree, epsilon=float(epsilon))
 
 
-def pack_w_all(base_w, poly_w, *, C: int, K: int, k: int, O: int):
+def gram_basis(degree: int, act: str = "silu") -> Basis:
+    """The Gram polynomials p_0 .. p_degree of tanh x with the learnable
+    recurrence operand beta (degree + 1,), act on every row, and the base
+    path act(x); poly_w degree-major, as the JAX "gram" family keeps it."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown base activation {act!r}")
+    return Basis("gram", degree + 1, degree, act=act, degree_major=True)
+
+
+def pack_w_all(base_w, poly_w, *, C: int, K: int, k: int, O: int,
+               degree_major: bool = False):
     """(D, k*k*O) combined weights, D = K*C, or (K+1)*C with a base path:
     rows kk*C + c hold basis kk of channel c, then C rows of the base path
     (``base_w`` None: none); columns (di*k+dj)*O + o.  ``poly_w`` is HWIO
-    (k, k, C*K, O) with channel-major rows c*K + kk."""
-    pw = poly_w.reshape(k, k, C, K, O).permute(3, 2, 0, 1, 4)
+    (k, k, C*K, O) with channel-major rows c*K + kk, or with
+    ``degree_major`` rows kk*C + c."""
+    if degree_major:
+        pw = poly_w.reshape(k, k, K, C, O).permute(2, 3, 0, 1, 4)
+    else:
+        pw = poly_w.reshape(k, k, C, K, O).permute(3, 2, 0, 1, 4)
     pw = pw.reshape(K * C, k * k * O)
     if base_w is None:
         return pw.contiguous()
@@ -178,10 +222,11 @@ def pack_w_all(base_w, poly_w, *, C: int, K: int, k: int, O: int):
     return torch.cat([pw, bw], dim=0).contiguous()
 
 
-def expand(x, basis: Basis):
+def expand(x, basis: Basis, extra=None):
     """E = [P_0(x) .. P_{K-1}(x)(, act(x))] concatenated on the channel axis
-    (column kk*C + c), the rows of ``pack_w_all``'s layout."""
-    cols = basis.columns(x)
+    (column kk*C + c), the rows of ``pack_w_all``'s layout; ``extra`` the
+    basis's learnable operand (None without one)."""
+    cols = basis.columns(x, extra)
     if basis.act is not None:
         cols = cols + [ACTIVATIONS[basis.act](x)]
     return torch.cat(cols, dim=-1)
@@ -194,28 +239,95 @@ def _conv_w_all(E, w_all, k: int, pad: int):
 
 
 def kan_conv2d_reference(x, base_w, poly_w, basis: Basis, k: int,
-                         pad: int):
+                         pad: int, extra=None):
     """Plain PyTorch version: build the basis, concatenate the base path
     (if any), and convolve (the convolution's zero padding is the mask
-    after expansion).  float32 or float64, any device, differentiable."""
+    after expansion).  float32 or float64, any device, differentiable
+    (``extra`` too)."""
     C, O = x.shape[-1], poly_w.shape[-1]
-    w_all = pack_w_all(base_w, poly_w, C=C, K=basis.K, k=k, O=O)
-    return _conv_w_all(expand(x, basis), w_all, k, pad)
+    w_all = pack_w_all(base_w, poly_w, C=C, K=basis.K, k=k, O=O,
+                       degree_major=basis.degree_major)
+    return _conv_w_all(expand(x, basis, extra), w_all, k, pad)
 
 
-def input_grad_reference(x, w_all, g, basis: Basis, k: int, pad: int):
+def _detach(t):
+    return None if t is None else t.detach()
+
+
+def input_grad_reference(x, w_all, g, basis: Basis, k: int, pad: int,
+                         extra=None):
     """Plain version of the data-gradient kernel: dL/dx of the reference
     for the output gradient g, by autograd."""
     with torch.enable_grad():
         xr = x.detach().requires_grad_(True)
-        y = _conv_w_all(expand(xr, basis), w_all.detach(), k, pad)
+        y = _conv_w_all(expand(xr, basis, _detach(extra)), w_all.detach(), k,
+                        pad)
         return torch.autograd.grad(y, xr, g)[0]
 
 
-def weight_grad_reference(x, g, basis: Basis, k: int, pad: int):
+def extra_grad_reference(x, w_all, g, basis: Basis, k: int, pad: int,
+                         extra):
+    """Plain version of the data-gradient kernel's second result, reduced:
+    dL/dextra (n_extra,) of the reference for the output gradient g, by
+    autograd."""
+    with torch.enable_grad():
+        e = extra.detach().requires_grad_(True)
+        y = _conv_w_all(expand(x.detach(), basis, e), w_all.detach(), k, pad)
+        return torch.autograd.grad(y, e, g)[0]
+
+
+def extra_terms_reference(x, w_all, g, basis: Basis, k: int, pad: int,
+                          extra):
+    """(B, H, W, C, n_extra): the term of dL/dextra that each (pixel,
+    channel) adds, by autograd of the reference with one copy of extra per
+    element of x (their sum is ``extra_grad_reference``)."""
+    with torch.enable_grad():
+        e = extra.detach().expand(*x.shape, extra.numel()).clone() \
+            .requires_grad_(True)
+        y = _conv_w_all(expand(x.detach(), basis, e), w_all.detach(), k, pad)
+        return torch.autograd.grad(y, e, g)[0]
+
+
+def extra_blocks(B: int, H: int, W: int, C: int, cfg) -> torch.Tensor:
+    """(B, H, W, C) int64: the data-gradient block (its row of the extra
+    partials, blockIdx.y * tiles + blockIdx.x) that sums each (pixel,
+    channel) for the tile ``cfg`` of ``dx_launch_config`` (mirrors the
+    kernel's pixel layout): dense, image group b // NB and row tile
+    i // TH; skip, slot (b // DX_GROUP) * H*W + i*W + j over WARPS slots
+    a block; channel block c // CC."""
+    b = torch.arange(B).view(B, 1, 1, 1)
+    i = torch.arange(H).view(1, H, 1, 1)
+    j = torch.arange(W).view(1, 1, W, 1)
+    c = torch.arange(C).view(1, 1, 1, C)
+    if cfg["skip"]:
+        bx = ((b // DX_GROUP) * (H * W) + i * W + j) // WARPS
+    else:
+        bx = (b // cfg["NB"]) * -(-H // cfg["TH"]) + i // cfg["TH"]
+    return ((c // cfg["CC"]) * cfg["tiles"] + bx).expand(B, H, W, C)
+
+
+def extra_partials_reference(x, w_all, g, basis: Basis, k: int, pad: int,
+                             extra):
+    """Plain version of the data-gradient kernel's extra partials: (S,
+    n_extra), row s the terms (``extra_terms_reference``) of the (pixel,
+    channel) pairs that block s of the kernel's tile sums (``extra_blocks``;
+    S = tiles x channel blocks), added in another order than the kernel's."""
+    B, H, W, C = x.shape
+    O = g.shape[-1]
+    cfg = dx_launch_config(B, H, W, C, O, k, pad, basis.R)
+    terms = extra_terms_reference(x, w_all, g, basis, k, pad, extra)
+    S = cfg["tiles"] * -(-C // cfg["CC"])
+    out = torch.zeros(S, basis.n_extra, dtype=terms.dtype,
+                      device=terms.device)
+    idx = extra_blocks(B, H, W, C, cfg).reshape(-1).to(terms.device)
+    return out.index_add_(0, idx, terms.reshape(-1, basis.n_extra))
+
+
+def weight_grad_reference(x, g, basis: Basis, k: int, pad: int,
+                          extra=None):
     """Plain version of the weight gradient: dL/dW_all (R*C, k*k*O) of the
     reference for the output gradient g, by autograd."""
-    E = expand(x.detach(), basis)
+    E = expand(x.detach(), basis, _detach(extra))
     O = g.shape[-1]
     with torch.enable_grad():
         w = torch.zeros(E.shape[-1], k * k * O, dtype=x.dtype,
@@ -224,12 +336,12 @@ def weight_grad_reference(x, g, basis: Basis, k: int, pad: int):
 
 
 def weight_partials_reference(x, g, basis: Basis, k: int, pad: int,
-                              splits: int, ips: int):
+                              splits: int, ips: int, extra=None):
     """Plain version of the weight-gradient kernel: the (splits, R*C,
     k*k*O) partial sums, split s over images [s*ips, s*ips + ips)."""
     return torch.stack([
         weight_grad_reference(x[s * ips:(s + 1) * ips],
-                              g[s * ips:(s + 1) * ips], basis, k, pad)
+                              g[s * ips:(s + 1) * ips], basis, k, pad, extra)
         for s in range(splits)])
 
 
@@ -575,12 +687,13 @@ def dw_launch_config(B, H, W, C, O, k, pad, R) -> dict:
 
 
 def check_inputs(x, base_w, poly_w, basis: Basis, k, pad, *,
-                 for_kernel: bool):
+                 for_kernel: bool, extra=None):
     """Validate what the caller passes (NHWC x, HWIO weights of matching
     shapes, ``base_w`` None exactly when the basis has no base path,
-    contiguous, one device, float32 or float64); ``for_kernel`` adds the
-    kernel's own requirements (float32 CUDA tensors, a basis the build
-    carries, a tile that fits) and returns its launch_config."""
+    ``extra`` (n_extra,) exactly when the basis takes one, contiguous, one
+    device, float32 or float64); ``for_kernel`` adds the kernel's own
+    requirements (float32 CUDA tensors, a basis the build carries, a tile
+    that fits) and returns its launch_config."""
     if x.ndim != 4:
         raise ValueError(f"x must be NHWC (4-D), got shape {tuple(x.shape)}")
     B, H, W, C = x.shape
@@ -595,9 +708,16 @@ def check_inputs(x, base_w, poly_w, basis: Basis, k, pad, *,
         raise ValueError(
             f"weights must be {want}poly_w ({k},{k},{C * K},O) for {basis}; "
             f"got base_w {got} and poly_w {tuple(poly_w.shape)}")
+    if (extra is None) != (basis.n_extra == 0) or (
+            extra is not None and tuple(extra.shape) != (basis.n_extra,)):
+        got = "none" if extra is None else str(tuple(extra.shape))
+        raise ValueError(f"{basis} takes an operand of shape "
+                         f"({basis.n_extra},) (none for 0), got {got}")
     if H + 2 * pad - k + 1 <= 0 or W + 2 * pad - k + 1 <= 0 or pad < 0:
         raise ValueError(f"empty output for {H}x{W}, kernel {k}, pad {pad}")
     weights = (("base_w", base_w),) if has_base else ()
+    if extra is not None:
+        weights += (("extra", extra),)
     for name, t in (("x", x), *weights, ("poly_w", poly_w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -626,17 +746,17 @@ def check_inputs(x, base_w, poly_w, basis: Basis, k, pad, *,
 
 _ARGTYPES = {
     # x, w_all, y; B H W C O k pad BN skip TH TW NB NG CC S; params;
-    # n_params order basis; stream
+    # n_params order basis; extra, stream
     "kan_conv2d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
-    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
     # x, w_all, g, dx; B H W C O k pad skip TH NB NG CC OC stages table;
-    # params; n_params order basis; stream
+    # params; n_params order basis; extra, dextra, stream
     "kan_conv2d_bwd_dx": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
-    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
     # x, g, partial; B H W C O k pad CC BN P S ips PW; params; n_params
-    # order basis; stream
+    # order basis; extra, stream
     "kan_conv2d_bwd_dw": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
-    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
     # partial, out; S N VW Gw Gc; stream
     "kan_conv2d_bwd_dw_reduce": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
@@ -663,24 +783,27 @@ def _launch(name: str, args, desc: str) -> None:
     _count_launch(name)
 
 
-def _basis_args(basis: Basis):
+def _basis_args(basis: Basis, extra=None):
     """The basis's C arguments: its float32 parameters (kept alive by the
-    returned array), their pointer and count, its order and its code."""
+    returned array), their pointer and count, its order, its code and the
+    device pointer of its learnable operand (NULL without one: it is never
+    read back to the host)."""
     p = np.ascontiguousarray(basis.params, dtype=np.float32)
     return p, (p.ctypes.data_as(ctypes.c_void_p), len(p), basis.order,
-               COMPILED[basis.key])
+               COMPILED[basis.key],
+               None if extra is None else extra.data_ptr())
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fwd(x, w_all, basis, k, pad, cfg):
+def _fwd(x, w_all, basis, k, pad, cfg, extra=None):
     B, H, W, C = x.shape
     O = w_all.shape[1] // (k * k)
     y = torch.empty((B, H + 2 * pad - k + 1, W + 2 * pad - k + 1, O),
                     dtype=torch.float32, device=x.device)
-    keep, bargs = _basis_args(basis)
+    keep, bargs = _basis_args(basis, extra)
     _launch("kan_conv2d_fwd",
             (x.data_ptr(), w_all.data_ptr(), y.data_ptr(), B, H, W, C, O, k,
              pad, *(cfg[key] for key in FWD_TILE), *bargs, _stream(x)),
@@ -701,6 +824,22 @@ def _check_grad(x, g, k, pad, O):
         raise ValueError("output gradient must be contiguous")
 
 
+def _check_extra(x, basis, extra):
+    """The learnable operand: (n_extra,) exactly when the basis takes one,
+    on x's device and of its dtype, contiguous."""
+    if (extra is None) != (basis.n_extra == 0):
+        raise ValueError(f"{basis} takes {basis.n_extra or 'no'} operand "
+                         f"values, got {'none' if extra is None else 'one'}")
+    if extra is not None and (tuple(extra.shape) != (basis.n_extra,) or
+                              extra.device != x.device or
+                              extra.dtype != x.dtype or
+                              not extra.is_contiguous()):
+        raise ValueError(f"the operand of {basis} must be a contiguous "
+                         f"({basis.n_extra},) {x.dtype} tensor on "
+                         f"{x.device}, got {tuple(extra.shape)} "
+                         f"{extra.dtype} on {extra.device}")
+
+
 def _check_kernel_args(x, O, basis, k, pad):
     B, H, W, C = x.shape
     desc = _describe(B, H, W, C, O, k, pad, basis)
@@ -711,13 +850,38 @@ def _check_kernel_args(x, O, basis, k, pad):
     return desc
 
 
-def input_grad(x, w_all, g, basis: Basis, k: int, pad: int):
+def input_grad(x, w_all, g, basis: Basis, k: int, pad: int, extra=None):
     """dL/dx (B, H, W, C) for the output gradient g.  CUDA tensors: the
     data-gradient kernel; CPU tensors: ``input_grad_reference``."""
+    return _data_grad(x, w_all, g, basis, k, pad, extra, True, False)[0]
+
+
+def input_extra_grad(x, w_all, g, basis: Basis, k: int, pad: int, extra,
+                     need_dx: bool = True):
+    """(dL/dx or None, the (S, n_extra) partial sums of dL/dextra) of one
+    data-gradient launch: block s of the tile writes row s
+    (``extra_blocks``), and ``reduce_partials`` sums them in a fixed order.
+    ``need_dx`` False (the first conv, whose input is the image): dx is not
+    stored, only the partials.  CUDA tensors: the data-gradient kernel;
+    CPU tensors: ``input_grad_reference`` and
+    ``extra_partials_reference``."""
+    if basis.n_extra == 0:
+        raise ValueError(f"{basis} takes no operand")
+    return _data_grad(x, w_all, g, basis, k, pad, extra, need_dx, True)
+
+
+def _data_grad(x, w_all, g, basis, k, pad, extra, need_dx, need_extra):
+    """(dx or None, extra partials or None) for the output gradient g; a
+    basis with an operand always has its partials computed on CUDA (the
+    kernel writes them; None is returned unless ``need_extra``)."""
     O = w_all.shape[1] // (k * k)
     _check_grad(x, g, k, pad, O)
+    _check_extra(x, basis, extra)
     if x.device.type == "cpu":
-        return input_grad_reference(x, w_all, g, basis, k, pad)
+        return (input_grad_reference(x, w_all, g, basis, k, pad, extra)
+                if need_dx else None,
+                extra_partials_reference(x, w_all, g, basis, k, pad, extra)
+                if need_extra else None)
     desc = _check_kernel_args(x, O, basis, k, pad)
     B, H, W, C = x.shape
     try:
@@ -738,21 +902,26 @@ def input_grad(x, w_all, g, basis: Basis, k: int, pad: int):
         g = g.clone()
     if w_all.data_ptr() % 16 or not w_all.is_contiguous():
         w_all = w_all.clone(memory_format=torch.contiguous_format)
-    dx = torch.empty_like(x)
-    keep, bargs = _basis_args(basis)
+    dx = torch.empty_like(x) if need_dx else None
+    part = torch.empty((cfg["tiles"] * -(-C // cfg["CC"]), basis.n_extra),
+                       dtype=torch.float32, device=x.device) \
+        if basis.n_extra else None
+    keep, bargs = _basis_args(basis, extra)
     _launch("kan_conv2d_bwd_dx",
-            (x.data_ptr(), w_all.data_ptr(), g.data_ptr(), dx.data_ptr(), B, H,
-             W, C, O4, k, pad, *(cfg[key] for key in DX_TILE), *bargs,
-             _stream(x)), desc)
-    return dx
+            (x.data_ptr(), w_all.data_ptr(), g.data_ptr(),
+             None if dx is None else dx.data_ptr(), B, H, W, C, O4, k, pad,
+             *(cfg[key] for key in DX_TILE), *bargs,
+             None if part is None else part.data_ptr(), _stream(x)), desc)
+    return dx, part if need_extra else None
 
 
-def weight_partials(x, g, basis: Basis, k: int, pad: int):
+def weight_partials(x, g, basis: Basis, k: int, pad: int, extra=None):
     """The weight gradient's per-split partial sums (S, R*C, k*k*O) with
     the split of ``dw_launch_config``.  CUDA tensors: the weight-gradient
     kernel; CPU tensors: ``weight_partials_reference``."""
     O = g.shape[-1]
     _check_grad(x, g, k, pad, O)
+    _check_extra(x, basis, extra)
     B, H, W, C = x.shape
     R = basis.R
     desc = _describe(B, H, W, C, O, k, pad, basis)
@@ -762,7 +931,7 @@ def weight_partials(x, g, basis: Basis, k: int, pad: int):
         raise NotImplementedError(f"{desc}: {e}") from None
     if x.device.type == "cpu":
         return weight_partials_reference(x, g, basis, k, pad, cfg["S"],
-                                         cfg["ips"])
+                                         cfg["ips"], extra)
     _check_kernel_args(x, O, basis, k, pad)
     if cfg["S"] * R * C * k * k * O >= 2 ** 31:
         raise NotImplementedError(f"{desc}: partial sums too large")
@@ -770,7 +939,7 @@ def weight_partials(x, g, basis: Basis, k: int, pad: int):
                           dtype=torch.float32, device=x.device)
     if g.data_ptr() % 16:   # the kernel loads g as float4s
         g = g.clone()
-    keep, bargs = _basis_args(basis)
+    keep, bargs = _basis_args(basis, extra)
     _launch("kan_conv2d_bwd_dw",
             (x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C, O, k,
              pad, cfg["CC"], cfg["BN"], cfg["P"], cfg["S"], cfg["ips"],
@@ -799,55 +968,66 @@ def reduce_partials(partial):
     return out
 
 
-def weight_grad(x, g, basis: Basis, k: int, pad: int):
+def weight_grad(x, g, basis: Basis, k: int, pad: int, extra=None):
     """dL/dW_all (R*C, k*k*O) for the output gradient g.  CUDA tensors: the
     weight-gradient kernel and the ordered reduction (deterministic); CPU
     tensors: ``weight_grad_reference``."""
     if x.device.type == "cpu":
         _check_grad(x, g, k, pad, g.shape[-1])
-        return weight_grad_reference(x, g, basis, k, pad)
-    return reduce_partials(weight_partials(x, g, basis, k, pad))
+        return weight_grad_reference(x, g, basis, k, pad, extra)
+    return reduce_partials(weight_partials(x, g, basis, k, pad, extra))
 
 
 class _KanConv2dFunction(torch.autograd.Function):
-    """The CUDA KAN conv with its backward in the CUDA kernels.  Saves x
-    and W_all (E is recomputed, never kept); launches the data gradient
-    only when x needs it (never for the first conv, whose input is the
-    image).  W_all holds the base path's rows only where the basis has
+    """The CUDA KAN conv with its backward in the CUDA kernels.  Saves x,
+    W_all and the basis's operand (E is recomputed, never kept); launches
+    the data gradient when x or the operand needs it: for the first conv,
+    whose input is the image, only where the operand needs it, with dx
+    not stored.  W_all holds the base path's rows only where the basis has
     one, so no base gradient is formed without it."""
 
     @staticmethod
-    def forward(ctx, x, w_all, basis, k, pad, cfg):
-        ctx.save_for_backward(x, w_all)
+    def forward(ctx, x, w_all, extra, basis, k, pad, cfg):
+        ctx.save_for_backward(x, w_all, extra)
         ctx.spec = (basis, k, pad)
-        return _fwd(x, w_all, basis, k, pad, cfg)
+        return _fwd(x, w_all, basis, k, pad, cfg, extra)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        x, w_all = ctx.saved_tensors
+        x, w_all, extra = ctx.saved_tensors
         g = g.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = input_grad(x, w_all, g, *ctx.spec)
-        if ctx.needs_input_grad[1]:
-            dw = weight_grad(x, g, *ctx.spec)
-        return dx, dw, None, None, None, None
+        need_dx, need_dw, need_de = ctx.needs_input_grad[:3]
+        dx = dw = de = None
+        if need_de:
+            dx, part = input_extra_grad(x, w_all, g, *ctx.spec, extra,
+                                        need_dx=need_dx)
+            de = reduce_partials(part)
+        elif need_dx:
+            dx = input_grad(x, w_all, g, *ctx.spec, extra)
+        if need_dw:
+            dw = weight_grad(x, g, *ctx.spec, extra)
+        return dx, dw, de, None, None, None, None
 
 
-def kan_conv2d(x, base_w, poly_w, basis: Basis, k: int, pad: int):
+def kan_conv2d(x, base_w, poly_w, basis: Basis, k: int, pad: int,
+               extra=None):
     """KAN conv pre-norm output (B, Ho, Wo, O) for x (B, H, W, C) NHWC;
-    ``base_w`` None for a basis without a base path.  CUDA tensors: the
-    hand-written kernels (float32 only), forward and, when an input
-    requires grad, backward.  CPU tensors: ``kan_conv2d_reference`` under
-    plain autograd."""
+    ``base_w`` None for a basis without a base path; ``extra`` the basis's
+    learnable operand (Gram's beta), None for a basis without one.  CUDA
+    tensors: the hand-written kernels (float32 only), forward and, when an
+    input requires grad, backward.  CPU tensors: ``kan_conv2d_reference``
+    under plain autograd."""
     cfg = check_inputs(x, base_w, poly_w, basis, k, pad,
-                       for_kernel=x.device.type != "cpu")
+                       for_kernel=x.device.type != "cpu", extra=extra)
     if x.device.type == "cpu":
-        return kan_conv2d_reference(x, base_w, poly_w, basis, k, pad)
+        return kan_conv2d_reference(x, base_w, poly_w, basis, k, pad, extra)
     C, O = x.shape[-1], poly_w.shape[-1]
     # autograd carries dW_all back to base_w and poly_w through the packing
-    w_all = pack_w_all(base_w, poly_w, C=C, K=basis.K, k=k, O=O)
-    if torch.is_grad_enabled() and (x.requires_grad or w_all.requires_grad):
-        return _KanConv2dFunction.apply(x, w_all, basis, k, pad, cfg)
-    return _fwd(x, w_all, basis, k, pad, cfg)
+    w_all = pack_w_all(base_w, poly_w, C=C, K=basis.K, k=k, O=O,
+                       degree_major=basis.degree_major)
+    if torch.is_grad_enabled() and (
+            x.requires_grad or w_all.requires_grad or
+            (extra is not None and extra.requires_grad)):
+        return _KanConv2dFunction.apply(x, w_all, extra, basis, k, pad, cfg)
+    return _fwd(x, w_all, basis, k, pad, cfg, extra)

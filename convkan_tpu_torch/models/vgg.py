@@ -1,17 +1,18 @@
 """KAN-VGG, port of ``convkan_tpu/models/vgg.py`` (``VGGKAN``, ``vggkan``,
-all five ``cfgs``) with B-spline KAN, ChebyKAN or WavKAN convs and the
-``"Linear"`` head.
+all five ``cfgs``) with B-spline KAN, ChebyKAN, GRAMKAN or WavKAN convs
+and the ``"Linear"`` head.
 
 Channel-last: NHWC images in, logits out.  Submodules are named like the
 JAX parameter tree (``KanConvND_0`` .. ``KanConvND_{n-1}``, or
 ``WavKANConvND_0`` .. for ``kan_conv="WavKAN"``, and ``Linear_0``),
 so a JAX ``params`` tree maps onto ``state_dict`` keys by flattening
 (utils/from_jax.py); a ChebyKAN conv has no ``base_w`` and no ``prelu``,
-as in JAX.  In train mode the head applies dropout
-(``dropout_linear``, default 0.5) before ``Linear_0`` and every conv but
-the first applies channel dropout (``conv_dropout``: at a KAN conv's
-output, at a WavKAN conv's wavelet-path input); in eval mode both are the
-identity.
+and a GRAMKAN conv has ``beta_weights`` and no ``prelu``, as in JAX.  In
+train mode the head applies dropout (``dropout_linear``, default 0.5)
+before ``Linear_0`` and every conv but the first applies channel dropout
+(``conv_dropout``: at a KAN or ChebyKAN conv's output, at a GRAMKAN conv's
+tanh x before its basis, at a WavKAN conv's wavelet-path input); in eval
+mode both are the identity.
 """
 
 from __future__ import annotations

@@ -17,11 +17,13 @@ checkpoint is not ported yet):
         --dataset CIFAR10 --init_random --port 8421
 
 (add ``--kan_conv WavKAN`` for the WavKAN convs, ``--kan_conv ChebyKAN``
-for the Chebyshev convs of degree ``--degree``).  The ChebyKAN trunk ends
-in InstanceNorm with nothing after it, so its head reads the last conv's
-2x2 map (``expected_feature_shape=(2, 2)``): with (1, 1) the average pool
-of that norm is 0 and the logits would be the Linear bias for every
-image.
+or ``--kan_conv GRAMKAN`` for the Chebyshev or Gram convs of degree
+``--degree``).  The ChebyKAN trunk ends in InstanceNorm with nothing after
+it, so its head reads the last conv's 2x2 map
+(``expected_feature_shape=(2, 2)``): with (1, 1) the average pool of that
+norm is 0 and the logits would be the Linear bias for every image.  A
+GRAMKAN conv ends in SiLU after its norm, so it keeps train.py's (1, 1)
+head.
 
 Endpoints: POST /predict  {"instances": [...uint8 HWC arrays...]}
            -> {"predictions": [[per-class logits]...], "batch": n}
@@ -291,10 +293,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="VGGKAN", choices=["VGGKAN"])
     p.add_argument("--arch", default="VGG16_small")
     p.add_argument("--kan_conv", default="KAN",
-                   choices=["KAN", "ChebyKAN", "WavKAN"],
+                   choices=["KAN", "ChebyKAN", "GRAMKAN", "WavKAN"],
                    help="conv family of the VGGKAN trunk (train.py's flag)")
     p.add_argument("--degree", type=int, default=3,
-                   help="polynomial degree of the ChebyKAN convs")
+                   help="polynomial degree of the ChebyKAN and GRAMKAN "
+                        "convs")
     p.add_argument("--dataset", default="CIFAR10",
                    choices=["MNIST", "SVHN", "CIFAR10", "CIFAR100"])
     p.add_argument("--seed", type=int, default=42)

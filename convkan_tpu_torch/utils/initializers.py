@@ -1,7 +1,7 @@
 """PyTorch-parity initializers for the port's HWIO / (in, out) layouts,
 port of the parts of ``convkan_tpu/utils/initializers.py`` that serving
-with fresh weights needs.  Every initializer draws from an explicit
-``torch.Generator``.
+with fresh weights needs (and the ``ku_5d`` rule of its KanConvND).  Every
+initializer draws from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -61,6 +61,33 @@ def kaiming_normal(nonlinearity: str = "relu", a=None,
             return t.normal_(0.0, g / math.sqrt(fan_in), generator=generator)
 
     return init
+
+
+def uniform(minval: float, maxval: float):
+    """U(minval, maxval) (the JAX ``uniform``)."""
+    def init(t: torch.Tensor, generator: torch.Generator):
+        with torch.no_grad():
+            return t.uniform_(minval, maxval, generator=generator)
+
+    return init
+
+
+def normal(mean: float = 0.0, std: float = 1.0):
+    """N(mean, std) (the JAX ``normal``)."""
+    def init(t: torch.Tensor, generator: torch.Generator):
+        with torch.no_grad():
+            return t.normal_(mean, std, generator=generator)
+
+    return init
+
+
+def ku_5d(fan_in: int):
+    """The JAX KanConvND's "ku_5d" poly_w init: kaiming_uniform over the
+    reference's one 5-D tensor (groups, out_g, in_g*K, *kernel), whose
+    fan_in is out_g * in_g*K * prod(kernel): U(+-sqrt(3 / fan_in))
+    (legendre_kan_layers.py:99-108)."""
+    bound = math.sqrt(3.0 / fan_in)
+    return uniform(-bound, bound)
 
 
 def zeros(t: torch.Tensor, generator: torch.Generator = None):

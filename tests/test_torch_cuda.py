@@ -1,5 +1,5 @@
-"""The CUDA KAN-conv (B-spline and Chebyshev) and WavKAN psi-conv kernels
-(forward and backward) against their plain versions, on the card.
+"""The CUDA KAN-conv (B-spline, Chebyshev and Gram) and WavKAN psi-conv
+kernels (forward and backward) against their plain versions, on the card.
 
 Marked `cuda`: skips on a host without a GPU.  It imports no JAX, so it
 runs on the GPU machine without the JAX package's conftest:
@@ -352,6 +352,141 @@ def test_cuda_cheby_refuses_uncompiled_degree():
     with pytest.raises(NotImplementedError):
         kc.kan_conv2d(x, None, torch.zeros(3, 3, 15, 4, device="cuda"),
                       kc.cheby_basis(4), 3, 1)
+    assert sum(kc.launches.values()) == 0
+
+
+# ------------------------------------------------------ Gram KAN conv
+GRAM = kc.gram_basis(3)
+
+
+def _gram_inputs(B, H, C, O, seed):
+    """x U(-2, 2), base_w and poly_w N(0, 0.2) (poly_w degree-major), beta
+    N(0, 0.3) (far past its init, so its terms count), g N(0, 1)."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-2, 2, (B, H, H, C)).astype(np.float32)
+    bw = rng.normal(0, 0.2, (3, 3, C, O)).astype(np.float32)
+    pw = rng.normal(0, 0.2, (3, 3, C * GRAM.K, O)).astype(np.float32)
+    beta = rng.normal(0, 0.3, GRAM.n_extra).astype(np.float32)
+    g = rng.normal(0, 1, (B, H, H, O)).astype(np.float32)
+    return (torch.from_numpy(a).cuda() for a in (x, bw, pw, beta, g))
+
+
+def _dbeta_within(got, x, w_all, g, beta, tol=1e-4):
+    """d beta against float64 within tol of the sum of |terms| per entry
+    (a sum of up to B*H*W*C terms that can cancel), and entries 0 and 3
+    exactly 0."""
+    terms = kc.extra_terms_reference(x.double(), w_all.double(), g.double(),
+                                     GRAM, 3, 1, beta.double())
+    want = terms.sum((0, 1, 2, 3))
+    scale = terms.abs().sum((0, 1, 2, 3))
+    err = (got.double() - want).abs()
+    return bool((err <= tol * scale).all()) and got[0] == 0 and \
+        got[3] == 0, err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,O", [
+    (4, 32, 3, 16), (3, 16, 16, 32), (3, 8, 32, 64), (5, 4, 64, 128),
+    (5, 2, 128, 128),
+    (2, 5, 6, 9),           # ragged tile: O not a multiple of 4, odd H
+    (19, 3, 6, 9),          # 3x3: a block spans two image groups
+    (70, 1, 16, 32),        # 1x1: every tap but the centre on the pad
+    (16, 8, 16, 48),        # O not a multiple of the column tile
+    (8, 16, 5, 16),         # C not a multiple of the chunk
+    (1024, 2, 128, 128),    # the 2x2 layer at the real batch
+])
+def test_cuda_gram_matches_plain_version(B, H, C, O):
+    """The Gram instantiations of the forward, data-gradient (with beta's
+    partials) and weight-gradient kernels: the forward against the plain
+    version (rtol = atol = 1e-4), dx, d base_w and d poly_w against
+    float64 autograd of the plain version (_within), d beta against
+    float64 within 1e-4 of the sum of |terms|, launches per kernel (the
+    reduction twice: dW and d beta), and two calls bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.device import set_full_f32
+
+    set_full_f32()
+    x, bw, pw, beta, g = _gram_inputs(B, H, C, O, seed=B * 10 + C)
+    kc.reset_launches()
+    y = kc.kan_conv2d(x, bw, pw, GRAM, 3, 1, beta)
+    same = torch.equal(y, kc.kan_conv2d(x, bw, pw, GRAM, 3, 1, beta))
+    torch.cuda.synchronize()
+    assert kc.launches["kan_conv2d_fwd"] == 2 and same
+    torch.testing.assert_close(
+        y, kc.kan_conv2d_reference(x, bw, pw, GRAM, 3, 1, beta), rtol=1e-4,
+        atol=1e-4)
+    leaves = [t.clone().requires_grad_(True) for t in (x, bw, pw, beta)]
+    kc.reset_launches()
+    got = torch.autograd.grad(kc.kan_conv2d(*leaves[:3], GRAM, 3, 1,
+                                            leaves[3]), leaves, g)
+    torch.cuda.synchronize()
+    assert kc.launches == {"kan_conv2d_fwd": 1, "kan_conv2d_bwd_dx": 1,
+                           "kan_conv2d_bwd_dw": 1,
+                           "kan_conv2d_bwd_dw_reduce": 2}
+    ref_leaves = [t.double().requires_grad_(True) for t in (x, bw, pw)]
+    ref = torch.autograd.grad(kc.kan_conv2d_reference(
+        *ref_leaves, GRAM, 3, 1, beta.double()), ref_leaves, g.double())
+    for name, a, b in zip(("dx", "dbase_w", "dpoly_w"), got, ref):
+        ok, err = _within(a, b)
+        assert ok, f"{name}: max |diff| {err}"
+    w_all = kc.pack_w_all(bw, pw, C=C, K=GRAM.K, k=3, O=O, degree_major=True)
+    ok, err = _dbeta_within(got[3], x, w_all, g, beta)
+    assert ok, f"dbeta: max |diff| {err}"
+    dx1, p1 = kc.input_extra_grad(x, w_all, g, GRAM, 3, 1, beta)
+    dx2, p2 = kc.input_extra_grad(x, w_all, g, GRAM, 3, 1, beta)
+    assert torch.equal(dx1, dx2) and torch.equal(p1, p2)
+    assert torch.equal(dx1, got[0])
+    assert torch.equal(kc.reduce_partials(p1), got[3])
+    assert torch.equal(kc.weight_grad(x, g, GRAM, 3, 1, beta),
+                       kc.weight_grad(x, g, GRAM, 3, 1, beta))
+
+
+@pytest.mark.cuda
+def test_cuda_gram_first_conv_gets_its_beta_gradient():
+    """The first conv's input is the image: no dx is launched for it, but
+    beta's gradient is: the data-gradient kernel runs with dx not stored,
+    and its partials equal those of the launch that stores dx, bit for
+    bit; the autograd path launches it once and returns d beta and no
+    dx."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    x, bw, pw, beta, g = _gram_inputs(8, 32, 3, 16, seed=3)
+    w_all = kc.pack_w_all(bw, pw, C=3, K=GRAM.K, k=3, O=16,
+                          degree_major=True)
+    dx, part = kc.input_extra_grad(x, w_all, g, GRAM, 3, 1, beta,
+                                   need_dx=False)
+    assert dx is None
+    assert torch.equal(part, kc.input_extra_grad(x, w_all, g, GRAM, 3, 1,
+                                                 beta)[1])
+    ok, err = _dbeta_within(kc.reduce_partials(part), x, w_all, g, beta)
+    assert ok, f"dbeta: max |diff| {err}"
+    leaves = [t.clone().requires_grad_(True) for t in (bw, pw, beta)]
+    kc.reset_launches()
+    y = kc.kan_conv2d(x, *leaves[:2], GRAM, 3, 1, leaves[2])
+    (y * g).sum().backward()
+    torch.cuda.synchronize()
+    assert kc.launches == {"kan_conv2d_fwd": 1, "kan_conv2d_bwd_dx": 1,
+                           "kan_conv2d_bwd_dw": 1,
+                           "kan_conv2d_bwd_dw_reduce": 2}
+    assert torch.equal(leaves[2].grad, kc.reduce_partials(part))
+    assert leaves[2].grad[1:3].abs().min() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_gram_refuses_uncompiled_basis():
+    """Degree 4, or GELU, has no compiled kernel: NotImplementedError on
+    CUDA, no launch and no fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    x = torch.zeros(1, 4, 4, 3, device="cuda")
+    bw = torch.zeros(3, 3, 3, 4, device="cuda")
+    kc.reset_launches()
+    for basis in (kc.gram_basis(4), kc.gram_basis(3, "gelu")):
+        pw = torch.zeros(3, 3, 3 * basis.K, 4, device="cuda")
+        beta = torch.zeros(basis.n_extra, device="cuda")
+        with pytest.raises(NotImplementedError):
+            kc.kan_conv2d(x, bw, pw, basis, 3, 1, beta)
     assert sum(kc.launches.values()) == 0
 
 

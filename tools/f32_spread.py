@@ -4,8 +4,9 @@ hold the GPU's float32 readings against.
 
     python3 tools/f32_spread.py --kan_conv ChebyKAN --seeds 5
 
-For each seed of the model's weights (the (2, 2) head for ChebyKAN and
-WavKAN, as ``chip_smoke.py`` builds them): the max |logit| difference of
+``--kan_conv`` takes KAN, ChebyKAN, GRAMKAN or WavKAN.  For each seed of
+the model's weights (the (2, 2) head for ChebyKAN and WavKAN, as
+``chip_smoke.py`` builds them; KAN and GRAMKAN keep (1, 1)): the max |logit| difference of
 float32 and float64 on ``chip_smoke.py``'s 64 images (eval mode), its
 median over the images, and how far a relative change of 1e-7 of the
 input moves the float32 logits.  Then, for ``chip_smoke.py``'s train model
@@ -38,12 +39,13 @@ from convkan_tpu_torch.train.data import normalize_batch  # noqa: E402
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--kan_conv", default="ChebyKAN",
-                   choices=["KAN", "ChebyKAN", "WavKAN"])
+                   choices=["KAN", "ChebyKAN", "GRAMKAN", "WavKAN"])
     p.add_argument("--seeds", type=int, default=5)
     p.add_argument("--threads", type=int, default=8)
     args = p.parse_args()
     torch.set_num_threads(args.threads)
-    kw = {} if args.kan_conv == "KAN" else {"expected_feature_shape": (2, 2)}
+    kw = {} if args.kan_conv in ("KAN", "GRAMKAN") else \
+        {"expected_feature_shape": (2, 2)}
     imgs = np.random.RandomState(0).randint(0, 256, (64, 32, 32, 3),
                                             np.uint8)
     x = normalize_batch(torch.from_numpy(imgs), "CIFAR10")

@@ -10,9 +10,10 @@ compilers in parallel, into a temporary directory), disassembles each with
 kernel name, basis and template integers, so that ``<12, 3, 0, 16>`` of a
 tree without basis policies matches ``<BSpline<12, 3, 0>, 16>``), prints
 both instruction counts and whether the instruction text (opcodes, operands
-and branch targets, without the encodings) is identical.  Needs the CUDA
-toolkit (nvcc, cuobjdump) and no card.  Exits 1 if an instantiation present
-in both trees differs.
+and branch targets, without the encodings) is identical (``--diff N``: and
+the first N instructions that differ).  Needs the CUDA toolkit (nvcc,
+cuobjdump) and no card.  Exits 1 if an instantiation present in both trees
+differs.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ def key(name: str) -> str:
     if not m:
         return name
     ints = re.findall(r"L[ib](\d+)E", m.group(2))
-    basis = "cheby" if "Cheby" in name else "bspline"
+    basis = "cheby" if "Cheby" in name else "gram" if "Gram" in name \
+        else "bspline"
     if m.group(1) == "ordered_sum_kernel":
         basis = "-"
     return f"{m.group(1)}[{basis}]<{', '.join(ints)}>"
@@ -70,6 +72,8 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--tree", required=True,
                    help="root of the other checkout")
+    p.add_argument("--diff", type=int, default=0,
+                   help="print the first N differing instructions")
     args = p.parse_args()
     trees = {"this": ROOT, "tree": Path(args.tree).resolve()}
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(4) as pool:
@@ -95,6 +99,11 @@ def main():
         differ += not same
         print(f"{k}: tree {len(a)}, this {len(b)} instructions, "
               f"{'IDENTICAL' if same else 'DIFFERENT'}")
+        shown = 0
+        for i, (ia, ib) in enumerate(zip(a, b)):
+            if ia != ib and shown < args.diff:
+                print(f"  {i}: tree {ia} | this {ib}")
+                shown += 1
     sys.exit(1 if differ else 0)
 
 
