@@ -1,7 +1,9 @@
 """GPU smoke test of convkan_tpu_torch: serves and trains KAN-VGG16_small,
 with B-spline KAN convs, with WavKAN convs, with ChebyKAN convs and with
-GRAMKAN convs, on one CUDA card through the hand-written kernels and checks
-every step.
+GRAMKAN convs, then the B-spline model as train.py builds it (BatchNorm2d,
+also served with its norms folded), and trains BASELINE config 4's WavKAN
+stack at batch 2048, on one CUDA card through the hand-written kernels and
+checks every step.
 
     python3 chip_smoke.py
 
@@ -180,6 +182,40 @@ gradient in per-block partials, reduced by the same ordered reduction):
      Chebyshev ones, with bounds over all 5 rows (the data gradient's adds
      its beta terms) and beta's reduction timed with dW's, and the 13-conv
      forward at batch 1.
+BatchNorm, path A (PATH_A: KAN-VGG16_small as train.py builds it, B-spline
+grid 5 order 3, --kan_norm_layer BatchNorm2d, the (1, 1) head; the
+B-spline kernels):
+ 25. the model on the GPU vs the CPU from one state_dict, a train-mode
+     forward (batch statistics, the same head dropout mask) then an
+     eval-mode one (running statistics): logits within MODEL_TOL, the
+     running statistics within STATS_TOL, 13 forward launches each;
+ 26. training, the main path, as phase 7 in lockstep, and each step's
+     running statistics GPU vs CPU (STATS_TOL); each gradient within
+     GRAD_TOL of float64, or within F32_SPREAD x the spread float32 itself
+     shows at the same start (see F32_NOISE): per step 13 forward, 12
+     data-gradient, 13 weight-gradient and 13 reduction launches;
+ 27. serving, the main path, as phase 4 from phase 26's trained state,
+     without and with its 13 BatchNorms folded into the conv weights
+     (fold_batch_norms, what serve.py --fold_bn runs): served logits vs the
+     CPU's eval logits and folded vs unfolded (MODEL_TOL), 13 launches per
+     forward folded too; the serving CLI's --fold_bn against its unfolded
+     engine (seeded); then predict at batch 1024 unfolded and folded and
+     the train step at batch 1024 beside phase 8's InstanceNorm one.
+BASELINE config 4, path B (bench.py's stack: three WavKANConv2DLayers
+3->32@32x32, 32->64@16x16, 64->128@8x8, mexican_hat, BatchNorm, 2x2
+max-pools, average pool, Linear 100; CIFAR-100 at batch 2048):
+ 28. the WavKAN kernels at the three shapes at batch 64 and 2048 against
+     their plain versions: forward (TOL), data gradient, parameter partials,
+     reduction and the autograd path against float64 (BWD_TOL; references
+     over chunks of CONFIG4_CHUNK images), two calls bit-identical;
+ 29. training, the main path, three steps of the stack in lockstep at
+     batch CONFIG4_CHECK_BATCH GPU vs CPU (losses, gradients vs float64,
+     updates, running statistics): per step 3 forward, 2 data-gradient, 3
+     parameter and 3 reduction launches;
+ 30. times: the train step at batch 2048 (images/s, median of 12 after 3
+     warm-up steps, peak memory; its 15 steps' launches asserted) and, per
+     shape at batch 2048, each WavKAN kernel as phase 14 times them (entries
+     named with CONFIG4_SUFFIX).
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
 a sleep kernel holds the card until the host has issued all timed calls);
 a kernel's timing that the host held back fails, any other is listed
@@ -267,6 +303,20 @@ BWD_TOL = 1e-4
 # (entries near 0 flip sign between the runs), the runs' parameter updates
 # must agree to UPDATE_TOL in relative L2 distance
 GRAD_TOL, LOSS_RTOL, UPDATE_TOL = 0.1, 1e-3, 0.5
+# With train-mode BatchNorm (phase 26) the seeded VGG16_small's float32
+# gradients lie further than GRAD_TOL from float64 at some of its lockstep
+# states on the CPU alone: with its KAN convs' outputs multiplied by
+# 1 + 1e-6 N(0, 1) (the size of float32 sums taken in another order)
+# KanConvND_4.prelu's step-1 gradient moves by 0.305 of its value, and at
+# batch 64 plain float32 reads 0.164 on the first step (tools/f32_spread.py
+# --kan_conv KAN --kan_norm_layer BatchNorm2d --steps 3 [--batch 64]).  A
+# PReLU slope's gradient is one sum of a term per negative activation, and
+# the terms cancel.  So with ``f32_floor`` a train phase measures that
+# spread at each of its starts (F32_NOISE, one CPU float32 run per seed of
+# F32_NOISE_SEEDS) and holds each GPU gradient to float64 within the larger
+# of GRAD_TOL and F32_SPREAD times the spread of the same parameter and
+# step (F32_SPREAD as CHEBY_F32 for logits)
+F32_NOISE, F32_NOISE_SEEDS, F32_SPREAD = 1e-6, (11, 12, 13), 2
 TRAIN_STEPS, TRAIN_BATCH, TIME_BATCH = 3, 16, 1024
 WAV_REPLACES = "convkan_tpu/kernels/fused_wav_conv.py:351"
 WAV_BWD_REPLACES = "convkan_tpu/kernels/fused_wav_conv.py:405"
@@ -311,6 +361,27 @@ DBETA_TOL = 1e-4
 # multiply-add for each of the 3 non-zero dp_n/dbeta[j] ((n, j) = (2, 1),
 # (3, 1), (3, 2)), added to the data gradient's bound
 GRAM_DBETA_FLOPS = 2 * 3
+# Path A: KAN-VGG16_small as train.py builds it, B-spline grid 5 order 3,
+# its --kan_norm_layer BatchNorm2d default (affine, running statistics; the
+# (1, 1) head, as train.py)
+PATH_A = {"kan_norm_layer": "BatchNorm2d"}
+# BatchNorm's running statistics GPU vs CPU, each buffer within STATS_TOL of
+# its largest entry: they are means over B*H*W of the activations (of their
+# squares for var), whose GPU and CPU values the model phases hold to
+# MODEL_TOL at the logits; an average does not amplify those differences,
+# and in lockstep each reading is of one step's move from the same start
+STATS_TOL = 1e-3
+# Path B: BASELINE config 4's stack (bench.py measure_wavkan): three
+# WavKANConv2DLayers (mexican_hat, fast, BatchNorm) with 2x2 max-pools, an
+# average pool and a Linear 100 head, CIFAR-100 at batch 2048.  Its
+# GPU-vs-CPU steps run at CONFIG4_CHECK_BATCH (the CPU's plain float32 and
+# float64 steps at 2048 would materialize psi tensors of 4.3 and 8.6 GB per
+# layer); the kernels and the timed step run at CONFIG4_BATCH
+CONFIG4_BATCH, CONFIG4_CHECK_BATCH, CONFIG4_CLASSES = 2048, 64, 100
+# the float64 references of the config-4 kernel checks run over chunks of
+# this many images
+CONFIG4_CHUNK = 256
+CONFIG4_SUFFIX = "[config4]"
 
 
 # readings that cuda_ms could not hold to device time: kernel name -> fields
@@ -540,8 +611,8 @@ def red_row(row, rcfg, red, total, layers):
         total[key] += layers * red[key]
 
 
-def print_red_totals(tag, name, t, card):
-    print(f"{tag} {name} per train step at batch {TIME_BATCH}, device time: "
+def print_red_totals(tag, name, t, card, batch=TIME_BATCH):
+    print(f"{tag} {name} per train step at batch {batch}, device time: "
           f"cold L2 {t['ms']:.4f} ms (sum(0) {t['library_ms']:.4f} ms), "
           f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound "
           f"{t['bound_ms']:.4f} ms; warm L2 {t['warm_l2_ms']:.4f} ms (sum(0) "
@@ -726,18 +797,21 @@ def _snapshot(model, state):
             copy.deepcopy(state.optimizer.state_dict()))
 
 
-def train_run(model, device, batches, starts=None):
+def train_run(model, device, batches, starts=None, make_step=None):
     """The train steps of ``batches`` on ``device``; with ``starts``, step i
-    starts from the parameters and optimizer state starts[i].  Returns the
-    losses, each step's gradients (on the CPU) and the snapshots before the
-    first step and after each."""
+    starts from the parameters, buffers (BatchNorm's running statistics) and
+    optimizer state starts[i].  ``make_step``: the model's step (default:
+    the CIFAR-10 ``make_train_step``).  Returns the losses, each step's
+    gradients (on the CPU) and the snapshots before the first step and
+    after each."""
     from convkan_tpu_torch.train.loop import make_train_step
     from convkan_tpu_torch.train.state import create_train_state
     # a CPU generator on both sides: the same dropout masks (the GPU run
     # copies each mask to the card)
     state = create_train_state(model, 1e-3, 1e-3, 0.8, steps_per_epoch=2,
                                generator=torch.Generator().manual_seed(7))
-    step = make_train_step(model, "CIFAR10", augment=True)
+    step = make_step(model) if make_step else \
+        make_train_step(model, "CIFAR10", augment=True)
     losses, grads, ends = [], [], [_snapshot(model, state)]
     for i, (xb, yb, o, f) in enumerate(batches):
         if starts is not None:  # start where the GPU run's step i did
@@ -751,6 +825,37 @@ def train_run(model, device, batches, starts=None):
     return losses, grads, ends
 
 
+def f32_spread(model_cpu, batches, starts, steps, make_step, refs):
+    """{(step, parameter): max over F32_NOISE_SEEDS of max |g - ref| / max
+    |ref|} of CPU float32 steps from ``starts`` with every KAN and WavKAN
+    conv output multiplied by 1 + F32_NOISE N(0, 1): how far float32 sums
+    in another order lie from float64 (``refs``) at those states."""
+    from convkan_tpu_torch.nn import kan_conv as nk
+    from convkan_tpu_torch.nn import wav_conv as nw
+
+    sites = {nk: "kan_conv2d", nw: "wav_conv2d"}
+    plain = {m: getattr(m, n) for m, n in sites.items()}
+    spread: dict = {}
+    try:
+        for seed in F32_NOISE_SEEDS:
+            gen = torch.Generator().manual_seed(seed)
+            for m, n in sites.items():
+                def noisy(*a, _f=plain[m], **k):
+                    y = _f(*a, **k)
+                    return y * (1 + F32_NOISE * torch.randn(
+                        y.shape, generator=gen, dtype=y.dtype))
+                setattr(m, n, noisy)
+            _, grads, _ = train_run(copy.deepcopy(model_cpu), "cpu",
+                                    batches[:len(steps)],
+                                    starts[:len(steps)], make_step)
+            for e, i, n in grad_readings(grads, refs, steps):
+                spread[(i, n)] = max(spread.get((i, n), 0.0), e)
+    finally:
+        for m, n in sites.items():
+            setattr(m, n, plain[m])
+    return spread
+
+
 def grad_readings(grads, refs, steps):
     """(max |got - want| / max |want|, step, parameter) for every parameter
     of every step in ``steps``, largest first."""
@@ -760,6 +865,7 @@ def grad_readings(grads, refs, steps):
 
 
 def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
+                  build=None, batches=None, make_step=None, f32_floor=False,
                   **model_kw):
     """The train phases' runs and readings.  Three train steps of the
     seeded VGG16_small on the GPU and on the CPU (float32) with the same
@@ -774,36 +880,52 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
     steps' launch counts (``mod``), the gradient readings of the GPU
     against float64, the CPU against float64 and the GPU against the CPU,
     each (max |diff| / max |reference|, step, parameter) at its worst,
-    the updates' relative L2 distance and max |diff| (GPU vs CPU), the
-    GPU's gradients and the GPU model."""
-    model_cpu = train_model(kan_conv, **model_kw)
+    the updates' relative L2 distance and max |diff| (GPU vs CPU) of the
+    parameters, the buffers' (BatchNorm's running statistics) reading (max
+    |GPU - CPU| / max |CPU| after each compared step, with its step and
+    buffer; None without buffers), the GPU's gradients and the GPU model.
+    ``build``, ``batches`` and ``make_step`` replace the seeded VGG16_small,
+    ``train_batches()`` and the CIFAR-10 step; with ``f32_floor`` also the
+    float32 spread at the compared starts (``f32_spread``, under
+    "spread"), else None."""
+    model_cpu = build() if build else train_model(kan_conv, **model_kw)
     model_gpu = copy.deepcopy(model_cpu).to(dev)
-    batches = train_batches()
+    batches = batches or train_batches()
+    run = functools.partial(train_run, make_step=make_step)
     steps = range(TRAIN_STEPS) if lockstep else range(1)
     cpu_first = lockstep and not gpu_starts
     if cpu_first:
-        losses_cpu, grads_cpu, snaps_cpu = train_run(model_cpu, "cpu",
-                                                     batches)
+        losses_cpu, grads_cpu, snaps_cpu = run(model_cpu, "cpu", batches)
     mod.reset_launches()
-    losses_gpu, grads_gpu, snaps_gpu = train_run(
+    losses_gpu, grads_gpu, snaps_gpu = run(
         model_gpu, dev, batches, snaps_cpu[:-1] if cpu_first else None)
     torch.cuda.synchronize()
     counts = dict(mod.launches)
     if not cpu_first:
-        losses_cpu, grads_cpu, snaps_cpu = train_run(
+        losses_cpu, grads_cpu, snaps_cpu = run(
             model_cpu, "cpu", batches, snaps_gpu[:-1] if lockstep else None)
     # where the GPU's step i started
     starts = snaps_cpu if cpu_first else snaps_gpu
-    _, grads_64, _ = train_run(copy.deepcopy(model_cpu).double(), "cpu",
-                               batches[:len(steps)], starts[:len(steps)])
+    _, grads_64, _ = run(copy.deepcopy(model_cpu).double(), "cpu",
+                         batches[:len(steps)], starts[:len(steps)])
+    spread = f32_spread(model_cpu, batches, starts, steps, make_step,
+                        grads_64) if f32_floor else None
     # (start, GPU end, CPU end) of each compared update
-    spans = [(starts[i][0], snaps_gpu[i + 1][0], snaps_cpu[i + 1][0])
+    spans = [(starts[i][0], snaps_gpu[i + 1][0], snaps_cpu[i + 1][0], i)
              for i in steps] if lockstep else \
-        [(snaps_cpu[0][0], snaps_gpu[-1][0], snaps_cpu[-1][0])]
+        [(snaps_cpu[0][0], snaps_gpu[-1][0], snaps_cpu[-1][0],
+          TRAIN_STEPS - 1)]
+    params = {n for n, _ in model_cpu.named_parameters()}
     rel = worst = 0.0
-    for begin, got, want in spans:
+    stats = None
+    for begin, got, want, i in spans:
         num = den = 0.0
         for name, t in got.items():
+            if name not in params:   # a buffer: BatchNorm's statistics
+                e = ((t - want[name]).abs().max()
+                     / want[name].abs().max()).item()
+                stats = max(stats, (e, i, name)) if stats else (e, i, name)
+                continue
             moved = want[name] - begin[name]
             num += ((t - begin[name]) - moved).square().sum().item()
             den += moved.square().sum().item()
@@ -812,26 +934,32 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
     return {"losses_gpu": losses_gpu, "losses_cpu": losses_cpu,
             "counts": counts,
             "gpu_vs_f64": grad_readings(grads_gpu, grads_64, steps)[0],
+            "gpu_readings": grad_readings(grads_gpu, grads_64, steps),
+            "spread": spread,
             "cpu_vs_f64": grad_readings(grads_cpu, grads_64, steps)[0],
             "gpu_vs_cpu": grad_readings(grads_gpu, grads_cpu, steps)[0],
-            "update_rel": rel, "update_worst": worst,
+            "update_rel": rel, "update_worst": worst, "stats": stats,
             "grads_gpu": grads_gpu, "grads_64": grads_64,
             "model_gpu": model_gpu}
 
 
 def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
-                zero_entries=(), **model_kw):
-    """7 / 13 / 18 / 23. the training main path, by ``train_compare``: the
-    losses (LOSS_RTOL), the GPU's gradients against float64 (GRAD_TOL) and
-    the updates (UPDATE_TOL); every conv's ``grad_params`` must get a
-    non-zero gradient, each (parameter, index) of ``zero_entries`` an
-    exactly zero one (with its parameter's reading printed), and ``mod``'s
-    launch counts must be ``want_counts`` per step.  Returns the launch
-    counts of the GPU steps."""
-    r = train_compare(mod, dev, kan_conv, lockstep, **model_kw)
+                zero_entries=(), n_convs=13,
+                label=f"VGG16_small batch {TRAIN_BATCH}", **kw):
+    """7 / 13 / 18 / 23 / 26 / 29. the training main path, by
+    ``train_compare`` (``kw``: its model, batches and step, or the model's
+    keywords): the losses (LOSS_RTOL), the GPU's gradients against float64
+    (GRAD_TOL), the updates (UPDATE_TOL) and, with BatchNorm, the running
+    statistics after each compared step (STATS_TOL); each of the
+    ``n_convs`` convs' ``grad_params`` must get a non-zero gradient, each
+    (parameter, index) of ``zero_entries`` an exactly zero one (with its
+    parameter's reading printed), and ``mod``'s launch counts must be
+    ``want_counts`` per step.  Returns the launch counts of the GPU steps
+    and the GPU model after them."""
+    r = train_compare(mod, dev, kan_conv, lockstep, **kw)
     losses_gpu, losses_cpu, counts = (r["losses_gpu"], r["losses_cpu"],
                                       r["counts"])
-    print(f"[train] {kan_conv} VGG16_small batch {TRAIN_BATCH}, {TRAIN_STEPS} "
+    print(f"[train] {kan_conv} {label}, {TRAIN_STEPS} "
           f"steps{' in lockstep' if lockstep else ''}: losses GPU "
           f"{losses_gpu} CPU {losses_cpu}", flush=True)
     for lg, lc in zip(losses_gpu, losses_cpu):
@@ -849,11 +977,36 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
           f"{'of each step' if lockstep else f'over {TRAIN_STEPS} steps'} "
           f"differ by {rel:.3e} in relative L2 (max |diff| {worst:.3e})",
           flush=True)
-    check(worst_g <= GRAD_TOL, "GPU gradients differ from float64")
+    if r["spread"] is None:
+        check(worst_g <= GRAD_TOL, "GPU gradients differ from float64")
+    else:
+        # each gradient within GRAD_TOL, or within F32_SPREAD x the float32
+        # spread at its start (see F32_NOISE)
+        spread = r["spread"]
+        over = [(e, i, n, spread[(i, n)]) for e, i, n in r["gpu_readings"]
+                if e > GRAD_TOL]
+        top = max(spread.items(), key=lambda kv: kv[1])
+        print(f"[train] float32 spread at the same starts (conv outputs x "
+              f"(1 + {F32_NOISE:g} N(0, 1)), seeds {F32_NOISE_SEEDS}): max "
+              f"{top[1]:.3e} (step {top[0][0]}, {top[0][1]}); GPU readings "
+              f"over GRAD_TOL: "
+              + (", ".join(f"{n} step {i} {e:.3e} (spread {f:.3e})"
+                           for e, i, n, f in over) or "none"), flush=True)
+        check(all(e <= F32_SPREAD * f for e, _, _, f in over),
+              "GPU gradients differ from float64 by more than GRAD_TOL and "
+              f"{F32_SPREAD} x float32's spread at the same start")
     check(rel <= UPDATE_TOL, "parameter updates differ between GPU and CPU")
+    if r["stats"] is not None:
+        e, st, name = r["stats"]
+        print(f"[train] running statistics GPU vs CPU after "
+              f"{'each step' if lockstep else f'{TRAIN_STEPS} steps'}: max "
+              f"|diff| {e:.3e} of the buffer's largest entry (step {st}, "
+              f"{name})", flush=True)
+        check(e <= STATS_TOL, "running statistics differ between GPU and "
+                              "CPU")
     convs = [(n, m) for n, m in r["model_gpu"].named_children()
              if n.startswith(("KanConvND", "WavKANConvND"))]
-    check(len(convs) == 13, f"{len(convs)} convs in the model")
+    check(len(convs) == n_convs, f"{len(convs)} convs in the model")
     for name, m in convs:
         for pn in grad_params:
             grad = getattr(m, pn).grad
@@ -876,11 +1029,12 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
           f"({TRAIN_STEPS} steps): {counts}", flush=True)
     check(counts == {k: TRAIN_STEPS * v for k, v in want_counts.items()},
           f"expected per step {want_counts}, got {counts} in {TRAIN_STEPS}")
-    return counts
+    return counts, r["model_gpu"]
 
 
-def time_train_step(kan_conv, dev, card, **model_kw):
-    """Median images/s of the VGG16_small train step at batch TIME_BATCH."""
+def time_train_step(kan_conv, dev, card, label=None, **model_kw):
+    """Median images/s of the VGG16_small train step at batch TIME_BATCH
+    (printed as ``label``, default ``kan_conv``)."""
     from convkan_tpu_torch.models.vgg import vggkan
     from convkan_tpu_torch.train.data import _synthetic
     from convkan_tpu_torch.train.loop import make_train_step
@@ -904,7 +1058,7 @@ def time_train_step(kan_conv, dev, card, **model_kw):
         step(state, x, y).item()  # host readback: the step is done
         runs.append(TIME_BATCH / (time.perf_counter() - t0))
     ips = statistics.median(runs)
-    print(f"[time] {kan_conv} train step batch {TIME_BATCH}: median "
+    print(f"[time] {label or kan_conv} train step batch {TIME_BATCH}: median "
           f"{ips:.1f} images/s ({1e3 * TIME_BATCH / ips:.3f} ms) over "
           f"{len(runs)} steps (min {min(runs):.1f}, max {max(runs):.1f}); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -1151,21 +1305,25 @@ def phase_model(mod, kan_conv, fwd_name, dev, imgs, f64=False, **model_kw):
     return model_gpu, tol
 
 
-def phase_serve(mod, kan_conv, fwd_name, imgs, tol=TOL, **model_kw):
-    """4 / 12. serving, the main path: launch counts are zeroed, an
-    InferenceEngine starts, the HTTP server answers 8 concurrent clients x
-    4 single-image requests and one 64-image request, the answers are
-    checked against engine.predict (within ``tol``: the two run the model
-    at other batch sizes, so cuDNN and cuBLAS sum in other orders), and the
-    counts are read.  Returns the forward launches."""
+def phase_serve(mod, kan_conv, fwd_name, imgs, tol=TOL, model=None,
+                **model_kw):
+    """4 / 12 / 17 / 22 / 27. serving, the main path: launch counts are
+    zeroed, an InferenceEngine starts (with ``model``, or a seeded
+    VGG16_small), the HTTP server answers 8 concurrent clients x 4
+    single-image requests and one 64-image request (``imgs``), the answers
+    are checked against engine.predict (within ``tol``: the two run the
+    model at other batch sizes, so cuDNN and cuBLAS sum in other orders),
+    and the counts are read.  Returns the forward launches and the served
+    logits of ``imgs``."""
     from convkan_tpu_torch.models.vgg import vggkan
     from convkan_tpu_torch.serve import InferenceEngine, make_server
 
     mod.reset_launches()
-    model = vggkan(3, 10, arch="VGG16_small", kan_conv=kan_conv,
-                   classifier_type="Linear",
-                   generator=torch.Generator().manual_seed(1), device="cuda",
-                   **model_kw)
+    if model is None:
+        model = vggkan(3, 10, arch="VGG16_small", kan_conv=kan_conv,
+                       classifier_type="Linear",
+                       generator=torch.Generator().manual_seed(1),
+                       device="cuda", **model_kw)
     engine = InferenceEngine(model, "CIFAR10", (32, 32, 3),
                              buckets=(1, 8, 64), batch_timeout_ms=5.0,
                              device="cuda")
@@ -1229,7 +1387,7 @@ def phase_serve(mod, kan_conv, fwd_name, imgs, tol=TOL, **model_kw):
           "server counted the wrong requests")
     steps = metrics["device_batches"] + len(engine.buckets)  # + warm-up
     check(n_main == 13 * steps, f"{n_main} launches for {steps} forwards")
-    return n_main
+    return n_main, np.array(big["predictions"])
 
 
 def time_predict(model_gpu, kan_conv, card):
@@ -1497,11 +1655,14 @@ def param_issued(cfg, B, H, W, C, O, pad=1) -> int:
         -(-C // ctile) * ctile
 
 
-def phase_wav_times(wc, gen, dev, card):
-    """14. per conv shape at batch TIME_BATCH: each WavKAN kernel, its plain
-    version, a cuDNN grouped convolution over a materialized psi and the
-    bound, and the forward's result against its plain version; returns
-    (per-kernel totals, rows)."""
+def phase_wav_times(wc, gen, dev, card, convs=VGG16_SMALL_CONVS,
+                    B=TIME_BATCH, tag="[wav time]", suffix=""):
+    """14 / 30. per conv shape of ``convs`` (in order, a shape once per
+    layer) at batch ``B``: each WavKAN kernel, its plain version, a cuDNN
+    grouped convolution over a materialized psi and the bound, and the
+    forward's result against its plain version (host-bound readings
+    recorded under the kernel's name + ``suffix``); returns (per-kernel
+    totals, rows)."""
     F = torch.nn.functional
     totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
                                 "byte_ms"), 0.0) for n in wc.KERNELS}
@@ -1509,15 +1670,15 @@ def phase_wav_times(wc, gen, dev, card):
                                            library_warm_l2_ms=0.0)
     totals["wav_conv2d_fwd"].update(batch1_ms=0.0, max_abs_err=0.0)
     rows = []
-    B, spec = TIME_BATCH, ("mexican_hat", 1)
-    for H, C, O in dict.fromkeys(VGG16_SMALL_CONVS):
+    spec = ("mexican_hat", 1)
+    for H, C, O in dict.fromkeys(convs):
         x, w, t, s = (a.to(dev) for a in wav_inputs(gen, B, H, H, C, O))
         g = torch.randn(B, H, H, O, generator=gen).to(dev)
         cfg = wc.param_launch_config(B, H, H, C, O, 3, 1)
         part = wc.param_partials(x, w, t, s, g, *spec)
         rcfg = wc.reduce_launch_config(*part.shape)
-        red = reduction_times("wav_conv2d_bwd_reduce", wc.reduce_partials,
-                              wc.reduce_reference, part)
+        red = reduction_times("wav_conv2d_bwd_reduce" + suffix,
+                              wc.reduce_partials, wc.reduce_reference, part)
         ms = {
             "wav_conv2d_fwd": (
                 cuda_ms(lambda: wc.wav_conv2d(x, w, t, s,
@@ -1525,18 +1686,20 @@ def phase_wav_times(wc, gen, dev, card):
                                               padding=1)),
                 cuda_ms(lambda: wc.wav_conv2d_reference(
                     x, w, t, s, wavelet_type=spec[0], padding=1),
-                    iters=3, warmup=1, what=("wav_conv2d_fwd", "plain_ms"))),
+                    iters=3, warmup=1,
+                    what=("wav_conv2d_fwd" + suffix, "plain_ms"))),
             "wav_conv2d_bwd_dx": (
                 cuda_ms(lambda: wc.input_grad(x, w, t, s, g, *spec)),
                 cuda_ms(lambda: wc.input_grad_reference(x, w, t, s, g, *spec),
                         iters=3, warmup=1,
-                        what=("wav_conv2d_bwd_dx", "plain_ms"))),
+                        what=("wav_conv2d_bwd_dx" + suffix, "plain_ms"))),
             "wav_conv2d_bwd_param": (
                 cuda_ms(lambda: wc.param_partials(x, w, t, s, g, *spec)),
                 cuda_ms(lambda: wc.param_grads_reference(x, w, t, s, g,
                                                          *spec),
                         iters=3, warmup=1,
-                        what=("wav_conv2d_bwd_param", "plain_ms"))),
+                        what=("wav_conv2d_bwd_param" + suffix,
+                              "plain_ms"))),
             "wav_conv2d_bwd_reduce": (red["ms"], red["plain_ms"]),
         }
         # the forward's batch-TIME_BATCH launch (one band of RB = H rows)
@@ -1573,21 +1736,21 @@ def phase_wav_times(wc, gen, dev, card):
 
         lib = {"wav_conv2d_fwd": cuda_ms(
                    lambda: F.conv2d(psi, wn, padding=1, groups=O), iters=5,
-                   what=("wav_conv2d_fwd", "library_ms")),
+                   what=("wav_conv2d_fwd" + suffix, "library_ms")),
                "wav_conv2d_bwd_dx": cuda_ms(lambda: conv_bwd(
                    [True, False, False]), iters=5,
-                   what=("wav_conv2d_bwd_dx", "library_ms")),
+                   what=("wav_conv2d_bwd_dx" + suffix, "library_ms")),
                "wav_conv2d_bwd_param": cuda_ms(lambda: conv_bwd(
                    [False, True, False]), iters=5,
-                   what=("wav_conv2d_bwd_param", "library_ms")),
+                   what=("wav_conv2d_bwd_param" + suffix, "library_ms")),
                "wav_conv2d_bwd_reduce": red["library_ms"]}
         del psi, gn
-        n = VGG16_SMALL_CONVS.count((H, C, O))
+        n = convs.count((H, C, O))
         row = {"H": H, "C": C, "O": O, "batch": B, "layers": n,
                "S": cfg["S"]}
         for name in wc.KERNELS:
             layers = n - 1 if name == "wav_conv2d_bwd_dx" and \
-                (H, C, O) == VGG16_SMALL_CONVS[0] else n
+                (H, C, O) == convs[0] else n
             op_ms, byte_ms = wav_bound(name, B, H, C, O, cfg["S"], cfg["N"])
             row[name] = {"layers": layers, "ms": round(ms[name][0], 4),
                          "plain_ms": round(ms[name][1], 4),
@@ -1643,28 +1806,28 @@ def phase_wav_times(wc, gen, dev, card):
         red_row(row["wav_conv2d_bwd_reduce"], rcfg, red,
                 totals["wav_conv2d_bwd_reduce"], n)
         rows.append(row)
-        print(f"[wav time] {json.dumps(row)}", flush=True)
+        print(f"{tag} {json.dumps(row)}", flush=True)
     for name in wc.KERNELS:
         t = totals[name]
         t["bound_ms"] = max(t["op_ms"], t["byte_ms"])
         if name == "wav_conv2d_bwd_reduce":
-            print_red_totals("[wav time]", name, t, card)
+            print_red_totals(tag, name, t, card, B)
             continue
-        print(f"[wav time] {name} per {'forward' if name == 'wav_conv2d_fwd' else 'train step'} "
+        print(f"{tag} {name} per {'forward' if name == 'wav_conv2d_fwd' else 'train step'} "
               f"at batch {B}: kernel {t['ms']:.3f} ms, plain "
               f"{t['plain_ms']:.3f} ms, cuDNN over materialized psi "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms, "
               f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound (on "
               f"{card})", flush=True)
         if name == "wav_conv2d_fwd":
-            print(f"[wav time] {name} per forward at batch 1: kernel "
+            print(f"{tag} {name} per forward at batch 1: kernel "
                   f"{t['batch1_ms']:.4f} ms (on {card})", flush=True)
     # the launch floor: an empty kernel (a sleep of 0 cycles) in a
-    # preloaded queue, 13 of them as per step
+    # preloaded queue, one per conv as per step
     empty = cuda_ms(lambda: torch.cuda._sleep(0), iters=100)
-    print(f"[wav time] empty kernel {1e3 * empty:.2f} us per launch, "
-          f"{13 * empty:.4f} ms for 13 launches (the reductions' floor; on "
-          f"{card})", flush=True)
+    print(f"{tag} empty kernel {1e3 * empty:.2f} us per launch, "
+          f"{len(convs) * empty:.4f} ms for {len(convs)} launches (the "
+          f"reductions' floor; on {card})", flush=True)
     totals["empty_kernel_ms"] = empty
     return totals, rows
 
@@ -1861,15 +2024,296 @@ def phase_gram_kernels(kc, gen, dev):
     return errs
 
 
+# ------------------------------------------------------ BatchNorm, path A
+def phase_bn_model(mod, dev, imgs):
+    """25. path A's model (PATH_A, seeded as train_model) on the card
+    against the same state_dict on the CPU, a train-mode forward (the
+    batch's statistics; the head's dropout mask from one CPU generator on
+    both sides) and then an eval-mode one (the running statistics, which
+    the train-mode forward moved on both sides): logits within MODEL_TOL
+    (those of train mode not the same for every image), the running
+    statistics within STATS_TOL, 13 forward launches each."""
+    from convkan_tpu_torch.train.data import normalize_batch
+
+    model_cpu = train_model("KAN", **PATH_A)
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    x = normalize_batch(torch.from_numpy(imgs), "CIFAR10")
+    for train in (True, False):
+        mod.reset_launches()
+        with torch.no_grad():
+            want = model_cpu.train(train)(x, torch.Generator().manual_seed(5))
+            got = model_gpu.train(train)(
+                x.to(dev), torch.Generator().manual_seed(5)).cpu()
+            torch.cuda.synchronize()
+        n = mod.launches["kan_conv2d_fwd"]
+        err = (got - want).abs().max().item()
+        stats = max(((b.cpu() - a).abs().max() / a.abs().max()).item()
+                    for a, b in zip(model_cpu.buffers(), model_gpu.buffers()))
+        mode = "train" if train else "eval"
+        print(f"[bn model] KAN VGG16_small BatchNorm2d {mode}"
+              f" mode, logits {tuple(got.shape)} GPU vs CPU max|err| "
+              f"{err:.3e}; running statistics max|diff| {stats:.3e} of the "
+              f"buffer's largest entry; kernel launches {n}", flush=True)
+        check(bool(torch.isfinite(got).all()), "logits not finite")
+        check(sum(mod.launches.values()) == n == 13,
+              f"expected 13 forward launches, got {mod.launches}")
+        check(torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL),
+              "BatchNorm model logits on the GPU disagree with the CPU")
+        check(stats <= STATS_TOL, "running statistics differ between GPU "
+                                  "and CPU")
+        if train:
+            check((got - got[0]).abs().max().item() > 1e-3,
+                  "the train-mode logits are the same for every image")
+
+
+def phase_bn_serve(mod, trained, imgs):
+    """27. path A serving from the trained state (phase 26's GPU model, its
+    running statistics moved by three steps), without and with folding each
+    BatchNorm into its conv's weights (fold_batch_norms, what --fold_bn
+    runs): the served logits (phase_serve) against the CPU's eval logits of
+    the same state, folded against unfolded on the card (MODEL_TOL), the
+    folded forward launching the kernel once per conv; then the serving
+    CLI's --fold_bn (seeded weights): 13 norms folded, its logits against
+    the unfolded CLI engine's.  Returns the launches of the two served
+    runs and the two served models."""
+    from convkan_tpu_torch.serve import build_engine, build_parser
+    from convkan_tpu_torch.train.data import normalize_batch
+    from convkan_tpu_torch.utils.fold_bn import fold_batch_norms
+
+    state = {k: v.detach().cpu().clone()
+             for k, v in trained.state_dict().items()}
+    model_cpu = train_model("KAN", **PATH_A)
+    model_cpu.load_state_dict(state)
+    with torch.inference_mode():
+        want = model_cpu.eval()(normalize_batch(torch.from_numpy(imgs),
+                                                "CIFAR10")).numpy()
+    served, launches, models = {}, {}, {}
+    for fold in (False, True):
+        model = train_model("KAN", **PATH_A)
+        model.load_state_dict(state)
+        if fold:
+            check(fold_batch_norms(model) == 13, "not every BatchNorm folded")
+        models[fold] = model.to("cuda")
+        launches[fold], served[fold] = phase_serve(
+            mod, "KAN", "kan_conv2d_fwd", imgs, tol=MODEL_TOL, model=model)
+    e_cpu = float(np.abs(served[False] - want).max())
+    e_fold = float(np.abs(served[True] - served[False]).max())
+    e_fold_cpu = float(np.abs(served[True] - want).max())
+    print(f"[bn serve] trained state: served logits vs CPU eval max|err| "
+          f"{e_cpu:.3e}; folded vs unfolded on the card {e_fold:.3e} (vs CPU "
+          f"{e_fold_cpu:.3e}); launches unfolded {launches[False]}, folded "
+          f"{launches[True]}", flush=True)
+    check(np.allclose(served[False], want, rtol=MODEL_TOL, atol=MODEL_TOL),
+          "served logits disagree with the CPU's eval logits")
+    check(np.allclose(served[True], served[False], rtol=MODEL_TOL,
+                      atol=MODEL_TOL), "folded logits disagree with unfolded")
+    cli = ["--arch", "VGG16_small", "--init_random", "--buckets", "1,64"]
+    outs = []
+    for extra in ([], ["--fold_bn"]):
+        engine, _ = build_engine(build_parser().parse_args(cli + extra))
+        try:
+            mod.reset_launches()
+            outs.append(engine.predict(imgs))
+            n = mod.launches["kan_conv2d_fwd"]
+            norms = [m.norm for n_, m in engine.model.named_children()
+                     if n_.startswith("KanConvND")]
+        finally:
+            engine.close()
+        check(n == 13, f"{n} forward launches of the CLI engine")
+        if extra:
+            check(all(bool(((b.var + 1e-5) == 1).all()) for b in norms),
+                  "--fold_bn left a BatchNorm unfolded")
+    e_cli = float(np.abs(outs[1] - outs[0]).max())
+    print(f"[bn serve] CLI --fold_bn (seeded): logits vs the unfolded CLI "
+          f"engine max|err| {e_cli:.3e}", flush=True)
+    check(np.allclose(outs[1], outs[0], rtol=MODEL_TOL, atol=MODEL_TOL),
+          "--fold_bn logits disagree with the unfolded engine")
+    return launches, models
+
+
+# ---------------------------------------------- BASELINE config 4, path B
+class _WavNet(torch.nn.Module):
+    """bench.py's config-4 stack (its ``WavNet``), from the port's modules
+    and named as flax names it: WavKANConvND_0..2, Linear_0."""
+
+    def __init__(self, generator, device):
+        from convkan_tpu_torch.nn.wav_conv import WavKANConv2DLayer
+        from convkan_tpu_torch.ops.layers import Linear
+
+        super().__init__()
+        c_in = 3
+        for i, c in enumerate(c for _, _, c in CONFIG4_CONVS):
+            self.add_module(f"WavKANConvND_{i}", WavKANConv2DLayer(
+                c_in, c, 3, padding=1, wavelet_type="mexican_hat",
+                wav_version="fast", generator=generator, device=device))
+            c_in = c
+        self.Linear_0 = Linear(c_in, CONFIG4_CLASSES, generator=generator,
+                               device=device)
+
+    def forward(self, x, generator=None):
+        from convkan_tpu_torch.ops.pooling import adaptive_avg_pool, max_pool
+
+        for i in range(len(CONFIG4_CONVS)):
+            x = max_pool(getattr(self, f"WavKANConvND_{i}")(x), 2, 2)
+        return self.Linear_0(adaptive_avg_pool(x, (1, 1)).flatten(1))
+
+
+def config4_model(device="cpu", seed=11):
+    return _WavNet(torch.Generator().manual_seed(seed), device)
+
+
+def config4_batches(B, steps=TRAIN_STEPS, seed=12):
+    """bench.py's data: U[0, 1) float images, CIFAR-100 labels (no crops,
+    no flips)."""
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.rand(B, 32, 32, 3, generator=gen),
+             torch.randint(0, CONFIG4_CLASSES, (B,), generator=gen),
+             None, None) for _ in range(steps)]
+
+
+def config4_step(model):
+    """bench.py's config-4 step: a train-mode forward (each BatchNorm moves
+    its running statistics), cross-entropy, backward, one AdamW update."""
+    from convkan_tpu_torch.train.metrics import cross_entropy_loss
+
+    dtype = next(model.parameters()).dtype
+
+    def step(state, x, labels, offsets=None, flips=None):
+        model.train()
+        loss = cross_entropy_loss(model(x.to(dtype)), labels)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        return loss.detach()
+
+    return step
+
+
+def phase_config4_kernels(wc, gen, dev):
+    """28. config 4's three WavKAN shapes at batch 64 and CONFIG4_BATCH:
+    the forward against its plain version (TOL), the data gradient, the
+    parameter partials, their reduction and the autograd path's dx, dw,
+    dt, ds against float64 autograd of the plain version (BWD_TOL; the
+    references over chunks of CONFIG4_CHUNK images, the partials split by
+    split, the reduced gradients as the float64 sum of the partials'); the
+    reduction bit-exact against its plain version; every kernel's result of
+    two calls bit-identical.  Returns max |err| per kernel."""
+    errs = dict.fromkeys(wc.KERNELS, 0.0)
+    spec = ("mexican_hat", 1)
+    for B in (64, CONFIG4_BATCH):
+        for H, C, O in CONFIG4_CONVS:
+            x, w, t, s = (a.to(dev) for a in wav_inputs(gen, B, H, H, C, O))
+            g = torch.randn(B, H, H, O, generator=gen).to(dev)
+            y = wc.wav_conv2d(x, w, t, s, wavelet_type=spec[0], padding=1)
+            dx = wc.input_grad(x, w, t, s, g, *spec)
+            part = wc.param_partials(x, w, t, s, g, *spec)
+            red = wc.reduce_partials(part)
+            same = torch.equal(y, wc.wav_conv2d(
+                x, w, t, s, wavelet_type=spec[0], padding=1)) and \
+                torch.equal(dx, wc.input_grad(x, w, t, s, g, *spec)) and \
+                torch.equal(part, wc.param_partials(x, w, t, s, g, *spec))
+            leaves = [a.clone().requires_grad_(True) for a in (x, w, t, s)]
+            got = torch.autograd.grad(wc.wav_conv2d(
+                *leaves, wavelet_type=spec[0], padding=1), leaves, g)
+            torch.cuda.synchronize()
+            e_fwd, ok_fwd, dx64 = 0.0, True, []
+            for i in range(0, B, CONFIG4_CHUNK):
+                sl = slice(i, i + CONFIG4_CHUNK)
+                with torch.no_grad():
+                    ref = wc.wav_conv2d_reference(
+                        x[sl], w, t, s, wavelet_type=spec[0], padding=1)
+                e_fwd = max(e_fwd, (y[sl] - ref).abs().max().item())
+                ok_fwd &= torch.allclose(y[sl], ref, rtol=TOL, atol=TOL)
+                dx64.append(wc.input_grad_reference(
+                    *(a.double() for a in (x[sl], w, t, s, g[sl])), *spec))
+            dx64 = torch.cat(dx64)
+            cfg = wc.param_launch_config(B, H, H, C, O, 3, 1)
+            part64 = wc.param_partials_reference(
+                *(a.double() for a in (x, w, t, s, g)), *spec, cfg["S"],
+                cfg["ips"])
+            red64 = part64.sum(0)
+            e_dx, ok_dx = bwd_close(dx, dx64)
+            e_p, ok_p = bwd_close(part, part64)
+            e_red = (red - wc.reduce_reference(part)).abs().max().item()
+            e64, ok64 = bwd_close(red, red64)
+            auto = [bwd_close(a, b) for a, b in zip(
+                got, (dx64, *wc.split_param_grads(red64, 3, C, O)))]
+            ok = ok_fwd and ok_dx and ok_p and e_red == 0.0 and ok64 and \
+                same and all(o for _, o in auto)
+            print(f"[config4 kernels] B={B} {H}x{H} C={C} O={O} (fwd "
+                  f"{wav_fwd_tile(wc.fwd_launch_config(B, H, H, C, O, 3, 1))};"
+                  f" dx "
+                  f"{wav_dx_tile(wc.dx_launch_config(B, H, H, C, O, 3, 1))}"
+                  f"; param {param_tile(cfg)}): forward {e_fwd:.3e}, dx "
+                  f"{e_dx:.3e}, param partials {e_p:.3e}, reduce {e_red:.1e} "
+                  f"(reduced vs float64 {e64:.3e}); autograd dx/dw/dt/ds "
+                  f"{'/'.join(f'{e:.3e}' for e, _ in auto)}; two calls "
+                  f"{'bit-identical' if same else 'DIFFERENT'} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            for a in (y, dx, part, *got):
+                check(bool(torch.isfinite(a).all()), "config-4 kernel output "
+                                                      "not finite")
+            check(ok, f"WavKAN kernels disagree with their plain versions at "
+                      f"config 4's B={B} {H}x{H} C={C} O={O}")
+            for name, e in (("wav_conv2d_fwd", e_fwd),
+                            ("wav_conv2d_bwd_dx", max(e_dx, auto[0][0])),
+                            ("wav_conv2d_bwd_param",
+                             max(e_p, *(a for a, _ in auto[1:]))),
+                            ("wav_conv2d_bwd_reduce", e_red)):
+                errs[name] = max(errs[name], e)
+            del x, y, dx, part, got, dx64, part64
+    return errs
+
+
+def time_config4_step(wc, dev, card):
+    """30. the config-4 train step at CONFIG4_BATCH, as bench.py steps it
+    (create_train_state with steps_per_epoch 100): median images/s of 12
+    steps after 3 warm-up ones, each ending in a host readback of the loss,
+    and the peak memory; the launch counts of these 15 steps (zeroed just
+    before) must be 15 x (3, 2, 3, 3).  Returns (images/s, counts)."""
+    from convkan_tpu_torch.train.state import create_train_state
+
+    model = config4_model(device=dev, seed=13)
+    state = create_train_state(model, steps_per_epoch=100)
+    step = config4_step(model)
+    (x, y, _, _), = config4_batches(CONFIG4_BATCH, steps=1, seed=14)
+    x, y = x.to(dev), y.to(dev)
+    wc.reset_launches()
+    for _ in range(3):
+        step(state, x, y).item()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        loss = step(state, x, y).item()  # host readback: the step is done
+        runs.append(CONFIG4_BATCH / (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    counts = dict(wc.launches)
+    ips = statistics.median(runs)
+    print(f"[config4 time] train step batch {CONFIG4_BATCH}: median "
+          f"{ips:.1f} images/s ({1e3 * CONFIG4_BATCH / ips:.3f} ms) over "
+          f"{len(runs)} steps (min {min(runs):.1f}, max {max(runs):.1f}); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"last loss {loss:.4f}; launches in 15 steps {counts} (on {card})",
+          flush=True)
+    check(np.isfinite(loss), "config-4 loss not finite")
+    want = {"wav_conv2d_fwd": 3, "wav_conv2d_bwd_dx": 2,
+            "wav_conv2d_bwd_param": 3, "wav_conv2d_bwd_reduce": 3}
+    check(counts == {k: 15 * v for k, v in want.items()},
+          f"config-4 step at batch {CONFIG4_BATCH}: expected per step "
+          f"{want}, got {counts} in 15 steps")
+    return ips, counts
+
+
 def kernel_entry(name, source, replaces, launches, err, t, times_are,
                  shapes, **extra):
     """One kernel's entry of the {"kernels": [...]} line; ``launches`` per
-    main path ({"serve": n, "train": n}), ``t`` the timing totals;
+    main path ({"serve": n, "train": n, ...}), ``t`` the timing totals;
     ``host_bound`` lists the fields whose reading the host may have set
     (see cuda_ms)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, **extra,
-            "launches": launches["serve"] + launches["train"],
+            "launches": sum(launches.values()),
             "launches_by_path": launches, "max_abs_err": err,
             "ms": round(t["ms"], 4), "plain_ms": round(t["plain_ms"], 4),
             "bound_ms": round(t["bound_ms"], 4),
@@ -1957,7 +2401,7 @@ def main():
     imgs = np.random.RandomState(0).randint(0, 256, (64, 32, 32, 3), np.uint8)
     model_gpu, _ = phase_model(kc, "KAN", "kan_conv2d_fwd", dev, imgs)
     # ------------------------------------------- 4. serving (main path)
-    n_main = phase_serve(kc, "KAN", "kan_conv2d_fwd", imgs)
+    n_main, _ = phase_serve(kc, "KAN", "kan_conv2d_fwd", imgs)
 
     # ---------------------------------------------------------- 5. times
     predict_ips = time_predict(model_gpu, "KAN", card)
@@ -1969,7 +2413,7 @@ def main():
     # ------------------------------------------ 7. training (main path)
     train_want = {"kan_conv2d_fwd": 13, "kan_conv2d_bwd_dx": 12,
                   "kan_conv2d_bwd_dw": 13, "kan_conv2d_bwd_dw_reduce": 13}
-    train_counts = phase_train(kc, dev, "KAN", train_want, ["poly_w"])
+    train_counts, _ = phase_train(kc, dev, "KAN", train_want, ["poly_w"])
     # ---------------------------------------------- 8. training times
     ips, bwd, bwd_rows = phase_train_times(kc, silu, SPAN_ROWS, "KAN", gen,
                                            dev, card)
@@ -1988,9 +2432,9 @@ def main():
                                imgs, **WAV_MODEL)
     # the WavKAN model's float32 logits are worse conditioned than the KAN
     # model's: served logits are held to MODEL_TOL, as phase 11 holds them
-    wav_serve = phase_serve(wc, "WavKAN", "wav_conv2d_fwd", imgs,    # 12
-                            tol=MODEL_TOL, **WAV_MODEL)
-    wav_train = phase_train(                                         # 13
+    wav_serve, _ = phase_serve(wc, "WavKAN", "wav_conv2d_fwd", imgs,  # 12
+                               tol=MODEL_TOL, **WAV_MODEL)
+    wav_train, _ = phase_train(                                      # 13
         wc, dev, "WavKAN", {"wav_conv2d_fwd": 13, "wav_conv2d_bwd_dx": 12,
                             "wav_conv2d_bwd_param": 13,
                             "wav_conv2d_bwd_reduce": 13},
@@ -2018,10 +2462,10 @@ def main():
         kc, "ChebyKAN", "kan_conv2d_fwd", dev, imgs, f64=True, **CHEBY_MODEL)
     # served logits held to phase 16's tolerance: the engine's batches run
     # other tiles (other sums) than predict's, at the same float32 floor
-    cheby_serve = phase_serve(kc, "ChebyKAN", "kan_conv2d_fwd", imgs,  # 17
-                              tol=cheby_tol, **CHEBY_MODEL)
-    cheby_train = phase_train(kc, dev, "ChebyKAN", train_want,        # 18
-                              ["poly_w"], lockstep=True, **CHEBY_MODEL)
+    cheby_serve, _ = phase_serve(kc, "ChebyKAN", "kan_conv2d_fwd",   # 17
+                                 imgs, tol=cheby_tol, **CHEBY_MODEL)
+    cheby_train, _ = phase_train(kc, dev, "ChebyKAN", train_want,     # 18
+                                 ["poly_w"], lockstep=True, **CHEBY_MODEL)
     cheby_predict_ips = time_predict(cheby_model, "ChebyKAN", card)   # 19
     del cheby_model
     cheby_fwd, cheby_shapes = phase_forward_times(
@@ -2045,12 +2489,13 @@ def main():
     gram_err = phase_gram_kernels(kc, gen, dev)                       # 20
     gram_model, _ = phase_model(kc, "GRAMKAN", "kan_conv2d_fwd", dev,  # 21
                                 imgs)
-    gram_serve = phase_serve(kc, "GRAMKAN", "kan_conv2d_fwd", imgs)   # 22
+    gram_serve, _ = phase_serve(kc, "GRAMKAN", "kan_conv2d_fwd",      # 22
+                                imgs)
     # the first conv's data-gradient kernel runs for beta's gradient alone
     # (dx not stored); a reduction each for dW and d beta per conv
     gram_want = {"kan_conv2d_fwd": 13, "kan_conv2d_bwd_dx": 13,
                  "kan_conv2d_bwd_dw": 13, "kan_conv2d_bwd_dw_reduce": 26}
-    gram_train = phase_train(                                         # 23
+    gram_train, _ = phase_train(                                      # 23
         kc, dev, "GRAMKAN", gram_want, ["base_w", "poly_w", "beta_weights"],
         zero_entries=[("beta_weights", 0), ("beta_weights", 3)])
     gram_predict_ips = time_predict(gram_model, "GRAMKAN", card)      # 24
@@ -2071,6 +2516,50 @@ def main():
           f"{gram_bwd['kan_conv2d_bwd_dw_reduce']['ms']:.3f}), the rest "
           f"{gram_step_ms - gram_kernel_ms:.3f} ms; predict "
           f"{gram_predict_ips:.1f} images/s (on {card})", flush=True)
+
+    # ------------------------------------- BatchNorm: path A (train.py)
+    phase_bn_model(kc, dev, imgs)                                     # 25
+    bn_train, bn_trained = phase_train(                               # 26
+        kc, dev, "KAN", train_want, ["poly_w"], lockstep=True,
+        f32_floor=True,
+        label=f"VGG16_small BatchNorm2d batch {TRAIN_BATCH}", **PATH_A)
+    bn_serve, bn_models = phase_bn_serve(kc, bn_trained, imgs)        # 27
+    del bn_trained
+    bn_predict = {fold: time_predict(
+        m, "KAN BatchNorm2d" + (" folded" if fold else ""), card)
+        for fold, m in bn_models.items()}
+    del bn_models
+    bn_ips = time_train_step("KAN", dev, card, label="KAN BatchNorm2d",
+                             **PATH_A)
+    print(f"[bn time] path A train step at batch {TIME_BATCH}: {bn_ips:.1f} "
+          f"images/s with BatchNorm2d, {ips:.1f} with InstanceNorm (phase 8, "
+          f"this run); predict {bn_predict[False]:.1f} images/s, folded "
+          f"{bn_predict[True]:.1f} (on {card})", flush=True)
+
+    # ----------------------------------- BASELINE config 4: path B
+    c4_err = phase_config4_kernels(wc, gen, dev)                      # 28
+    c4_want = {"wav_conv2d_fwd": 3, "wav_conv2d_bwd_dx": 2,
+               "wav_conv2d_bwd_param": 3, "wav_conv2d_bwd_reduce": 3}
+    c4_train, _ = phase_train(                                        # 29
+        wc, dev, "WavKAN", c4_want, ["wavelet_w", "scale", "translation"],
+        lockstep=True, n_convs=len(CONFIG4_CONVS),
+        label=f"config-4 stack batch {CONFIG4_CHECK_BATCH}",
+        build=config4_model, batches=config4_batches(CONFIG4_CHECK_BATCH),
+        make_step=config4_step)
+    c4_ips, c4_counts = time_config4_step(wc, dev, card)              # 30
+    c4_totals, c4_rows = phase_wav_times(
+        wc, gen, dev, card, convs=CONFIG4_CONVS, B=CONFIG4_BATCH,
+        tag="[config4 time]", suffix=CONFIG4_SUFFIX)
+    c4_err["wav_conv2d_fwd"] = max(
+        c4_err["wav_conv2d_fwd"],
+        c4_totals["wav_conv2d_fwd"].pop("max_abs_err"))
+    c4_totals.pop("empty_kernel_ms")
+    c4_kernel_ms = sum(t["ms"] for t in c4_totals.values())
+    c4_step_ms = 1e3 * CONFIG4_BATCH / c4_ips
+    print(f"[config4 time] train step {c4_step_ms:.3f} ms at batch "
+          f"{CONFIG4_BATCH}: psi-conv kernels {c4_kernel_ms:.3f} ms (forward "
+          f"{c4_totals['wav_conv2d_fwd']['ms']:.3f}), the rest "
+          f"{c4_step_ms - c4_kernel_ms:.3f} ms (on {card})", flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def kan_entries(suffix, fwd, shapes_, fwd_err, n_serve, counts, bwd_,
@@ -2105,6 +2594,18 @@ def main():
 
     kernels = kan_entries("", totals, shapes, max_err, n_main, train_counts,
                           bwd, bwd_rows, bwd_err, predict_ips, {})
+    for entry in kernels:   # path A runs the same B-spline kernels
+        name = entry["name"]
+        entry["launches_by_path"].update(
+            bn_serve=bn_serve[False] if name == "kan_conv2d_fwd" else 0,
+            bn_serve_folded=bn_serve[True] if name == "kan_conv2d_fwd" else 0,
+            bn_train=bn_train[name])
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        if name == "kan_conv2d_fwd":
+            entry["bn_predict_images_per_s"] = round(bn_predict[False], 1)
+            entry["bn_folded_predict_images_per_s"] = round(
+                bn_predict[True], 1)
+        entry["bn_train_images_per_s"] = round(bn_ips, 1)
     red_names = ("kan_conv2d_bwd_dw_reduce", "wav_conv2d_bwd_reduce")
     for name in wc.KERNELS:
         fwd = name == "wav_conv2d_fwd"
@@ -2125,6 +2626,22 @@ def main():
             f"{'forward' if fwd else 'train step'} at batch {TIME_BATCH}",
             [{k: r[k] for k in ("H", "C", "O", "S")} | r[name]
              for r in wav_rows], **extra))
+    for name in wc.KERNELS:   # config 4's shapes (path B)
+        fwd = name == "wav_conv2d_fwd"
+        src = "convkan_tpu_torch/csrc/" + (wc.SOURCE if fwd else
+                                            wc.BWD_SOURCE)
+        extra = {"entry_source": src} if name in red_names else {}
+        kernels.append(kernel_entry(
+            name + CONFIG4_SUFFIX, RED_SOURCE if name in red_names else src,
+            WAV_REPLACES if fwd else WAV_BWD_REPLACES,
+            {"serve": 0, "train": c4_train[name],
+             "train_batch2048": c4_counts[name]},
+            c4_err[name], c4_totals[name],
+            f"sum over config 4's 3 WavKAN convs of one "
+            f"{'forward' if fwd else 'train step'} at batch {CONFIG4_BATCH}",
+            [{k: r[k] for k in ("H", "C", "O", "S")} | r[name]
+             for r in c4_rows], train_images_per_s=round(c4_ips, 1),
+            **extra))
     kernels += kan_entries(
         suffix, cheby_fwd, cheby_shapes, cheby_err["kan_conv2d_fwd"],
         cheby_serve, cheby_train, cheby_bwd, cheby_rows, cheby_err,

@@ -1,6 +1,9 @@
 """CONV_KAN_FACTORY, port of the ``"KAN"``, ``"ChebyKAN"``, ``"GRAMKAN"``
 and ``"WavKAN"`` keys of ``convkan_tpu/factory/conv_factory.py``: the
-reference signatures with 'same' padding when ``padding`` is None."""
+reference signatures with 'same' padding when ``padding`` is None.  Each
+function's ``norm_layer`` (a class or a registry name such as
+"BatchNorm2d") and ``**norm_kwargs`` reach the conv's output norm, as in
+the reference."""
 
 from __future__ import annotations
 
@@ -80,7 +83,7 @@ def wavkan_conv(in_planes, out_planes, kernel_size, groups=1, stride=1,
                 norm_layer=InstanceNorm, *, generator=None, device=None,
                 **norm_kwargs):
     """The reference's ``wavkan_conv`` builder, with its InstanceNorm
-    default (the bare layer class defaults to BatchNorm, not ported)."""
+    default (the bare layer class defaults to BatchNorm)."""
     _no_l1(l1_decay)
     return WavKANConvND(
         input_dim=in_planes, output_dim=out_planes, kernel_size=kernel_size,

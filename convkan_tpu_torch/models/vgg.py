@@ -12,7 +12,10 @@ train mode the head applies dropout (``dropout_linear``, default 0.5)
 before ``Linear_0`` and every conv but the first applies channel dropout
 (``conv_dropout``: at a KAN or ChebyKAN conv's output, at a GRAMKAN conv's
 tanh x before its basis, at a WavKAN conv's wavelet-path input); in eval
-mode both are the identity.
+mode both are the identity.  ``kan_norm_layer`` (InstanceNorm by default,
+or a registry name such as train.py's "BatchNorm2d") is every conv's
+output norm; a BatchNorm's running statistics are buffers, named like the
+JAX ``batch_stats`` (``KanConvND_0.norm.mean``, ``.var``).
 """
 
 from __future__ import annotations
@@ -139,7 +142,8 @@ class VGGKAN(nn.Module):
 def vggkan(input_channels: int, num_classes: int, **kwargs) -> VGGKAN:
     """Builder with the reference's flag vocabulary.  Like the JAX builder
     it drops keys VGGKAN does not take (the KAN-head ``classifier_*``
-    overrides, the ``affine`` flag of InstanceNorm(affine=False)), except
+    overrides, and ``affine``: the JAX model's ``_filtered`` rule keeps it
+    from a KAN conv's norm, so a BatchNorm there stays affine), except
     ``classifier_dropout``: when not None it replaces ``dropout_linear``."""
     if kwargs.get("classifier_dropout") is not None:
         kwargs["dropout_linear"] = kwargs["classifier_dropout"]

@@ -2,11 +2,14 @@
 ``kan`` (B-spline), ``cheby`` (Chebyshev) and ``gram`` (Gram), 2-D,
 groups 1.
 
-    kan:    y = ChannelDropout(PReLU(InstanceNorm(kan_conv2d(x))))
-    cheby:  y = ChannelDropout(InstanceNorm(kan_conv2d(x)))   (dropout: train)
-    gram:   y = SiLU(InstanceNorm(kan_conv2d(x)))  (E = [SiLU(p_n(tanh x)),
+    kan:    y = ChannelDropout(PReLU(Norm(kan_conv2d(x))))
+    cheby:  y = ChannelDropout(Norm(kan_conv2d(x)))   (dropout: train)
+    gram:   y = SiLU(Norm(kan_conv2d(x)))  (E = [SiLU(p_n(tanh x)),
             SiLU(x)]; in train mode channel dropout of tanh x before the
             basis, as in JAX: the plain version only)
+
+Norm is InstanceNorm by default, or BatchNorm (``norm_layer``), whose
+running statistics move in train mode and normalize in eval mode.
 
 ``kan_conv2d`` (kernels/kan_conv2d.py) is the conv itself: the basis of
 every input channel (plus act(x) where the family has a base path),
@@ -90,8 +93,9 @@ class KanConvND(nn.Module):
     Args mirror the JAX module: input_dim/output_dim, kernel_size, padding
     (stride, dilation and groups must stay 1), norm_layer, base_activation
     (read by ``kan`` and ``gram``; "__default__" is the family's: GELU for
-    ``kan``, SiLU for ``gram``), the spline hyperparameters (``kan``),
-    ``degree`` (``cheby``, ``gram``) and ``epsilon`` (``cheby``).
+    ``kan``, SiLU for ``gram``), the spline hyperparameters (``kan``; a
+    ``grid_override`` knot vector replaces the uniform grid), ``degree``
+    (``cheby``, ``gram``) and ``epsilon`` (``cheby``).
     Parameters are drawn on the CPU from ``generator`` (so one seed gives
     the same weights on every device) and then moved to ``device``: None
     means the GPU, and raises without one."""
@@ -104,7 +108,8 @@ class KanConvND(nn.Module):
                  base_activation: Any = "__default__", grid_size: int = 5,
                  spline_order: int = 3,
                  grid_range: Tuple[float, float] = (-1.0, 1.0),
-                 degree: int = 3, epsilon: float = 1e-7, *,
+                 degree: int = 3, epsilon: float = 1e-7,
+                 grid_override: Optional[Tuple[float, ...]] = None, *,
                  generator: torch.Generator = None,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -125,9 +130,10 @@ class KanConvND(nn.Module):
         if base_activation == "__default__":
             base_activation = "silu" if family == "gram" else "gelu"
         if family == "kan":
-            self.basis = bspline_basis(
-                make_bspline_grid(grid_size, spline_order, grid_range),
-                spline_order, _act_name(base_activation))
+            knots = make_bspline_grid(grid_size, spline_order, grid_range) \
+                if grid_override is None else grid_override
+            self.basis = bspline_basis(knots, spline_order,
+                                       _act_name(base_activation))
         elif family == "gram":
             self.basis = gram_basis(degree, _act_name(base_activation))
         else:
@@ -153,7 +159,7 @@ class KanConvND(nn.Module):
         self.norm = make_norm(norm_layer, output_dim, **dict(norm_kwargs or {}))
         if generator is not None:
             self.reset_parameters(generator)
-        self.to(device)
+        self.to(device=device, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator):
         """JAX init distributions over HWIO fans: kaiming_uniform('linear')

@@ -3,6 +3,9 @@ groups 1, stride 1, dilation 1.
 
     y = Norm(mix(psi_conv(Dropout(x))) + conv(SiLU(x), base_w))
 
+Norm is BatchNorm by default, as in JAX (``WavKANConv2DLayer`` too); the
+factory's ``wavkan_conv`` defaults to InstanceNorm.
+
 The base path reads x before the dropout; the dropout (train mode) drops
 whole input channels of the wavelet path only.  ``psi_conv`` is
 ``kernels.wav_conv2d.wav_conv2d``: on CUDA the hand-written kernels, forward
@@ -29,7 +32,7 @@ from ..kernels.wav_conv2d import wav_conv2d
 from ..ops.conv import conv_nd
 from ..ops.dropout import channel_dropout
 from ..utils import initializers as init_lib
-from ..utils.norms import InstanceNorm, make_norm
+from ..utils.norms import BatchNorm, make_norm
 from .kan_conv import _single
 
 WAV_VERSIONS = ("fast", "base", "fast_plus_one")
@@ -49,7 +52,7 @@ class WavKANConvND(nn.Module):
                  ndim: int = 2, groups: int = 1, padding=0, stride=1,
                  dilation=1, dropout: float = 0.0,
                  wavelet_type: str = "mexican_hat", wav_version: str = "fast",
-                 norm_layer: Any = InstanceNorm,
+                 norm_layer: Any = BatchNorm,
                  norm_kwargs: Optional[Mapping[str, Any]] = None, *,
                  generator: torch.Generator = None, device=None,
                  dtype=torch.float32):
@@ -83,7 +86,7 @@ class WavKANConvND(nn.Module):
         self.wavelet_out_w = param(1, 1, O, O)
         self.norm = make_norm(norm_layer, O, **dict(norm_kwargs or {}))
         self.reset_parameters(generator)
-        self.to(device)
+        self.to(device=device, dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator]):
         """JAX init: kaiming_uniform('linear') over HWIO fans for the three
@@ -115,3 +118,9 @@ class WavKANConvND(nn.Module):
                        wavelet_type=self.wavelet_type, padding=self.padding)
         y = torch.matmul(y, self.wavelet_out_w.reshape(O, O))
         return self.norm(y + base)
+
+
+def WavKANConv2DLayer(input_dim, output_dim, kernel_size, **kwargs):
+    """The JAX package's ``WavKANConv2DLayer``: a 2-D WavKANConvND (with
+    its BatchNorm default)."""
+    return WavKANConvND(input_dim, output_dim, kernel_size, ndim=2, **kwargs)

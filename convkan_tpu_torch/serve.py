@@ -14,15 +14,18 @@ CLI (serves freshly initialized weights from ``--seed``; restoring a
 checkpoint is not ported yet):
 
     python -m convkan_tpu_torch.serve --model VGGKAN --arch VGG16_small \\
-        --dataset CIFAR10 --init_random --port 8421
+        --dataset CIFAR10 --init_random --port 8421 [--fold_bn]
 
 (add ``--kan_conv WavKAN`` for the WavKAN convs, ``--kan_conv ChebyKAN``
 or ``--kan_conv GRAMKAN`` for the Chebyshev or Gram convs of degree
-``--degree``).  The ChebyKAN trunk ends in InstanceNorm with nothing after
-it, so its head reads the last conv's 2x2 map
-(``expected_feature_shape=(2, 2)``): with (1, 1) the average pool of that
-norm is 0 and the logits would be the Linear bias for every image.  A
-GRAMKAN conv ends in SiLU after its norm, so it keeps train.py's (1, 1)
+``--degree``).  The convs' norm is train.py's ``--kan_norm_layer``,
+BatchNorm2d by default, served in eval mode from its running statistics;
+``--fold_bn`` folds each KAN conv's BatchNorm into its weights
+(utils/fold_bn.py, with ``--bn_eps``) before serving.  A ChebyKAN trunk
+with InstanceNorm ends in that norm with nothing after it, so its head
+reads the last conv's 2x2 map (``expected_feature_shape=(2, 2)``): with
+(1, 1) the average pool of that norm is 0 and the logits would be the
+Linear bias for every image.  Every other trunk keeps train.py's (1, 1)
 head.
 
 Endpoints: POST /predict  {"instances": [...uint8 HWC arrays...]}
@@ -50,6 +53,8 @@ import torch
 from .device import resolve_device
 from .train.data import input_shape as dataset_input_shape
 from .train.data import normalize_batch
+from .utils.fold_bn import fold_batch_norms
+from .utils.norms import NORM_LAYERS, InstanceNorm, resolve_norm
 
 
 class InferenceEngine:
@@ -298,6 +303,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--degree", type=int, default=3,
                    help="polynomial degree of the ChebyKAN and GRAMKAN "
                         "convs")
+    p.add_argument("--kan_norm_layer", default="BatchNorm2d",
+                   choices=sorted(NORM_LAYERS),
+                   help="norm after each conv (train.py's flag)")
+    p.add_argument("--norm_affine", action="store_true",
+                   help="train.py's flag; as there, it does not reach the "
+                        "norms of a VGGKAN's KAN convs")
+    p.add_argument("--fold_bn", action="store_true",
+                   help="fold each conv's BatchNorm into its weights "
+                        "before serving (utils/fold_bn.py)")
+    p.add_argument("--bn_eps", type=float, default=1e-5)
     p.add_argument("--dataset", default="CIFAR10",
                    choices=["MNIST", "SVHN", "CIFAR10", "CIFAR100"])
     p.add_argument("--seed", type=int, default=42)
@@ -325,11 +340,17 @@ def build_engine(args):
     shape = dataset_input_shape(args.dataset)
     num_classes = 100 if args.dataset == "CIFAR100" else 10
     gen = torch.Generator().manual_seed(args.seed)
-    head = (2, 2) if args.kan_conv == "ChebyKAN" else (1, 1)
+    head = (2, 2) if args.kan_conv == "ChebyKAN" and \
+        resolve_norm(args.kan_norm_layer) is InstanceNorm else (1, 1)
     model = vggkan(shape[-1], num_classes, arch=args.arch,
                    kan_conv=args.kan_conv, classifier_type="Linear",
                    degree=args.degree, expected_feature_shape=head,
-                   generator=gen, device=args.device)
+                   kan_norm_layer=args.kan_norm_layer,
+                   affine=args.norm_affine, generator=gen,
+                   device=args.device)
+    if args.fold_bn:
+        print(f"folded {fold_batch_norms(model, eps=args.bn_eps)} "
+              "BatchNorms", flush=True)
     engine = InferenceEngine(
         model, args.dataset, shape,
         buckets=tuple(int(b) for b in args.buckets.split(",")),

@@ -2,7 +2,10 @@
 path) and ``make_eval_step`` of ``convkan_tpu/train/loop.py``.
 
 One train step: on-device augmentation and normalization, a train-mode
-forward (dropout on), cross-entropy, backward, one AdamW update.  Every
+forward (dropout on; each BatchNorm normalizes with the batch's statistics
+and moves its running ones once, as JAX's ``mutable=["batch_stats"]``),
+cross-entropy, backward, one AdamW update.  The eval step runs the model in
+eval mode: BatchNorm reads its running statistics.  Every
 tensor stays on the model's device and the step returns the loss as a
 device tensor: nothing in it waits for the device.
 """

@@ -64,9 +64,10 @@ def make_optimizer(params, learning_rate: float, weight_decay: float
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (holding the parameters), its optimizer, the learning-rate
-    schedule, the number of updates taken, and the generator that draws
-    crop offsets, flips and dropout masks."""
+    """The model (holding the parameters and, with BatchNorm, the running
+    statistics: buffers, which the optimizer does not see), its optimizer,
+    the learning-rate schedule, the number of updates taken, and the
+    generator that draws crop offsets, flips and dropout masks."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]

@@ -3,9 +3,12 @@
 The port keeps the JAX parameter names, shapes and layouts, so a flax
 ``params`` tree of numpy arrays maps onto a ``state_dict`` by joining the
 path with dots: ``{"KanConvND_0": {"poly_w": a}}`` -> ``"KanConvND_0.poly_w"``.
-A JAX ``TrainState`` (anything with a ``params`` attribute) is read through
-its ``params``, so a JAX training run's weights continue in the port's
-trainer.
+One name differs: a conv's output norm, which flax names after its class
+(``BatchNorm_0``), is the port's ``norm``.  The ``batch_stats`` collection
+(a BatchNorm's running ``mean`` and ``var``) maps onto the norm's buffers of
+the same names.  A JAX ``TrainState`` (anything with a ``params``
+attribute, and ``batch_stats`` where it has them) is read through those,
+so a JAX training run's weights continue in the port's trainer.
 """
 
 from __future__ import annotations
@@ -16,26 +19,35 @@ from typing import Mapping
 import numpy as np
 import torch
 
+# flax's names of a conv's output norm -> the port's attribute
+_NORM_SCOPES = {"BatchNorm_0": "norm"}
+
 
 def _flatten(tree: Mapping, prefix: str, out: dict):
     for key, val in tree.items():
-        name = f"{prefix}{key}"
+        name = f"{prefix}{_NORM_SCOPES.get(key, key)}"
         if isinstance(val, Mapping):
             _flatten(val, name + ".", out)
         else:
             out[name] = torch.from_numpy(np.array(val, copy=True))
 
 
-def vggkan_state_dict_from_jax(params) -> "OrderedDict[str, torch.Tensor]":
-    """JAX ``VGGKAN`` params (the tree itself, ``{"params": tree}`` or a
-    ``TrainState``, with numpy-convertible leaves) -> a state_dict that
-    ``VGGKAN.load_state_dict`` accepts with ``strict=True``.  Dtypes are
-    kept."""
-    if not isinstance(params, Mapping) and hasattr(params, "params"):
-        params = params.params
-    if set(params) == {"params"}:
-        params = params["params"]
+def state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """JAX variables of a model or a single conv -> a state_dict that the
+    port's module accepts with ``load_state_dict(strict=True)``.  Takes the
+    ``params`` tree itself, ``{"params": tree}``, ``{"params": tree,
+    "batch_stats": stats}`` or a ``TrainState``, with numpy-convertible
+    leaves.  Dtypes are kept."""
+    if not isinstance(variables, Mapping) and hasattr(variables, "params"):
+        variables = {"params": variables.params,
+                     "batch_stats": getattr(variables, "batch_stats", None)}
+    if "params" not in variables:
+        variables = {"params": variables}
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    _flatten(params, "", out)
+    for collection in ("params", "batch_stats"):
+        _flatten(variables.get(collection) or {}, "", out)
     return out
 
+
+# the name the VGG tests and tools have used since the first slice
+vggkan_state_dict_from_jax = state_dict_from_jax

@@ -162,10 +162,12 @@ def test_cpu_cheby_model_never_reaches_a_kernel_entry(monkeypatch):
 
 
 def test_serve_cli_builds_the_chebykan_model():
-    """--kan_conv ChebyKAN serves the (2, 2) head: its logits see the
-    image (with (1, 1) they would be the Linear bias for every image)."""
+    """--kan_conv ChebyKAN with InstanceNorm serves the (2, 2) head: its
+    logits see the image (with (1, 1) they would be the Linear bias for
+    every image)."""
     args = build_parser().parse_args(
         ["--arch", "VGG16_kansmall", "--kan_conv", "ChebyKAN",
+         "--kan_norm_layer", "InstanceNorm2d",
          "--init_random", "--device", "cpu", "--buckets", "1,2"])
     engine, name = build_engine(args)
     try:

@@ -1,5 +1,7 @@
 """The CUDA KAN-conv (B-spline, Chebyshev and Gram) and WavKAN psi-conv
-kernels (forward and backward) against their plain versions, on the card.
+kernels (forward and backward) against their plain versions, on the card;
+BatchNorm on the card against the CPU, and the KAN forward with folded
+BatchNorm weights against the unfolded model.
 
 Marked `cuda`: skips on a host without a GPU.  It imports no JAX, so it
 runs on the GPU machine without the JAX package's conftest:
@@ -693,3 +695,117 @@ def test_cuda_wav_skips_unneeded_dx_and_is_deterministic():
                        wc.input_grad(x, w, t, s, g, *spec))
     p = torch.randn(7, 45, device="cuda")
     assert torch.equal(wc.reduce_partials(p), wc.reduce_reference(p))
+
+
+# (H, C, O) of BASELINE config 4's three WavKAN convs (bench.py's stack)
+CONFIG4_CONVS = [(32, 3, 32), (16, 32, 64), (8, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 2048])
+@pytest.mark.parametrize("H,C,O", CONFIG4_CONVS)
+def test_cuda_wav_config4_shapes_match_plain_version(B, H, C, O):
+    """Config 4's shapes, also at its batch 2048: the forward against the
+    plain version (1e-4) and dx, dw, dt, ds of the CUDA path against
+    float64 autograd of the plain version (see _within), the references
+    taken over chunks of 256 images (the parameter gradients summed over
+    the chunks in float64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.device import set_full_f32
+    from convkan_tpu_torch.kernels import wav_conv2d as wc
+
+    set_full_f32()
+    x, w, t, s, g = _wav_inputs(B, H, H, C, O, seed=B + C)
+    leaves = [a.clone().requires_grad_(True) for a in (x, w, t, s)]
+    wc.reset_launches()
+    y = wc.wav_conv2d(*leaves, wavelet_type="mexican_hat", padding=1)
+    got = torch.autograd.grad(y, leaves, g)
+    torch.cuda.synchronize()
+    assert wc.launches == dict.fromkeys(wc.KERNELS, 1)
+    dx64, params64 = [], 0
+    for i in range(0, B, 256):
+        sl = slice(i, i + 256)
+        with torch.no_grad():
+            torch.testing.assert_close(
+                y[sl], wc.wav_conv2d_reference(
+                    x[sl], w, t, s, wavelet_type="mexican_hat", padding=1),
+                rtol=1e-4, atol=1e-4)
+        ref = [a.double().requires_grad_(True) for a in (x[sl], w, t, s)]
+        d = torch.autograd.grad(wc.wav_conv2d_reference(
+            *ref, wavelet_type="mexican_hat", padding=1), ref,
+            g[sl].double())
+        dx64.append(d[0])
+        params64 = [p + q for p, q in zip(params64 or [0] * 3, d[1:])]
+    for name, a, b in zip(("dx", "dw", "dt", "ds"), got,
+                          [torch.cat(dx64)] + params64):
+        ok, err = _within(a, b)
+        assert ok, f"{name}: max |diff| {err}"
+
+
+@pytest.mark.cuda
+def test_cuda_batchnorm_matches_cpu():
+    """BatchNorm on the card against the CPU, float32, train mode (output,
+    gradients, running statistics) and eval mode: within 1e-5 of the
+    largest entry (sums of 16,384 values per channel in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.utils.norms import BatchNorm
+
+    gen = torch.Generator().manual_seed(0)
+    cpu = BatchNorm(32)
+    with torch.no_grad():
+        cpu.weight.normal_(1.0, 0.3, generator=gen)
+        cpu.bias.normal_(0.0, 0.3, generator=gen)
+        cpu.mean.normal_(0.0, 0.5, generator=gen)
+        cpu.var.uniform_(0.5, 2.0, generator=gen)
+    gpu = BatchNorm(32).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(16, 32, 32, 32, generator=gen) * 2 + 0.5
+    g = torch.randn(x.shape, generator=gen)
+
+    def close(a, b):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+    for train in (True, False):
+        outs = []
+        for m, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            xt = x.to(dev).clone().requires_grad_(True)
+            y = m.train(train)(xt)
+            (y * g.to(dev)).sum().backward()
+            outs.append((y, xt.grad, m.weight.grad, m.bias.grad))
+        for a, b in zip(outs[1], outs[0]):
+            close(a, b)
+        for name in ("mean", "var"):
+            close(getattr(gpu, name), getattr(cpu, name))
+        for m in (cpu, gpu):
+            m.zero_grad(set_to_none=True)
+
+
+@pytest.mark.cuda
+def test_cuda_folded_kan_forward_matches_the_unfolded_model():
+    """KAN-VGG16_small with BatchNorm2d on the card, its running statistics
+    moved by train-mode forwards: folding every norm into poly_w and base_w
+    keeps the eval logits within 1e-3 (float32, 13 layers), and the folded
+    forward still launches the kernel once per conv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from convkan_tpu_torch.models.vgg import vggkan
+    from convkan_tpu_torch.utils.fold_bn import fold_batch_norms
+
+    model = vggkan(3, 10, arch="VGG16_small", classifier_type="Linear",
+                   kan_norm_layer="BatchNorm2d",
+                   generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for _ in range(3):
+            model.train()(torch.randn(64, 32, 32, 3, generator=gen).cuda())
+        x = torch.randn(64, 32, 32, 3, generator=gen).cuda()
+        want = model.eval()(x)
+        assert fold_batch_norms(model) == 13
+        kc.reset_launches()
+        got = model(x)
+        torch.cuda.synchronize()
+    assert kc.launches["kan_conv2d_fwd"] == 13
+    assert (got - want).abs().max() <= 1e-3 * (1 + want.abs().max())

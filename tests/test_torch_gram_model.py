@@ -192,10 +192,13 @@ def test_cpu_gram_model_never_reaches_a_kernel_entry(monkeypatch):
 
 
 def test_serve_cli_builds_the_gramkan_model():
-    """--kan_conv GRAMKAN serves the (1, 1) head of train.py: its logits
-    see the image."""
+    """--kan_conv GRAMKAN with InstanceNorm serves the (1, 1) head of
+    train.py: its logits see the image (a fresh BatchNorm's running
+    statistics, 0 and 1, do not renormalize the trunk's shrinking signal,
+    so there the seeded logits are the bias up to rounding)."""
     args = build_parser().parse_args(
         ["--arch", "VGG16_kansmall", "--kan_conv", "GRAMKAN",
+         "--kan_norm_layer", "InstanceNorm2d",
          "--init_random", "--device", "cpu", "--buckets", "1,2"])
     engine, name = build_engine(args)
     try:

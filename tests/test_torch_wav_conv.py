@@ -26,6 +26,7 @@ from convkan_tpu_torch.ops import dropout as dlib
 from convkan_tpu_torch.serve import build_engine, build_parser
 from convkan_tpu_torch.train import loop, state
 from convkan_tpu_torch.utils.from_jax import vggkan_state_dict_from_jax
+from convkan_tpu_torch.utils.norms import InstanceNorm
 
 torch.set_num_threads(1)
 
@@ -74,6 +75,7 @@ def test_module_matches_jax_f64(wavelet_type):
         jnp.asarray(x), params)
 
     tm = WavKANConvND(C, O, 3, padding=1, wavelet_type=wavelet_type,
+                      norm_layer=InstanceNorm,
                       device="cpu", dtype=torch.float64)
     tm.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()},
                        strict=True)
@@ -113,6 +115,7 @@ def test_input_site_dropout_leaves_base_path_undropped():
     with the base path zeroed, train mode equals the wavelet path on the
     masked input."""
     conv = WavKANConvND(8, 6, 3, padding=1, dropout=0.5, device="cpu",
+                        norm_layer=InstanceNorm,
                         generator=torch.Generator().manual_seed(0))
     x = torch.randn(3, 5, 5, 8, generator=torch.Generator().manual_seed(1))
     gen = lambda: torch.Generator().manual_seed(2)  # noqa: E731

@@ -14,7 +14,11 @@ and first batch, the first train step's gradients in float32 against
 float64 (max |diff| over each parameter's largest entry, the worst three)
 with each KAN conv's output multiplied by 1 + delta * N(0, 1): how much a
 relative perturbation of the size of float32 sums taken in another order
-(the GPU's kernels) moves them.  Needs no card.
+(the GPU's kernels) moves them.  ``--steps 3`` reads the three train steps
+of ``chip_smoke.py``'s lockstep phases instead (each from the float32
+run's state before it), ``--batch`` sets their batch and
+``--kan_norm_layer BatchNorm2d`` builds train.py's norm (phase 26).  Needs
+no card.
 """
 
 from __future__ import annotations
@@ -42,10 +46,15 @@ def main():
                    choices=["KAN", "ChebyKAN", "GRAMKAN", "WavKAN"])
     p.add_argument("--seeds", type=int, default=5)
     p.add_argument("--threads", type=int, default=8)
+    p.add_argument("--kan_norm_layer", default="InstanceNorm2d",
+                   choices=["InstanceNorm2d", "BatchNorm2d"])
+    p.add_argument("--batch", type=int, default=cs.TRAIN_BATCH)
+    p.add_argument("--steps", type=int, default=1)
     args = p.parse_args()
     torch.set_num_threads(args.threads)
     kw = {} if args.kan_conv in ("KAN", "GRAMKAN") else \
         {"expected_feature_shape": (2, 2)}
+    kw["kan_norm_layer"] = args.kan_norm_layer
     imgs = np.random.RandomState(0).randint(0, 256, (64, 32, 32, 3),
                                             np.uint8)
     x = normalize_batch(torch.from_numpy(imgs), "CIFAR10")
@@ -65,9 +74,14 @@ def main():
               flush=True)
     if args.kan_conv == "WavKAN":
         return
-    batch = cs.train_batches()[:1]
+    cs.TRAIN_BATCH = args.batch
+    batch = cs.train_batches()[:args.steps]
+    steps = range(args.steps)
     base = cs.train_model(args.kan_conv, **kw)
-    _, g64, _ = cs.train_run(copy.deepcopy(base).double(), "cpu", batch)
+    _, _, snaps = cs.train_run(copy.deepcopy(base), "cpu", batch)
+    starts = snaps[:-1]
+    _, g64, _ = cs.train_run(copy.deepcopy(base).double(), "cpu", batch,
+                             starts)
     conv = nk.kan_conv2d
     try:
         for delta in (0.0, 1e-7, 1e-6, 1e-5):
@@ -79,12 +93,16 @@ def main():
                                                     dtype=y.dtype))
 
             nk.kan_conv2d = noisy
-            _, g32, _ = cs.train_run(copy.deepcopy(base), "cpu", batch)
-            worst = cs.grad_readings(g32, g64, range(1))[:3]
-            print(f"{args.kan_conv} train model, first step, conv outputs x "
-                  f"(1 + {delta:g} N(0, 1)): gradients vs float64 "
-                  + ", ".join(f"{n} {e:.3e}" for e, _, n in worst),
-                  flush=True)
+            _, g32, _ = cs.train_run(copy.deepcopy(base), "cpu", batch,
+                                     starts)
+            worst = cs.grad_readings(g32, g64, steps)[:3]
+            span = "first step" if args.steps == 1 else \
+                f"{args.steps} steps"
+            print(f"{args.kan_conv} {args.kan_norm_layer} train model, batch "
+                  f"{args.batch}, {span},"
+                  f" conv outputs x (1 + {delta:g} N(0, 1)): gradients vs "
+                  f"float64 " + ", ".join(f"{n} step {i} {e:.3e}"
+                                          for e, i, n in worst), flush=True)
     finally:
         nk.kan_conv2d = conv
 
