@@ -1,8 +1,10 @@
 """GPU smoke test of convkan_tpu_torch: serves and trains KAN-VGG16_small,
 with B-spline KAN convs, with WavKAN convs, with ChebyKAN convs and with
 GRAMKAN convs, then the B-spline model as train.py builds it (BatchNorm2d,
-also served with its norms folded), and trains BASELINE config 4's WavKAN
-stack at batch 2048, on one CUDA card through the hand-written kernels and
+also served with its norms folded), trains BASELINE config 4's WavKAN
+stack at batch 2048, and serves and trains KAN-MobileNetV3-small at
+224 x 224 (config 5's single-chip model) with FastKAN, B-spline (hardswish)
+and ChebyKAN convs, on one CUDA card through the hand-written kernels and
 checks every step.
 
     python3 chip_smoke.py
@@ -49,7 +51,9 @@ Phases (the first failed check exits non-zero):
      on the CPU from one state_dict with the same crop offsets, flips and
      dropout masks; losses and parameter updates are compared, the GPU's
      first-step gradients against the same step in float64 on the CPU
-     (GRAD_TOL), every KAN conv's poly_w gradient must be non-zero, and
+     (GRAD_TOL), every KAN conv's poly_w gradient must be non-zero, a
+     control (the readings of a step that did not update, and of a zero
+     gradient) must fail those checks (so in every train phase), and
      the counts read: per step 13
      forward, 12 data-gradient (the first conv's input is the image), 13
      weight-gradient and 13 reduction launches;
@@ -216,6 +220,40 @@ max-pools, average pool, Linear 100; CIFAR-100 at batch 2048):
      warm-up steps, peak memory; its 15 steps' launches asserted) and, per
      shape at batch 2048, each WavKAN kernel as phase 14 times them (entries
      named with CONFIG4_SUFFIX).
+KAN-MobileNetV3-small, path C (train.py --model MobileNetV3KAN --arch
+small --imagenet_preprocessing; width 1.0, 224 x 224, 10 classes; its 22
+1x1 KAN convs on the kernels, the strided stem on the plain route;
+FastKAN's 23 convs all on the plain route):
+ 31. the kernels at its 17 distinct 1x1 shapes (k = 1, pad 0, batch 64),
+     B-spline with hardswish and Chebyshev: forward against the plain
+     version (TOL), the backward kernels and the autograd path against
+     float64 (BWD_TOL), the reductions bit-exact; x scaled to +-4 with the
+     knots and the hardswish kinks -3, 3 among its values once;
+ 32. the KAN, ChebyKAN and FastKAN models seeded on the CPU, their curved
+     basis terms scaled to MNV3_CURVE (float32 is badly conditioned at the
+     init: see MNV3_CURVE) and their running statistics set to a batch's,
+     moved to the card: eval logits at batch 4 against the CPU (MODEL_TOL)
+     and not the same for every image, 22 forward launches and 1
+     plain-route conv per forward (FastKAN: 0 and 23);
+ 33. serving, the main path, with FastKAN and KAN convs: the serving
+     CLI's engine with a state made as phase 32's behind the HTTP server (3
+     single-image requests and one of 4 images of 224 x 224 uint8) against
+     predict and the CPU (MODEL_TOL) with its launches counted, and the
+     same argv as ``python -m convkan_tpu_torch.serve`` in a process of
+     its own against predict of the same seeded weights;
+ 34. training, the main path: three train steps per family (imagenet=True,
+     augment=False, AdamW with steps_per_epoch 100; curved terms at
+     MNV3_CURVE) in lockstep GPU vs CPU at batch 8, as phase 26 holds them
+     (losses, gradients against float64 within GRAD_TOL or F32_SPREAD x
+     float32's spread, updates, running statistics, the control), 22
+     launches of each kernel and 1 plain route per step;
+ 35. times: bench.py's config-5 train step at batch 512 (median of 12
+     after 3 warm-up steps, host readback; peak memory; the 15 steps'
+     launches) and predict at batch 512, per family; each KAN-conv kernel
+     per 1x1 shape at batch 512 (entries named with MNV3_SUFFIX) against
+     its bound (pixels x the rows of E non-zero at x, or bytes), its plain
+     version and cuDNN over a materialized basis; the step's time outside
+     the kernels.
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
 a sleep kernel holds the card until the host has issued all timed calls);
 a kernel's timing that the host held back fails, any other is listed
@@ -382,6 +420,43 @@ CONFIG4_BATCH, CONFIG4_CHECK_BATCH, CONFIG4_CLASSES = 2048, 64, 100
 # this many images
 CONFIG4_CHUNK = 256
 CONFIG4_SUFFIX = "[config4]"
+# Path C: KAN-MobileNetV3-small, BASELINE config 5's single-chip model
+# (bench.py:439-495), width 1.0, 224 x 224, 10 classes: (H, C, O) of its 22
+# 1x1 stride-1 KAN convs in order (the strided 3x3 stem, 3 -> 16, takes the
+# plain route).  The KAN (hardswish base path) and ChebyKAN models run them
+# on the KAN-conv kernels; FastKAN, config 5's own family, which no kernel
+# carries (its input norm's statistics must leave out the pad), runs every
+# conv on the plain route, as the JAX package runs it on XLA.
+MNV3_CONVS = [(56, 16, 16), (56, 16, 72), (28, 72, 24), (28, 24, 88),
+              (28, 88, 24), (28, 24, 96), (14, 96, 40), (14, 40, 240),
+              (14, 240, 40), (14, 40, 240), (14, 240, 40), (14, 40, 120),
+              (14, 120, 48), (14, 48, 144), (14, 144, 48), (14, 48, 288),
+              (7, 288, 96), (7, 96, 576), (7, 576, 96), (7, 96, 576),
+              (7, 576, 96), (7, 96, 576)]
+MNV3_FAMILIES = ("KAN", "ChebyKAN", "FastKAN")
+# kernel checks, model logits, lockstep train steps (the CPU's float32 and
+# float64 steps at 224 x 224), and bench.py's timed batch
+MNV3_CHECK_BATCH, MNV3_MODEL_BATCH, MNV3_TRAIN_BATCH, MNV3_TIME_BATCH = \
+    64, 4, 8, 512
+# At the seeded init, MobileNetV3-small's train-mode forward is badly
+# conditioned: each KAN conv's curved basis terms (the RBF of FastKAN, the
+# B-spline's, the Chebyshev degrees >= 2) magnify a relative error of their
+# input about 2x, each conv's BatchNorm up to 2x more, so float32 rounding
+# grows along the 23 convs.  On the CPU alone (tools/f32_spread.py
+# --model MobileNetV3KAN --curve 1), float32 lies from float64 by 4.4e-3
+# of FastKAN's loss, 3.3 of a gradient's largest entry and 9.4e-2 of a
+# running statistic (ChebyKAN: 3.1e-5, 0.15, 4.4e-3; KAN: 1.2e-6, 0.50,
+# 3.1e-5).  With those terms at MNV3_CURVE of their init (--curve 0.1; the
+# base path and Chebyshev's T_0, T_1 unchanged) the same readings are
+# 7.6e-9, 3.7e-3, 6.3e-6 (ChebyKAN 2.6e-7, 8.8e-5, 1.4e-4; KAN 3.2e-9,
+# 0.086 (a PReLU slope, as phase 26), 2.5e-6).  So phases 32-34 start from
+# that state (``mnv3_smooth``), where the fixed tolerances can tell a fault
+# from rounding; phases 32 and 33 also set every running statistic to a
+# batch's (``mnv3_calibrate``): with the init's (0 and 1) the eval-mode
+# logits hardly depend on the image.
+MNV3_CURVE = 0.1
+# the path's entries of the kernels line end so
+MNV3_SUFFIX = {"hardswish": "[mnv3 hardswish]", "cheby3": "[mnv3 cheby3]"}
 
 
 # readings that cuda_ms could not hold to device time: kernel name -> fields
@@ -797,18 +872,21 @@ def _snapshot(model, state):
             copy.deepcopy(state.optimizer.state_dict()))
 
 
-def train_run(model, device, batches, starts=None, make_step=None):
+def train_run(model, device, batches, starts=None, make_step=None,
+              steps_per_epoch=2):
     """The train steps of ``batches`` on ``device``; with ``starts``, step i
     starts from the parameters, buffers (BatchNorm's running statistics) and
     optimizer state starts[i].  ``make_step``: the model's step (default:
-    the CIFAR-10 ``make_train_step``).  Returns the losses, each step's
+    the CIFAR-10 ``make_train_step``); AdamW's schedule decays once every
+    ``steps_per_epoch`` steps.  Returns the losses, each step's
     gradients (on the CPU) and the snapshots before the first step and
     after each."""
     from convkan_tpu_torch.train.loop import make_train_step
     from convkan_tpu_torch.train.state import create_train_state
     # a CPU generator on both sides: the same dropout masks (the GPU run
     # copies each mask to the card)
-    state = create_train_state(model, 1e-3, 1e-3, 0.8, steps_per_epoch=2,
+    state = create_train_state(model, 1e-3, 1e-3, 0.8,
+                               steps_per_epoch=steps_per_epoch,
                                generator=torch.Generator().manual_seed(7))
     step = make_step(model) if make_step else \
         make_train_step(model, "CIFAR10", augment=True)
@@ -825,15 +903,17 @@ def train_run(model, device, batches, starts=None, make_step=None):
     return losses, grads, ends
 
 
-def f32_spread(model_cpu, batches, starts, steps, make_step, refs):
+def f32_spread(model_cpu, batches, starts, steps, make_step, refs,
+               steps_per_epoch=2):
     """{(step, parameter): max over F32_NOISE_SEEDS of max |g - ref| / max
     |ref|} of CPU float32 steps from ``starts`` with every KAN and WavKAN
-    conv output multiplied by 1 + F32_NOISE N(0, 1): how far float32 sums
-    in another order lie from float64 (``refs``) at those states."""
+    conv output (either route of a KAN conv) multiplied by 1 + F32_NOISE
+    N(0, 1): how far float32 sums in another order lie from float64
+    (``refs``) at those states."""
     from convkan_tpu_torch.nn import kan_conv as nk
     from convkan_tpu_torch.nn import wav_conv as nw
 
-    sites = {nk: "kan_conv2d", nw: "wav_conv2d"}
+    sites = {nk: "kan_conv2d", nw: "wav_conv2d", nk.KanConvND: "_plain_conv"}
     plain = {m: getattr(m, n) for m, n in sites.items()}
     spread: dict = {}
     try:
@@ -847,13 +927,33 @@ def f32_spread(model_cpu, batches, starts, steps, make_step, refs):
                 setattr(m, n, noisy)
             _, grads, _ = train_run(copy.deepcopy(model_cpu), "cpu",
                                     batches[:len(steps)],
-                                    starts[:len(steps)], make_step)
+                                    starts[:len(steps)], make_step,
+                                    steps_per_epoch)
             for e, i, n in grad_readings(grads, refs, steps):
                 spread[(i, n)] = max(spread.get((i, n), 0.0), e)
     finally:
         for m, n in sites.items():
             setattr(m, n, plain[m])
     return spread
+
+
+def update_readings(begin, got, want, params):
+    """(relative L2 distance of the update begin -> got from begin ->
+    want over ``params``, max |got - want| over them, and the worst
+    (max |diff| / max |want|, buffer) over the other entries: BatchNorm's
+    running statistics; None without buffers)."""
+    num = den = worst = 0.0
+    stats = None
+    for name, t in got.items():
+        if name not in params:
+            e = ((t - want[name]).abs().max() / want[name].abs().max()).item()
+            stats = max(stats, (e, name)) if stats else (e, name)
+            continue
+        moved = want[name] - begin[name]
+        num += ((t - begin[name]) - moved).square().sum().item()
+        den += moved.square().sum().item()
+        worst = max(worst, (t - want[name]).abs().max().item())
+    return (num / den) ** 0.5, worst, stats
 
 
 def grad_readings(grads, refs, steps):
@@ -866,7 +966,7 @@ def grad_readings(grads, refs, steps):
 
 def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
                   build=None, batches=None, make_step=None, f32_floor=False,
-                  **model_kw):
+                  steps_per_epoch=2, **model_kw):
     """The train phases' runs and readings.  Three train steps of the
     seeded VGG16_small on the GPU and on the CPU (float32) with the same
     batches, crops, flips and dropout masks, and the compared steps in
@@ -877,21 +977,26 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
     deterministic) or, with ``gpu_starts``, the CPU's from the GPU's; else
     each side runs its own steps and the first is compared.  Float64
     starts each step where the GPU did.  Returns the losses, the GPU
-    steps' launch counts (``mod``), the gradient readings of the GPU
+    steps' launch counts (``mod``; with its plain-route count where that is
+    not 0), the gradient readings of the GPU
     against float64, the CPU against float64 and the GPU against the CPU,
     each (max |diff| / max |reference|, step, parameter) at its worst,
     the updates' relative L2 distance and max |diff| (GPU vs CPU) of the
     parameters, the buffers' (BatchNorm's running statistics) reading (max
     |GPU - CPU| / max |CPU| after each compared step, with its step and
-    buffer; None without buffers), the GPU's gradients and the GPU model.
-    ``build``, ``batches`` and ``make_step`` replace the seeded VGG16_small,
-    ``train_batches()`` and the CIFAR-10 step; with ``f32_floor`` also the
+    buffer; None without buffers), the same two readings of a control (the
+    start of each compared update in place of the GPU's end: a step that
+    neither updated nor moved a statistic), the GPU's gradients and the GPU
+    model.  ``build``, ``batches`` and ``make_step`` replace the seeded
+    VGG16_small, ``train_batches()`` and the CIFAR-10 step
+    (``steps_per_epoch``: AdamW's schedule); with ``f32_floor`` also the
     float32 spread at the compared starts (``f32_spread``, under
     "spread"), else None."""
     model_cpu = build() if build else train_model(kan_conv, **model_kw)
     model_gpu = copy.deepcopy(model_cpu).to(dev)
     batches = batches or train_batches()
-    run = functools.partial(train_run, make_step=make_step)
+    run = functools.partial(train_run, make_step=make_step,
+                            steps_per_epoch=steps_per_epoch)
     steps = range(TRAIN_STEPS) if lockstep else range(1)
     cpu_first = lockstep and not gpu_starts
     if cpu_first:
@@ -901,6 +1006,8 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
         model_gpu, dev, batches, snaps_cpu[:-1] if cpu_first else None)
     torch.cuda.synchronize()
     counts = dict(mod.launches)
+    counts.update({k: v for k, v in getattr(mod, "plain_calls", {}).items()
+                   if v})
     if not cpu_first:
         losses_cpu, grads_cpu, snaps_cpu = run(
             model_cpu, "cpu", batches, snaps_gpu[:-1] if lockstep else None)
@@ -909,7 +1016,7 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
     _, grads_64, _ = run(copy.deepcopy(model_cpu).double(), "cpu",
                          batches[:len(steps)], starts[:len(steps)])
     spread = f32_spread(model_cpu, batches, starts, steps, make_step,
-                        grads_64) if f32_floor else None
+                        grads_64, steps_per_epoch) if f32_floor else None
     # (start, GPU end, CPU end) of each compared update
     spans = [(starts[i][0], snaps_gpu[i + 1][0], snaps_cpu[i + 1][0], i)
              for i in steps] if lockstep else \
@@ -917,20 +1024,18 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
           TRAIN_STEPS - 1)]
     params = {n for n, _ in model_cpu.named_parameters()}
     rel = worst = 0.0
-    stats = None
+    stats = control = None
     for begin, got, want, i in spans:
-        num = den = 0.0
-        for name, t in got.items():
-            if name not in params:   # a buffer: BatchNorm's statistics
-                e = ((t - want[name]).abs().max()
-                     / want[name].abs().max()).item()
-                stats = max(stats, (e, i, name)) if stats else (e, i, name)
-                continue
-            moved = want[name] - begin[name]
-            num += ((t - begin[name]) - moved).square().sum().item()
-            den += moved.square().sum().item()
-            worst = max(worst, (t - want[name]).abs().max().item())
-        rel = max(rel, (num / den) ** 0.5)
+        r_i, w_i, s_i = update_readings(begin, got, want, params)
+        rel, worst = max(rel, r_i), max(worst, w_i)
+        if s_i is not None:
+            stats = max(stats, (s_i[0], i, s_i[1])) if stats else \
+                (s_i[0], i, s_i[1])
+        r_0, _, s_0 = update_readings(begin, begin, want, params)
+        c_i = (r_0, None if s_0 is None else s_0[0])
+        control = c_i if control is None else \
+            (min(control[0], c_i[0]), None if c_i[1] is None
+             else min(control[1], c_i[1]))
     return {"losses_gpu": losses_gpu, "losses_cpu": losses_cpu,
             "counts": counts,
             "gpu_vs_f64": grad_readings(grads_gpu, grads_64, steps)[0],
@@ -939,6 +1044,7 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
             "cpu_vs_f64": grad_readings(grads_cpu, grads_64, steps)[0],
             "gpu_vs_cpu": grad_readings(grads_gpu, grads_cpu, steps)[0],
             "update_rel": rel, "update_worst": worst, "stats": stats,
+            "control": control,
             "grads_gpu": grads_gpu, "grads_64": grads_64,
             "model_gpu": model_gpu}
 
@@ -946,12 +1052,14 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
 def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
                 zero_entries=(), n_convs=13,
                 label=f"VGG16_small batch {TRAIN_BATCH}", **kw):
-    """7 / 13 / 18 / 23 / 26 / 29. the training main path, by
+    """7 / 13 / 18 / 23 / 26 / 29 / 34. the training main path, by
     ``train_compare`` (``kw``: its model, batches and step, or the model's
     keywords): the losses (LOSS_RTOL), the GPU's gradients against float64
     (GRAD_TOL), the updates (UPDATE_TOL) and, with BatchNorm, the running
-    statistics after each compared step (STATS_TOL); each of the
-    ``n_convs`` convs' ``grad_params`` must get a non-zero gradient, each
+    statistics after each compared step (STATS_TOL); a step that did not
+    update (and moved no statistic), or a zero gradient, must fail those
+    checks (the control); each of the model's ``n_convs`` KAN or WavKAN
+    convs' ``grad_params`` must get a non-zero gradient, each
     (parameter, index) of ``zero_entries`` an exactly zero one (with its
     parameter's reading printed), and ``mod``'s launch counts must be
     ``want_counts`` per step.  Returns the launch counts of the GPU steps
@@ -977,6 +1085,8 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
           f"{'of each step' if lockstep else f'over {TRAIN_STEPS} steps'} "
           f"differ by {rel:.3e} in relative L2 (max |diff| {worst:.3e})",
           flush=True)
+    # a zero gradient reads 1 against any reference
+    grad_limit = GRAD_TOL
     if r["spread"] is None:
         check(worst_g <= GRAD_TOL, "GPU gradients differ from float64")
     else:
@@ -986,6 +1096,7 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
         over = [(e, i, n, spread[(i, n)]) for e, i, n in r["gpu_readings"]
                 if e > GRAD_TOL]
         top = max(spread.items(), key=lambda kv: kv[1])
+        grad_limit = max(GRAD_TOL, F32_SPREAD * top[1])
         print(f"[train] float32 spread at the same starts (conv outputs x "
               f"(1 + {F32_NOISE:g} N(0, 1)), seeds {F32_NOISE_SEEDS}): max "
               f"{top[1]:.3e} (step {top[0][0]}, {top[0][1]}); GPU readings "
@@ -1004,8 +1115,16 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
               f"{name})", flush=True)
         check(e <= STATS_TOL, "running statistics differ between GPU and "
                               "CPU")
-    convs = [(n, m) for n, m in r["model_gpu"].named_children()
-             if n.startswith(("KanConvND", "WavKANConvND"))]
+    c_upd, c_stats = r["control"]
+    print(f"[train] control, a step that did nothing: update {c_upd:.3e} "
+          f"(UPDATE_TOL {UPDATE_TOL}), running statistics "
+          + ("-" if c_stats is None else
+             f"{c_stats:.3e} (STATS_TOL {STATS_TOL})")
+          + f"; a zero gradient 1 (limit {grad_limit:.3e})", flush=True)
+    check(c_upd > UPDATE_TOL and (c_stats is None or c_stats > STATS_TOL)
+          and grad_limit < 1, "the control passes the checks")
+    convs = [(n, m) for n, m in r["model_gpu"].named_modules()
+             if type(m).__name__ in ("KanConvND", "WavKANConvND")]
     check(len(convs) == n_convs, f"{len(convs)} convs in the model")
     for name, m in convs:
         for pn in grad_params:
@@ -2305,6 +2424,503 @@ def time_config4_step(wc, dev, card):
     return ips, counts
 
 
+# ------------------------------------------- KAN-MobileNetV3: path C
+def mnv3_model(kan_conv, device="cpu", seed=21, bench=False):
+    """MobileNetV3-small at width 1.0, 10 classes, seeded: as train.py
+    builds it (--model MobileNetV3KAN --arch small
+    --imagenet_preprocessing: BatchNorm2d without affine, head dropout
+    0.5), or with ``bench`` as bench.py's config 5 (affine BatchNorm, head
+    dropout 0.2)."""
+    from convkan_tpu_torch.models.mobilenetv3 import mobilenet_v3_kan
+
+    kw = {} if bench else dict(dropout=0.5, norm_layer="BatchNorm2d",
+                               kan_norm_layer="BatchNorm2d", affine=False)
+    return mobilenet_v3_kan("small", num_classes=10, kan_conv=kan_conv,
+                            generator=torch.Generator().manual_seed(seed),
+                            device=device, **kw)
+
+
+def mnv3_smooth(model, curve=MNV3_CURVE):
+    """``model`` with each KAN conv's curved basis terms scaled by
+    ``curve``: all of poly_w for the B-spline and RBF families (their base
+    path stays), the Chebyshev rows of degree >= 2 (T_0 and T_1 stay)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if type(m).__name__ != "KanConvND":
+                continue
+            w = m.poly_w
+            if m.family == "cheby":   # rows c * K + degree
+                w.view(*w.shape[:2], -1, m.num_basis, w.shape[-1])[
+                    ..., 2:, :] *= curve
+            else:
+                w.mul_(curve)
+    return model
+
+
+def mnv3_calibrate(model, x):
+    """Set every BatchNorm's running statistics to those of one train-mode
+    forward of ``x`` (momentum 1 for it; the head's dropout draws from a
+    seeded generator) and return the model in eval mode."""
+    from convkan_tpu_torch.utils.norms import BatchNorm
+
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    momenta = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 1.0
+    with torch.no_grad():
+        model.train()(x, torch.Generator().manual_seed(0))
+    for m, mom in zip(norms, momenta):
+        m.momentum = mom
+    return model.eval()
+
+
+def mnv3_bases(kc) -> dict:
+    """The two bases path C's kernels run: MobileNetV3's B-spline (grid 5,
+    order 3) with its hardswish base path, and Chebyshev of degree 3."""
+    from convkan_tpu_torch.basis.bspline import make_bspline_grid
+
+    knots = tuple(float(v) for v in make_bspline_grid(5, 3))
+    return {"hardswish": kc.bspline_basis(knots, 3, "hardswish"),
+            "cheby3": kc.cheby_basis(3)}
+
+
+def mnv3_want(kan_conv):
+    """Launches per forward (and per backward kernel per train step) and
+    plain-route convs per forward of the MobileNetV3-small: the 22 1x1
+    convs on the kernels and the strided stem on the plain route, or (for
+    FastKAN, which no kernel carries) all 23 on the plain route."""
+    n = 0 if kan_conv == "FastKAN" else len(MNV3_CONVS)
+    return n, len(MNV3_CONVS) + 1 - n
+
+
+def mnv3_images(n, seed):
+    """Seeded 224 x 224 uint8 images (as bench.py's config 5 feeds)."""
+    return np.random.RandomState(seed).randint(0, 256, (n, 224, 224, 3),
+                                               np.uint8)
+
+
+def phase_mnv3_kernels(kc, gen, dev):
+    """31. the KAN-conv kernels at every 1x1 shape of MobileNetV3-small
+    (k = 1, pad 0, batch MNV3_CHECK_BATCH) for the B-spline with hardswish
+    and for Chebyshev: the forward against the plain version (TOL), the
+    backward kernels by ``backward_case`` (data gradient, weight-gradient
+    partials and the autograd path against float64, BWD_TOL; the reduction
+    bit-exact in the kernel's order); and one case of x scaled to +-4 with
+    the knots and -3, 3 among its values.  Returns max |err| per kernel and
+    basis."""
+    from convkan_tpu_torch.basis.bspline import make_bspline_grid
+
+    knots = tuple(float(v) for v in make_bspline_grid(5, 3))
+    errs = {}
+    for tag, basis in mnv3_bases(kc).items():
+        err = {"kan_conv2d_fwd": 0.0, "kan_conv2d_bwd_dx": 0.0,
+               "kan_conv2d_bwd_dw": 0.0, "kan_conv2d_bwd_dw_reduce": 0.0}
+        cases = [(MNV3_CHECK_BATCH, H, C, O, 1.0)
+                 for H, C, O in dict.fromkeys(MNV3_CONVS)]
+        cases.append((16, 14, 48, 144, 4.0))
+        for B, H, C, O, scale in cases:
+            x, bw, pw = conv_inputs(gen, B, H, C, O, scale, k=1, basis=basis)
+            if scale > 1:   # exact knots and the hardswish kinks occur
+                x.view(-1)[:len(knots) + 2] = torch.tensor(knots + (-3.0,
+                                                                    3.0))
+            g = torch.randn(B, H, H, O, generator=gen)
+            x, pw, g = x.to(dev), pw.to(dev), g.to(dev)
+            bw = None if bw is None else bw.to(dev)
+            y = kc.kan_conv2d(x, bw, pw, basis, 1, 0)
+            ref = kc.kan_conv2d_reference(x, bw, pw, basis, 1, 0)
+            e = (y - ref).abs().max().item()
+            ok = torch.allclose(y, ref, rtol=TOL, atol=TOL)
+            cfg = kc.launch_config(B, H, H, C, O, 1, 0, basis.R)
+            print(f"[mnv3 kernel] {tag} B={B} {H}x{H} C={C} O={O} k=1 "
+                  f"x*{scale} (BN {cfg['BN']}, CC {cfg['CC']}, S {cfg['S']}, "
+                  f"{cfg['blocks']} blocks): forward max|err| {e:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(bool(torch.isfinite(y).all()) and ok,
+                  f"kernel disagrees with the plain version ({tag} B={B} "
+                  f"H={H} C={C} O={O})")
+            err["kan_conv2d_fwd"] = max(err["kan_conv2d_fwd"], e)
+            case, _, _, _ = backward_case(kc, basis, x, bw, pw, g, 1, 0,
+                                          tag="[mnv3 backward]")
+            for name, e in case.items():
+                err[name] = max(err[name], e)
+        errs[tag] = err
+        print(f"[mnv3 kernel] {tag}: max |err| {json.dumps(err)}",
+              flush=True)
+    return errs
+
+
+def mnv3_prep(x_uint8, served=False):
+    """Path C's float batch of 224 x 224 uint8 images: ``imagenet_batch``
+    (the train and eval steps' form), or with ``served`` the serving
+    engine's (the dataset's normalization, no resize)."""
+    from convkan_tpu_torch.train.data import imagenet_batch, normalize_batch
+
+    x = torch.from_numpy(x_uint8)
+    return normalize_batch(x, "CIFAR10") if served else \
+        imagenet_batch(x, False, "CIFAR10")
+
+
+def mnv3_eval_model(kan_conv, served=False):
+    """Phases 32 and 33's model: ``mnv3_model`` smoothed (``mnv3_smooth``)
+    with its running statistics set by ``mnv3_calibrate`` from 8 seeded
+    images in the form ``mnv3_prep(served)`` gives, in eval mode on the
+    CPU."""
+    return mnv3_calibrate(mnv3_smooth(mnv3_model(kan_conv)),
+                          mnv3_prep(mnv3_images(8, 30), served))
+
+
+def phase_mnv3_model(kc, dev):
+    """32. the KAN, ChebyKAN and FastKAN MobileNetV3-small (``mnv3_eval_
+    model`` on the CPU, moved to the card): eval logits of MNV3_MODEL_BATCH
+    images (imagenet_batch) on the card against the CPU (MODEL_TOL) and not
+    the same for every image, the kernel launches and plain-route convs of
+    one forward."""
+    x = mnv3_prep(mnv3_images(MNV3_MODEL_BATCH, 31))
+    for fam in MNV3_FAMILIES:
+        cpu = mnv3_eval_model(fam)
+        gpu = copy.deepcopy(cpu).to(dev)
+        with torch.inference_mode():
+            kc.reset_launches()
+            got = gpu(x.to(dev)).cpu()
+            torch.cuda.synchronize()
+            counts = dict(kc.launches, **kc.plain_calls)
+            want = cpu(x)
+        n_fwd, n_plain = mnv3_want(fam)
+        err = (got - want).abs().max().item()
+        spread = (got - got[0]).abs().max().item()
+        print(f"[mnv3 model] {fam} MobileNetV3-small logits "
+              f"{tuple(got.shape)} GPU vs CPU max|err| {err:.3e} (spread "
+              f"over the images {spread:.3e}); one forward: {counts}",
+              flush=True)
+        check(bool(torch.isfinite(got).all()), "model logits not finite")
+        check(counts == {**dict.fromkeys(kc.KERNELS, 0),
+                         "kan_conv2d_fwd": n_fwd, kc.PLAIN: n_plain},
+              f"{fam}: expected {n_fwd} forward launches and {n_plain} "
+              f"plain-route convs, got {counts}")
+        check(torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL),
+              f"{fam} logits on the GPU disagree with the CPU")
+        check(spread > 1e-3, f"{fam}: the logits are the same for every "
+                             "image")
+
+
+def phase_mnv3_serve(kc, fam):
+    """33. serving, the main path: the CLI's engine (``build_engine`` of
+    the argv below, in this process) serving the state of ``mnv3_eval_
+    model(fam, served=True)`` (loaded with strict=True) behind the
+    HTTP server, launch counts zeroed first; 3 single-image requests and
+    one of 4 images; the answers against ``predict`` and against the CPU
+    model's eval logits (MODEL_TOL), not the same for every image, and the
+    counts read.  Then the same argv run as ``python -m
+    convkan_tpu_torch.serve`` in a process of its own (its seeded weights)
+    answers one request of 4 images, against the in-process engine's
+    ``predict`` of the same seeded weights (MODEL_TOL).  Returns the
+    forward launches of the HTTP run."""
+    from convkan_tpu_torch.serve import build_engine, build_parser, \
+        make_server
+
+    argv = ["--model", "MobileNetV3KAN", "--arch", "small",
+            "--imagenet_preprocessing", "--kan_conv", fam, "--init_random",
+            "--seed", "5", "--buckets", "1,4"]
+    imgs = mnv3_images(4, 33)
+    model = mnv3_eval_model(fam, served=True)
+    with torch.inference_mode():
+        want = model(mnv3_prep(imgs, served=True)).numpy()
+
+    def post(url, batch):
+        req = urllib.request.Request(
+            url + "/predict", data=json.dumps(
+                {"instances": batch.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return np.array(json.loads(r.read())["predictions"])
+
+    engine, name = build_engine(build_parser().parse_args(argv))
+    seeded = engine.predict(imgs)
+    engine.model.load_state_dict(model.state_dict(), strict=True)
+    kc.reset_launches()
+    before = engine.metrics()["device_batches"]
+    server = make_server(engine, name, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        single = np.concatenate([post(url, imgs[i:i + 1]) for i in range(3)])
+        four = post(url, imgs)
+        counts = dict(kc.launches, **kc.plain_calls)
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    direct = engine.predict(imgs)
+    engine.close()
+    e_http = max(float(np.abs(single - direct[:3]).max()),
+                 float(np.abs(four - direct).max()))
+    e_cpu = max(float(np.abs(single - want[:3]).max()),
+                float(np.abs(four - want).max()))
+    spread = float(np.abs(four - four[0]).max())
+    n_fwd, n_plain = mnv3_want(fam)
+    steps = metrics["device_batches"] - before
+    print(f"[mnv3 serve] {name}, calibrated state: 3 single-image requests "
+          f"and one of 4, max|err| vs predict {e_http:.3e}, vs the CPU "
+          f"{e_cpu:.3e} (spread over the images {spread:.3e}); {steps} "
+          f"forwards, counts {counts}", flush=True)
+    check(e_http <= MODEL_TOL, "served logits disagree with predict")
+    check(np.allclose(np.concatenate([single, four]),
+                      np.concatenate([want[:3], want]), rtol=MODEL_TOL,
+                      atol=MODEL_TOL),
+          "served logits disagree with the CPU's eval logits")
+    check(spread > 1e-3, "the served logits are the same for every image")
+    check(counts["kan_conv2d_fwd"] == n_fwd * steps and
+          counts[kc.PLAIN] == n_plain * steps and
+          sum(counts.values()) == (n_fwd + n_plain) * steps,
+          f"{counts} for {steps} forwards")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "convkan_tpu_torch.serve", *argv, "--port",
+         "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = ""
+        deadline = time.monotonic() + 600
+        while "serving " not in line:
+            line = proc.stdout.readline()
+            check(line != "" and time.monotonic() < deadline,
+                  f"the serving CLI stopped before serving: {line!r}")
+        cli_url = line.strip().rsplit(" on ", 1)[1]
+        e_cli = float(np.abs(post(cli_url, imgs) - seeded).max())
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    print(f"[mnv3 serve] python -m convkan_tpu_torch.serve {' '.join(argv)}:"
+          f" {line.strip()}; its 4-image answer vs predict of the same "
+          f"seeded weights max|err| {e_cli:.3e}", flush=True)
+    check(e_cli <= MODEL_TOL, "the serving CLI disagrees with predict")
+    return counts["kan_conv2d_fwd"]
+
+
+def mnv3_batches(B, steps=TRAIN_STEPS, seed=34):
+    """bench.py's config-5 data: 224 x 224 uint8 images, 10 classes (no
+    crops, no flips)."""
+    rng = np.random.RandomState(seed)
+    return [(torch.from_numpy(mnv3_images(B, seed + i)),
+             torch.from_numpy(rng.randint(0, 10, B).astype(np.int64)),
+             None, None) for i in range(steps)]
+
+
+def mnv3_step(model):
+    """The config-5 train step: imagenet=True, augment=False."""
+    from convkan_tpu_torch.train.loop import make_train_step
+    return make_train_step(model, "CIFAR10", augment=False, imagenet=True)
+
+
+def phase_mnv3_train(kc, dev, fam):
+    """34. training, the main path, three steps of MobileNetV3-small
+    (``mnv3_smooth`` of the seeded model) at batch MNV3_TRAIN_BATCH in
+    lockstep GPU vs CPU (``phase_train``, as phase 26 holds path A:
+    losses, gradients vs float64 within GRAD_TOL or F32_SPREAD x float32's
+    spread, updates, running statistics (FastKAN's input norms among
+    them), the control; every KAN conv's poly_w gets a gradient) with the
+    launches per step: 22 of each KAN-conv kernel and 1 plain route
+    (FastKAN: 23 plain routes)."""
+    n_fwd, n_plain = mnv3_want(fam)
+    want = {**dict.fromkeys(kc.KERNELS, n_fwd), kc.PLAIN: n_plain}
+    counts, _ = phase_train(
+        kc, dev, fam, want, ["poly_w"], lockstep=True, f32_floor=True,
+        n_convs=len(MNV3_CONVS) + 1,
+        label=f"MobileNetV3-small 224x224 batch {MNV3_TRAIN_BATCH}",
+        build=lambda: mnv3_smooth(mnv3_model(fam, seed=22)),
+        batches=mnv3_batches(MNV3_TRAIN_BATCH), make_step=mnv3_step,
+        steps_per_epoch=100)
+    return counts
+
+
+def time_mnv3(kc, fam, dev, card):
+    """35. bench.py's config-5 step (mobilenet_v3_kan("small", kan_conv=...)
+    defaults, AdamW with steps_per_epoch 100, imagenet=True, augment=False,
+    224 x 224 uint8 images) at batch MNV3_TIME_BATCH: median images/s of 12
+    steps after 3 warm-up steps, each ending in a host readback of the
+    loss, the peak device memory and the 15 steps' launches; then
+    ``predict`` at the same batch (median of 10), and the device times of
+    the ImageNet preprocessing and of the stem's forward and backward.  A
+    batch that does not fit in the card's memory is halved until one does,
+    and said so.  Returns (batch, step images/s, predict images/s,
+    launches, {"prep_ms", "stem_ms"})."""
+    from convkan_tpu_torch.serve import InferenceEngine
+    from convkan_tpu_torch.train.state import create_train_state
+
+    B = MNV3_TIME_BATCH
+    model = mnv3_model(fam, device=dev, seed=23, bench=True)
+    y = torch.from_numpy(np.random.RandomState(36).randint(0, 10, B)).to(dev)
+    while True:
+        try:
+            state = create_train_state(model, steps_per_epoch=100)
+            step = mnv3_step(model)
+            x = torch.from_numpy(mnv3_images(B, 35)).to(dev)
+            torch.cuda.reset_peak_memory_stats()
+            kc.reset_launches()
+            for _ in range(3):
+                step(state, x, y[:B]).item()
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"[mnv3 time] {fam}: batch {B} does not fit in the card's "
+                  f"memory without remat (peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
+                  "halving the batch", flush=True)
+            state = step = x = None
+            torch.cuda.empty_cache()
+            B //= 2
+    y = y[:B]
+    runs = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        step(state, x, y).item()
+        runs.append(B / (time.perf_counter() - t0))
+    counts = dict(kc.launches, **kc.plain_calls)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ips = statistics.median(runs)
+    n_fwd, n_plain = mnv3_want(fam)
+    check(counts == {**dict.fromkeys(kc.KERNELS, 15 * n_fwd),
+                     kc.PLAIN: 15 * n_plain},
+          f"{fam} config-5 step: {counts} in 15 steps")
+    model.eval()
+    engine = InferenceEngine(model, "CIFAR10", (224, 224, 3), buckets=(B,),
+                             device="cuda")
+    try:
+        xs = mnv3_images(B, 37)
+        pruns = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            engine.predict(xs)
+            pruns.append(B / (time.perf_counter() - t0))
+    finally:
+        engine.close()
+    pips = statistics.median(pruns)
+    # two parts of the step outside the kernels: the ImageNet preprocessing
+    # (resize to 256, centre crop) and the strided stem on the plain route
+    # (its basis materialized at 224 x 224), forward and backward
+    from convkan_tpu_torch.train.data import imagenet_batch
+
+    model.train()
+    xin = imagenet_batch(x, False, "CIFAR10")
+    gy = torch.randn_like(model.KanConvND_0(xin))
+    parts = {"prep_ms": cuda_ms(lambda: imagenet_batch(x, False, "CIFAR10"),
+                                iters=5, what=(f"mnv3 {fam}", "prep_ms")),
+             "stem_ms": cuda_ms(lambda: model.KanConvND_0(xin).backward(gy),
+                                iters=3, warmup=1,
+                                what=(f"mnv3 {fam}", "stem_ms"))}
+    print(f"[mnv3 time] {fam} MobileNetV3-small 224x224 train step batch {B}:"
+          f" median {ips:.1f} images/s ({1e3 * B / ips:.3f} ms) over 12 steps"
+          f" (min {min(runs):.1f}, max {max(runs):.1f}); peak memory "
+          f"{peak:.2f} GiB; predict batch {B}: median {pips:.1f} images/s "
+          f"(min {min(pruns):.1f}, max {max(pruns):.1f}); 15 steps' counts "
+          f"{counts}; imagenet_batch {parts['prep_ms']:.3f} ms, the stem's "
+          f"forward and backward (plain route) {parts['stem_ms']:.3f} ms "
+          f"(on {card})", flush=True)
+    del model, state, step, engine, x, y, xin, gy
+    torch.cuda.empty_cache()
+    return B, ips, pips, counts, parts
+
+
+def phase_mnv3_kernel_times(kc, tag, basis, rows_nz, gen, dev, card, B):
+    """35. each KAN-conv kernel at every 1x1 shape of MobileNetV3-small at
+    batch ``B`` (k = 1, pad 0, x U(-1, 1)): device time (``cuda_ms``), the
+    plain version, the library call over a materialized basis (cuDNN's
+    conv, its dE and dW; ``sum(0)`` on a cold L2 for the reduction) and
+    the bound: the pixels times the ``rows_nz`` rows of E non-zero at x
+    (a 1x1 conv has no pad pairs) at the FP32 peak, or the bytes each input
+    read once and each output written once at HBM rate, the larger.
+    Returns (per-kernel totals over the 22 convs of a train step, rows)."""
+    names = ("kan_conv2d_fwd", "kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
+             "kan_conv2d_bwd_dw_reduce")
+    suffix = MNV3_SUFFIX[tag]
+    totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
+                                "byte_ms"), 0.0) for n in names}
+    rows = []
+    K, R = basis.K, basis.R
+    spec = (basis, 1, 0)
+    for H, C, O in dict.fromkeys(MNV3_CONVS):
+        x, bw, pw = conv_inputs(gen, B, H, C, O, k=1, basis=basis)
+        g = torch.randn(B, H, H, O, generator=gen)
+        x, pw, g = x.to(dev), pw.to(dev), g.to(dev)
+        bw = None if bw is None else bw.to(dev)
+        w_all = kc.pack_w_all(bw, pw, C=C, K=K, k=1, O=O)
+        cfg = kc.dw_launch_config(B, H, H, C, O, 1, 0, R)
+        part = kc.weight_partials(x, g, *spec)
+        red = reduction_times("kan_conv2d_bwd_dw_reduce" + suffix,
+                              kc.reduce_partials, kc.reduce_reference, part)
+        E = kc.expand(x, basis).permute(0, 3, 1, 2).contiguous()
+        w = w_all.reshape(R * C, 1, 1, O).permute(3, 0, 1, 2).contiguous()
+        gn = g.permute(0, 3, 1, 2).contiguous()
+
+        def conv_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                gn, E, w, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+                mask)
+
+        ms = {
+            "kan_conv2d_fwd": (
+                cuda_ms(lambda: kc.kan_conv2d(x, bw, pw, *spec), iters=10),
+                cuda_ms(lambda: kc.kan_conv2d_reference(x, bw, pw, *spec),
+                        iters=2, warmup=1,
+                        what=("kan_conv2d_fwd" + suffix, "plain_ms")),
+                cuda_ms(lambda: torch.nn.functional.conv2d(E, w), iters=10,
+                        what=("kan_conv2d_fwd" + suffix, "library_ms"))),
+            "kan_conv2d_bwd_dx": (
+                cuda_ms(lambda: kc.input_grad(x, w_all, g, *spec), iters=10),
+                cuda_ms(lambda: kc.input_grad_reference(x, w_all, g, *spec),
+                        iters=2, warmup=1,
+                        what=("kan_conv2d_bwd_dx" + suffix, "plain_ms")),
+                cuda_ms(lambda: conv_bwd([True, False, False]), iters=10,
+                        what=("kan_conv2d_bwd_dx" + suffix, "library_ms"))),
+            "kan_conv2d_bwd_dw": (
+                cuda_ms(lambda: kc.weight_partials(x, g, *spec), iters=10),
+                cuda_ms(lambda: kc.weight_grad_reference(x, g, *spec),
+                        iters=2, warmup=1,
+                        what=("kan_conv2d_bwd_dw" + suffix, "plain_ms")),
+                cuda_ms(lambda: conv_bwd([False, True, False]), iters=10,
+                        what=("kan_conv2d_bwd_dw" + suffix, "library_ms"))),
+            "kan_conv2d_bwd_dw_reduce": (red["ms"], red["plain_ms"],
+                                         red["library_ms"]),
+        }
+        del E, gn
+        n = MNV3_CONVS.count((H, C, O))
+        D, S = R * C, cfg["S"]
+        flops = 2 * B * H * H * rows_nz * C * O
+        work = {
+            "kan_conv2d_fwd": (flops, 4 * (x.numel() + w_all.numel()
+                                           + B * H * H * O)),
+            "kan_conv2d_bwd_dx": (flops, 4 * (2 * x.numel() + w_all.numel()
+                                              + g.numel())),
+            "kan_conv2d_bwd_dw": (flops, 4 * (x.numel() + g.numel()
+                                              + S * D * O)),
+            "kan_conv2d_bwd_dw_reduce": reduce_work(S, D * O)}
+        row = {"H": H, "C": C, "O": O, "batch": B, "layers": n, "S": S}
+        for name in names:
+            op_ms = work[name][0] / PEAK_FP32_FLOPS * 1e3
+            byte_ms = work[name][1] / PEAK_BYTES * 1e3
+            k_ms, p_ms, l_ms = ms[name]
+            row[name] = {"ms": round(k_ms, 4), "plain_ms": round(p_ms, 4),
+                         "library_ms": round(l_ms, 4),
+                         "bound_ms": round(max(op_ms, byte_ms), 4),
+                         "bound_share": round(max(op_ms, byte_ms) / k_ms, 4)}
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                           ("library_ms", l_ms), ("op_ms", op_ms),
+                           ("byte_ms", byte_ms)):
+                totals[name][key] += n * v
+        rows.append(row)
+        print(f"[mnv3 time] {tag} {json.dumps(row)}", flush=True)
+    for name in names:
+        t = totals[name]
+        t["bound_ms"] = max(t["op_ms"], t["byte_ms"])
+        print(f"[mnv3 time] {tag} {name} per train step (22 convs) at batch "
+              f"{B}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+              f"library {t['library_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound (on "
+              f"{card})", flush=True)
+    return totals, rows
+
+
 def kernel_entry(name, source, replaces, launches, err, t, times_are,
                  shapes, **extra):
     """One kernel's entry of the {"kernels": [...]} line; ``launches`` per
@@ -2560,6 +3176,36 @@ def main():
           f"{CONFIG4_BATCH}: psi-conv kernels {c4_kernel_ms:.3f} ms (forward "
           f"{c4_totals['wav_conv2d_fwd']['ms']:.3f}), the rest "
           f"{c4_step_ms - c4_kernel_ms:.3f} ms (on {card})", flush=True)
+
+    # ------------------------------ KAN-MobileNetV3-small: path C
+    mnv3_err = phase_mnv3_kernels(kc, gen, dev)                      # 31
+    phase_mnv3_model(kc, dev)                                        # 32
+    mnv3_serve = {fam: phase_mnv3_serve(kc, fam)                     # 33
+                  for fam in ("FastKAN", "KAN")}
+    mnv3_train = {fam: phase_mnv3_train(kc, dev, fam)                # 34
+                  for fam in MNV3_FAMILIES}
+    mnv3_time = {fam: time_mnv3(kc, fam, dev, card)                  # 35
+                 for fam in MNV3_FAMILIES}
+    mnv3_batch = min(t[0] for t in mnv3_time.values())
+    mnv3_rows_nz = {"hardswish": SPAN_ROWS, "cheby3": CHEBY_ROWS}
+    mnv3_k = {tag: phase_mnv3_kernel_times(kc, tag, basis, mnv3_rows_nz[tag],
+                                           gen, dev, card, mnv3_batch)
+              for tag, basis in mnv3_bases(kc).items()}
+    for fam, tag in (("KAN", "hardswish"), ("ChebyKAN", "cheby3")):
+        B, ips, _, _, parts = mnv3_time[fam]
+        t = mnv3_k[tag][0]
+        step_ms = 1e3 * B / ips
+        k_ms = sum(v["ms"] for v in t.values())
+        print(f"[mnv3 time] {fam} train step {step_ms:.3f} ms at batch {B}: "
+              f"KAN-conv kernels {k_ms:.3f} ms (forward "
+              f"{t['kan_conv2d_fwd']['ms']:.3f}, dx "
+              f"{t['kan_conv2d_bwd_dx']['ms']:.3f}, dW "
+              f"{t['kan_conv2d_bwd_dw']['ms']:.3f}, reductions "
+              f"{t['kan_conv2d_bwd_dw_reduce']['ms']:.3f}; per-shape device "
+              f"times x layers at batch {mnv3_batch}), the rest "
+              f"{step_ms - k_ms:.3f} ms, of it the stem "
+              f"{parts['stem_ms']:.3f} and imagenet_batch "
+              f"{parts['prep_ms']:.3f} (on {card})", flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def kan_entries(suffix, fwd, shapes_, fwd_err, n_serve, counts, bwd_,
@@ -2658,6 +3304,28 @@ def main():
         if entry["name"] == "kan_conv2d_bwd_dx" + gsuffix:
             entry["dbeta_err_over_sum_abs_terms"] = gram_err["dbeta_rel"]
     kernels += gram_entries
+    for tag, fam in (("hardswish", "KAN"), ("cheby3", "ChebyKAN")):
+        totals_c, rows_c = mnv3_k[tag]
+        B, ips, pips, timed, _ = mnv3_time[fam]
+        for name in kc.KERNELS:
+            fwd = name == "kan_conv2d_fwd"
+            src = "convkan_tpu_torch/csrc/" + (kc.SOURCE if fwd else
+                                                kc.BWD_SOURCE)
+            red = name == "kan_conv2d_bwd_dw_reduce"
+            kernels.append(kernel_entry(
+                name + MNV3_SUFFIX[tag], RED_SOURCE if red else src,
+                REPLACES if fwd else BWD_REPLACES,
+                {"serve": mnv3_serve.get(fam, 0) if fwd else 0,
+                 "train": mnv3_train[fam][name],
+                 f"train_batch{B}": timed[name]},
+                mnv3_err[tag][name], totals_c[name],
+                f"sum over MobileNetV3-small's 22 1x1 convs of one train "
+                f"step at batch {mnv3_batch}",
+                [{k: r[k] for k in ("H", "C", "O", "S")} | r[name]
+                 for r in rows_c], train_images_per_s=round(ips, 1),
+                predict_images_per_s=round(pips, 1),
+                **({"also_replaces": ALSO_REPLACES} if fwd else {}),
+                **({"entry_source": src} if red else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,8 @@
 // Three policies:
 //   * BSpline<NK, ORDER, ACT>: E = [B_0(x) .. B_{K-1}(x), act(x)], the bases
 //     of basis/bspline.py's Cox-de Boor recurrence over NK knots at degree
-//     ORDER (K = NK - ORDER - 1) and the base path's SiLU (ACT 0) or GELU
-//     (ACT 1); R = K + 1; p = the knots.
+//     ORDER (K = NK - ORDER - 1) and the base path's SiLU (ACT 0), GELU
+//     (ACT 1) or hardswish (ACT 2); R = K + 1; p = the knots.
 //   * Cheby<DEG>: E = [T_0(t) .. T_DEG(t)], t = min(max(tanh x, lo), hi),
 //     by the recurrence T_n = 2t T_{n-1} - T_{n-2} of basis/poly.py's
 //     chebyshev_basis_recurrence_list; no base path; R = DEG + 1; p = {lo,
@@ -54,19 +54,36 @@ inline bool load_knots(const float* knots, int n_knots, Knots* kn) {
   return true;
 }
 
+// hardswish x * relu6(x + 3) / 6 in torch's order of operations (its CPU
+// kernel and jax.nn.hard_swish): a product, then an IEEE divide
+__host__ __device__ __forceinline__ float hardswish(float x) {
+  return x * fminf(fmaxf(x + 3.0f, 0.0f), 6.0f) / 6.0f;
+}
+
+// its derivative as torch's backward takes it: 0 at x <= -3, x/3 + 1/2 on
+// (-3, 3), 1 at x >= 3
+__host__ __device__ __forceinline__ float hardswish_grad(float x) {
+  if (x <= -3.0f) return 0.0f;
+  if (x < 3.0f) return x / 3.0f + 0.5f;
+  return 1.0f;
+}
+
 template <int ACT>
 __device__ __forceinline__ float base_act(float x) {
   if (ACT == 0) return x / (1.0f + expf(-x));                        // SiLU
+  if (ACT == 2) return hardswish(x);
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));      // GELU
 }
 
-// d act / dx: SiLU' = s (1 + x (1 - s)); GELU' (erf) = Phi(x) + x phi(x)
+// d act / dx: SiLU' = s (1 + x (1 - s)); GELU' (erf) = Phi(x) + x phi(x);
+// hardswish' of hardswish_grad
 template <int ACT>
 __device__ __forceinline__ float base_act_grad(float x) {
   if (ACT == 0) {
     const float s = 1.0f / (1.0f + expf(-x));
     return s * (1.0f + x * (1.0f - s));
   }
+  if (ACT == 2) return hardswish_grad(x);
   const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752440f));
   const float pdf = expf(-0.5f * x * x) * 0.39894228040143267794f;
   return cdf + x * pdf;
@@ -381,13 +398,15 @@ struct Gram {
 // carry.  Codes (kernels/kan_conv2d.py COMPILED): 0 and 1, the B-spline of
 // 12 knots (grid 5) at order 3 with SiLU and GELU; 2, Chebyshev of degree 3
 // (its two clamp bounds as the parameters); 3, Gram of degree 3 with SiLU
-// (no parameters; beta as the operand).
+// (no parameters; beta as the operand); 4, the B-spline of 0 and 1 with
+// hardswish.
 template <class F>
 cudaError_t with_basis(int code, int n_params, int order, F&& f) {
   if (code == 0 && n_params == 12 && order == 3) return f(BSpline<12, 3, 0>{});
   if (code == 1 && n_params == 12 && order == 3) return f(BSpline<12, 3, 1>{});
   if (code == 2 && n_params == 2 && order == 3) return f(Cheby<3>{});
   if (code == 3 && n_params == 0 && order == 3) return f(Gram<3, 0>{});
+  if (code == 4 && n_params == 12 && order == 3) return f(BSpline<12, 3, 2>{});
   return cudaErrorInvalidValue;
 }
 

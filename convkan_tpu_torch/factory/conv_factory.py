@@ -1,9 +1,10 @@
-"""CONV_KAN_FACTORY, port of the ``"KAN"``, ``"ChebyKAN"``, ``"GRAMKAN"``
-and ``"WavKAN"`` keys of ``convkan_tpu/factory/conv_factory.py``: the
-reference signatures with 'same' padding when ``padding`` is None.  Each
-function's ``norm_layer`` (a class or a registry name such as
-"BatchNorm2d") and ``**norm_kwargs`` reach the conv's output norm, as in
-the reference."""
+"""CONV_KAN_FACTORY, port of the ``"KAN"``, ``"FastKAN"``, ``"ChebyKAN"``,
+``"GRAMKAN"`` and ``"WavKAN"`` keys of
+``convkan_tpu/factory/conv_factory.py``: the reference signatures with
+'same' padding when ``padding`` is None; groups, stride and dilation reach
+the conv.  Each function's ``norm_layer`` (a class or a registry name such
+as "BatchNorm2d") and ``**norm_kwargs`` reach the conv's norm (FastKAN's
+per-group input norms), as in the reference."""
 
 from __future__ import annotations
 
@@ -40,6 +41,24 @@ def kan_conv(in_planes, out_planes, kernel_size, spline_order=3, groups=1,
         base_activation=base_activation, grid_range=tuple(grid_range),
         dropout=dropout, norm_layer=resolve_norm(norm_layer),
         norm_kwargs=norm_kwargs, generator=generator, device=device)
+
+
+def fastkan_conv(in_planes, out_planes, kernel_size, groups=1, stride=1,
+                 dilation=1, padding=None, grid_size=8,
+                 base_activation="silu", grid_range=(-2, 2), l1_decay=0.0,
+                 dropout=0.0, norm_layer=InstanceNorm, *, generator=None,
+                 device=None, **norm_kwargs):
+    """The reference's ``fastkan_conv`` builder (grid 8 over (-2, 2) by
+    default)."""
+    _no_l1(l1_decay)
+    return KanConvND(
+        family="fastkan", input_dim=in_planes, output_dim=out_planes,
+        kernel_size=kernel_size, ndim=2, stride=stride,
+        padding=_pad(padding, kernel_size, dilation), dilation=dilation,
+        groups=groups, grid_size=grid_size, base_activation=base_activation,
+        grid_range=tuple(grid_range), dropout=dropout,
+        norm_layer=resolve_norm(norm_layer), norm_kwargs=norm_kwargs,
+        generator=generator, device=device)
 
 
 def chebykan_conv(in_planes, out_planes, kernel_size, degree=3, groups=1,
@@ -95,6 +114,7 @@ def wavkan_conv(in_planes, out_planes, kernel_size, groups=1, stride=1,
 
 
 CONV_KAN_FACTORY: dict[str, Callable] = {"KAN": kan_conv,
+                                         "FastKAN": fastkan_conv,
                                          "GRAMKAN": gramkan_conv,
                                          "ChebyKAN": chebykan_conv,
                                          "WavKAN": wavkan_conv}

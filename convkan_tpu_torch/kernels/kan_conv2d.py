@@ -46,10 +46,11 @@ SOURCE = "kan_conv2d_fwd.cu"
 BWD_SOURCE = "kan_conv2d_bwd.cu"
 # the bases the kernels are compiled for (Basis.key), by the integer code
 # the C entries take: the B-spline of 12 knots at order 3 (grid 5) with a
-# SiLU or GELU base path, the Chebyshev polynomials of degree 3, and the
-# Gram polynomials of degree 3 with SiLU on every row
+# SiLU, GELU or hardswish base path, the Chebyshev polynomials of degree 3,
+# and the Gram polynomials of degree 3 with SiLU on every row
 COMPILED = {("bspline", 12, 3, "silu"): 0, ("bspline", 12, 3, "gelu"): 1,
-            ("cheby", 3): 2, ("gram", 3, "silu"): 3}
+            ("cheby", 3): 2, ("gram", 3, "silu"): 3,
+            ("bspline", 12, 3, "hardswish"): 4}
 THREADS, TM = 256, 8             # forward block: threads, pixels per thread
 WARPS = THREADS // 32
 MAX_CHUNK = 8                    # input channels expanded per pass
@@ -93,12 +94,23 @@ KERNELS = ("kan_conv2d_fwd", "kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
            "kan_conv2d_bwd_dw_reduce")
 _count_lock = threading.Lock()
 launches = dict.fromkeys(KERNELS, 0)   # launches per kernel since the reset
+# KAN convs that took the plain route (nn/kan_conv.py: the convs that the
+# JAX package hands to XLA) since the reset
+PLAIN = "kan_conv_plain_route"
+plain_calls = {PLAIN: 0}
 
 
 def reset_launches() -> None:
+    """Zero the kernels' launch counts and the plain-route count."""
     with _count_lock:
         for name in launches:
             launches[name] = 0
+        plain_calls[PLAIN] = 0
+
+
+def count_plain() -> None:
+    with _count_lock:
+        plain_calls[PLAIN] += 1
 
 
 def _count_launch(name: str) -> None:

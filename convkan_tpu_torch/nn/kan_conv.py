@@ -1,23 +1,35 @@
 """KAN convolution, port of ``convkan_tpu/nn/kan_conv.py`` for the families
-``kan`` (B-spline), ``cheby`` (Chebyshev) and ``gram`` (Gram), 2-D,
-groups 1.
+``kan`` (B-spline), ``fastkan`` (Gaussian RBF), ``cheby`` (Chebyshev) and
+``gram`` (Gram), 2-D, with groups, stride and dilation.
 
-    kan:    y = ChannelDropout(PReLU(Norm(kan_conv2d(x))))
-    cheby:  y = ChannelDropout(Norm(kan_conv2d(x)))   (dropout: train)
-    gram:   y = SiLU(Norm(kan_conv2d(x)))  (E = [SiLU(p_n(tanh x)),
-            SiLU(x)]; in train mode channel dropout of tanh x before the
-            basis, as in JAX: the plain version only)
+    kan:     y = ChannelDropout(PReLU(Norm(conv(x))))
+    fastkan: y = conv(act(x)) + conv(RBF(InputNorm_g(ChannelDropout(x))))
+    cheby:   y = ChannelDropout(Norm(conv(x)))   (dropout: train)
+    gram:    y = act(Norm(conv(x)))  (E = [act(p_n(tanh x)), act(x)]; in
+             train mode channel dropout of tanh x before the basis)
 
-Norm is InstanceNorm by default, or BatchNorm (``norm_layer``), whose
-running statistics move in train mode and normalize in eval mode.
+Norm is InstanceNorm by default, or any norm of ``utils/norms.py``
+(``norm_layer``); BatchNorm's running statistics move in train mode and
+normalize in eval mode.  FastKAN has no output norm: one norm of in_g
+channels per group (``input_norm_{g}``) acts on its input.
 
-``kan_conv2d`` (kernels/kan_conv2d.py) is the conv itself: the basis of
-every input channel (plus act(x) where the family has a base path),
-contracted with the weights over the k*k taps.  On CUDA its forward and
-backward are the hand-written kernels; on the CPU its plain version under
-autograd.  Parameters keep the JAX names and shapes: ``base_w`` (k,k,C,O)
-HWIO (only with a base path), ``poly_w`` (k,k,C*K,O) with channel-major
-rows c*K + kk (degree-major rows kk*C + c for ``gram``), ``prelu``
+Two routes compute the conv, chosen as the JAX package's Pallas gate
+(``_maybe_fused``) chooses between its kernels and XLA
+(``kernel_eligible``): a family the kernels carry (``FUSABLE``), 2-D,
+stride 1, dilation 1, groups 1, a square kernel of at most 7, float32 and
+no channel dropout before the basis in train mode.  Such a conv runs
+``kan_conv2d`` (kernels/kan_conv2d.py): on a CUDA tensor the hand-written
+kernels, forward and backward, or a raise; on a CPU tensor their plain
+version.  Every other conv takes the plain route (``_plain_conv``), the
+counterpart of the JAX module's XLA path: the basis materialized per
+group, a grouped ``conv_nd`` (cuDNN on the card) for the basis path and
+one for the base path.  Each plain-route call adds one to
+``kernels/kan_conv2d.py::plain_calls``.  Nothing falls back from one route
+to the other.
+
+Parameters keep the JAX names and shapes: ``base_w`` (k,k,in_g,O) HWIO
+(only with a base path), ``poly_w`` (k,k,in_g*K,O) with rows per group
+channel-major c*K + kk (degree-major kk*in_g + c for ``gram``), ``prelu``
 (groups,) (only where PReLU follows the norm), ``beta_weights``
 (degree+1,) (``gram`` only: the recurrence's learnable operand).
 """
@@ -30,41 +42,56 @@ from typing import Any, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from ..basis.bspline import make_bspline_grid
-from ..basis.poly import gram_basis_cols
+from ..basis.bspline import bspline_basis_unrolled_list, make_bspline_grid
+from ..basis.poly import chebyshev_basis, gram_basis_cols
+from ..basis.rbf import make_rbf_grid, rbf_cols
 from ..device import resolve_device
-from ..kernels.kan_conv2d import (_conv_w_all, bspline_basis, cheby_basis,
-                                  gram_basis, kan_conv2d, pack_w_all)
+from ..kernels.kan_conv2d import (bspline_basis, cheby_basis, count_plain,
+                                  gram_basis, kan_conv2d)
+from ..ops.conv import conv_nd
 from ..ops.dropout import channel_dropout
 from ..utils import initializers as init_lib
 from ..utils.activations import ACTIVATIONS
-from ..utils.norms import InstanceNorm, make_norm
+from ..utils.norms import (InstanceNorm, LayerNorm, RMSNorm, make_norm,
+                           resolve_norm)
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvFamily:
     """The port's copy of the JAX ``ConvFamily`` fields that the ported
-    families read: a base path or not, what follows the norm, where
-    dropout acts, and the poly_w init (poly_w's row layout is the basis
-    descriptor's ``degree_major``)."""
+    families read: a base path or not, what follows the norm, where the
+    norm acts, where dropout acts, the poly_w init and poly_w's row layout
+    within a group, and the default base activation."""
 
     name: str
     has_base: bool = True
     post: str = "prelu"             # 'prelu' | 'act' | 'none' after the norm
-    dropout_site: str = "output"    # 'output' | 'basis_input' (tanh x)
+    norm_on: str = "output"         # 'output' | 'input' (FastKAN)
+    dropout_site: str = "output"    # 'output' | 'basis_input' | 'rbf_input'
     poly_init: str = "ku_linear"    # 'ku_linear' | 'kn_relu' | 'ku_5d'
+    degree_major: bool = False      # rows kk*in_g + c instead of c*K + kk
+    default_act: str = "gelu"
 
 
 # the ported entries of convkan_tpu/nn/kan_conv.py FAMILIES (layers/
-# kan_layers.py:116-258, layers/cheby_kan_layers.py:39-111,
-# layers/gram_kan_layers.py:85-199)
+# kan_layers.py:116-258, layers/fast_kan_layers.py:34-120,
+# layers/cheby_kan_layers.py:39-111, layers/gram_kan_layers.py:85-199)
 FAMILIES: dict[str, ConvFamily] = {
     "kan": ConvFamily("kan"),
+    "fastkan": ConvFamily("fastkan", post="none", norm_on="input",
+                          dropout_site="rbf_input", default_act="silu"),
     "cheby": ConvFamily("cheby", has_base=False, post="none",
                         poly_init="kn_relu"),
     "gram": ConvFamily("gram", post="act", dropout_site="basis_input",
-                       poly_init="ku_5d"),
+                       poly_init="ku_5d", degree_major=True,
+                       default_act="silu"),
 }
+
+# the ported families of the JAX module's _FUSABLE: the kernels carry their
+# bases (FastKAN is not fusable: its input norm's statistics must leave
+# out the zero pad)
+FUSABLE = frozenset({"kan", "cheby", "gram"})
+MAX_KERNEL = 7
 
 
 def _single(v, what: str) -> int:
@@ -79,6 +106,9 @@ def _single(v, what: str) -> int:
 def _act_name(act) -> str:
     """The registry name of a base activation given by name or function."""
     if isinstance(act, str):
+        if act not in ACTIVATIONS:
+            raise NotImplementedError(f"base activation {act!r} is not "
+                                      "ported")
         return act
     for name, fn in ACTIVATIONS.items():
         if fn is act:
@@ -86,16 +116,34 @@ def _act_name(act) -> str:
     raise NotImplementedError(f"base activation {act!r} is not ported")
 
 
-class KanConvND(nn.Module):
-    """KAN convolution (channel-last), families ``kan``, ``cheby`` and
-    ``gram``.
+def kernel_eligible(family: str, stride: int, dilation: int, groups: int,
+                    k: int, pad: int, H: int, W: int, dtype=torch.float32,
+                    pre_basis_dropout: bool = False) -> bool:
+    """The JAX module's gate between its Pallas kernels and XLA
+    (``_maybe_fused`` with ``supported`` / ``wide_supported``) for a 2-D
+    conv of a k x k kernel, without the TPU's VMEM budget: a family in
+    ``FUSABLE``, stride 1, dilation 1, groups 1, k <= ``MAX_KERNEL``, pad
+    >= 0 and a non-empty output, float32, and no channel dropout before
+    the basis (train mode).  True: the conv runs ``kan_conv2d``; False:
+    the plain route."""
+    return (family in FUSABLE and groups == 1 and stride == 1
+            and dilation == 1 and 0 < k <= MAX_KERNEL and pad >= 0
+            and H + 2 * pad - k + 1 > 0 and W + 2 * pad - k + 1 > 0
+            and dtype == torch.float32 and not pre_basis_dropout)
 
-    Args mirror the JAX module: input_dim/output_dim, kernel_size, padding
-    (stride, dilation and groups must stay 1), norm_layer, base_activation
-    (read by ``kan`` and ``gram``; "__default__" is the family's: GELU for
-    ``kan``, SiLU for ``gram``), the spline hyperparameters (``kan``; a
-    ``grid_override`` knot vector replaces the uniform grid), ``degree``
-    (``cheby``, ``gram``) and ``epsilon`` (``cheby``).
+
+class KanConvND(nn.Module):
+    """KAN convolution (channel-last), families ``kan``, ``fastkan``,
+    ``cheby`` and ``gram``.
+
+    Args mirror the JAX module: input_dim/output_dim, kernel_size, groups,
+    padding, stride, dilation (each an int or a tuple of equal ints),
+    dropout, norm_layer, base_activation (read by ``kan``, ``fastkan`` and
+    ``gram``; "__default__" is the family's: GELU for ``kan``, SiLU for
+    ``fastkan`` and ``gram``), grid_size / grid_range (``kan``, ``fastkan``:
+    the RBF centres and their spacing), spline_order (``kan``), a
+    ``grid_override`` knot or centre vector replacing the uniform grid,
+    ``degree`` (``cheby``, ``gram``) and ``epsilon`` (``cheby``).
     Parameters are drawn on the CPU from ``generator`` (so one seed gives
     the same weights on every device) and then moved to ``device``: None
     means the GPU, and raises without one."""
@@ -114,59 +162,79 @@ class KanConvND(nn.Module):
                  device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
-        config = (f"KanConvND(family={family!r}, ndim={ndim}, groups={groups},"
-                  f" stride={stride}, dilation={dilation})")
-        if family not in FAMILIES or ndim != 2 or groups != 1 or \
-                _single(stride, "stride") != 1 or \
-                _single(dilation, "dilation") != 1:
-            raise NotImplementedError(f"{config} is not ported")
+        if family not in FAMILIES or ndim != 2:
+            raise NotImplementedError(
+                f"KanConvND(family={family!r}, ndim={ndim}) is not ported")
+        if groups <= 0 or input_dim % groups or output_dim % groups:
+            raise ValueError(f"input_dim {input_dim} and output_dim "
+                             f"{output_dim} must split into {groups} groups")
         self.family = family
         self.spec = FAMILIES[family]
         self.input_dim = input_dim
         self.output_dim = output_dim
+        self.groups = groups
+        self.in_g, self.out_g = input_dim // groups, output_dim // groups
         self.kernel_size = _single(kernel_size, "kernel_size")
         self.padding = _single(padding, "padding")
+        self.stride = _single(stride, "stride")
+        self.dilation = _single(dilation, "dilation")
         self.dropout = dropout  # channel dropout (spec.dropout_site), train
-        if base_activation == "__default__":
-            base_activation = "silu" if family == "gram" else "gelu"
+        # the base activation, where the family reads one
+        self.act = None if family == "cheby" else _act_name(
+            self.spec.default_act if base_activation == "__default__"
+            else base_activation)
+        self.basis = None       # the kernels' descriptor (FUSABLE families)
         if family == "kan":
             knots = make_bspline_grid(grid_size, spline_order, grid_range) \
                 if grid_override is None else grid_override
-            self.basis = bspline_basis(knots, spline_order,
-                                       _act_name(base_activation))
+            self.basis = bspline_basis(knots, spline_order, self.act)
         elif family == "gram":
-            self.basis = gram_basis(degree, _act_name(base_activation))
-        else:
+            self.basis = gram_basis(degree, self.act)
+        elif family == "cheby":
             self.basis = cheby_basis(degree, epsilon)
-        K = self.basis.K
+        else:
+            self.centers = tuple(float(v) for v in (
+                make_rbf_grid(grid_range[0], grid_range[1], grid_size)
+                if grid_override is None else grid_override))
+            self.denominator = (grid_range[1] - grid_range[0]) / \
+                (grid_size - 1)
+        K = grid_size if family == "fastkan" else self.basis.K
         self.num_basis = K
         k = self.kernel_size
         if self.spec.has_base:
-            self.base_w = nn.Parameter(torch.zeros(k, k, input_dim,
+            self.base_w = nn.Parameter(torch.zeros(k, k, self.in_g,
                                                    output_dim, dtype=dtype))
         else:
             self.base_w = None
-        self.poly_w = nn.Parameter(torch.zeros(k, k, input_dim * K, output_dim,
-                                               dtype=dtype))
+        self.poly_w = nn.Parameter(torch.zeros(k, k, self.in_g * K,
+                                               output_dim, dtype=dtype))
         if self.spec.post == "prelu":
             self.prelu = nn.Parameter(torch.full((groups,), 0.25,
                                                  dtype=dtype))
-        if self.basis.n_extra:
+        if family == "gram":
             self.beta_weights = nn.Parameter(torch.zeros(
                 self.basis.n_extra, dtype=dtype))
         else:
             self.beta_weights = None
-        self.norm = make_norm(norm_layer, output_dim, **dict(norm_kwargs or {}))
+        norm_kwargs = dict(norm_kwargs or {})
+        if self.spec.norm_on == "input":
+            self.norm = None
+            self.input_norm_cls = resolve_norm(norm_layer)
+            for g in range(groups):
+                self.add_module(f"input_norm_{g}", make_norm(
+                    norm_layer, self.in_g, **norm_kwargs))
+        else:
+            self.norm = make_norm(norm_layer, output_dim, **norm_kwargs)
         if generator is not None:
             self.reset_parameters(generator)
         self.to(device=device, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator):
         """JAX init distributions over HWIO fans: kaiming_uniform('linear')
-        for base_w and (``kan``) poly_w, kaiming_normal('relu') for
-        (``cheby``) poly_w, ku_5d for (``gram``) poly_w (fan_in = O*C*K*k^2)
-        and N(0, 1/(k^2*C*(degree+1))) for beta_weights; PReLU slope
-        0.25."""
+        for base_w and (``kan``, ``fastkan``) poly_w, kaiming_normal('relu')
+        for (``cheby``) poly_w, ku_5d for (``gram``) poly_w (fan_in =
+        out_g*in_g*K*k^2) and N(0, 1/(k^2*C*(degree+1))) for beta_weights;
+        PReLU slope 0.25."""
         ku = init_lib.kaiming_uniform("linear", layout="conv_hwio")
         k, C, K = self.kernel_size, self.input_dim, self.num_basis
         if self.base_w is not None:
@@ -175,8 +243,8 @@ class KanConvND(nn.Module):
             init_lib.kaiming_normal("relu", layout="conv_hwio")(self.poly_w,
                                                                 generator)
         elif self.spec.poly_init == "ku_5d":
-            init_lib.ku_5d(self.output_dim * C * K * k * k)(self.poly_w,
-                                                             generator)
+            init_lib.ku_5d(self.out_g * self.in_g * K * k * k)(self.poly_w,
+                                                                generator)
         else:
             ku(self.poly_w, generator)
         if self.beta_weights is not None:
@@ -186,52 +254,102 @@ class KanConvND(nn.Module):
             with torch.no_grad():
                 self.prelu.fill_(0.25)
 
+    def kernel_route(self, x) -> bool:
+        """Whether this call runs ``kan_conv2d`` (``kernel_eligible``)."""
+        return kernel_eligible(
+            self.family, self.stride, self.dilation, self.groups,
+            self.kernel_size, self.padding, x.shape[1], x.shape[2], x.dtype,
+            self.training and self.dropout > 0 and
+            self.spec.dropout_site != "output")
+
     def forward(self, x, generator: torch.Generator = None):
         """``generator`` draws the channel-dropout mask in train mode (None:
         the device's default generator); eval mode ignores it."""
         if x.shape[-1] != self.input_dim:
             raise ValueError(f"expected {self.input_dim} channels (NHWC), "
                              f"got {tuple(x.shape)}")
-        drop = self.training and self.dropout > 0
-        if drop and self.spec.dropout_site == "basis_input":
-            y = self._basis_input_dropout_conv(x, generator)
-        else:
+        if self.kernel_route(x):
             y = kan_conv2d(x.contiguous(), self.base_w, self.poly_w,
-                           self.basis, self.kernel_size, self.padding,
-                           self.beta_weights)
+                              self.basis, self.kernel_size, self.padding,
+                              self.beta_weights)
+        else:
+            y = self._plain_conv(x, generator)
         y = self._post_combine(y)
-        if drop and self.spec.dropout_site == "output":
+        if self.training and self.dropout > 0 and \
+                self.spec.dropout_site == "output":
             y = channel_dropout(y, self.dropout, generator)
         return y
 
-    def _basis_input_dropout_conv(self, x, generator):
-        """The conv with channel dropout of t = tanh x before the basis
-        (the base path keeps x), as the JAX module's "basis_input" site.
-        The kernels expand x itself, so this runs the plain version only:
-        CUDA tensors raise (the JAX module leaves its Pallas kernels for
-        XLA there)."""
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                f"{self.family} conv: channel dropout before the basis "
-                f"(train mode, dropout {self.dropout}) is not carried by the "
-                "kernels")
-        act = ACTIVATIONS[self.basis.act]
-        t = channel_dropout(torch.tanh(x), self.dropout, generator)
-        cols = [act(p) for p in gram_basis_cols(t, self.basis.order,
-                                                self.beta_weights)]
-        E = torch.cat(cols + [act(x)], dim=-1)
-        C, O, k = self.input_dim, self.output_dim, self.kernel_size
-        w_all = pack_w_all(self.base_w, self.poly_w, C=C, K=self.num_basis,
-                           k=k, O=O, degree_major=self.basis.degree_major)
-        return _conv_w_all(E, w_all, k, self.padding)
+    def _conv(self, x, w):
+        return conv_nd(x, w, stride=self.stride, padding=self.padding,
+                       dilation=self.dilation, groups=self.groups)
+
+    def _plain_conv(self, x, generator):
+        """The plain route, the JAX module's XLA path: the base path's
+        conv of act(x), plus the conv of the basis materialized per group
+        (B, H, W, groups * in_g * K), each a grouped ``conv_nd``; with the
+        family's squash, its dropout before the basis (train mode) and, for
+        FastKAN, the input norms."""
+        count_plain()
+        drop = self.training and self.dropout > 0
+        act = ACTIVATIONS.get(self.act)
+        base = self._conv(act(x), self.base_w) if self.spec.has_base \
+            else None
+        t = torch.tanh(x) if self.family == "gram" else x
+        if drop and self.spec.dropout_site in ("basis_input", "rbf_input"):
+            t = channel_dropout(t, self.dropout, generator)
+        if self.family == "fastkan":
+            cols = rbf_cols(self._input_norms(t), self.centers,
+                            self.denominator)
+        elif self.family == "kan":
+            cols = bspline_basis_unrolled_list(t, self.basis.knots,
+                                               self.basis.order)
+        elif self.family == "gram":
+            cols = [act(p) for p in gram_basis_cols(t, self.basis.order,
+                                                    self.beta_weights)]
+        else:
+            cols = list(chebyshev_basis(t, self.basis.order,
+                                        self.basis.epsilon).unbind(-1))
+        # (B, H, W, groups, in_g, K) -> rows per group c*K + kk, or kk*in_g
+        # + c degree-major
+        basis = torch.stack(cols, dim=-1)
+        basis = basis.reshape(*x.shape[:-1], self.groups, self.in_g,
+                              self.num_basis)
+        if self.spec.degree_major:
+            basis = basis.transpose(-1, -2)
+        y = self._conv(basis.reshape(*x.shape[:-1], -1), self.poly_w)
+        return y if base is None else base + y
+
+    def _input_norms(self, t):
+        """FastKAN's input norm: ``input_norm_{g}`` on group g's channels.
+        A LayerNorm or RMSNorm of in_g features normalizes the trailing
+        spatial axis of the reference's NCHW input, which must then have
+        in_g entries (fast_kan_layers.py:80): channel-last, the norm runs
+        with the channel and trailing spatial axes swapped."""
+        trailing = self.input_norm_cls in (LayerNorm, RMSNorm)
+        if trailing and t.shape[-2] != self.in_g:
+            raise ValueError(
+                f"a {self.input_norm_cls.__name__}({self.in_g}) on a conv "
+                "input normalizes the trailing spatial axis and needs it "
+                f"to be {self.in_g}, got {t.shape[-2]} "
+                "(fast_kan_layers.py:80)")
+        parts = []
+        for g in range(self.groups):
+            norm = getattr(self, f"input_norm_{g}")
+            tg = t[..., g * self.in_g:(g + 1) * self.in_g]
+            parts.append(norm(tg.transpose(-1, -2)).transpose(-1, -2)
+                         if trailing else norm(tg))
+        return parts[0] if self.groups == 1 else torch.cat(parts, dim=-1)
 
     def _post_combine(self, y):
-        """Norm, then (``spec.post``) PReLU with the per-group slope
-        repeated per out_g, or the base activation."""
-        y = self.norm(y)
+        """The output norm (none for FastKAN), then (``spec.post``) PReLU
+        with the per-group slope repeated per out_g, or the base
+        activation."""
+        if self.norm is not None:
+            y = self.norm(y)
         if self.spec.post == "none":
             return y
         if self.spec.post == "act":
-            return ACTIVATIONS[self.basis.act](y)
-        slope = self.prelu.repeat_interleave(self.output_dim // self.prelu.numel())
+            return ACTIVATIONS[self.act](y)
+        slope = self.prelu.repeat_interleave(self.out_g)
         return torch.where(y >= 0, y, slope * y)

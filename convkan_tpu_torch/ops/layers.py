@@ -1,6 +1,8 @@
-"""Linear layer with torch's default init, port of ``Linear`` in
-``convkan_tpu/ops/layers.py``.  The weight keeps the JAX layout
-``w: (in, out)`` so that ``y = x @ w + b``."""
+"""Linear layer with torch's default init and the squeeze-excitation block,
+port of ``Linear`` and ``SqueezeExcitation`` in ``convkan_tpu/ops/layers.py``.
+The weights keep the JAX layouts: ``w: (in, out)`` so that ``y = x @ w +
+b``, and the SE block's 1x1 convs HWIO (``fc1_w`` (1, 1, C, S), ``fc2_w``
+(1, 1, S, C))."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..utils import initializers as init_lib
+from ..utils.activations import hardsigmoid, relu
 
 
 class Linear(nn.Module):
@@ -40,3 +43,42 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return x @ self.w + self.b
+
+
+class SqueezeExcitation(nn.Module):
+    """torchvision.ops.SqueezeExcitation on NHWC: global average pool ->
+    1x1 conv (fc1, bias) -> ``activation`` -> 1x1 conv (fc2, bias) ->
+    ``scale_activation`` -> times x; the 1x1 convs as matmuls, the init as
+    torch's Conv2d (kaiming_uniform a=sqrt(5) over the HWIO fans, bias
+    U(+-1/sqrt(fan_in)))."""
+
+    def __init__(self, input_channels: int, squeeze_channels: int,
+                 activation=relu, scale_activation=hardsigmoid, *,
+                 generator: torch.Generator = None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        C, S = input_channels, squeeze_channels
+        self.input_channels = C
+        self.activation, self.scale_activation = activation, scale_activation
+        self.fc1_w = nn.Parameter(torch.zeros(1, 1, C, S, dtype=dtype))
+        self.fc1_b = nn.Parameter(torch.zeros(S, dtype=dtype))
+        self.fc2_w = nn.Parameter(torch.zeros(1, 1, S, C, dtype=dtype))
+        self.fc2_b = nn.Parameter(torch.zeros(C, dtype=dtype))
+        if generator is not None:
+            self.reset_parameters(generator)
+        self.to(device)
+
+    def reset_parameters(self, generator: torch.Generator):
+        ku = init_lib.kaiming_uniform("leaky_relu", a=math.sqrt(5.0),
+                                      layout="conv_hwio")
+        ku(self.fc1_w, generator)
+        init_lib.torch_linear_bias(self.input_channels)(self.fc1_b, generator)
+        ku(self.fc2_w, generator)
+        init_lib.torch_linear_bias(self.fc1_b.numel())(self.fc2_b, generator)
+
+    def forward(self, x):
+        s = x.mean(dim=tuple(range(1, x.ndim - 1)), keepdim=True)
+        s = self.activation(s @ self.fc1_w[0, 0] + self.fc1_b)
+        s = self.scale_activation(s @ self.fc2_w[0, 0] + self.fc2_b)
+        return x * s

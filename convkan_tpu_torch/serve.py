@@ -15,10 +15,17 @@ checkpoint is not ported yet):
 
     python -m convkan_tpu_torch.serve --model VGGKAN --arch VGG16_small \\
         --dataset CIFAR10 --init_random --port 8421 [--fold_bn]
+    python -m convkan_tpu_torch.serve --model MobileNetV3KAN --arch small \\
+        --imagenet_preprocessing --kan_conv FastKAN --init_random
 
 (add ``--kan_conv WavKAN`` for the WavKAN convs, ``--kan_conv ChebyKAN``
 or ``--kan_conv GRAMKAN`` for the Chebyshev or Gram convs of degree
-``--degree``).  The convs' norm is train.py's ``--kan_norm_layer``,
+``--degree``; MobileNetV3 takes ``KAN``, ``FastKAN`` and ``ChebyKAN``,
+``--width_scale``, ``--conv_type conv`` and ``--replace_depthwise``, its
+norm is ``--norm_layer`` and its BatchNorms are affine with
+``--norm_affine``, as train.py builds it).  ``--imagenet_preprocessing``
+serves 224 x 224 x 3 images with the dataset's normalization, as the JAX
+CLI does; the engine does not resize.  The convs' norm is train.py's ``--kan_norm_layer``,
 BatchNorm2d by default, served in eval mode from its running statistics;
 ``--fold_bn`` folds each KAN conv's BatchNorm into its weights
 (utils/fold_bn.py, with ``--bn_eps``) before serving.  A ChebyKAN trunk
@@ -295,11 +302,26 @@ def make_server(engine: InferenceEngine, model_name: str, host: str,
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Serve a convkan_tpu_torch model over HTTP.")
-    p.add_argument("--model", default="VGGKAN", choices=["VGGKAN"])
-    p.add_argument("--arch", default="VGG16_small")
+    p.add_argument("--model", default="VGGKAN",
+                   choices=["VGGKAN", "MobileNetV3KAN"])
+    p.add_argument("--arch", default=None,
+                   help="VGGKAN: a cfgs key (VGG16_small by default); "
+                        "MobileNetV3KAN: small or large")
     p.add_argument("--kan_conv", default="KAN",
-                   choices=["KAN", "ChebyKAN", "GRAMKAN", "WavKAN"],
-                   help="conv family of the VGGKAN trunk (train.py's flag)")
+                   choices=["KAN", "FastKAN", "ChebyKAN", "GRAMKAN",
+                            "WavKAN"],
+                   help="conv family of the trunk (train.py's flag)")
+    p.add_argument("--conv_type", default="kanconv",
+                   choices=["kanconv", "conv"],
+                   help="MobileNetV3KAN: KAN convs or standard ones")
+    p.add_argument("--width_scale", type=float, default=1)
+    p.add_argument("--replace_depthwise", action="store_true",
+                   help="MobileNetV3KAN: grouped KAN depthwise convs")
+    p.add_argument("--imagenet_preprocessing", action="store_true",
+                   help="224 x 224 x 3 inputs (train.py's flag)")
+    p.add_argument("--norm_layer", default="BatchNorm2d",
+                   choices=sorted(NORM_LAYERS),
+                   help="MobileNetV3KAN's norm (train.py's flag)")
     p.add_argument("--degree", type=int, default=3,
                    help="polynomial degree of the ChebyKAN and GRAMKAN "
                         "convs")
@@ -332,22 +354,38 @@ def build_parser() -> argparse.ArgumentParser:
 def build_engine(args):
     """Model + weights + engine from parsed CLI args (the testable core of
     main).  Returns (engine, model name)."""
+    from .models.mobilenetv3 import mobilenet_v3_kan
     from .models.vgg import vggkan
 
     if not args.init_random:
         raise SystemExit("restoring a checkpoint is not ported yet; pass "
                          "--init_random to serve seeded random weights")
-    shape = dataset_input_shape(args.dataset)
+    # train.py's input shapes (migrate.py:59-65 of the JAX package)
+    shape = (224, 224, 3) if args.imagenet_preprocessing else \
+        dataset_input_shape(args.dataset)
     num_classes = 100 if args.dataset == "CIFAR100" else 10
     gen = torch.Generator().manual_seed(args.seed)
-    head = (2, 2) if args.kan_conv == "ChebyKAN" and \
-        resolve_norm(args.kan_norm_layer) is InstanceNorm else (1, 1)
-    model = vggkan(shape[-1], num_classes, arch=args.arch,
-                   kan_conv=args.kan_conv, classifier_type="Linear",
-                   degree=args.degree, expected_feature_shape=head,
-                   kan_norm_layer=args.kan_norm_layer,
-                   affine=args.norm_affine, generator=gen,
-                   device=args.device)
+    if args.model == "MobileNetV3KAN":
+        if args.arch not in ("large", "small"):
+            raise SystemExit("MobileNetV3 requires --arch large|small")
+        model = mobilenet_v3_kan(
+            args.arch, num_classes=num_classes, input_channels=shape[-1],
+            width_mult=args.width_scale, conv_type=args.conv_type,
+            kan_conv=args.kan_conv, replace_depthwise=args.replace_depthwise,
+            classifier_type="Linear", norm_layer=args.norm_layer,
+            kan_norm_layer=args.kan_norm_layer, affine=args.norm_affine,
+            degree=args.degree, generator=gen, device=args.device)
+    else:
+        head = (7, 7) if args.imagenet_preprocessing else (2, 2) if \
+            args.kan_conv == "ChebyKAN" and \
+            resolve_norm(args.kan_norm_layer) is InstanceNorm else (1, 1)
+        model = vggkan(shape[-1], num_classes, arch=args.arch or "VGG16_small",
+                       kan_conv=args.kan_conv, classifier_type="Linear",
+                       degree=args.degree, expected_feature_shape=head,
+                       width_scale=args.width_scale,
+                       kan_norm_layer=args.kan_norm_layer,
+                       affine=args.norm_affine, generator=gen,
+                       device=args.device)
     if args.fold_bn:
         print(f"folded {fold_batch_norms(model, eps=args.bn_eps)} "
               "BatchNorms", flush=True)

@@ -1,7 +1,8 @@
 """On-device input pipeline, port of ``normalize_batch``,
-``_batched_crop``, ``augment_batch``, ``train_batch`` and ``_synthetic`` of
-``convkan_tpu/train/data.py``, with its own copy of the per-dataset
-constants (the reference's utils/dataloader.py values).
+``_batched_crop``, ``augment_batch``, ``imagenet_batch`` (its evaluation
+form), ``train_batch`` and ``_synthetic`` of ``convkan_tpu/train/data.py``,
+with its own copy of the per-dataset and ImageNet constants (the
+reference's utils/dataloader.py values).
 
 Crop offsets and flips come from an explicit ``torch.Generator`` or are
 passed in (the tests pass the same ones to the JAX package, whose random
@@ -18,6 +19,10 @@ import torch.nn.functional as F
 from ..ops.dropout import uniform
 
 CROP_PAD = 4   # RandomCrop(32, padding=4)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+IMAGENET_RESIZE_SIZE = 256
+IMAGENET_CROP_SIZE = 224
 
 NORMALIZATION = {
     "MNIST": (np.array([0.1307], np.float32), np.array([0.3081], np.float32)),
@@ -98,12 +103,55 @@ def augment_batch(x, *, generator: Optional[torch.Generator] = None,
                          flip=flips.to(x.device).bool())
 
 
+def _resize(x, h: int, w: int):
+    """Bilinear resize of NHWC float x to (h, w) with half-pixel centres, as
+    jax.image.resize(method="bilinear") computes it: its triangle kernel
+    widened by the scale when downsampling is F.interpolate's antialiased
+    bilinear (the same as the plain one when upsampling)."""
+    return F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+                         align_corners=False, antialias=True
+                         ).permute(0, 2, 3, 1)
+
+
+def imagenet_batch(x_uint8, train: bool, dataset: str):
+    """utils/dataloader.py:26-54 on the tensor's device, evaluation form:
+    MNIST resized to 224 and repeated to 3 channels; the others resized so
+    that the short side is 256, then the centre 224 x 224; then / 255 and
+    ImageNet's mean and std.  The training form (RandomResizedCrop and
+    flip) is not ported yet."""
+    if train:
+        raise NotImplementedError("imagenet_batch(train=True) "
+                                  "(random_resized_crop) is not ported yet")
+    x = x_uint8.to(torch.float32)
+    B, H, W, C = x.shape
+    S = IMAGENET_CROP_SIZE
+    if dataset == "MNIST":
+        x = _resize(x, S, S)
+        if C == 1:
+            x = x.repeat(1, 1, 1, 3)
+    else:
+        R = IMAGENET_RESIZE_SIZE
+        nh, nw = (R, max(round(W * R / H), R)) if H <= W else \
+            (max(round(H * R / W), R), R)
+        x = _resize(x, nh, nw)
+        h0, w0 = (nh - S) // 2, (nw - S) // 2
+        x = x[:, h0:h0 + S, w0:w0 + S, :]
+    x = x / 255.0
+    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device).reshape(1, 1, 1, -1)
+    std = torch.as_tensor(IMAGENET_STD, device=x.device).reshape(1, 1, 1, -1)
+    return (x - mean) / std
+
+
 def train_batch(x_uint8, dataset: str, augment: bool, *,
                 generator: Optional[torch.Generator] = None, offsets=None,
-                flips=None):
+                flips=None, imagenet: bool = False):
     """uint8 batch -> augmented, normalized float32 batch on its device.
     Crop and flip are permutations with a zero pad, so they run on the
-    uint8 batch and the normalization after (pad before normalize)."""
+    uint8 batch and the normalization after (pad before normalize).
+    ``imagenet``: ``imagenet_batch`` (its training form when
+    ``augment``)."""
+    if imagenet:
+        return imagenet_batch(x_uint8, augment, dataset)
     if augment:
         x_uint8 = augment_batch(x_uint8, generator=generator,
                                 offsets=offsets, flips=flips)

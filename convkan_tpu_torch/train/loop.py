@@ -1,5 +1,7 @@
 """Train and eval steps, port of ``make_train_step`` (the grad_accum == 1
-path) and ``make_eval_step`` of ``convkan_tpu/train/loop.py``.
+path) and ``make_eval_step`` of ``convkan_tpu/train/loop.py``, with the
+ImageNet preprocessing of ``imagenet=True`` (``imagenet_batch``; its
+training augmentation is not ported yet).
 
 One train step: on-device augmentation and normalization, a train-mode
 forward (dropout on; each BatchNorm normalizes with the batch's statistics
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .data import normalize_batch, train_batch
+from .data import imagenet_batch, normalize_batch, train_batch
 from .metrics import confusion_matrix, cross_entropy_loss
 from .state import TrainState
 
@@ -31,7 +33,8 @@ def make_train_step(model, dataset: str, augment: bool,
     Crop offsets and flips not passed in are drawn from
     ``state.generator``, then the dropout masks (convs first, then the
     head)."""
-    unported = {"l1_decay > 0": l1_decay > 0, "imagenet": imagenet,
+    unported = {"l1_decay > 0": l1_decay > 0,
+                "imagenet with augment": imagenet and augment,
                 "grad_accum != 1": grad_accum != 1, "ema_decay > 0":
                 ema_decay > 0}
     for what, on in unported.items():
@@ -45,7 +48,7 @@ def make_train_step(model, dataset: str, augment: bool,
             raise ValueError("the train state holds another model")
         model.train()
         x = train_batch(x_uint8, dataset, augment, generator=state.generator,
-                        offsets=offsets, flips=flips)
+                        offsets=offsets, flips=flips, imagenet=imagenet)
         logits = model(x.to(_param_dtype(model)), state.generator)
         loss = cross_entropy_loss(logits, labels,
                                   label_smoothing=label_smoothing)
@@ -62,16 +65,16 @@ def make_eval_step(model, dataset: str, num_classes: int,
     """step(state, x_uint8, labels, weights) -> (weighted loss sum,
     confusion matrix), both device tensors; ``weights`` masks the padding
     of a partial batch."""
-    if imagenet or use_ema:
-        raise NotImplementedError("eval step with imagenet or use_ema is not "
-                                  "ported yet")
+    if use_ema:
+        raise NotImplementedError("eval step with use_ema is not ported yet")
 
     def step(state: TrainState, x_uint8, labels, weights):
         if state.model is not model:
             raise ValueError("the train state holds another model")
         model.eval()
         with torch.no_grad():
-            x = normalize_batch(x_uint8, dataset).to(_param_dtype(model))
+            x = (imagenet_batch(x_uint8, False, dataset) if imagenet else
+                 normalize_batch(x_uint8, dataset)).to(_param_dtype(model))
             logits = model(x)
             logp = torch.log_softmax(logits, dim=-1)
             nll = -logp.gather(-1, labels.long()[:, None])[:, 0]

@@ -1,8 +1,11 @@
-"""Base activations of the slice, port of ``convkan_tpu/utils/activations.py``
-(``silu``, ``gelu``, ``resolve_activation``).
+"""Activations, port of ``convkan_tpu/utils/activations.py`` (``silu``,
+``gelu``, ``relu``, ``hardswish``, ``hardsigmoid``, ``resolve_activation``).
 
 GELU is the exact erf form (torch's ``nn.GELU`` default, which the JAX
-package pins with ``approximate=False``).
+package pins with ``approximate=False``).  Hardswish is x * relu6(x + 3) / 6
+and hardsigmoid relu6(x + 3) / 6, as torch's modules and jax.nn compute
+them; at the kinks torch's derivatives (0 at x <= -3, 1 at x >= 3 for
+hardswish) are those of jax.nn.
 """
 
 from __future__ import annotations
@@ -20,8 +23,24 @@ def silu(x):
     return F.silu(x)
 
 
+def relu(x):
+    return F.relu(x)
+
+
+def hardswish(x):
+    return F.hardswish(x)
+
+
+def hardsigmoid(x):
+    # relu6(x + 3) / 6 as jax.nn.hard_sigmoid: the same values as
+    # F.hardsigmoid, whose float64 backward multiplies by the float32 1/6
+    return F.relu6(x + 3.0) / 6.0
+
+
 # the reference CLI names (train.py:32-42) of the activations ported so far
-ACTIVATIONS: dict[str, Callable] = {"gelu": gelu, "silu": silu}
+ACTIVATIONS: dict[str, Callable] = {"gelu": gelu, "silu": silu, "relu": relu,
+                                    "hardswish": hardswish,
+                                    "hardsigmoid": hardsigmoid}
 
 
 def resolve_activation(act) -> Optional[Callable]:

@@ -4,7 +4,9 @@ The port keeps the JAX parameter names, shapes and layouts, so a flax
 ``params`` tree of numpy arrays maps onto a ``state_dict`` by joining the
 path with dots: ``{"KanConvND_0": {"poly_w": a}}`` -> ``"KanConvND_0.poly_w"``.
 One name differs: a conv's output norm, which flax names after its class
-(``BatchNorm_0``), is the port's ``norm``.  The ``batch_stats`` collection
+(``BatchNorm_0``, ``LayerNorm_0``, ``GroupNorm_0``, ``RMSNorm_0``; also a
+``StdConvBlock``'s), is the port's ``norm``; FastKAN's named input norms
+(``input_norm_{g}``) keep their names.  The ``batch_stats`` collection
 (a BatchNorm's running ``mean`` and ``var``) maps onto the norm's buffers of
 the same names.  A JAX ``TrainState`` (anything with a ``params``
 attribute, and ``batch_stats`` where it has them) is read through those,
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 
 # flax's names of a conv's output norm -> the port's attribute
-_NORM_SCOPES = {"BatchNorm_0": "norm"}
+_NORM_SCOPES = {f"{cls}_0": "norm" for cls in ("BatchNorm", "LayerNorm",
+                                               "GroupNorm", "RMSNorm")}
 
 
 def _flatten(tree: Mapping, prefix: str, out: dict):

@@ -1,5 +1,5 @@
-"""Normalization for channel-last inputs, port of the InstanceNorm and
-BatchNorm parts of ``convkan_tpu/utils/norms.py``.
+"""Normalization for channel-last inputs, port of
+``convkan_tpu/utils/norms.py``.
 
 InstanceNorm: eps 1e-5, ``affine=False``, no running statistics; each
 (sample, channel) is normalized over the spatial axes with the biased
@@ -11,7 +11,14 @@ channel is normalized over every other axis with the biased variance, and
 the running statistics move towards the batch's mean and unbiased
 variance (n / max(n - 1, 1), n = B * H * W: a single value per channel
 moves ``var`` towards 0); in evaluation the running statistics normalize.
-GroupNorm, LayerNorm, RMSNorm and "None" are not ported.
+
+LayerNorm: eps 1e-5, over the last axis, ``elementwise_affine``.
+RMSNorm: eps the dtype's machine epsilon unless given, over the last
+axis, a weight only.  GroupNorm: ``num_groups`` 1 by default, eps 1e-5,
+each (sample, group) over the spatial axes and the group's channels,
+``affine``.  "None" builds no norm: ``make_norm`` returns ``Identity``.
+``make_norm`` maps the reference's ``affine`` onto ``elementwise_affine``
+where a norm takes that instead.
 """
 
 from __future__ import annotations
@@ -83,6 +90,85 @@ class BatchNorm(nn.Module):
         return y.movedim(1, -1)
 
 
+class LayerNorm(nn.Module):
+    """torch.nn.LayerNorm over the last axis (biased variance)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 elementwise_affine: bool = True):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        if elementwise_affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.weight = self.bias = None
+
+    def forward(self, x):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        y = (x - mean) / torch.sqrt(var + self.eps)
+        return y if self.weight is None else y * self.weight + self.bias
+
+
+class GroupNorm(nn.Module):
+    """torch.nn.GroupNorm for channel-last inputs (B, *S, C): C split into
+    ``num_groups`` groups of consecutive channels."""
+
+    def __init__(self, num_features: int, num_groups: int = 1,
+                 eps: float = 1e-5, affine: bool = True):
+        super().__init__()
+        if num_features % num_groups:
+            raise ValueError(f"{num_features} channels do not split into "
+                             f"{num_groups} groups")
+        self.num_features = num_features
+        self.num_groups = num_groups
+        self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.weight = self.bias = None
+
+    def forward(self, x):
+        g = self.num_groups
+        xg = x.reshape(*x.shape[:-1], g, self.num_features // g)
+        axes = tuple(range(1, x.ndim - 1)) + (x.ndim,)
+        mean = xg.mean(dim=axes, keepdim=True)
+        var = (xg - mean).square().mean(dim=axes, keepdim=True)
+        y = ((xg - mean) / torch.sqrt(var + self.eps)).reshape(x.shape)
+        return y if self.weight is None else y * self.weight + self.bias
+
+
+class RMSNorm(nn.Module):
+    """torch.nn.RMSNorm over the last axis: x / sqrt(mean(x^2) + eps),
+    eps the input dtype's machine epsilon when None, then a weight."""
+
+    def __init__(self, num_features: int, eps: Optional[float] = None,
+                 elementwise_affine: bool = True):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features)) \
+            if elementwise_affine else None
+
+    def forward(self, x):
+        eps = torch.finfo(x.dtype).eps if self.eps is None else self.eps
+        y = x / torch.sqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+        return y if self.weight is None else y * self.weight
+
+
+class Identity(nn.Module):
+    """No norm (the registry's "None")."""
+
+    def __init__(self, num_features: int = 0):
+        super().__init__()
+        self.num_features = num_features
+
+    def forward(self, x):
+        return x
+
+
 NORM_LAYERS: dict[str, Optional[type]] = {
     "BatchNorm1d": BatchNorm,
     "BatchNorm2d": BatchNorm,
@@ -90,11 +176,16 @@ NORM_LAYERS: dict[str, Optional[type]] = {
     "InstanceNorm1d": InstanceNorm,
     "InstanceNorm2d": InstanceNorm,
     "InstanceNorm3d": InstanceNorm,
+    "GroupNorm": GroupNorm,
+    "LayerNorm": LayerNorm,
+    "RMSNorm": RMSNorm,
+    "None": None,
+    "Identity": Identity,
 }
 
 
 def resolve_norm(norm):
-    """Accept a module class or a registry name."""
+    """Accept a module class, a registry name, or None (no norm)."""
     if isinstance(norm, str):
         if norm not in NORM_LAYERS:
             raise NotImplementedError(f"norm layer {norm!r} is not ported yet")
@@ -104,8 +195,16 @@ def resolve_norm(norm):
 
 def make_norm(norm, num_features: int, **norm_kwargs):
     """Instantiate a norm class with signature-filtered kwargs (the
-    reference's ``inspect.signature`` filtering)."""
+    reference's ``inspect.signature`` filtering; ``affine`` reaches a norm
+    that takes ``elementwise_affine`` instead); None builds ``Identity``."""
     cls = resolve_norm(norm)
+    if cls is None:
+        return Identity(num_features)
     valid = inspect.signature(cls).parameters
-    kwargs = {k: v for k, v in norm_kwargs.items() if k in valid}
+    kwargs = {}
+    for k, v in norm_kwargs.items():
+        if k in valid:
+            kwargs[k] = v
+        elif k == "affine" and "elementwise_affine" in valid:
+            kwargs["elementwise_affine"] = v
     return cls(num_features, **kwargs)

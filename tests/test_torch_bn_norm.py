@@ -107,9 +107,11 @@ def test_registry_and_signature_filtering():
     for name in ("BatchNorm1d", "BatchNorm2d", "BatchNorm3d"):
         assert resolve_norm(name) is BatchNorm
     assert resolve_norm("InstanceNorm2d") is InstanceNorm
-    for name in ("GroupNorm", "LayerNorm", "RMSNorm", "None"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            resolve_norm(name)
+    for name in ("GroupNorm", "LayerNorm", "RMSNorm"):
+        assert resolve_norm(name).__name__ == name
+    assert resolve_norm("None") is None
+    with pytest.raises(NotImplementedError, match="not ported"):
+        resolve_norm("SyncBatchNorm")
     bn = make_norm("BatchNorm2d", 6, affine=False, eps=1e-3, num_groups=2)
     assert isinstance(bn, BatchNorm) and bn.weight is None and bn.eps == 1e-3
     assert {k: tuple(v.shape) for k, v in bn.state_dict().items()} == {

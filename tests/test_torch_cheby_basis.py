@@ -129,7 +129,8 @@ def test_factory_and_module_follow_jax():
                     generator=torch.Generator().manual_seed(1))
     std = np.sqrt(2.0) / np.sqrt(3 * 3 * 64 * 4)
     assert abs(big.poly_w.std().item() / std - 1.0) < 0.02
-    for bad in (dict(groups=2), dict(stride=2), dict(dilation=2),
-                dict(l1_decay=0.1)):
-        with pytest.raises(NotImplementedError):
-            CONV_KAN_FACTORY["ChebyKAN"](4, 4, 3, device="cpu", **bad)
+    for kw in (dict(groups=2), dict(stride=2), dict(dilation=2)):
+        conv = CONV_KAN_FACTORY["ChebyKAN"](4, 4, 3, device="cpu", **kw)
+        assert all(getattr(conv, k) == v for k, v in kw.items())
+    with pytest.raises(NotImplementedError):
+        CONV_KAN_FACTORY["ChebyKAN"](4, 4, 3, device="cpu", l1_decay=0.1)

@@ -142,7 +142,8 @@ def test_factory_and_module_follow_jax():
     assert not hasattr(conv, "prelu")
     assert CONV_KAN_FACTORY["GRAMKAN"](
         3, 4, 3, base_activation="gelu", device="cpu").basis.act == "gelu"
-    for bad in (dict(groups=2), dict(stride=2), dict(dilation=2),
-                dict(l1_decay=0.1)):
-        with pytest.raises(NotImplementedError):
-            CONV_KAN_FACTORY["GRAMKAN"](4, 4, 3, device="cpu", **bad)
+    for kw in (dict(groups=2), dict(stride=2), dict(dilation=2)):
+        conv = CONV_KAN_FACTORY["GRAMKAN"](4, 4, 3, device="cpu", **kw)
+        assert all(getattr(conv, k) == v for k, v in kw.items())
+    with pytest.raises(NotImplementedError):
+        CONV_KAN_FACTORY["GRAMKAN"](4, 4, 3, device="cpu", l1_decay=0.1)

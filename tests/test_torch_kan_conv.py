@@ -51,8 +51,8 @@ def test_seeded_init_is_deterministic_with_jax_shapes():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"family": "legendre"}, {"groups": 2}, {"stride": 2}, {"dilation": 2},
-    {"ndim": 1},
+    {"family": "legendre"}, {"family": "relukan"}, {"ndim": 3},
+    {"kernel_size": (3, 5)}, {"ndim": 1},
 ])
 def test_unported_configs_raise(kwargs):
     base = dict(family="kan", input_dim=4, output_dim=4, kernel_size=3,

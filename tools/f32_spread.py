@@ -1,8 +1,11 @@
-"""How far float32 lies from float64 in a VGG16_small of the port, on the
-CPU: the conditioning that ``chip_smoke.py``'s model and train phases
-hold the GPU's float32 readings against.
+"""How far float32 lies from float64 in a VGG16_small or a
+MobileNetV3-small of the port, on the CPU: the conditioning that
+``chip_smoke.py``'s model and train phases hold the GPU's float32 readings
+against.
 
     python3 tools/f32_spread.py --kan_conv ChebyKAN --seeds 5
+    python3 tools/f32_spread.py --model MobileNetV3KAN --kan_conv FastKAN \
+        --curve 0.1 --trace
 
 ``--kan_conv`` takes KAN, ChebyKAN, GRAMKAN or WavKAN.  For each seed of
 the model's weights (the (2, 2) head for ChebyKAN and WavKAN, as
@@ -17,7 +20,16 @@ relative perturbation of the size of float32 sums taken in another order
 (the GPU's kernels) moves them.  ``--steps 3`` reads the three train steps
 of ``chip_smoke.py``'s lockstep phases instead (each from the float32
 run's state before it), ``--batch`` sets their batch and
-``--kan_norm_layer BatchNorm2d`` builds train.py's norm (phase 26).  Needs
+``--kan_norm_layer BatchNorm2d`` builds train.py's norm (phase 26).
+
+``--model MobileNetV3KAN`` (``--kan_conv`` KAN, ChebyKAN or FastKAN) reads
+one train-mode forward and backward of path C's train model (phase 34:
+224 x 224, its first batch of 8) in float32 against float64: the loss,
+the worst gradients and running statistics, with each KAN conv's curved
+basis terms scaled by ``--curve`` (``chip_smoke.mnv3_smooth``; 1 is the
+seeded init).  ``--trace`` prints, for every KAN conv and BatchNorm in
+order, float32's error of its output and of its input (max |diff| over the
+largest float64 entry) and their ratio: where the rounding grows.  Needs
 no card.
 """
 
@@ -37,13 +49,62 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from convkan_tpu_torch.models.vgg import vggkan  # noqa: E402
 from convkan_tpu_torch.nn import kan_conv as nk  # noqa: E402
+from convkan_tpu_torch.train.data import imagenet_batch  # noqa: E402
 from convkan_tpu_torch.train.data import normalize_batch  # noqa: E402
+from convkan_tpu_torch.train.metrics import cross_entropy_loss  # noqa: E402
+
+
+def rel(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    return ((a.double() - b.double()).abs().max() / b.abs().max()).item()
+
+
+def mnv3(args):
+    """Path C's train model in float32 against float64 (module docs)."""
+    base = cs.mnv3_smooth(cs.mnv3_model(args.kan_conv, seed=22), args.curve)
+    xb, yb, _, _ = cs.mnv3_batches(cs.MNV3_TRAIN_BATCH, steps=1)[0]
+    x = imagenet_batch(xb, False, "CIFAR10")
+    runs = []
+    for dt in (torch.float32, torch.float64):
+        m = copy.deepcopy(base).to(dt).train()
+        seen = {}
+        for name, mod in m.named_modules():
+            if type(mod).__name__ in ("KanConvND", "BatchNorm"):
+                mod.register_forward_hook(
+                    lambda _m, i, o, name=name: seen.__setitem__(
+                        name, (i[0].detach(), o.detach())))
+        loss = cross_entropy_loss(m(x.to(dt), torch.Generator().manual_seed(7)),
+                                  yb)
+        loss.backward()
+        runs.append((loss.item(), seen,
+                     {n: p.grad for n, p in m.named_parameters()},
+                     dict(m.named_buffers())))
+    (l32, s32, g32, b32), (l64, s64, g64, b64) = runs
+    worst_g = sorted(((rel(g32[n], g), n) for n, g in g64.items()),
+                     reverse=True)[:3]
+    worst_b = max((rel(b32[n], b), n) for n, b in b64.items())
+    print(f"{args.kan_conv} MobileNetV3-small, curved terms x {args.curve:g},"
+          f" train mode, batch {cs.MNV3_TRAIN_BATCH}, float32 vs float64: "
+          f"loss {abs(l32 - l64) / abs(l64):.3e} relative; gradients "
+          + ", ".join(f"{n} {e:.3e}" for e, n in worst_g)
+          + f"; running statistics {worst_b[1]} {worst_b[0]:.3e}", flush=True)
+    if args.trace:
+        for name, (i64, o64) in s64.items():
+            i32, o32 = s32[name]
+            e_in, e_out = rel(i32, i64), rel(o32, o64)
+            print(f"  {name}: output {e_out:.3e}, input {e_in:.3e}, ratio "
+                  f"{e_out / e_in if e_in else float('inf'):.3g}", flush=True)
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", default="VGGKAN",
+                   choices=["VGGKAN", "MobileNetV3KAN"])
     p.add_argument("--kan_conv", default="ChebyKAN",
-                   choices=["KAN", "ChebyKAN", "GRAMKAN", "WavKAN"])
+                   choices=["KAN", "ChebyKAN", "GRAMKAN", "WavKAN",
+                            "FastKAN"])
+    p.add_argument("--curve", type=float, default=1.0)
+    p.add_argument("--trace", action="store_true")
     p.add_argument("--seeds", type=int, default=5)
     p.add_argument("--threads", type=int, default=8)
     p.add_argument("--kan_norm_layer", default="InstanceNorm2d",
@@ -52,6 +113,8 @@ def main():
     p.add_argument("--steps", type=int, default=1)
     args = p.parse_args()
     torch.set_num_threads(args.threads)
+    if args.model == "MobileNetV3KAN":
+        return mnv3(args)
     kw = {} if args.kan_conv in ("KAN", "GRAMKAN") else \
         {"expected_feature_shape": (2, 2)}
     kw["kan_norm_layer"] = args.kan_norm_layer
