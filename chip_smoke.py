@@ -2,9 +2,11 @@
 with B-spline KAN convs, with WavKAN convs, with ChebyKAN convs and with
 GRAMKAN convs, then the B-spline model as train.py builds it (BatchNorm2d,
 also served with its norms folded), trains BASELINE config 4's WavKAN
-stack at batch 2048, and serves and trains KAN-MobileNetV3-small at
-224 x 224 (config 5's single-chip model) with FastKAN, B-spline (hardswish)
-and ChebyKAN convs, on one CUDA card through the hand-written kernels and
+stack at batch 2048, serves and trains KAN-MobileNetV3-small at 224 x 224
+(config 5's single-chip model) with FastKAN, B-spline (hardswish) and
+ChebyKAN convs, and serves and trains KAN-EfficientNetV2-s at 224 x 224
+(config 5's other half, with remat and stochastic depth) with FastKAN and
+B-spline convs, on one CUDA card through the hand-written kernels and
 checks every step.
 
     python3 chip_smoke.py
@@ -254,6 +256,51 @@ FastKAN's 23 convs all on the plain route):
      its bound (pixels x the rows of E non-zero at x, or bytes), its plain
      version and cuDNN over a materialized basis; the step's time outside
      the kernels.
+KAN-EfficientNetV2-s, path D (bench.py's config-5 EfficientNetV2, train.py
+--model EfficientNetV2KAN --arch s; 224 x 224, 10 classes, remat; its 77
+stride-1 KAN convs on the kernels, the 38 projections with the identity
+base path (the B-spline and Gram instantiations of base_activation=None),
+its 3 strided KAN convs on the plain route; FastKAN's 80 all on the plain
+route):
+ 36. the identity instantiations (B-spline, Gram with beta) at each of its
+     20 distinct kernel shapes (3x3 at 112x112, 56x56, 28x28; 1x1 up to
+     C = O = 1536) at batch 8, and the SiLU B-spline at the shapes no
+     earlier path reached (112x112, C or O >= 768): forward against the
+     plain version (TOL), the backward kernels and the autograd path
+     against float64 (BWD_TOL; beta's partials as phase 20), the reductions
+     bit-exact;
+ 37. the KAN and FastKAN EfficientNetV2-s (curved terms at MNV3_CURVE,
+     running statistics set to a batch's) and the GRAMKAN kan_tiny (32 x
+     32) seeded on the CPU and moved to the card: eval logits GPU vs CPU
+     (MODEL_TOL) and not the same for every image; 77 kernel forwards and 3
+     plain routes per forward (FastKAN 0 and 80, kan_tiny 9 and 2);
+ 38. serving, the main path, as phase 33, with ``--model EfficientNetV2KAN
+     --arch s`` (FastKAN and KAN): the CLI's engine over HTTP and the CLI
+     itself as a subprocess;
+ 39. training, the main path: three train steps of the GRAMKAN s model
+     and of the B-spline one (curved terms at MNV3_CURVE; remat,
+     stochastic depth EFFV2_SD) at batch EFFV2_TRAIN_BATCH of
+     EFFV2_TRAIN_SIZE x EFFV2_TRAIN_SIZE images in lockstep GPU vs CPU, as
+     phase 34 holds them (losses, updates, running statistics, the
+     control; GRAMKAN's every-step gradients against float64, within
+     GRAD_TOL or F32_SPREAD x float32's spread, beta's entries 0 and 3
+     exactly 0; the B-spline model's gradients printed, not held: see
+     EFFV2_TRAIN; its 77 kernel convs' kernels on its first step's own
+     tensors, with remat, within BWD_TOL of float64); per step 153 forward
+     launches (the blocks' recompute runs 76 of the 77 again), 77
+     data-gradient and weight-gradient launches, 77 reductions (Gram 154),
+     5 plain routes; then GPU remat=True against
+     remat=False from one start (DropPath masks and running statistics
+     equal, gradients within REMAT_TOL; a plain torch.utils.checkpoint
+     wrapper, the control, must fail);
+ 40. times: bench.py's config-5 EfficientNetV2 step at batch
+     EFFV2_TIME_BATCH (FastKAN, and KAN on the kernels; with remat and
+     without; median of EFFV2_STEPS after EFFV2_WARMUP, peak memory, the
+     launches) and predict at that batch; each KAN-conv kernel per shape
+     (entries named with EFFV2_SUFFIX: the identity B-spline and Gram at
+     the projections' shapes, the SiLU B-spline at the others') against
+     its bound, its plain version and cuDNN over a materialized basis; the
+     KAN step's time outside the kernels.
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
 a sleep kernel holds the card until the host has issued all timed calls);
 a kernel's timing that the host held back fails, any other is listed
@@ -265,6 +312,7 @@ Prints a {"kernels": [...]} line, then the contract line
 
 from __future__ import annotations
 
+import collections
 import copy
 import functools
 import itertools
@@ -457,6 +505,57 @@ MNV3_CHECK_BATCH, MNV3_MODEL_BATCH, MNV3_TRAIN_BATCH, MNV3_TIME_BATCH = \
 MNV3_CURVE = 0.1
 # the path's entries of the kernels line end so
 MNV3_SUFFIX = {"hardswish": "[mnv3 hardswish]", "cheby3": "[mnv3 cheby3]"}
+# Path D: KAN-EfficientNetV2-s, the other half of BASELINE config 5
+# (bench.py:373-426: arch s, 224 x 224, 10 classes, remat), 80 KAN convs.
+# (H, C, O, k) of its 77 stride-1 KAN convs in order (the strided stem, 3 ->
+# 24, and the first, strided, 3x3 convs of stages 2 and 3 take the plain
+# route); the 38 projections (1x1, after a Fused-MBConv expansion or ending
+# an MBConv block) have the identity base path, the others SiLU.  FastKAN,
+# bench.py's family, runs all 80 on the plain route.
+EFFV2_CONVS = (
+    [(112, 24, 24, 3)] * 2
+    + [(56, 96, 48, 1)] + [(56, 48, 192, 3), (56, 192, 48, 1)] * 3
+    + [(28, 192, 64, 1)] + [(28, 64, 256, 3), (28, 256, 64, 1)] * 3
+    + [(28, 64, 256, 1), (14, 256, 128, 1)]
+    + [(14, 128, 512, 1), (14, 512, 128, 1)] * 5
+    + [(14, 128, 768, 1), (14, 768, 160, 1)]
+    + [(14, 160, 960, 1), (14, 960, 160, 1)] * 8
+    + [(14, 160, 960, 1), (7, 960, 256, 1)]
+    + [(7, 256, 1536, 1), (7, 1536, 256, 1)] * 14
+    + [(7, 256, 1280, 1)])
+# the projections among them: a 1x1 conv whose output is narrower than its
+# input (every other 1x1 conv expands; the 3x3 convs are expansions)
+EFFV2_PROJ = [k == 1 and O < C for _, C, O, k in EFFV2_CONVS]
+EFFV2_FAMILIES = ("KAN", "GRAMKAN", "FastKAN")
+# kernel checks, model logits, lockstep train steps (at EFFV2_TRAIN_SIZE:
+# the CPU's float32 and float64 steps of the s model), bench.py's timed batch
+EFFV2_CHECK_BATCH, EFFV2_MODEL_BATCH, EFFV2_TRAIN_BATCH, EFFV2_TIME_BATCH = \
+    8, 2, 8, 128
+EFFV2_TRAIN_SIZE = 64
+# stochastic depth of the train phases' model: the builder's default
+EFFV2_SD = 0.2
+# phase 39's families (``effv2_train_model``: GRAMKAN at its init, the
+# B-spline with its curved terms at MNV3_CURVE, as phase 34) and whether
+# their gradients are held against float64 (and float32's spread read).
+# The B-spline model's are not: at EFFV2_TRAIN_SIZE its last stage runs
+# at 2 x 2, each BatchNorm there over 32 values, and its float32 gradients
+# lie far from float64 (the PReLU slopes, each a cancelling sum, up to 4.7
+# under F32_NOISE on the CPU, so a zero gradient would pass; one conv's
+# weights 0.14 on the card with its kernels, 0.012 on the plain route,
+# though every kernel on the step's own tensors is within 3e-6 of
+# float64: tools/f32_spread.py --model EfficientNetV2KAN --kan_conv KAN
+# --curve 0.1 [--card]).  Its kernels are held on the step's own tensors
+# instead (``conv_kernel_readings``)
+EFFV2_TRAIN = {"GRAMKAN": True, "KAN": False}
+# timed steps of phase 40 (after warm-up steps)
+EFFV2_WARMUP, EFFV2_STEPS = 2, 5
+# GPU remat=True against remat=False (phase 39): each gradient within this
+# of its largest entry (the forward is the same computation on the same
+# inputs; cuDNN's backward algorithms may sum in another order)
+REMAT_TOL = 1e-4
+EFFV2_SUFFIX = {"identity": "[effv2 identity]",
+                "gram_identity": "[effv2 gram identity]",
+                "silu": "[effv2 silu]"}
 
 
 # readings that cuda_ms could not hold to device time: kernel name -> fields
@@ -1041,6 +1140,7 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
             "gpu_vs_f64": grad_readings(grads_gpu, grads_64, steps)[0],
             "gpu_readings": grad_readings(grads_gpu, grads_64, steps),
             "spread": spread,
+            "cpu_readings": grad_readings(grads_cpu, grads_64, steps),
             "cpu_vs_f64": grad_readings(grads_cpu, grads_64, steps)[0],
             "gpu_vs_cpu": grad_readings(grads_gpu, grads_cpu, steps)[0],
             "update_rel": rel, "update_worst": worst, "stats": stats,
@@ -1050,7 +1150,7 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
 
 
 def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
-                zero_entries=(), n_convs=13,
+                zero_entries=(), n_convs=13, hold_grads=True,
                 label=f"VGG16_small batch {TRAIN_BATCH}", **kw):
     """7 / 13 / 18 / 23 / 26 / 29 / 34. the training main path, by
     ``train_compare`` (``kw``: its model, batches and step, or the model's
@@ -1058,7 +1158,9 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
     (GRAD_TOL), the updates (UPDATE_TOL) and, with BatchNorm, the running
     statistics after each compared step (STATS_TOL); a step that did not
     update (and moved no statistic), or a zero gradient, must fail those
-    checks (the control); each of the model's ``n_convs`` KAN or WavKAN
+    checks (the control); with ``hold_grads`` False the gradients'
+    readings are printed and not held (phase 39's B-spline model).  Each
+    of the model's ``n_convs`` KAN or WavKAN
     convs' ``grad_params`` must get a non-zero gradient, each
     (parameter, index) of ``zero_entries`` an exactly zero one (with its
     parameter's reading printed), and ``mod``'s launch counts must be
@@ -1076,7 +1178,8 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
     worst_g, worst_step, worst_name = r["gpu_vs_f64"]
     cpu_g, cpu_step, cpu_name = r["cpu_vs_f64"]
     rel, worst = r["update_rel"], r["update_worst"]
-    print(f"[train] {'every' if lockstep else 'first'}-step gradients vs "
+    which = "every" if len(r["grads_64"]) > 1 else "first"
+    print(f"[train] {which}-step gradients vs "
           f"float64 on the CPU: GPU max |diff| {worst_g:.3e} of each "
           f"parameter's largest entry (step {worst_step}, {worst_name}); "
           f"CPU float32 {cpu_g:.3e} (step {cpu_step}, {cpu_name}); GPU vs "
@@ -1088,11 +1191,13 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
     # a zero gradient reads 1 against any reference
     grad_limit = GRAD_TOL
     if r["spread"] is None:
-        check(worst_g <= GRAD_TOL, "GPU gradients differ from float64")
+        check(worst_g <= GRAD_TOL or not hold_grads,
+              "GPU gradients differ from float64")
     else:
         # each gradient within GRAD_TOL, or within F32_SPREAD x the float32
         # spread at its start (see F32_NOISE)
         spread = r["spread"]
+        cpu = {(i, n): e for e, i, n in r["cpu_readings"]}
         over = [(e, i, n, spread[(i, n)]) for e, i, n in r["gpu_readings"]
                 if e > GRAD_TOL]
         top = max(spread.items(), key=lambda kv: kv[1])
@@ -1100,10 +1205,12 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
         print(f"[train] float32 spread at the same starts (conv outputs x "
               f"(1 + {F32_NOISE:g} N(0, 1)), seeds {F32_NOISE_SEEDS}): max "
               f"{top[1]:.3e} (step {top[0][0]}, {top[0][1]}); GPU readings "
-              f"over GRAD_TOL: "
-              + (", ".join(f"{n} step {i} {e:.3e} (spread {f:.3e})"
-                           for e, i, n, f in over) or "none"), flush=True)
-        check(all(e <= F32_SPREAD * f for e, _, _, f in over),
+              f"over GRAD_TOL (CPU float32's, the spread): "
+              + (", ".join(f"{n} step {i} {e:.3e} ({cpu[(i, n)]:.3e}, "
+                           f"{f:.3e})" for e, i, n, f in over) or "none"),
+              flush=True)
+        check(not hold_grads or all(e <= F32_SPREAD * f
+                                    for e, _, _, f in over),
               "GPU gradients differ from float64 by more than GRAD_TOL and "
               f"{F32_SPREAD} x float32's spread at the same start")
     check(rel <= UPDATE_TOL, "parameter updates differ between GPU and CPU")
@@ -1120,9 +1227,11 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
           f"(UPDATE_TOL {UPDATE_TOL}), running statistics "
           + ("-" if c_stats is None else
              f"{c_stats:.3e} (STATS_TOL {STATS_TOL})")
-          + f"; a zero gradient 1 (limit {grad_limit:.3e})", flush=True)
+          + (f"; a zero gradient 1 (limit {grad_limit:.3e})" if hold_grads
+             else "; gradients not held"), flush=True)
     check(c_upd > UPDATE_TOL and (c_stats is None or c_stats > STATS_TOL)
-          and grad_limit < 1, "the control passes the checks")
+          and (grad_limit < 1 or not hold_grads),
+          "the control passes the checks")
     convs = [(n, m) for n, m in r["model_gpu"].named_modules()
              if type(m).__name__ in ("KanConvND", "WavKANConvND")]
     check(len(convs) == n_convs, f"{len(convs)} convs in the model")
@@ -1136,8 +1245,7 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
                   f"{name}.{pn}[{i}] got a non-zero gradient on the GPU")
     for pn in dict.fromkeys(p for p, _ in zero_entries):
         worst = max((e, st, n) for e, st, n in grad_readings(
-            r["grads_gpu"], r["grads_64"], range(1 + (TRAIN_STEPS - 1)
-                                                 * lockstep))
+            r["grads_gpu"], r["grads_64"], range(len(r["grads_64"])))
             if n.endswith("." + pn))
         print(f"[train] {pn}: GPU gradients vs float64 max |diff| "
               f"{worst[0]:.3e} of the parameter's largest entry (step "
@@ -2493,9 +2601,9 @@ def mnv3_want(kan_conv):
     return n, len(MNV3_CONVS) + 1 - n
 
 
-def mnv3_images(n, seed):
-    """Seeded 224 x 224 uint8 images (as bench.py's config 5 feeds)."""
-    return np.random.RandomState(seed).randint(0, 256, (n, 224, 224, 3),
+def seeded_images(n, seed, size=224):
+    """Seeded size x size uint8 images (bench.py's config 5 feeds 224)."""
+    return np.random.RandomState(seed).randint(0, 256, (n, size, size, 3),
                                                np.uint8)
 
 
@@ -2566,7 +2674,7 @@ def mnv3_eval_model(kan_conv, served=False):
     images in the form ``mnv3_prep(served)`` gives, in eval mode on the
     CPU."""
     return mnv3_calibrate(mnv3_smooth(mnv3_model(kan_conv)),
-                          mnv3_prep(mnv3_images(8, 30), served))
+                          mnv3_prep(seeded_images(8, 30), served))
 
 
 def phase_mnv3_model(kc, dev):
@@ -2575,7 +2683,7 @@ def phase_mnv3_model(kc, dev):
     images (imagenet_batch) on the card against the CPU (MODEL_TOL) and not
     the same for every image, the kernel launches and plain-route convs of
     one forward."""
-    x = mnv3_prep(mnv3_images(MNV3_MODEL_BATCH, 31))
+    x = mnv3_prep(seeded_images(MNV3_MODEL_BATCH, 31))
     for fam in MNV3_FAMILIES:
         cpu = mnv3_eval_model(fam)
         gpu = copy.deepcopy(cpu).to(dev)
@@ -2604,25 +2712,33 @@ def phase_mnv3_model(kc, dev):
 
 
 def phase_mnv3_serve(kc, fam):
-    """33. serving, the main path: the CLI's engine (``build_engine`` of
-    the argv below, in this process) serving the state of ``mnv3_eval_
-    model(fam, served=True)`` (loaded with strict=True) behind the
+    """33. serving, the main path, of MobileNetV3-small (``serve_224``)."""
+    return serve_224(kc, fam, "MobileNetV3KAN", "small", mnv3_eval_model,
+                     mnv3_want(fam), "[mnv3 serve]")
+
+
+def serve_224(kc, fam, model_name, arch, eval_model, per_forward, tag):
+    """33 / 38. serving, the main path: the CLI's engine (``build_engine``
+    of the argv below, in this process) serving the state of
+    ``eval_model(fam, served=True)`` (loaded with strict=True) behind the
     HTTP server, launch counts zeroed first; 3 single-image requests and
     one of 4 images; the answers against ``predict`` and against the CPU
     model's eval logits (MODEL_TOL), not the same for every image, and the
-    counts read.  Then the same argv run as ``python -m
-    convkan_tpu_torch.serve`` in a process of its own (its seeded weights)
-    answers one request of 4 images, against the in-process engine's
-    ``predict`` of the same seeded weights (MODEL_TOL).  Returns the
-    forward launches of the HTTP run."""
+    counts read (``per_forward``: kernel forwards and plain routes per
+    forward).
+    Then the same argv run as ``python -m convkan_tpu_torch.serve`` in a
+    process of its own (its seeded weights) answers one request of 4
+    images, against the in-process engine's ``predict`` of the same seeded
+    weights (MODEL_TOL).  Returns the forward launches of the HTTP run and
+    its launches by basis (``kc.launches_by_basis``)."""
     from convkan_tpu_torch.serve import build_engine, build_parser, \
         make_server
 
-    argv = ["--model", "MobileNetV3KAN", "--arch", "small",
+    argv = ["--model", model_name, "--arch", arch,
             "--imagenet_preprocessing", "--kan_conv", fam, "--init_random",
             "--seed", "5", "--buckets", "1,4"]
-    imgs = mnv3_images(4, 33)
-    model = mnv3_eval_model(fam, served=True)
+    imgs = seeded_images(4, 33)
+    model = eval_model(fam, served=True)
     with torch.inference_mode():
         want = model(mnv3_prep(imgs, served=True)).numpy()
 
@@ -2647,6 +2763,7 @@ def phase_mnv3_serve(kc, fam):
         single = np.concatenate([post(url, imgs[i:i + 1]) for i in range(3)])
         four = post(url, imgs)
         counts = dict(kc.launches, **kc.plain_calls)
+        by_basis = dict(kc.launches_by_basis)
         with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
             metrics = json.loads(r.read())
     finally:
@@ -2660,9 +2777,9 @@ def phase_mnv3_serve(kc, fam):
     e_cpu = max(float(np.abs(single - want[:3]).max()),
                 float(np.abs(four - want).max()))
     spread = float(np.abs(four - four[0]).max())
-    n_fwd, n_plain = mnv3_want(fam)
+    n_fwd, n_plain = per_forward
     steps = metrics["device_batches"] - before
-    print(f"[mnv3 serve] {name}, calibrated state: 3 single-image requests "
+    print(f"{tag} {name}, calibrated state: 3 single-image requests "
           f"and one of 4, max|err| vs predict {e_http:.3e}, vs the CPU "
           f"{e_cpu:.3e} (spread over the images {spread:.3e}); {steps} "
           f"forwards, counts {counts}", flush=True)
@@ -2691,24 +2808,24 @@ def phase_mnv3_serve(kc, fam):
     finally:
         proc.terminate()
         proc.wait(timeout=60)
-    print(f"[mnv3 serve] python -m convkan_tpu_torch.serve {' '.join(argv)}:"
+    print(f"{tag} python -m convkan_tpu_torch.serve {' '.join(argv)}:"
           f" {line.strip()}; its 4-image answer vs predict of the same "
           f"seeded weights max|err| {e_cli:.3e}", flush=True)
     check(e_cli <= MODEL_TOL, "the serving CLI disagrees with predict")
-    return counts["kan_conv2d_fwd"]
+    return counts["kan_conv2d_fwd"], by_basis
 
 
 def mnv3_batches(B, steps=TRAIN_STEPS, seed=34):
     """bench.py's config-5 data: 224 x 224 uint8 images, 10 classes (no
     crops, no flips)."""
     rng = np.random.RandomState(seed)
-    return [(torch.from_numpy(mnv3_images(B, seed + i)),
+    return [(torch.from_numpy(seeded_images(B, seed + i)),
              torch.from_numpy(rng.randint(0, 10, B).astype(np.int64)),
              None, None) for i in range(steps)]
 
 
-def mnv3_step(model):
-    """The config-5 train step: imagenet=True, augment=False."""
+def config5_step(model):
+    """bench.py's config-5 train step: imagenet=True, augment=False."""
     from convkan_tpu_torch.train.loop import make_train_step
     return make_train_step(model, "CIFAR10", augment=False, imagenet=True)
 
@@ -2729,41 +2846,42 @@ def phase_mnv3_train(kc, dev, fam):
         n_convs=len(MNV3_CONVS) + 1,
         label=f"MobileNetV3-small 224x224 batch {MNV3_TRAIN_BATCH}",
         build=lambda: mnv3_smooth(mnv3_model(fam, seed=22)),
-        batches=mnv3_batches(MNV3_TRAIN_BATCH), make_step=mnv3_step,
+        batches=mnv3_batches(MNV3_TRAIN_BATCH), make_step=config5_step,
         steps_per_epoch=100)
     return counts
 
 
-def time_mnv3(kc, fam, dev, card):
-    """35. bench.py's config-5 step (mobilenet_v3_kan("small", kan_conv=...)
-    defaults, AdamW with steps_per_epoch 100, imagenet=True, augment=False,
-    224 x 224 uint8 images) at batch MNV3_TIME_BATCH: median images/s of 12
-    steps after 3 warm-up steps, each ending in a host readback of the
-    loss, the peak device memory and the 15 steps' launches; then
-    ``predict`` at the same batch (median of 10), and the device times of
-    the ImageNet preprocessing and of the stem's forward and backward.  A
-    batch that does not fit in the card's memory is halved until one does,
-    and said so.  Returns (batch, step images/s, predict images/s,
-    launches, {"prep_ms", "stem_ms"})."""
+def time_config5_step(kc, label, log, model, dev, B, warmup, steps, want,
+                      predict_runs, seed, card):
+    """35 / 40. bench.py's config-5 step of ``model`` (AdamW with
+    steps_per_epoch 100, ``config5_step``, 224 x 224 uint8 images) at
+    batch ``B``: median images/s of ``steps`` steps after ``warmup``, each
+    ending in a host readback of the loss, the peak device memory and the
+    launches of all of them, which must be ``want`` ({name: per step}) per
+    step; with ``predict_runs``, ``predict`` at the same batch (median of
+    as many runs).  A batch that does not fit in the card's memory is
+    halved until one does, and said so.  Returns (batch, step images/s,
+    predict images/s or None, launches, launches by basis
+    (``kc.launches_by_basis``), peak GiB)."""
     from convkan_tpu_torch.serve import InferenceEngine
     from convkan_tpu_torch.train.state import create_train_state
 
-    B = MNV3_TIME_BATCH
-    model = mnv3_model(fam, device=dev, seed=23, bench=True)
-    y = torch.from_numpy(np.random.RandomState(36).randint(0, 10, B)).to(dev)
+    y = torch.from_numpy(np.random.RandomState(seed + 1).randint(0, 10, B)) \
+        .to(dev)
     while True:
         try:
             state = create_train_state(model, steps_per_epoch=100)
-            step = mnv3_step(model)
-            x = torch.from_numpy(mnv3_images(B, 35)).to(dev)
+            step = config5_step(model)
+            x = torch.from_numpy(seeded_images(B, seed)).to(dev)
+            torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             kc.reset_launches()
-            for _ in range(3):
+            for _ in range(warmup):
                 step(state, x, y[:B]).item()
             break
         except torch.cuda.OutOfMemoryError:
-            print(f"[mnv3 time] {fam}: batch {B} does not fit in the card's "
-                  f"memory without remat (peak "
+            print(f"{log} {label}: batch {B} does not fit in the card's "
+                  f"memory (peak "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
                   "halving the batch", flush=True)
             state = step = x = None
@@ -2771,36 +2889,66 @@ def time_mnv3(kc, fam, dev, card):
             B //= 2
     y = y[:B]
     runs = []
-    for _ in range(12):
+    for _ in range(steps):
         t0 = time.perf_counter()
         step(state, x, y).item()
         runs.append(B / (time.perf_counter() - t0))
+    n = warmup + steps
     counts = dict(kc.launches, **kc.plain_calls)
+    by_basis = dict(kc.launches_by_basis)
     peak = torch.cuda.max_memory_allocated() / 2**30
     ips = statistics.median(runs)
+    check(counts == {k: n * v for k, v in want.items()},
+          f"{label} config-5 step: {counts} in {n} steps")
+    pips = None
+    if predict_runs:
+        model.eval()
+        engine = InferenceEngine(model, "CIFAR10", (224, 224, 3),
+                                 buckets=(B,), device="cuda")
+        try:
+            xs = seeded_images(B, seed + 2)
+            pruns = []
+            for _ in range(predict_runs):
+                t0 = time.perf_counter()
+                engine.predict(xs)
+                pruns.append(B / (time.perf_counter() - t0))
+        finally:
+            engine.close()
+        pips = statistics.median(pruns)
+        model.train()
+    print(f"{log} {label} train step batch {B}: median {ips:.1f} images/s "
+          f"({1e3 * B / ips:.3f} ms) over {steps} steps (min "
+          f"{min(runs):.1f}, max {max(runs):.1f}); peak memory {peak:.2f} "
+          f"GiB; {n} steps' counts {counts}"
+          + ("" if pips is None else
+             f"; predict batch {B}: median {pips:.1f} images/s (min "
+             f"{min(pruns):.1f}, max {max(pruns):.1f})")
+          + f" (on {card})", flush=True)
+    del state, step, x, y
+    torch.cuda.empty_cache()
+    return B, ips, pips, counts, by_basis, peak
+
+
+def time_mnv3(kc, fam, dev, card):
+    """35. bench.py's config-5 step of MobileNetV3-small
+    (``mnv3_model(fam, bench=True)``) at batch MNV3_TIME_BATCH
+    (``time_config5_step``: 12 steps after 3 warm-up steps, predict the
+    median of 10), then the device times of the ImageNet preprocessing and
+    of the stem's forward and backward.  Returns (batch, step images/s,
+    predict images/s, launches, {"prep_ms", "stem_ms"})."""
+    from convkan_tpu_torch.train.data import imagenet_batch
+
+    model = mnv3_model(fam, device=dev, seed=23, bench=True)
     n_fwd, n_plain = mnv3_want(fam)
-    check(counts == {**dict.fromkeys(kc.KERNELS, 15 * n_fwd),
-                     kc.PLAIN: 15 * n_plain},
-          f"{fam} config-5 step: {counts} in 15 steps")
-    model.eval()
-    engine = InferenceEngine(model, "CIFAR10", (224, 224, 3), buckets=(B,),
-                             device="cuda")
-    try:
-        xs = mnv3_images(B, 37)
-        pruns = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            engine.predict(xs)
-            pruns.append(B / (time.perf_counter() - t0))
-    finally:
-        engine.close()
-    pips = statistics.median(pruns)
+    B, ips, pips, counts, _, _ = time_config5_step(
+        kc, f"{fam} MobileNetV3-small 224x224", "[mnv3 time]", model, dev,
+        MNV3_TIME_BATCH, 3, 12,
+        {**dict.fromkeys(kc.KERNELS, n_fwd), kc.PLAIN: n_plain}, 10, 35,
+        card)
     # two parts of the step outside the kernels: the ImageNet preprocessing
     # (resize to 256, centre crop) and the strided stem on the plain route
     # (its basis materialized at 224 x 224), forward and backward
-    from convkan_tpu_torch.train.data import imagenet_batch
-
-    model.train()
+    x = torch.from_numpy(seeded_images(B, 35)).to(dev)
     xin = imagenet_batch(x, False, "CIFAR10")
     gy = torch.randn_like(model.KanConvND_0(xin))
     parts = {"prep_ms": cuda_ms(lambda: imagenet_batch(x, False, "CIFAR10"),
@@ -2808,93 +2956,108 @@ def time_mnv3(kc, fam, dev, card):
              "stem_ms": cuda_ms(lambda: model.KanConvND_0(xin).backward(gy),
                                 iters=3, warmup=1,
                                 what=(f"mnv3 {fam}", "stem_ms"))}
-    print(f"[mnv3 time] {fam} MobileNetV3-small 224x224 train step batch {B}:"
-          f" median {ips:.1f} images/s ({1e3 * B / ips:.3f} ms) over 12 steps"
-          f" (min {min(runs):.1f}, max {max(runs):.1f}); peak memory "
-          f"{peak:.2f} GiB; predict batch {B}: median {pips:.1f} images/s "
-          f"(min {min(pruns):.1f}, max {max(pruns):.1f}); 15 steps' counts "
-          f"{counts}; imagenet_batch {parts['prep_ms']:.3f} ms, the stem's "
-          f"forward and backward (plain route) {parts['stem_ms']:.3f} ms "
-          f"(on {card})", flush=True)
-    del model, state, step, engine, x, y, xin, gy
+    print(f"[mnv3 time] {fam} at batch {B}: imagenet_batch "
+          f"{parts['prep_ms']:.3f} ms, the stem's forward and backward "
+          f"(plain route) {parts['stem_ms']:.3f} ms (on {card})", flush=True)
+    del model, x, xin, gy
     torch.cuda.empty_cache()
     return B, ips, pips, counts, parts
 
 
-def phase_mnv3_kernel_times(kc, tag, basis, rows_nz, gen, dev, card, B):
-    """35. each KAN-conv kernel at every 1x1 shape of MobileNetV3-small at
-    batch ``B`` (k = 1, pad 0, x U(-1, 1)): device time (``cuda_ms``), the
-    plain version, the library call over a materialized basis (cuDNN's
-    conv, its dE and dW; ``sum(0)`` on a cold L2 for the reduction) and
-    the bound: the pixels times the ``rows_nz`` rows of E non-zero at x
-    (a 1x1 conv has no pad pairs) at the FP32 peak, or the bytes each input
-    read once and each output written once at HBM rate, the larger.
-    Returns (per-kernel totals over the 22 convs of a train step, rows)."""
-    names = ("kan_conv2d_fwd", "kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
-             "kan_conv2d_bwd_dw_reduce")
-    suffix = MNV3_SUFFIX[tag]
+def phase_kernel_times(kc, log, suffix, basis, rows_nz, convs, gen, dev,
+                       card, B, iters=(5, 1)):
+    """35 / 40. each KAN-conv kernel of ``basis`` at the distinct shapes of
+    ``convs`` ((H, C, O, k) of a model's convs of this basis, in order) at
+    batch ``B`` (x U(-1, 1), Gram's beta as phase 20's): device time
+    (``cuda_ms`` of ``iters[0]`` runs), the plain version (``iters[1]``),
+    the library call over a materialized basis (cuDNN's conv, its dE and
+    dW; ``sum(0)`` on a cold L2 for the reduction) and the bound: the
+    interior (pixel, tap) pairs times the ``rows_nz`` rows of E non-zero at
+    x (with Gram's beta terms in the data gradient) at the FP32 peak, or the
+    bytes each input read once and each output written once at HBM rate,
+    the larger.  Entries are named with ``suffix``, lines start with
+    ``log``.  Returns (per-kernel totals over ``convs`` in one train step,
+    rows)."""
+    names = kc.KERNELS
     totals = {n: dict.fromkeys(("ms", "plain_ms", "library_ms", "op_ms",
                                 "byte_ms"), 0.0) for n in names}
     rows = []
     K, R = basis.K, basis.R
-    spec = (basis, 1, 0)
-    for H, C, O in dict.fromkeys(MNV3_CONVS):
-        x, bw, pw = conv_inputs(gen, B, H, C, O, k=1, basis=basis)
+    it, plain_it = iters
+    for H, C, O, k in dict.fromkeys(convs):
+        pad = k // 2
+        spec = (basis, k, pad)
+        x, bw, pw = conv_inputs(gen, B, H, C, O, k=k, basis=basis)
+        extra = conv_extra(gen, C, basis)
         g = torch.randn(B, H, H, O, generator=gen)
         x, pw, g = x.to(dev), pw.to(dev), g.to(dev)
         bw = None if bw is None else bw.to(dev)
-        w_all = kc.pack_w_all(bw, pw, C=C, K=K, k=1, O=O)
-        cfg = kc.dw_launch_config(B, H, H, C, O, 1, 0, R)
-        part = kc.weight_partials(x, g, *spec)
+        ex = () if extra is None else (extra.to(dev),)
+        w_all = kc.pack_w_all(bw, pw, C=C, K=K, k=k, O=O,
+                              degree_major=basis.degree_major)
+        cfg = kc.dw_launch_config(B, H, H, C, O, k, pad, R)
+        part = kc.weight_partials(x, g, *spec, *ex)
         red = reduction_times("kan_conv2d_bwd_dw_reduce" + suffix,
                               kc.reduce_partials, kc.reduce_reference, part)
-        E = kc.expand(x, basis).permute(0, 3, 1, 2).contiguous()
-        w = w_all.reshape(R * C, 1, 1, O).permute(3, 0, 1, 2).contiguous()
+        del part
+        E = kc.expand(x, basis, *ex).permute(0, 3, 1, 2).contiguous()
+        w = w_all.reshape(R * C, k, k, O).permute(3, 0, 1, 2).contiguous()
         gn = g.permute(0, 3, 1, 2).contiguous()
 
         def conv_bwd(mask):
             return torch.ops.aten.convolution_backward(
-                gn, E, w, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
-                mask)
+                gn, E, w, None, [1, 1], [pad, pad], [1, 1], False, [0, 0],
+                1, mask)
 
         ms = {
             "kan_conv2d_fwd": (
-                cuda_ms(lambda: kc.kan_conv2d(x, bw, pw, *spec), iters=10),
-                cuda_ms(lambda: kc.kan_conv2d_reference(x, bw, pw, *spec),
-                        iters=2, warmup=1,
+                cuda_ms(lambda: kc.kan_conv2d(x, bw, pw, *spec, *ex),
+                        iters=it),
+                cuda_ms(lambda: kc.kan_conv2d_reference(x, bw, pw, *spec,
+                                                        *ex),
+                        iters=plain_it, warmup=1,
                         what=("kan_conv2d_fwd" + suffix, "plain_ms")),
-                cuda_ms(lambda: torch.nn.functional.conv2d(E, w), iters=10,
-                        what=("kan_conv2d_fwd" + suffix, "library_ms"))),
+                cuda_ms(lambda: torch.nn.functional.conv2d(E, w, padding=pad),
+                        iters=it, what=("kan_conv2d_fwd" + suffix,
+                                        "library_ms"))),
             "kan_conv2d_bwd_dx": (
-                cuda_ms(lambda: kc.input_grad(x, w_all, g, *spec), iters=10),
-                cuda_ms(lambda: kc.input_grad_reference(x, w_all, g, *spec),
-                        iters=2, warmup=1,
+                cuda_ms(lambda: kc.input_grad(x, w_all, g, *spec, *ex),
+                        iters=it),
+                cuda_ms(lambda: kc.input_grad_reference(x, w_all, g, *spec,
+                                                        *ex),
+                        iters=plain_it, warmup=1,
                         what=("kan_conv2d_bwd_dx" + suffix, "plain_ms")),
-                cuda_ms(lambda: conv_bwd([True, False, False]), iters=10,
+                cuda_ms(lambda: conv_bwd([True, False, False]), iters=it,
                         what=("kan_conv2d_bwd_dx" + suffix, "library_ms"))),
             "kan_conv2d_bwd_dw": (
-                cuda_ms(lambda: kc.weight_partials(x, g, *spec), iters=10),
-                cuda_ms(lambda: kc.weight_grad_reference(x, g, *spec),
-                        iters=2, warmup=1,
+                cuda_ms(lambda: kc.weight_partials(x, g, *spec, *ex),
+                        iters=it),
+                cuda_ms(lambda: kc.weight_grad_reference(x, g, *spec, *ex),
+                        iters=plain_it, warmup=1,
                         what=("kan_conv2d_bwd_dw" + suffix, "plain_ms")),
-                cuda_ms(lambda: conv_bwd([False, True, False]), iters=10,
+                cuda_ms(lambda: conv_bwd([False, True, False]), iters=it,
                         what=("kan_conv2d_bwd_dw" + suffix, "library_ms"))),
             "kan_conv2d_bwd_dw_reduce": (red["ms"], red["plain_ms"],
                                          red["library_ms"]),
         }
         del E, gn
-        n = MNV3_CONVS.count((H, C, O))
+        torch.cuda.empty_cache()
+        n = convs.count((H, C, O, k))
         D, S = R * C, cfg["S"]
-        flops = 2 * B * H * H * rows_nz * C * O
+        flops = 2 * B * interior_pairs(H, k, pad) * rows_nz * C * O
+        dx_flops = flops + (GRAM_DBETA_FLOPS * B * H * H * C
+                            if basis.n_extra else 0)
         work = {
             "kan_conv2d_fwd": (flops, 4 * (x.numel() + w_all.numel()
                                            + B * H * H * O)),
-            "kan_conv2d_bwd_dx": (flops, 4 * (2 * x.numel() + w_all.numel()
-                                              + g.numel())),
+            "kan_conv2d_bwd_dx": (dx_flops, 4 * (2 * x.numel()
+                                                 + w_all.numel()
+                                                 + g.numel())),
             "kan_conv2d_bwd_dw": (flops, 4 * (x.numel() + g.numel()
-                                              + S * D * O)),
-            "kan_conv2d_bwd_dw_reduce": reduce_work(S, D * O)}
-        row = {"H": H, "C": C, "O": O, "batch": B, "layers": n, "S": S}
+                                              + S * D * k * k * O)),
+            "kan_conv2d_bwd_dw_reduce": reduce_work(S, D * k * k * O)}
+        row = {"H": H, "C": C, "O": O, "k": k, "batch": B, "layers": n,
+               "S": S}
         for name in names:
             op_ms = work[name][0] / PEAK_FP32_FLOPS * 1e3
             byte_ms = work[name][1] / PEAK_BYTES * 1e3
@@ -2908,17 +3071,480 @@ def phase_mnv3_kernel_times(kc, tag, basis, rows_nz, gen, dev, card, B):
                            ("byte_ms", byte_ms)):
                 totals[name][key] += n * v
         rows.append(row)
-        print(f"[mnv3 time] {tag} {json.dumps(row)}", flush=True)
+        print(f"{log} {json.dumps(row)}", flush=True)
+        del x, g, w_all
     for name in names:
         t = totals[name]
         t["bound_ms"] = max(t["op_ms"], t["byte_ms"])
-        print(f"[mnv3 time] {tag} {name} per train step (22 convs) at batch "
+        print(f"{log} {name} per train step ({len(convs)} convs) at batch "
               f"{B}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
               f"library {t['library_ms']:.3f} ms, bound "
               f"{t['bound_ms']:.3f} ms, "
               f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound (on "
               f"{card})", flush=True)
+    torch.cuda.empty_cache()
     return totals, rows
+
+
+# ------------------------------------------ KAN-EfficientNetV2-s: path D
+def effv2_model(kan_conv, device="cpu", seed=41, remat=True, **kw):
+    """EfficientNetV2-s, 10 classes, seeded, as bench.py builds it
+    (efficientnetv2_kan(arch="s", kan_conv=...): BatchNorm without affine,
+    head dropout 0.2, stochastic depth 0.2, remat) and as train.py --model
+    EfficientNetV2KAN --arch s builds it (the same defaults); ``kw``
+    overrides a builder default."""
+    from convkan_tpu_torch.models.efficientnetv2 import efficientnetv2_kan
+
+    return efficientnetv2_kan(arch="s", num_classes=10, kan_conv=kan_conv,
+                              remat=remat,
+                              generator=torch.Generator().manual_seed(seed),
+                              device=device, **kw)
+
+
+def effv2_tiny(kan_conv, device="cpu", seed=41):
+    """EfficientNetV2 kan_tiny (32 x 32 inputs, the golden's family), 10
+    classes, seeded."""
+    from convkan_tpu_torch.models.efficientnetv2 import \
+        efficientnetv2_kan_small
+
+    return efficientnetv2_kan_small(
+        arch="kan_tiny", num_classes=10, kan_conv=kan_conv,
+        generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def effv2_bases(kc) -> dict:
+    """The bases path D's kernels run: the B-spline (grid 5, order 3) with
+    the identity base path (the projections) and with SiLU (the other
+    convs), and the Gram basis of degree 3 with the identity on every row
+    (a GRAMKAN model's projections)."""
+    from convkan_tpu_torch.basis.bspline import make_bspline_grid
+
+    knots = tuple(float(v) for v in make_bspline_grid(5, 3))
+    return {"identity": kc.bspline_basis(knots, 3, "identity"),
+            "gram_identity": kc.gram_basis(3, "identity"),
+            "silu": kc.bspline_basis(knots, 3, "silu")}
+
+
+def effv2_want(kan_conv, remat_steps=False):
+    """Kernel forwards and plain-route convs of one forward of the s model
+    (KAN, GRAMKAN: the 77 stride-1 convs on the kernels, 3 strided ones on
+    the plain route; FastKAN: 0 and 80), or with ``remat_steps`` of one
+    train step with remat, whose backward runs the 78 convs of the blocks
+    again (all but the stem and the head: 76 and 2 more; FastKAN 0 and
+    78)."""
+    n = 0 if kan_conv == "FastKAN" else len(EFFV2_CONVS)
+    n_fwd, n_plain = n, len(EFFV2_CONVS) + 3 - n
+    if remat_steps:     # the blocks hold all but the stem (plain) and head
+        again = n_fwd - (n > 0)
+        n_fwd, n_plain = n_fwd + again, n_plain + len(EFFV2_CONVS) + 1 - again
+    return n_fwd, n_plain
+
+
+def effv2_convs(tag):
+    """The (H, C, O, k) of the s model's kernel convs, in order, that
+    ``tag``'s basis runs: the projections for the identity bases, the
+    other convs for SiLU."""
+    proj = tag != "silu"
+    return [s for s, p in zip(EFFV2_CONVS, EFFV2_PROJ) if p == proj]
+
+
+def phase_effv2_kernels(kc, gen, dev):
+    """36. the KAN-conv kernels' identity instantiations (B-spline, Gram
+    with beta) at every distinct kernel shape of EfficientNetV2-s (batch
+    EFFV2_CHECK_BATCH), and the SiLU B-spline at the shapes no earlier path
+    reached (the 3x3 conv at 112 x 112, C or O >= 768): the forward against
+    the plain version (TOL), the backward kernels by ``backward_case`` (the
+    data gradient, the weight-gradient partials and the autograd path
+    against float64 (BWD_TOL), the reduction bit-exact in the kernel's
+    order; beta's partials held to float64 by ``extra_check``).  Returns
+    max |err| per kernel and basis."""
+    errs = {}
+    for tag, basis in effv2_bases(kc).items():
+        err = dict.fromkeys(kc.KERNELS, 0.0)
+        shapes = list(dict.fromkeys(EFFV2_CONVS)) if tag != "silu" else \
+            [s for s in dict.fromkeys(EFFV2_CONVS)
+             if s[0] == 112 or max(s[1], s[2]) >= 768]
+        for H, C, O, k in shapes:
+            B, pad = EFFV2_CHECK_BATCH, k // 2
+            x, bw, pw = conv_inputs(gen, B, H, C, O, k=k, basis=basis)
+            extra = conv_extra(gen, C, basis)
+            g = torch.randn(B, H, H, O, generator=gen)
+            x, bw, pw, g = x.to(dev), bw.to(dev), pw.to(dev), g.to(dev)
+            ex = () if extra is None else (extra.to(dev),)
+            y = kc.kan_conv2d(x, bw, pw, basis, k, pad, *ex)
+            ref = kc.kan_conv2d_reference(x, bw, pw, basis, k, pad, *ex)
+            e = (y - ref).abs().max().item()
+            ok = torch.allclose(y, ref, rtol=TOL, atol=TOL)
+            cfg = kc.launch_config(B, H, H, C, O, k, pad, basis.R)
+            print(f"[effv2 kernel] {tag} B={B} {H}x{H} C={C} O={O} k={k} "
+                  f"(BN {cfg['BN']}, CC {cfg['CC']}, S {cfg['S']}, "
+                  f"{cfg['blocks']} blocks): forward max|err| {e:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(bool(torch.isfinite(y).all()) and ok,
+                  f"kernel disagrees with the plain version ({tag} B={B} "
+                  f"H={H} C={C} O={O} k={k})")
+            err["kan_conv2d_fwd"] = max(err["kan_conv2d_fwd"], e)
+            case, _, _, _ = backward_case(kc, basis, x, bw, pw, g, k, pad,
+                                          tag="[effv2 backward]",
+                                          extra=ex[0] if ex else None)
+            for name, e in case.items():
+                err[name] = max(err.get(name, 0.0), e)
+        errs[tag] = err
+        print(f"[effv2 kernel] {tag}: max |err| {json.dumps(err)}",
+              flush=True)
+    return errs
+
+
+def effv2_eval_model(kan_conv, served=False):
+    """Phases 37 and 38's model on the CPU in eval mode: ``effv2_model``
+    (GRAMKAN: ``effv2_tiny``) smoothed (``mnv3_smooth``) with its running
+    statistics set by ``mnv3_calibrate`` from 8 seeded images in the form
+    ``mnv3_prep(served)`` gives (kan_tiny: 32 x 32, normalized)."""
+    if kan_conv == "GRAMKAN":
+        from convkan_tpu_torch.train.data import normalize_batch
+        return mnv3_calibrate(mnv3_smooth(effv2_tiny(kan_conv)),
+                              normalize_batch(torch.from_numpy(
+                                  seeded_images(8, 40, 32)), "CIFAR10"))
+    return mnv3_calibrate(mnv3_smooth(effv2_model(kan_conv)),
+                          mnv3_prep(seeded_images(8, 40), served))
+
+
+def phase_effv2_model(kc, dev):
+    """37. the KAN and FastKAN EfficientNetV2-s and the GRAMKAN kan_tiny
+    (``effv2_eval_model`` on the CPU, moved to the card): eval logits of
+    EFFV2_MODEL_BATCH images on the card against the CPU (MODEL_TOL) and
+    not the same for every image, and the kernel launches and plain-route
+    convs of one forward: 77 and 3 (FastKAN 0 and 80; kan_tiny 9 and 2).
+    Returns the forwards' launches by basis (``kc.launches_by_basis``)."""
+    from convkan_tpu_torch.train.data import normalize_batch
+
+    by_basis = collections.Counter()
+    for fam in EFFV2_FAMILIES:
+        cpu = effv2_eval_model(fam)
+        gpu = copy.deepcopy(cpu).to(dev)
+        tiny = fam == "GRAMKAN"
+        x = normalize_batch(torch.from_numpy(seeded_images(
+            EFFV2_MODEL_BATCH, 41, 32)), "CIFAR10") if tiny else \
+            mnv3_prep(seeded_images(EFFV2_MODEL_BATCH, 41))
+        with torch.inference_mode():
+            kc.reset_launches()
+            got = gpu(x.to(dev)).cpu()
+            torch.cuda.synchronize()
+            counts = dict(kc.launches, **kc.plain_calls)
+            by_basis.update(kc.launches_by_basis)
+            want = cpu(x)
+        n_fwd, n_plain = (9, 2) if tiny else effv2_want(fam)
+        err = (got - want).abs().max().item()
+        spread = (got - got[0]).abs().max().item()
+        arch = "kan_tiny" if tiny else "s"
+        print(f"[effv2 model] {fam} EfficientNetV2-{arch}"
+              f" logits {tuple(got.shape)} GPU vs CPU max|err| {err:.3e} "
+              f"(spread over the images {spread:.3e}); one forward: {counts}",
+              flush=True)
+        check(bool(torch.isfinite(got).all()), "model logits not finite")
+        check(counts == {**dict.fromkeys(kc.KERNELS, 0),
+                         "kan_conv2d_fwd": n_fwd, kc.PLAIN: n_plain},
+              f"{fam}: expected {n_fwd} forward launches and {n_plain} "
+              f"plain-route convs, got {counts}")
+        check(torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL),
+              f"{fam} logits on the GPU disagree with the CPU")
+        check(spread > 1e-3, f"{fam}: the logits are the same for every "
+                             "image")
+    return by_basis
+
+
+def effv2_batches(B, steps=TRAIN_STEPS, seed=44, size=EFFV2_TRAIN_SIZE):
+    """Seeded size x size uint8 images and labels (no crops, no flips)."""
+    rng = np.random.RandomState(seed)
+    return [(torch.from_numpy(seeded_images(B, seed + i, size)),
+             torch.from_numpy(rng.randint(0, 10, B).astype(np.int64)),
+             None, None) for i in range(steps)]
+
+
+def effv2_step(model):
+    """Phase 39's step: the dataset's normalization of its
+    EFFV2_TRAIN_SIZE images (imagenet=False, augment=False)."""
+    from convkan_tpu_torch.train.loop import make_train_step
+    return make_train_step(model, "CIFAR10", augment=False)
+
+
+def effv2_train_model(kan_conv="GRAMKAN"):
+    """Phase 39's model: the seeded EfficientNetV2-s (remat, stochastic
+    depth EFFV2_SD), GRAMKAN at its init, the B-spline smoothed
+    (``mnv3_smooth``; see EFFV2_TRAIN)."""
+    model = effv2_model(kan_conv, seed=42, stochastic_depth_prob=EFFV2_SD)
+    return model if kan_conv == "GRAMKAN" else mnv3_smooth(model)
+
+
+def conv_kernel_readings(kc, model, batches, make_step, dev):
+    """39 (cont.). The KAN-conv kernels on a train step's own tensors: one
+    step of ``model`` on the card (``train_run``, the first of
+    ``batches``), each KAN conv's input, weights and output gradient kept,
+    then its forward, data-gradient and weight-gradient kernels on them
+    against float64 autograd of its plain version (max |diff| over the
+    largest float64 entry).  Returns [(the worst of the three, conv name,
+    basis key, forward, dx, dW)], worst first."""
+    from convkan_tpu_torch.nn import kan_conv as nk
+
+    where, calls = [None], []
+    hooks = [m.register_forward_pre_hook(
+        lambda _m, _i, name=name: where.__setitem__(0, name))
+        for name, m in model.named_modules() if isinstance(m, nk.KanConvND)]
+    conv = nk.kan_conv2d
+
+    def record(x, base_w, poly_w, basis, k, pad, extra=None):
+        y = conv(x, base_w, poly_w, basis, k, pad, extra)
+        e = {"name": where[0], "spec": (basis, k, pad),
+             "y": y.detach().clone(),
+             "args": [None if t is None else t.detach().clone()
+                      for t in (x, base_w, poly_w, extra)]}
+        calls.append(e)
+        if y.requires_grad:   # under remat, the forward's call is the one
+            y.register_hook(  # backpropagated through
+                lambda g, e=e: e.__setitem__("g", g.detach().contiguous()))
+        return y
+
+    nk.kan_conv2d = record
+    try:
+        train_run(model, dev, batches[:1], make_step=make_step,
+                  steps_per_epoch=100)
+    finally:
+        nk.kan_conv2d = conv
+        for h in hooks:
+            h.remove()
+
+    def rel(a, b):
+        return ((a.double().cpu() - b).abs().max() / b.abs().max()).item()
+
+    rows = []
+    for e in calls:
+        if "g" not in e:
+            continue
+        x, bw, pw, ex = e["args"]
+        basis, k, pad = e["spec"]
+        d = [None if t is None else t.double().cpu().requires_grad_()
+             for t in (x, bw, pw, ex)]
+        ref = kc.kan_conv2d_reference(*d[:3], basis, k, pad, d[3])
+        ref.backward(e["g"].double().cpu())
+        pack = functools.partial(kc.pack_w_all, C=x.shape[-1], K=basis.K,
+                                 k=k, O=pw.shape[-1],
+                                 degree_major=basis.degree_major)
+        dx = kc.input_grad(x, pack(bw, pw), e["g"], basis, k, pad, ex)
+        dw = kc.weight_grad(x, e["g"], basis, k, pad, ex)
+        read = (rel(e["y"], ref.detach()), rel(dx, d[0].grad),
+                rel(dw, pack(None if bw is None else d[1].grad, d[2].grad)))
+        rows.append((max(read), e["name"], basis.key, *read))
+    return sorted(rows, reverse=True)
+
+
+def phase_effv2_train(kc, dev):
+    """39. training, the main path: three train steps of each EFFV2_TRAIN
+    EfficientNetV2-s (``effv2_train_model``: remat, DropPath on) at batch
+    EFFV2_TRAIN_BATCH of EFFV2_TRAIN_SIZE images in lockstep GPU vs CPU
+    (``phase_train``, as phase 34 holds path C: every step's loss,
+    update, running statistics and, for GRAMKAN, gradients against
+    float64 within GRAD_TOL or F32_SPREAD x float32's spread (the B-spline
+    model's readings printed, not held: see EFFV2_TRAIN); the control;
+    GRAMKAN: beta's entries 0 and 3 exactly 0 in every conv).  Out of
+    lockstep the float32 trajectories part within the three steps (AdamW
+    moves an entry whose gradient is rounding by +-lr either way).  The
+    launches per step: 153 forwards (77, and 76 again in the blocks'
+    recompute), 77 data-gradient and weight-gradient launches, 77
+    reductions (GRAMKAN: 154, dW and beta per conv), 5 plain routes (3, and
+    2 in the recompute).  Then, for the B-spline model, the 77 kernel
+    convs' kernels on its first step's own tensors
+    (``conv_kernel_readings``, with remat) within BWD_TOL of float64.
+    Returns the launches by basis (``kc.launches_by_basis``) of the
+    lockstep GPU steps."""
+    n_fwd, n_plain = effv2_want("KAN", remat_steps=True)
+    n = len(EFFV2_CONVS)
+    by_basis = collections.Counter()
+    for fam, hold_grads in EFFV2_TRAIN.items():
+        gram = fam == "GRAMKAN"
+        want = {"kan_conv2d_fwd": n_fwd, "kan_conv2d_bwd_dx": n,
+                "kan_conv2d_bwd_dw": n,
+                "kan_conv2d_bwd_dw_reduce": (1 + gram) * n, kc.PLAIN: n_plain}
+        batches = effv2_batches(EFFV2_TRAIN_BATCH)
+        counts, _ = phase_train(
+            kc, dev, fam, want,
+            ["base_w", "poly_w"] + ["beta_weights"] * gram, lockstep=True,
+            f32_floor=hold_grads, hold_grads=hold_grads,
+            zero_entries=[("beta_weights", 0), ("beta_weights", 3)] * gram,
+            n_convs=n + 3,
+            label=f"EfficientNetV2-s {EFFV2_TRAIN_SIZE}x{EFFV2_TRAIN_SIZE} "
+                  f"batch {EFFV2_TRAIN_BATCH}, remat, stochastic depth "
+                  f"{EFFV2_SD}",
+            build=functools.partial(effv2_train_model, fam),
+            batches=batches, make_step=effv2_step, steps_per_epoch=100)
+        # phase_train's CPU runs launch nothing: the counters still hold
+        # its GPU steps
+        got = collections.Counter(kc.launches_by_basis)
+        check(all(sum(v for (k, _), v in got.items() if k == name) ==
+                  counts[name] for name in kc.KERNELS),
+              f"launches by basis {dict(got)} against {counts}")
+        by_basis.update(got)
+        if hold_grads:
+            continue
+        rows = conv_kernel_readings(kc, effv2_train_model(fam).to(dev),
+                                    batches, effv2_step, dev)
+        print(f"[train] {fam} kernels on the first step's own tensors vs "
+              f"float64 (forward, dx, dW; max |diff| over the largest "
+              f"entry), {len(rows)} convs, the worst 4: "
+              + "; ".join(f"{nm} {key[-1]} {f:.3e} {dx:.3e} {dw:.3e}"
+                          for _, nm, key, f, dx, dw in rows[:4]), flush=True)
+        check(len(rows) == n and rows[0][0] <= BWD_TOL,
+              f"{fam}: the kernels on the step's own tensors")
+    return by_basis
+
+
+def effv2_remat_step(kc, model, dev, wrapper=None):
+    """One train step of ``model`` on the card from a fresh seeded state
+    (the batch of phase 39's first step): its gradients, each DropPath's
+    mask at each call (the recompute's too: each block is recomputed
+    whole, without torch's early stop), the running statistics, the
+    launches (and by basis) and the peak memory.  ``wrapper`` replaces the
+    blocks' checkpoint_block (the control)."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from convkan_tpu_torch.models import efficientnetv2 as effv2
+    from convkan_tpu_torch.ops.layers import DropPath
+    from convkan_tpu_torch.train.state import create_train_state
+
+    masks = {}
+    hooks = [m.register_forward_hook(
+        lambda _m, i, o, n=n: masks.setdefault(n, []).append(
+            (o != 0).flatten(1).any(1).cpu()))
+        for n, m in model.named_modules()
+        if isinstance(m, DropPath) and m.drop_prob > 0]
+    state = create_train_state(model, 1e-3, 1e-3, 0.8, steps_per_epoch=100,
+                               generator=torch.Generator().manual_seed(7))
+    xb, yb, _, _ = effv2_batches(EFFV2_TRAIN_BATCH, steps=1)[0]
+    plain = effv2.checkpoint_block
+    if wrapper is not None:
+        effv2.checkpoint_block = wrapper
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kc.reset_launches()
+        with set_checkpoint_early_stop(False):
+            effv2_step(model)(state, xb.to(dev), yb.to(dev)).item()
+        counts = dict(kc.launches, **kc.plain_calls)
+        by_basis = dict(kc.launches_by_basis)
+    finally:
+        effv2.checkpoint_block = plain
+        for h in hooks:
+            h.remove()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters()}
+    stats = {n: b.detach().cpu().clone() for n, b in model.named_buffers()}
+    return grads, masks, stats, counts, peak, by_basis
+
+
+def effv2_remat_compare(kc, dev):
+    """39 (cont.). GPU remat=True against remat=False from one start (the
+    same weights, batch and generator): the DropPath masks of the forward
+    equal and each recompute's equal to its forward's, the running
+    statistics equal (moved once), every gradient within REMAT_TOL of its
+    largest entry (cuDNN's backward algorithms may sum in another order),
+    the launches 153/77 against 77/77 forwards.  The control, a plain
+    torch.utils.checkpoint wrapper (masks drawn again in the recompute,
+    statistics moved twice), must fail the masks' and the statistics'
+    checks.  Returns the launches by basis of the two compared steps."""
+    from torch.utils.checkpoint import checkpoint
+
+    base = effv2_train_model()
+    runs = {}
+    for remat in (True, False):
+        m = copy.deepcopy(base).to(dev)
+        m.remat = remat
+        runs[remat] = effv2_remat_step(kc, m, dev)
+        del m
+
+    def plain_checkpoint(block, x, generator=None):
+        return checkpoint(lambda inp: block(inp, generator), x,
+                          use_reentrant=False)
+
+    m = copy.deepcopy(base).to(dev)
+    control = effv2_remat_step(kc, m, dev, wrapper=plain_checkpoint)
+    del m
+    torch.cuda.empty_cache()
+    (g1, m1, s1, c1, p1, b1), (g0, m0, s0, c0, p0, b0) = \
+        runs[True], runs[False]
+
+    def readings(g, masks, stats):
+        grad = max(((g[n] - r).abs().max() / r.abs().max().clamp_min(
+            1e-30)).item() for n, r in g0.items())
+        same_masks = sorted(masks) == sorted(m0) and all(
+            all(torch.equal(u, m0[n][0]) for u in masks[n]) for n in m0)
+        stat = max(((stats[n] - r).abs().max() / r.abs().max().clamp_min(
+            1e-30)).item() for n, r in s0.items())
+        return grad, same_masks, stat
+
+    grad, same_masks, stat = readings(g1, m1, s1)
+    c_grad, c_masks, c_stat = readings(*control[:3])
+    dropped = sum(int((~v[0]).sum()) for v in m0.values())
+    print(f"[effv2 remat] one step GPU remat=True vs remat=False: gradients "
+          f"max |diff| {grad:.3e} of the largest entry, DropPath masks "
+          f"{'equal' if same_masks else 'DIFFERENT'} ({len(m0)} DropPaths, "
+          f"{dropped} samples dropped; recompute calls per DropPath "
+          f"{sorted({len(v) for v in m1.values()})}), running statistics "
+          f"{stat:.3e}; launches {c1} vs {c0}; peak memory {p1:.2f} vs "
+          f"{p0:.2f} GiB; control (plain torch.utils.checkpoint): gradients "
+          f"{c_grad:.3e}, masks {'equal' if c_masks else 'different'}, "
+          f"statistics {c_stat:.3e}", flush=True)
+    n_fwd, n_plain = effv2_want("GRAMKAN", remat_steps=True)
+    check(grad <= REMAT_TOL and same_masks and stat == 0.0 and dropped > 0,
+          "remat=True and remat=False disagree on the GPU")
+    check(c1["kan_conv2d_fwd"] == n_fwd and c1[kc.PLAIN] == n_plain and
+          c1["kan_conv2d_bwd_dx"] == c0["kan_conv2d_bwd_dx"] and
+          c0["kan_conv2d_fwd"] == len(EFFV2_CONVS) and c0[kc.PLAIN] == 3,
+          f"launches with and without remat: {c1}, {c0}")
+    check(not c_masks and c_stat > 0.0,
+          "the control (a plain checkpoint wrapper) passes the checks")
+    return collections.Counter(b1) + collections.Counter(b0)
+
+
+def time_effv2(kc, fam, dev, card, remat=True, predict=True):
+    """40. bench.py's config-5 EfficientNetV2 step (``effv2_model(fam,
+    remat=...)``) at batch EFFV2_TIME_BATCH (``time_config5_step``:
+    EFFV2_STEPS steps after EFFV2_WARMUP; with ``predict`` also predict,
+    the median of 5).  Returns what that returns."""
+    model = effv2_model(fam, device=dev, seed=43, remat=remat)
+    n_fwd, n_plain = effv2_want(fam, remat_steps=remat)
+    n_bwd = 0 if fam == "FastKAN" else len(EFFV2_CONVS)
+    out = time_config5_step(
+        kc, f"{fam} remat={remat} EfficientNetV2-s 224x224", "[effv2 time]",
+        model, dev, EFFV2_TIME_BATCH, EFFV2_WARMUP, EFFV2_STEPS,
+        {**dict.fromkeys(kc.KERNELS, n_bwd), "kan_conv2d_fwd": n_fwd,
+         kc.PLAIN: n_plain}, 5 if predict else 0, 45, card)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def effv2_summary(kc, effv2_k, effv2_time, batch, card):
+    """40 (cont.). The KAN remat step's time against its KAN-conv kernels'
+    (the per-shape device times of ``phase_kernel_times`` at
+    ``batch`` times the layers; the blocks' convs run forward twice, all
+    but the head conv), and every timed step's peak memory."""
+    B, ips = effv2_time[("KAN", True)][:2]
+    step_ms = 1e3 * B / ips
+    fwd = sum(effv2_k[tag][0]["kan_conv2d_fwd"]["ms"]
+              for tag in ("identity", "silu"))
+    head = [r for r in effv2_k["silu"][1] if (r["H"], r["C"], r["O"]) ==
+            EFFV2_CONVS[-1][:3]][0]["kan_conv2d_fwd"]["ms"]
+    bwd = sum(effv2_k[tag][0][name]["ms"] for tag in ("identity", "silu")
+              for name in kc.KERNELS if name != "kan_conv2d_fwd")
+    k_ms = 2 * fwd - head + bwd
+    print(f"[effv2 time] KAN remat train step {step_ms:.3f} ms at batch {B}:"
+          f" KAN-conv kernels {k_ms:.3f} ms (forward {fwd:.3f} x 2 less the "
+          f"head conv's {head:.3f} (the recompute), backward {bwd:.3f}; "
+          f"per-shape device times x layers at batch {batch}), the "
+          f"rest {step_ms - k_ms:.3f} ms; peak memory "
+          + ", ".join(f"{f} remat={r} {t[5]:.2f} GiB at batch {t[0]}"
+                      for (f, r), t in effv2_time.items())
+          + f" (on {card})", flush=True)
 
 
 def kernel_entry(name, source, replaces, launches, err, t, times_are,
@@ -3180,7 +3806,7 @@ def main():
     # ------------------------------ KAN-MobileNetV3-small: path C
     mnv3_err = phase_mnv3_kernels(kc, gen, dev)                      # 31
     phase_mnv3_model(kc, dev)                                        # 32
-    mnv3_serve = {fam: phase_mnv3_serve(kc, fam)                     # 33
+    mnv3_serve = {fam: phase_mnv3_serve(kc, fam)[0]                  # 33
                   for fam in ("FastKAN", "KAN")}
     mnv3_train = {fam: phase_mnv3_train(kc, dev, fam)                # 34
                   for fam in MNV3_FAMILIES}
@@ -3188,9 +3814,11 @@ def main():
                  for fam in MNV3_FAMILIES}
     mnv3_batch = min(t[0] for t in mnv3_time.values())
     mnv3_rows_nz = {"hardswish": SPAN_ROWS, "cheby3": CHEBY_ROWS}
-    mnv3_k = {tag: phase_mnv3_kernel_times(kc, tag, basis, mnv3_rows_nz[tag],
-                                           gen, dev, card, mnv3_batch)
-              for tag, basis in mnv3_bases(kc).items()}
+    mnv3_k = {tag: phase_kernel_times(
+        kc, f"[mnv3 time] {tag}", MNV3_SUFFIX[tag], basis, mnv3_rows_nz[tag],
+        [(H, C, O, 1) for H, C, O in MNV3_CONVS], gen, dev, card, mnv3_batch,
+        iters=(10, 2))
+        for tag, basis in mnv3_bases(kc).items()}
     for fam, tag in (("KAN", "hardswish"), ("ChebyKAN", "cheby3")):
         B, ips, _, _, parts = mnv3_time[fam]
         t = mnv3_k[tag][0]
@@ -3206,6 +3834,32 @@ def main():
               f"{step_ms - k_ms:.3f} ms, of it the stem "
               f"{parts['stem_ms']:.3f} and imagenet_batch "
               f"{parts['prep_ms']:.3f} (on {card})", flush=True)
+
+    # ----------------------------- KAN-EfficientNetV2-s: path D
+    # the launches of each main-path run by basis (kc.launches_by_basis)
+    effv2_err = phase_effv2_kernels(kc, gen, dev)                    # 36
+    effv2_runs = {"model": phase_effv2_model(kc, dev)}               # 37
+    effv2_runs["serve"] = sum(                                       # 38
+        (collections.Counter(serve_224(
+            kc, fam, "EfficientNetV2KAN", "s", effv2_eval_model,
+            effv2_want(fam), "[effv2 serve]")[1])
+         for fam in ("FastKAN", "KAN")), collections.Counter())
+    effv2_runs["train"] = phase_effv2_train(kc, dev)                 # 39
+    effv2_runs["remat_compare"] = effv2_remat_compare(kc, dev)
+    effv2_time = {(fam, remat): time_effv2(kc, fam, dev, card,       # 40
+                                           remat=remat, predict=remat)
+                  for fam in ("FastKAN", "KAN") for remat in (True, False)}
+    effv2_batch = min(t[0] for t in effv2_time.values())
+    effv2_runs[f"train_batch{effv2_time[('KAN', True)][0]}"] = sum(
+        (collections.Counter(t[4]) for t in effv2_time.values()),
+        collections.Counter())
+    effv2_rows_nz = {"identity": SPAN_ROWS, "gram_identity": GRAM_ROWS,
+                     "silu": SPAN_ROWS}
+    effv2_k = {tag: phase_kernel_times(
+        kc, f"[effv2 time] {tag}", EFFV2_SUFFIX[tag], basis,
+        effv2_rows_nz[tag], effv2_convs(tag), gen, dev, card, effv2_batch)
+        for tag, basis in effv2_bases(kc).items()}
+    effv2_summary(kc, effv2_k, effv2_time, effv2_batch, card)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def kan_entries(suffix, fwd, shapes_, fwd_err, n_serve, counts, bwd_,
@@ -3326,6 +3980,45 @@ def main():
                 predict_images_per_s=round(pips, 1),
                 **({"also_replaces": ALSO_REPLACES} if fwd else {}),
                 **({"entry_source": src} if red else {})))
+    # path D's launches per basis, as its runs counted them
+    for tag, basis in effv2_bases(kc).items():
+        totals_d, rows_d = effv2_k[tag]
+        for name in kc.KERNELS:
+            fwd = name == "kan_conv2d_fwd"
+            src = "convkan_tpu_torch/csrc/" + (kc.SOURCE if fwd else
+                                                kc.BWD_SOURCE)
+            red = name == "kan_conv2d_bwd_dw_reduce"
+            launches = {path: c[(name, basis.key)]
+                        for path, c in effv2_runs.items()}
+            check(sum(launches.values()) > 0,
+                  f"{name}{EFFV2_SUFFIX[tag]} ran on no main path")
+            kernels.append(kernel_entry(
+                name + EFFV2_SUFFIX[tag], RED_SOURCE if red else src,
+                REPLACES if fwd else BWD_REPLACES, launches,
+                effv2_err[tag][name], totals_d[name],
+                f"sum over EfficientNetV2-s's "
+                f"{sum(r['layers'] for r in rows_d)} convs of this basis in "
+                f"one train step at batch {effv2_batch}",
+                [{k: r[k] for k in ("H", "C", "O", "k", "S")} | r[name]
+                 for r in rows_d],
+                **({"train_images_per_s": {
+                    f"{f} remat={r}": round(t[1], 1)
+                    for (f, r), t in effv2_time.items()},
+                    "predict_images_per_s": {
+                        f: round(effv2_time[(f, True)][2], 1)
+                        for f in ("FastKAN", "KAN")},
+                    "peak_gib": {f"{f} remat={r}": round(t[5], 2)
+                                 for (f, r), t in effv2_time.items()},
+                    "also_replaces": ALSO_REPLACES} if fwd else {}),
+                **({"entry_source": src} if red else {})))
+    # path D's GRAMKAN models also ran the Gram SiLU instantiation (their
+    # convs other than the projections)
+    for entry in gram_entries:
+        name = entry["name"][:-len(gsuffix)]
+        entry["launches_by_path"].update({
+            f"effv2_{path}": c[(name, gram.key)]
+            for path, c in effv2_runs.items() if c[(name, gram.key)]})
+        entry["launches"] = sum(entry["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,8 @@
 //   * BSpline<NK, ORDER, ACT>: E = [B_0(x) .. B_{K-1}(x), act(x)], the bases
 //     of basis/bspline.py's Cox-de Boor recurrence over NK knots at degree
 //     ORDER (K = NK - ORDER - 1) and the base path's SiLU (ACT 0), GELU
-//     (ACT 1) or hardswish (ACT 2); R = K + 1; p = the knots.
+//     (ACT 1), hardswish (ACT 2) or identity (ACT 3: a conv built with
+//     base_activation=None); R = K + 1; p = the knots.
 //   * Cheby<DEG>: E = [T_0(t) .. T_DEG(t)], t = min(max(tanh x, lo), hi),
 //     by the recurrence T_n = 2t T_{n-1} - T_{n-2} of basis/poly.py's
 //     chebyshev_basis_recurrence_list; no base path; R = DEG + 1; p = {lo,
@@ -28,8 +29,9 @@
 //   * Gram<DEG, ACT>: E = [act(p_0(t)) .. act(p_DEG(t)), act(x)], t = tanh
 //     x, by the recurrence p_i = t p_{i-1} - (c_i beta[i-1]) p_{i-2} of
 //     basis/poly.py's gram_basis_cols with the learnable operand beta
-//     (DEG + 1 values, a device array: p = beta) and the SiLU (ACT 0) of
-//     nn/kan_conv.py's "gram" family on every row; R = DEG + 2.
+//     (DEG + 1 values, a device array: p = beta) and the SiLU (ACT 0) or
+//     identity (ACT 3) of nn/kan_conv.py's "gram" family on every row (with
+//     identity the rows are the bare polynomials); R = DEG + 2.
 // Built without --use_fast_math: the B-spline recurrence needs true IEEE
 // divides, and expf/erff/tanhf the accurate versions.
 #pragma once
@@ -72,13 +74,15 @@ template <int ACT>
 __device__ __forceinline__ float base_act(float x) {
   if (ACT == 0) return x / (1.0f + expf(-x));                        // SiLU
   if (ACT == 2) return hardswish(x);
+  if (ACT == 3) return x;                                        // identity
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));      // GELU
 }
 
 // d act / dx: SiLU' = s (1 + x (1 - s)); GELU' (erf) = Phi(x) + x phi(x);
-// hardswish' of hardswish_grad
+// hardswish' of hardswish_grad; identity' = 1
 template <int ACT>
 __device__ __forceinline__ float base_act_grad(float x) {
+  if (ACT == 3) return 1.0f;
   if (ACT == 0) {
     const float s = 1.0f / (1.0f + expf(-x));
     return s * (1.0f + x * (1.0f - s));
@@ -399,7 +403,8 @@ struct Gram {
 // 12 knots (grid 5) at order 3 with SiLU and GELU; 2, Chebyshev of degree 3
 // (its two clamp bounds as the parameters); 3, Gram of degree 3 with SiLU
 // (no parameters; beta as the operand); 4, the B-spline of 0 and 1 with
-// hardswish.
+// hardswish; 5 and 6, the B-spline of 0 and the Gram of 3 with the identity
+// (the projections of EfficientNetV2, built with base_activation=None).
 template <class F>
 cudaError_t with_basis(int code, int n_params, int order, F&& f) {
   if (code == 0 && n_params == 12 && order == 3) return f(BSpline<12, 3, 0>{});
@@ -407,6 +412,8 @@ cudaError_t with_basis(int code, int n_params, int order, F&& f) {
   if (code == 2 && n_params == 2 && order == 3) return f(Cheby<3>{});
   if (code == 3 && n_params == 0 && order == 3) return f(Gram<3, 0>{});
   if (code == 4 && n_params == 12 && order == 3) return f(BSpline<12, 3, 2>{});
+  if (code == 5 && n_params == 12 && order == 3) return f(BSpline<12, 3, 3>{});
+  if (code == 6 && n_params == 0 && order == 3) return f(Gram<3, 3>{});
   return cudaErrorInvalidValue;
 }
 

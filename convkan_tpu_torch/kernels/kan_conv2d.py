@@ -46,11 +46,13 @@ SOURCE = "kan_conv2d_fwd.cu"
 BWD_SOURCE = "kan_conv2d_bwd.cu"
 # the bases the kernels are compiled for (Basis.key), by the integer code
 # the C entries take: the B-spline of 12 knots at order 3 (grid 5) with a
-# SiLU, GELU or hardswish base path, the Chebyshev polynomials of degree 3,
-# and the Gram polynomials of degree 3 with SiLU on every row
+# SiLU, GELU, hardswish or identity base path, the Chebyshev polynomials of
+# degree 3, and the Gram polynomials of degree 3 with SiLU or the identity
+# on every row
 COMPILED = {("bspline", 12, 3, "silu"): 0, ("bspline", 12, 3, "gelu"): 1,
             ("cheby", 3): 2, ("gram", 3, "silu"): 3,
-            ("bspline", 12, 3, "hardswish"): 4}
+            ("bspline", 12, 3, "hardswish"): 4,
+            ("bspline", 12, 3, "identity"): 5, ("gram", 3, "identity"): 6}
 THREADS, TM = 256, 8             # forward block: threads, pixels per thread
 WARPS = THREADS // 32
 MAX_CHUNK = 8                    # input channels expanded per pass
@@ -94,6 +96,9 @@ KERNELS = ("kan_conv2d_fwd", "kan_conv2d_bwd_dx", "kan_conv2d_bwd_dw",
            "kan_conv2d_bwd_dw_reduce")
 _count_lock = threading.Lock()
 launches = dict.fromkeys(KERNELS, 0)   # launches per kernel since the reset
+# the same launches by (kernel, Basis.key of the basis launched) since the
+# reset: one model runs several instantiations of a kernel
+launches_by_basis: dict = {}
 # KAN convs that took the plain route (nn/kan_conv.py: the convs that the
 # JAX package hands to XLA) since the reset
 PLAIN = "kan_conv_plain_route"
@@ -105,6 +110,7 @@ def reset_launches() -> None:
     with _count_lock:
         for name in launches:
             launches[name] = 0
+        launches_by_basis.clear()
         plain_calls[PLAIN] = 0
 
 
@@ -113,9 +119,11 @@ def count_plain() -> None:
         plain_calls[PLAIN] += 1
 
 
-def _count_launch(name: str) -> None:
+def _count_launch(name: str, key) -> None:
     with _count_lock:
         launches[name] += 1
+        launches_by_basis[(name, key)] = \
+            launches_by_basis.get((name, key), 0) + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,8 +133,9 @@ class Basis:
     order ``order``), "cheby" (T_0 .. T_order of clamp(tanh x, -1 + eps,
     1 - eps), K = order + 1) or "gram" (act(p_0(t)) .. act(p_order(t)) of
     the Gram recurrence on t = tanh x with the learnable operand beta,
-    K = order + 1); ``act`` names the base path's activation, None for
-    none (Gram's rows take it too); ``degree_major`` gives poly_w's rows
+    K = order + 1); ``act`` names the base path's activation ("identity"
+    for a conv built with base_activation=None), None for no base path
+    (Gram's rows take it too); ``degree_major`` gives poly_w's rows
     kk*C + c (the family's layout) instead of c*K + kk.  Build it with
     ``bspline_basis``, ``cheby_basis`` or ``gram_basis``."""
 
@@ -787,12 +796,12 @@ def _fn(name: str):
     return fn
 
 
-def _launch(name: str, args, desc: str) -> None:
+def _launch(name: str, args, desc: str, key) -> None:
     err = _fn(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err} for "
                            f"{desc}")
-    _count_launch(name)
+    _count_launch(name, key)
 
 
 def _basis_args(basis: Basis, extra=None):
@@ -819,7 +828,7 @@ def _fwd(x, w_all, basis, k, pad, cfg, extra=None):
     _launch("kan_conv2d_fwd",
             (x.data_ptr(), w_all.data_ptr(), y.data_ptr(), B, H, W, C, O, k,
              pad, *(cfg[key] for key in FWD_TILE), *bargs, _stream(x)),
-            _describe(B, H, W, C, O, k, pad, basis))
+            _describe(B, H, W, C, O, k, pad, basis), basis.key)
     return y
 
 
@@ -923,7 +932,8 @@ def _data_grad(x, w_all, g, basis, k, pad, extra, need_dx, need_extra):
             (x.data_ptr(), w_all.data_ptr(), g.data_ptr(),
              None if dx is None else dx.data_ptr(), B, H, W, C, O4, k, pad,
              *(cfg[key] for key in DX_TILE), *bargs,
-             None if part is None else part.data_ptr(), _stream(x)), desc)
+             None if part is None else part.data_ptr(), _stream(x)), desc,
+            basis.key)
     return dx, part if need_extra else None
 
 
@@ -955,14 +965,15 @@ def weight_partials(x, g, basis: Basis, k: int, pad: int, extra=None):
     _launch("kan_conv2d_bwd_dw",
             (x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C, O, k,
              pad, cfg["CC"], cfg["BN"], cfg["P"], cfg["S"], cfg["ips"],
-             cfg["PW"], *bargs, _stream(x)), desc)
+             cfg["PW"], *bargs, _stream(x)), desc, basis.key)
     return partial
 
 
-def reduce_partials(partial):
+def reduce_partials(partial, basis: Basis = None):
     """Sum (S, ...) partials over S in the order of
-    ``reduce_launch_config``.  CUDA tensors: the reduction kernel; CPU
-    tensors: ``reduce_reference``."""
+    ``reduce_launch_config``; ``basis``, the basis whose partials they are,
+    only names the launch in ``launches_by_basis``.  CUDA tensors: the
+    reduction kernel; CPU tensors: ``reduce_reference``."""
     if partial.device.type == "cpu":
         return reduce_reference(partial)
     if partial.dtype != torch.float32 or not partial.is_contiguous():
@@ -976,7 +987,8 @@ def reduce_partials(partial):
     _launch("kan_conv2d_bwd_dw_reduce",
             (partial.data_ptr(), out.data_ptr(),
              *reduce_args(partial, out, cfg), _stream(partial)),
-            f"partials {tuple(partial.shape)}")
+            f"partials {tuple(partial.shape)}",
+            None if basis is None else basis.key)
     return out
 
 
@@ -987,7 +999,8 @@ def weight_grad(x, g, basis: Basis, k: int, pad: int, extra=None):
     if x.device.type == "cpu":
         _check_grad(x, g, k, pad, g.shape[-1])
         return weight_grad_reference(x, g, basis, k, pad, extra)
-    return reduce_partials(weight_partials(x, g, basis, k, pad, extra))
+    return reduce_partials(weight_partials(x, g, basis, k, pad, extra),
+                           basis)
 
 
 class _KanConv2dFunction(torch.autograd.Function):
@@ -1014,7 +1027,7 @@ class _KanConv2dFunction(torch.autograd.Function):
         if need_de:
             dx, part = input_extra_grad(x, w_all, g, *ctx.spec, extra,
                                         need_dx=need_dx)
-            de = reduce_partials(part)
+            de = reduce_partials(part, ctx.spec[0])
         elif need_dx:
             dx = input_grad(x, w_all, g, *ctx.spec, extra)
         if need_dw:

@@ -1,6 +1,7 @@
 """Shared builder plumbing for the model zoo, port of
 ``convkan_tpu/models/common.py``: the signature-filtered KAN conv factory
-of ``conv_type="kanconv"``.  The models build the standard Conv->Norm->Act
+of ``conv_type="kanconv"``, and ``_Scoped``, which names submodules as
+flax names them.  The models build the standard Conv->Norm->Act
 blocks of ``conv_type="conv"`` themselves (``ops/std_conv.py``).  The KAN
 classifier heads (and the ``classifier_*`` overrides that shape them) need
 ``nn/kan_linear.py``, which is not ported yet."""
@@ -10,6 +11,8 @@ from __future__ import annotations
 from functools import partial
 from inspect import signature
 from typing import Callable
+
+from torch import nn
 
 from ..factory.conv_factory import CONV_KAN_FACTORY
 from ..utils.norms import resolve_norm
@@ -45,3 +48,16 @@ def make_conv_factory(kan_conv: str, *, spline_order=3, grid_size=5,
         return part(in_planes, out_planes, **kw)
 
     return kan_builder
+
+
+class _Scoped(nn.Module):
+    """Names each submodule as flax names an unnamed child: its class name
+    and the count of that class so far (``KanConvND_0``, ...)."""
+
+    def _scoped(self, module: nn.Module) -> str:
+        counts = self.__dict__.setdefault("_scope_counts", {})
+        cls = type(module).__name__
+        name = f"{cls}_{counts.get(cls, 0)}"
+        counts[cls] = counts.get(cls, 0) + 1
+        self.add_module(name, module)
+        return name

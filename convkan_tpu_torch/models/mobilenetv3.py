@@ -12,8 +12,12 @@ as in the JAX package.  Submodules are named like flax's scopes
 KAN convs for ``conv_type="conv"``), so a JAX variables tree maps onto the
 state_dict by a path join (utils/from_jax.py).  In train mode the convs'
 channel dropout (``conv_dropout``) and the head's dropout draw their masks
-from the forward's generator, convs first.  Not ported yet: ``remat``
-(rematerialized blocks) and the KAN classifier head.
+from the forward's generator, convs first.  With ``remat`` each block is
+rematerialized (``ops/remat_policy.py``: the policy "full", the forward's
+masks replayed, the running statistics moved once), as by JAX's
+``nn.remat(_MNV3Block)``; flax then names the blocks
+``Checkpoint_MNV3Block_i``, which ``utils/from_jax.py`` maps onto these
+names.  Not ported yet: the KAN classifier head.
 """
 
 from __future__ import annotations
@@ -23,16 +27,16 @@ from inspect import signature
 from typing import Any, List, Mapping, Optional, Tuple
 
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from ..ops.dropout import dropout as head_dropout
 from ..ops.layers import Linear, SqueezeExcitation
 from ..ops.pooling import adaptive_avg_pool
+from ..ops.remat_policy import checkpoint_block, resolve_remat_policy
 from ..ops.std_conv import StdConvBlock
 from ..utils.activations import hardsigmoid, hardswish, relu
 from ..utils.norms import BatchNorm, resolve_norm
-from .common import make_conv_factory
+from .common import _Scoped, make_conv_factory
 from .mobilenet import _make_divisible
 
 
@@ -97,19 +101,6 @@ def mobilenet_v3_conf(arch: str, width_mult: float = 1.0,
     base = 960 if arch == "large" else 576
     last_channel = _make_divisible(base // rd * width_mult, 8)
     return cfgs, last_channel
-
-
-class _Scoped(nn.Module):
-    """Names each submodule as flax names an unnamed child: its class name
-    and the count of that class so far (``KanConvND_0``, ...)."""
-
-    def _scoped(self, module: nn.Module) -> str:
-        counts = self.__dict__.setdefault("_scope_counts", {})
-        cls = type(module).__name__
-        name = f"{cls}_{counts.get(cls, 0)}"
-        counts[cls] = counts.get(cls, 0) + 1
-        self.add_module(name, module)
-        return name
 
 
 class _MNV3Block(_Scoped):
@@ -195,9 +186,9 @@ class MobileNetV3KAN(_Scoped):
                  dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
-        if remat:
-            raise NotImplementedError("remat=True (rematerialized blocks) is "
-                                      "not ported yet")
+        if remat:   # the JAX model resolves the policy only under remat
+            resolve_remat_policy(remat_policy)
+        self.remat = remat
         if classifier_type != "Linear":
             raise NotImplementedError(f"classifier_type={classifier_type!r} "
                                       "is not ported (the KAN head needs "
@@ -273,7 +264,9 @@ class MobileNetV3KAN(_Scoped):
             raise ValueError(f"expected {self.input_channels} channels (NHWC),"
                              f" got {tuple(x.shape)}")
         for name in self._plan:
-            x = getattr(self, name)(x, generator)
+            m = getattr(self, name)
+            x = checkpoint_block(m, x, generator) if \
+                self.remat and isinstance(m, _MNV3Block) else m(x, generator)
         x = adaptive_avg_pool(x, (1, 1)).reshape(x.shape[0], -1)
         x = hardswish(self.Linear_0(x))
         if self.training:

@@ -104,7 +104,11 @@ def _single(v, what: str) -> int:
 
 
 def _act_name(act) -> str:
-    """The registry name of a base activation given by name or function."""
+    """The registry name of a base activation given by name or function;
+    None (and the CLI's "None") is "identity", the JAX module's ``lambda x:
+    x`` base path."""
+    if act is None or act == "None":
+        return "identity"
     if isinstance(act, str):
         if act not in ACTIVATIONS:
             raise NotImplementedError(f"base activation {act!r} is not "
@@ -140,9 +144,10 @@ class KanConvND(nn.Module):
     padding, stride, dilation (each an int or a tuple of equal ints),
     dropout, norm_layer, base_activation (read by ``kan``, ``fastkan`` and
     ``gram``; "__default__" is the family's: GELU for ``kan``, SiLU for
-    ``fastkan`` and ``gram``), grid_size / grid_range (``kan``, ``fastkan``:
-    the RBF centres and their spacing), spline_order (``kan``), a
-    ``grid_override`` knot or centre vector replacing the uniform grid,
+    ``fastkan`` and ``gram``; None the identity), grid_size / grid_range
+    (``kan``, ``fastkan``: the RBF centres and their spacing),
+    spline_order (``kan``), a ``grid_override`` knot or centre vector
+    replacing the uniform grid,
     ``degree`` (``cheby``, ``gram``) and ``epsilon`` (``cheby``).
     Parameters are drawn on the CPU from ``generator`` (so one seed gives
     the same weights on every device) and then moved to ``device``: None

@@ -1,8 +1,8 @@
-"""Linear layer with torch's default init and the squeeze-excitation block,
-port of ``Linear`` and ``SqueezeExcitation`` in ``convkan_tpu/ops/layers.py``.
-The weights keep the JAX layouts: ``w: (in, out)`` so that ``y = x @ w +
-b``, and the SE block's 1x1 convs HWIO (``fc1_w`` (1, 1, C, S), ``fc2_w``
-(1, 1, S, C))."""
+"""Linear layer with torch's default init, stochastic depth and the
+squeeze-excitation block, port of ``Linear``, ``DropPath`` and
+``SqueezeExcitation`` in ``convkan_tpu/ops/layers.py``.  The weights keep
+the JAX layouts: ``w: (in, out)`` so that ``y = x @ w + b``, and the SE
+block's 1x1 convs HWIO (``fc1_w`` (1, 1, C, S), ``fc2_w`` (1, 1, S, C))."""
 
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..utils import initializers as init_lib
-from ..utils.activations import hardsigmoid, relu
+from ..utils.activations import relu, sigmoid
+from .dropout import uniform
 
 
 class Linear(nn.Module):
@@ -45,15 +46,37 @@ class Linear(nn.Module):
         return x @ self.w + self.b
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (the reference's DropPath,
+    kan_efficientnet.py:31-50): in train mode each sample is kept with
+    probability 1 - ``drop_prob``, as ``x / keep * mask``; an identity in
+    eval mode or at ``drop_prob`` 0.  The (B, 1, .., 1) mask is U[0, 1) <
+    keep, drawn from the forward's generator (None: the device's default
+    one), as ``ops/dropout.py`` draws its masks."""
+
+    def __init__(self, drop_prob: float = 0.0):
+        super().__init__()
+        self.drop_prob = drop_prob
+
+    def forward(self, x, generator: torch.Generator = None):
+        if self.drop_prob == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.drop_prob
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = (uniform(shape, x.device, generator) < keep).to(x.dtype)
+        return x / keep * mask
+
+
 class SqueezeExcitation(nn.Module):
     """torchvision.ops.SqueezeExcitation on NHWC: global average pool ->
-    1x1 conv (fc1, bias) -> ``activation`` -> 1x1 conv (fc2, bias) ->
-    ``scale_activation`` -> times x; the 1x1 convs as matmuls, the init as
-    torch's Conv2d (kaiming_uniform a=sqrt(5) over the HWIO fans, bias
+    1x1 conv (fc1, bias) -> ``activation`` (ReLU) -> 1x1 conv (fc2, bias)
+    -> ``scale_activation`` (sigmoid, as torchvision and the JAX module) ->
+    times x; the 1x1 convs as matmuls, the init as torch's Conv2d
+    (kaiming_uniform a=sqrt(5) over the HWIO fans, bias
     U(+-1/sqrt(fan_in)))."""
 
     def __init__(self, input_channels: int, squeeze_channels: int,
-                 activation=relu, scale_activation=hardsigmoid, *,
+                 activation=relu, scale_activation=sigmoid, *,
                  generator: torch.Generator = None, device=None,
                  dtype=torch.float32):
         super().__init__()

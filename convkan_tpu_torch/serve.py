@@ -17,17 +17,25 @@ checkpoint is not ported yet):
         --dataset CIFAR10 --init_random --port 8421 [--fold_bn]
     python -m convkan_tpu_torch.serve --model MobileNetV3KAN --arch small \\
         --imagenet_preprocessing --kan_conv FastKAN --init_random
+    python -m convkan_tpu_torch.serve --model EfficientNetV2KAN --arch s \\
+        --imagenet_preprocessing --kan_conv FastKAN --init_random
 
 (add ``--kan_conv WavKAN`` for the WavKAN convs, ``--kan_conv ChebyKAN``
 or ``--kan_conv GRAMKAN`` for the Chebyshev or Gram convs of degree
 ``--degree``; MobileNetV3 takes ``KAN``, ``FastKAN`` and ``ChebyKAN``,
 ``--width_scale``, ``--conv_type conv`` and ``--replace_depthwise``, its
 norm is ``--norm_layer`` and its BatchNorms are affine with
-``--norm_affine``, as train.py builds it).  ``--imagenet_preprocessing``
-serves 224 x 224 x 3 images with the dataset's normalization, as the JAX
-CLI does; the engine does not resize.  The convs' norm is train.py's ``--kan_norm_layer``,
-BatchNorm2d by default, served in eval mode from its running statistics;
-``--fold_bn`` folds each KAN conv's BatchNorm into its weights
+``--norm_affine``, as train.py builds it; so do ``EfficientNetV2KAN``
+(``--arch`` s, m, l, tiny or kan_tiny) and ``EfficientNetKAN`` (b0, b1,
+b2 or b0_small .. b2_small), with KAN, FastKAN, ChebyKAN and GRAMKAN
+convs; ``--fold_bn`` raises for these two, whose standard depthwise
+convs' norms it does not fold yet).  train.py's dropout and stochastic
+depth flags are accepted and do nothing: serving runs in eval mode.
+``--imagenet_preprocessing`` serves 224 x 224 x 3 images with the
+dataset's normalization, as the JAX CLI does; the engine does not resize.
+The convs' norm is train.py's ``--kan_norm_layer``, BatchNorm2d by
+default, served in eval mode from its running statistics; ``--fold_bn``
+folds each KAN conv's BatchNorm into its weights
 (utils/fold_bn.py, with ``--bn_eps``) before serving.  A ChebyKAN trunk
 with InstanceNorm ends in that norm with nothing after it, so its head
 reads the last conv's 2x2 map (``expected_feature_shape=(2, 2)``): with
@@ -299,32 +307,47 @@ def make_server(engine: InferenceEngine, model_name: str, host: str,
     return _Server((host, port), _make_handler(engine, model_name))
 
 
+# train.py's flags that act only in training (dropout, stochastic depth)
+TRAIN_ONLY = ("--dropout_conv", "--dropout_linear", "--stochastic_depth_prob")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Serve a convkan_tpu_torch model over HTTP.")
     p.add_argument("--model", default="VGGKAN",
-                   choices=["VGGKAN", "MobileNetV3KAN"])
+                   choices=["VGGKAN", "MobileNetV3KAN", "EfficientNetV2KAN",
+                            "EfficientNetKAN"])
     p.add_argument("--arch", default=None,
                    help="VGGKAN: a cfgs key (VGG16_small by default); "
-                        "MobileNetV3KAN: small or large")
+                        "MobileNetV3KAN: small or large; EfficientNetV2KAN: "
+                        "s, m, l, tiny or kan_tiny; EfficientNetKAN: b0 (by "
+                        "default), b1, b2, b0_small .. b2_small")
     p.add_argument("--kan_conv", default="KAN",
                    choices=["KAN", "FastKAN", "ChebyKAN", "GRAMKAN",
                             "WavKAN"],
                    help="conv family of the trunk (train.py's flag)")
     p.add_argument("--conv_type", default="kanconv",
                    choices=["kanconv", "conv"],
-                   help="MobileNetV3KAN: KAN convs or standard ones")
+                   help="MobileNetV3KAN and the EfficientNets: KAN convs "
+                        "or standard ones")
     p.add_argument("--width_scale", type=float, default=1)
     p.add_argument("--replace_depthwise", action="store_true",
-                   help="MobileNetV3KAN: grouped KAN depthwise convs")
+                   help="MobileNetV3KAN and the EfficientNets: grouped KAN "
+                        "depthwise convs")
+    for flag in TRAIN_ONLY:
+        p.add_argument(flag, type=float, default=None,
+                       help="train.py's flag, accepted and ignored: serving "
+                            "runs in eval mode, where it does nothing")
     p.add_argument("--imagenet_preprocessing", action="store_true",
                    help="224 x 224 x 3 inputs (train.py's flag)")
     p.add_argument("--norm_layer", default="BatchNorm2d",
                    choices=sorted(NORM_LAYERS),
-                   help="MobileNetV3KAN's norm (train.py's flag)")
+                   help="MobileNetV3KAN's and the EfficientNets' norm "
+                        "(train.py's flag)")
     p.add_argument("--degree", type=int, default=3,
                    help="polynomial degree of the ChebyKAN and GRAMKAN "
-                        "convs")
+                        "convs (train.py does not pass it to the "
+                        "EfficientNets)")
     p.add_argument("--kan_norm_layer", default="BatchNorm2d",
                    choices=sorted(NORM_LAYERS),
                    help="norm after each conv (train.py's flag)")
@@ -354,6 +377,9 @@ def build_parser() -> argparse.ArgumentParser:
 def build_engine(args):
     """Model + weights + engine from parsed CLI args (the testable core of
     main).  Returns (engine, model name)."""
+    from .models.efficientnet import efficientnet_kan, efficientnet_kan_small
+    from .models.efficientnetv2 import (efficientnetv2_kan,
+                                        efficientnetv2_kan_small)
     from .models.mobilenetv3 import mobilenet_v3_kan
     from .models.vgg import vggkan
 
@@ -365,7 +391,29 @@ def build_engine(args):
         dataset_input_shape(args.dataset)
     num_classes = 100 if args.dataset == "CIFAR100" else 10
     gen = torch.Generator().manual_seed(args.seed)
-    if args.model == "MobileNetV3KAN":
+    if args.fold_bn and args.model in ("EfficientNetV2KAN",
+                                       "EfficientNetKAN"):
+        raise SystemExit("--fold_bn does not fold the standard depthwise "
+                         f"convs' norms of {args.model} yet (ROADMAP A9)")
+    if args.model in ("EfficientNetV2KAN", "EfficientNetKAN"):
+        v2 = args.model == "EfficientNetV2KAN"
+        if v2 and args.arch not in ("s", "m", "l", "tiny", "kan_tiny"):
+            raise SystemExit(f"Unsupported EfficientNetV2 arch: {args.arch}")
+        if v2:
+            fn = efficientnetv2_kan_small if args.arch in (
+                "tiny", "kan_tiny") else efficientnetv2_kan
+        else:
+            fn = efficientnet_kan_small if args.arch and "small" in \
+                args.arch else efficientnet_kan
+        # train.py's builder call (train.py:321-351)
+        model = fn(
+            arch=args.arch or "b0", num_classes=num_classes,
+            in_channels=shape[-1], conv_type=args.conv_type,
+            kan_conv=args.kan_conv, replace_depthwise=args.replace_depthwise,
+            classifier_type="Linear", norm_layer=args.norm_layer,
+            kan_norm_layer=args.kan_norm_layer, affine=args.norm_affine,
+            generator=gen, device=args.device)
+    elif args.model == "MobileNetV3KAN":
         if args.arch not in ("large", "small"):
             raise SystemExit("MobileNetV3 requires --arch large|small")
         model = mobilenet_v3_kan(

@@ -31,8 +31,10 @@ def make_train_step(model, dataset: str, augment: bool,
                     ema_decay: float = 0.0):
     """step(state, x_uint8, labels, *, offsets=None, flips=None) -> loss.
     Crop offsets and flips not passed in are drawn from
-    ``state.generator``, then the dropout masks (convs first, then the
-    head)."""
+    ``state.generator``, then the forward's masks in module order: each
+    block's convs' channel dropout, then its DropPath, then the head's
+    dropout (a rematerialized block draws its masks again from the same
+    state in the backward pass)."""
     unported = {"l1_decay > 0": l1_decay > 0,
                 "imagenet with augment": imagenet and augment,
                 "grad_accum != 1": grad_accum != 1, "ema_decay > 0":

@@ -67,7 +67,8 @@ class TrainState:
     """The model (holding the parameters and, with BatchNorm, the running
     statistics: buffers, which the optimizer does not see), its optimizer,
     the learning-rate schedule, the number of updates taken, and the
-    generator that draws crop offsets, flips and dropout masks."""
+    generator that draws crop offsets, flips, dropout and DropPath
+    masks."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]

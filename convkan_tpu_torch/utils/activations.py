@@ -1,17 +1,21 @@
 """Activations, port of ``convkan_tpu/utils/activations.py`` (``silu``,
-``gelu``, ``relu``, ``hardswish``, ``hardsigmoid``, ``resolve_activation``).
+``gelu``, ``relu``, ``hardswish``, ``hardsigmoid``, ``sigmoid``,
+``identity``, ``resolve_activation``).
 
 GELU is the exact erf form (torch's ``nn.GELU`` default, which the JAX
 package pins with ``approximate=False``).  Hardswish is x * relu6(x + 3) / 6
 and hardsigmoid relu6(x + 3) / 6, as torch's modules and jax.nn compute
 them; at the kinks torch's derivatives (0 at x <= -3, 1 at x >= 3 for
-hardswish) are those of jax.nn.
+hardswish) are those of jax.nn.  ``identity`` is the base path of a KAN
+conv built with ``base_activation=None`` (the JAX module's ``lambda x: x``),
+registered as "identity" and as the reference CLI's "None".
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import torch
 import torch.nn.functional as F
 
 
@@ -37,10 +41,21 @@ def hardsigmoid(x):
     return F.relu6(x + 3.0) / 6.0
 
 
-# the reference CLI names (train.py:32-42) of the activations ported so far
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def identity(x):
+    return x
+
+
+# the reference CLI names (train.py:32-42) of the activations ported so far;
+# "identity" before "None", so that a lookup by function finds "identity"
 ACTIVATIONS: dict[str, Callable] = {"gelu": gelu, "silu": silu, "relu": relu,
                                     "hardswish": hardswish,
-                                    "hardsigmoid": hardsigmoid}
+                                    "hardsigmoid": hardsigmoid,
+                                    "sigmoid": sigmoid, "identity": identity,
+                                    "None": identity}
 
 
 def resolve_activation(act) -> Optional[Callable]:

@@ -6,11 +6,15 @@ path with dots: ``{"KanConvND_0": {"poly_w": a}}`` -> ``"KanConvND_0.poly_w"``.
 One name differs: a conv's output norm, which flax names after its class
 (``BatchNorm_0``, ``LayerNorm_0``, ``GroupNorm_0``, ``RMSNorm_0``; also a
 ``StdConvBlock``'s), is the port's ``norm``; FastKAN's named input norms
-(``input_norm_{g}``) keep their names.  The ``batch_stats`` collection
-(a BatchNorm's running ``mean`` and ``var``) maps onto the norm's buffers of
-the same names.  A JAX ``TrainState`` (anything with a ``params``
-attribute, and ``batch_stats`` where it has them) is read through those,
-so a JAX training run's weights continue in the port's trainer.
+(``input_norm_{g}``) keep their names.  A block that flax rematerializes
+(``nn.remat``) carries ``Checkpoint`` before its class's name
+(``Checkpoint_EffBlock_3``, ``Checkpoint_MNV3Block_0``): the port names
+it as without remat (``_EffBlock_3``), whatever its own ``remat``.  The
+``batch_stats`` collection (a BatchNorm's running ``mean`` and ``var``)
+maps onto the norm's buffers of the same names.  A JAX ``TrainState``
+(anything with a ``params`` attribute, and ``batch_stats`` where it has
+them) is read through those, so a JAX training run's weights continue in
+the port's trainer.
 """
 
 from __future__ import annotations
@@ -26,9 +30,16 @@ _NORM_SCOPES = {f"{cls}_0": "norm" for cls in ("BatchNorm", "LayerNorm",
                                                "GroupNorm", "RMSNorm")}
 
 
+def _scope(key: str) -> str:
+    """The port's name of the flax scope ``key``."""
+    if key.startswith("Checkpoint_"):
+        return key[len("Checkpoint"):]
+    return _NORM_SCOPES.get(key, key)
+
+
 def _flatten(tree: Mapping, prefix: str, out: dict):
     for key, val in tree.items():
-        name = f"{prefix}{_NORM_SCOPES.get(key, key)}"
+        name = f"{prefix}{_scope(key)}"
         if isinstance(val, Mapping):
             _flatten(val, name + ".", out)
         else:

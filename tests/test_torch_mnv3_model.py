@@ -277,8 +277,8 @@ def test_imagenet_batch_matches_jax(dataset, shape):
 
 
 def test_unported_options_raise_and_the_tables():
-    for kw in (dict(remat=True), dict(classifier_type="KAN"),
-               dict(kan_conv="ReLUKAN")):
+    for kw in (dict(remat=True, remat_policy="except_basis"),
+               dict(classifier_type="KAN"), dict(kan_conv="ReLUKAN")):
         with pytest.raises(NotImplementedError):
             mobilenet_v3_kan("small", width_mult=0.25, device="cpu", **kw)
     for arch in ("small", "large"):

@@ -1,7 +1,7 @@
-"""How far float32 lies from float64 in a VGG16_small or a
-MobileNetV3-small of the port, on the CPU: the conditioning that
-``chip_smoke.py``'s model and train phases hold the GPU's float32 readings
-against.
+"""How far float32 lies from float64 in a VGG16_small, a
+MobileNetV3-small or an EfficientNetV2 of the port, on the CPU: the
+conditioning that ``chip_smoke.py``'s model and train phases hold the
+GPU's float32 readings against.
 
     python3 tools/f32_spread.py --kan_conv ChebyKAN --seeds 5
     python3 tools/f32_spread.py --model MobileNetV3KAN --kan_conv FastKAN \
@@ -22,6 +22,29 @@ of ``chip_smoke.py``'s lockstep phases instead (each from the float32
 run's state before it), ``--batch`` sets their batch and
 ``--kan_norm_layer BatchNorm2d`` builds train.py's norm (phase 26).
 
+``--model EfficientNetV2KAN`` (``--kan_conv`` KAN, GRAMKAN or FastKAN)
+reads, for path D's s model (``chip_smoke.effv2_eval_model``: smoothed,
+calibrated; GRAMKAN: kan_tiny), the eval logits of phase 37's images in
+float32 against float64; then (KAN, GRAMKAN) the seeded s model of phase
+39 (``chip_smoke.effv2_train_model``: GRAMKAN at ``--curve 1``, KAN
+at ``chip_smoke.MNV3_CURVE``) with its curved terms at ``--curve``, on
+phase 39's first batch, as for MobileNetV3 below (its DropPath masks from
+one seeded generator on both sides), and phase 39's first train step's
+float32 spread under ``chip_smoke.F32_NOISE`` (``chip_smoke.f32_spread``):
+the largest entries beside float32's own reading, and how many reach
+1 / ``chip_smoke.F32_SPREAD``, where a zero gradient would pass
+``chip_smoke.phase_train``'s rule.  With ``--card`` (needs a GPU) it
+also runs phase 39's first train step (``chip_smoke.train_run``) in
+float32 on the card, once with the KAN convs on the kernels and once with
+all of them on the plain route, and prints, for the card's worst
+gradients against float64, each route's reading beside the CPU float32's:
+whether a distance from float64 comes from the kernels or from the rest
+of the card's step.  Then the same step without remat, which keeps every
+KAN conv's input and output gradient: each conv's forward, data-gradient
+and weight-gradient kernels on those tensors against float64 of their
+plain versions (max |diff| over the largest float64 entry), the worst
+convs printed.
+
 ``--model MobileNetV3KAN`` (``--kan_conv`` KAN, ChebyKAN or FastKAN) reads
 one train-mode forward and backward of path C's train model (phase 34:
 224 x 224, its first batch of 8) in float32 against float64: the loss,
@@ -30,7 +53,7 @@ basis terms scaled by ``--curve`` (``chip_smoke.mnv3_smooth``; 1 is the
 seeded init).  ``--trace`` prints, for every KAN conv and BatchNorm in
 order, float32's error of its output and of its input (max |diff| over the
 largest float64 entry) and their ratio: where the rounding grows.  Needs
-no card.
+no card but for ``--card``.
 """
 
 from __future__ import annotations
@@ -59,11 +82,116 @@ def rel(a, b) -> float:
     return ((a.double() - b.double()).abs().max() / b.abs().max()).item()
 
 
+def effv2(args):
+    """Path D's models in float32 against float64 (module docs)."""
+    tiny = args.kan_conv == "GRAMKAN"
+    m = cs.effv2_eval_model(args.kan_conv)
+    imgs = cs.seeded_images(cs.EFFV2_MODEL_BATCH, 41, 32 if tiny else 224)
+    x = normalize_batch(torch.from_numpy(imgs), "CIFAR10") if tiny else \
+        cs.mnv3_prep(imgs)
+    with torch.no_grad():
+        y32 = m(x)
+        y64 = copy.deepcopy(m).double()(x.double())
+    print(f"{args.kan_conv} EfficientNetV2 eval logits float32 vs float64: "
+          f"max |diff| {(y32.double() - y64).abs().max().item():.3e}, max "
+          f"|logit| {y64.abs().max().item():.3f}, spread over the images "
+          f"{(y64 - y64[0]).abs().max().item():.3e}", flush=True)
+    if args.kan_conv == "FastKAN":
+        return
+    base = cs.mnv3_smooth(cs.effv2_model(
+        args.kan_conv, seed=42, stochastic_depth_prob=cs.EFFV2_SD),
+        args.curve)
+    xb, yb, _, _ = cs.effv2_batches(cs.EFFV2_TRAIN_BATCH, steps=1)[0]
+    train_readings(base, normalize_batch(xb, "CIFAR10"), yb, args,
+                   f"{args.kan_conv} EfficientNetV2-s {cs.EFFV2_TRAIN_SIZE}x"
+                   f"{cs.EFFV2_TRAIN_SIZE}, batch {cs.EFFV2_TRAIN_BATCH}")
+    batches = cs.effv2_batches(cs.EFFV2_TRAIN_BATCH, steps=1)
+    spread_readings(base, batches, cs.effv2_step)
+    if args.card:
+        card_readings(base, batches, cs.effv2_step)
+
+
+def spread_readings(base, batches, make_step, worst=8):
+    """The first train step of ``batches`` on the CPU in float32 and
+    float64, and float32's spread there (module docs)."""
+    _, g32, snaps = cs.train_run(copy.deepcopy(base), "cpu", batches,
+                                 make_step=make_step, steps_per_epoch=100)
+    _, g64, _ = cs.train_run(copy.deepcopy(base).double(), "cpu", batches,
+                             make_step=make_step, steps_per_epoch=100)
+    spread = cs.f32_spread(base, batches, snaps[:1], range(1), make_step,
+                           g64, 100)
+    f32 = {n: e for e, _, n in cs.grad_readings(g32, g64, range(1))}
+    top = sorted(spread.items(), key=lambda kv: kv[1], reverse=True)[:worst]
+    loose = sum(cs.F32_SPREAD * v >= 1 for v in spread.values())
+    print(f"first train step on the CPU: float32's spread (conv outputs x "
+          f"(1 + {cs.F32_NOISE:g} N(0, 1)), seeds {cs.F32_NOISE_SEEDS}) "
+          f"reaches 1 / {cs.F32_SPREAD} at {loose} of {len(spread)} "
+          f"gradients; the largest (float32 vs float64, spread): "
+          + "; ".join(f"{n} {f32[n]:.3e} {v:.3e}" for (_, n), v in top),
+          flush=True)
+
+
+def card_readings(base, batches, make_step, worst=8):
+    """``--card``: the first train step of ``batches`` in float32 on the
+    card, its KAN convs on the kernels and then on the plain route, and on
+    the CPU, each against float64 (module docs)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from convkan_tpu_torch.device import set_full_f32
+    from convkan_tpu_torch.kernels import build
+    from convkan_tpu_torch.kernels import kan_conv2d as kc
+
+    set_full_f32()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(build.build, (kc.SOURCE, kc.BWD_SOURCE)))
+
+    def grads(dt, device, plain=False):
+        route = nk.KanConvND.kernel_route
+        if plain:
+            nk.KanConvND.kernel_route = lambda self, x: False
+        try:
+            return cs.train_run(copy.deepcopy(base).to(dt).to(device),
+                                device, batches, make_step=make_step,
+                                steps_per_epoch=100)[1][0]
+        finally:
+            nk.KanConvND.kernel_route = route
+
+    g64 = grads(torch.float64, "cpu")
+    runs = {"CPU float32": grads(torch.float32, "cpu"),
+            "card, kernels": grads(torch.float32, "cuda"),
+            "card, plain route": grads(torch.float32, "cuda", plain=True)}
+    read = {k: {n: rel(g[n], r) for n, r in g64.items()}
+            for k, g in runs.items()}
+    for k, r in read.items():
+        n = max(r, key=r.get)
+        print(f"{k} vs float64: max {r[n]:.3e} ({n})", flush=True)
+    top = sorted(g64, key=read["card, kernels"].get, reverse=True)[:worst]
+    print("card's worst gradients vs float64 (" + ", ".join(read) + "): "
+          + "; ".join(f"{n} " + " ".join(f"{r[n]:.3e}" for r in
+                                          read.values()) for n in top),
+          flush=True)
+    model = copy.deepcopy(base).to("cuda")
+    model.remat = False     # the same step, each conv called once
+    rows = cs.conv_kernel_readings(kc, model, batches, make_step, "cuda")
+    print(f"kernels on the step's own tensors (no remat) vs float64, "
+          f"{len(rows)} convs (forward, dx, dW), the worst {worst}: "
+          + "; ".join(f"{nm} {key}: {f:.3e} {dx:.3e} {dw:.3e}"
+                      for _, nm, key, f, dx, dw in rows[:worst]), flush=True)
+
+
 def mnv3(args):
     """Path C's train model in float32 against float64 (module docs)."""
     base = cs.mnv3_smooth(cs.mnv3_model(args.kan_conv, seed=22), args.curve)
     xb, yb, _, _ = cs.mnv3_batches(cs.MNV3_TRAIN_BATCH, steps=1)[0]
-    x = imagenet_batch(xb, False, "CIFAR10")
+    train_readings(base, imagenet_batch(xb, False, "CIFAR10"), yb, args,
+                   f"{args.kan_conv} MobileNetV3-small, batch "
+                   f"{cs.MNV3_TRAIN_BATCH}")
+
+
+def train_readings(base, x, yb, args, label):
+    """One train-mode forward and backward of ``base`` on x in float32
+    against float64: the loss, the worst gradients and running statistics
+    and, with ``--trace``, each KAN conv's and BatchNorm's error."""
     runs = []
     for dt in (torch.float32, torch.float64):
         m = copy.deepcopy(base).to(dt).train()
@@ -83,8 +211,8 @@ def mnv3(args):
     worst_g = sorted(((rel(g32[n], g), n) for n, g in g64.items()),
                      reverse=True)[:3]
     worst_b = max((rel(b32[n], b), n) for n, b in b64.items())
-    print(f"{args.kan_conv} MobileNetV3-small, curved terms x {args.curve:g},"
-          f" train mode, batch {cs.MNV3_TRAIN_BATCH}, float32 vs float64: "
+    print(f"{label}, curved terms x {args.curve:g},"
+          f" train mode, float32 vs float64: "
           f"loss {abs(l32 - l64) / abs(l64):.3e} relative; gradients "
           + ", ".join(f"{n} {e:.3e}" for e, n in worst_g)
           + f"; running statistics {worst_b[1]} {worst_b[0]:.3e}", flush=True)
@@ -99,7 +227,8 @@ def mnv3(args):
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default="VGGKAN",
-                   choices=["VGGKAN", "MobileNetV3KAN"])
+                   choices=["VGGKAN", "MobileNetV3KAN",
+                            "EfficientNetV2KAN"])
     p.add_argument("--kan_conv", default="ChebyKAN",
                    choices=["KAN", "ChebyKAN", "GRAMKAN", "WavKAN",
                             "FastKAN"])
@@ -111,10 +240,14 @@ def main():
                    choices=["InstanceNorm2d", "BatchNorm2d"])
     p.add_argument("--batch", type=int, default=cs.TRAIN_BATCH)
     p.add_argument("--steps", type=int, default=1)
+    p.add_argument("--card", action="store_true",
+                   help="EfficientNetV2KAN: also the card's float32 step")
     args = p.parse_args()
     torch.set_num_threads(args.threads)
     if args.model == "MobileNetV3KAN":
         return mnv3(args)
+    if args.model == "EfficientNetV2KAN":
+        return effv2(args)
     kw = {} if args.kan_conv in ("KAN", "GRAMKAN") else \
         {"expected_feature_shape": (2, 2)}
     kw["kan_norm_layer"] = args.kan_norm_layer
