@@ -4,10 +4,12 @@ GRAMKAN convs, then the B-spline model as train.py builds it (BatchNorm2d,
 also served with its norms folded), trains BASELINE config 4's WavKAN
 stack at batch 2048, serves and trains KAN-MobileNetV3-small at 224 x 224
 (config 5's single-chip model) with FastKAN, B-spline (hardswish) and
-ChebyKAN convs, and serves and trains KAN-EfficientNetV2-s at 224 x 224
+ChebyKAN convs, serves and trains KAN-EfficientNetV2-s at 224 x 224
 (config 5's other half, with remat and stochastic depth) with FastKAN and
-B-spline convs, on one CUDA card through the hand-written kernels and
-checks every step.
+B-spline convs, and serves and trains KAN-VGG16_small with each of the ten
+static bases (Jacobi, Bernstein, Bessel, Fibonacci, Fourier, Gegenbauer,
+Hermite, Laguerre, Lucas, Taylor) and with Legendre's (the plain route),
+on one CUDA card through the hand-written kernels and checks every step.
 
     python3 chip_smoke.py
 
@@ -301,6 +303,47 @@ route):
      the projections' shapes, the SiLU B-spline at the others') against
      its bound, its plain version and cuDNN over a materialized basis; the
      KAN step's time outside the kernels.
+KAN-VGG16_small with the static bases, path E (train.py --model VGGKAN
+--arch VGG16_small --kan_conv <key> for the ten keys of STATIC_FAMILIES:
+base_activation "silu", degree 3, Fourier's grid 5, InstanceNorm, the
+(1, 1) head; the KAN-conv kernels' five static instantiations, codes 7-11
+of csrc/kan_basis.cuh: Recur3<4, SiLU> for Bessel, Fibonacci, Gegenbauer,
+Hermite, Laguerre and Lucas, their coefficients passed as parameters,
+Recur3<4, identity> for Jacobi, Recur3<3, SiLU> for Taylor, Bernstein<3>,
+Fourier<5, SiLU>; LegendreKAN on the plain route):
+ 41. each family's instantiation at the 9 distinct VGG16_small shapes at
+     batch 64 (and, for the family each instantiation is timed with, the
+     first and last shapes at batch 1024), x U(-2, 2): the forward against
+     the plain version (TOL), the backward kernels and the autograd path
+     against float64 (BWD_TOL), the reductions bit-exact, two calls
+     bit-identical; the exact zeros kept (STATIC_ZERO: Bernstein's rows
+     have a derivative of exactly 0, Fibonacci's row 0 and Gegenbauer's
+     rows 1-3 at alpha_param 0 are 0: with those rows of poly_w zeroed the
+     data gradient, and where the value is 0 the forward, are
+     bit-identical, and their weight-gradient rows exactly 0);
+ 42. each family's seeded model (and LegendreKAN's) at batch 1024 on the
+     card: the logits of the first STATIC_MODEL_CHECK images against the
+     CPU's float32 and float64 (the GPU within CHEBY_F32 x the CPU float32's
+     distance + MODEL_TOL), not the same for every image, 13 forward
+     launches of the family's basis (launches_by_basis; LegendreKAN: 13
+     plain-route convs, no launch); predict at batch 1024 (images/s);
+ 43. serving, the main path, as phase 4 for each of the ten (served logits
+     vs predict within phase 42's tolerance), only the family's basis
+     launched;
+ 44. training, the main path: three lockstep steps of each family's model
+     (FourierKAN's poly_w at STATIC_CURVE) GPU vs CPU as phase 26 holds
+     them (losses, every gradient but the PReLU slopes, STATIC_UNHELD,
+     within GRAD_TOL of float64 or F32_SPREAD x float32's spread at the
+     same start, the slopes' readings printed; updates; the control): per
+     step 13 forward, 12 data-gradient, 13 weight-gradient and 13
+     reduction launches, all of the family's basis (LegendreKAN: 13
+     plain-route convs per step);
+ 45. times: each family's train step at batch 1024 (median of 12 after 3)
+     and, per conv shape at batch 1024, each kernel of the five
+     instantiations (entries named "[static <tag>]", STATIC_TAGS; each
+     timed with the family of STATIC_TIMED) against its plain version,
+     cuDNN over a materialized basis and the bound over every row of E
+     (the dense rows: every row of these bases is computed).
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
 a sleep kernel holds the card until the host has issued all timed calls);
 a kernel's timing that the host held back fails, any other is listed
@@ -556,6 +599,47 @@ REMAT_TOL = 1e-4
 EFFV2_SUFFIX = {"identity": "[effv2 identity]",
                 "gram_identity": "[effv2 gram identity]",
                 "silu": "[effv2 silu]"}
+# Path E: KAN-VGG16_small as train.py builds it with each static basis
+# (--kan_conv <key>: base_activation "silu", degree 3, Fourier's grid 5,
+# InstanceNorm, the (1, 1) head: PReLU or SiLU follows every norm), its 13
+# convs on the KAN-conv kernels' static instantiations; key -> the family
+STATIC_FAMILIES = {"JacobiKAN": "jacobi", "BersnsteinKAN": "bernstein",
+                   "BesselKAN": "bessel", "FibonacciKAN": "fibonacci",
+                   "FourierKAN": "fourier", "GegenbauerKAN": "gegenbauer",
+                   "HermiteKAN": "hermite", "LaguerreKAN": "laguerre",
+                   "LucasKAN": "lucas", "TaylorKAN": "taylor"}
+# the five instantiations by their code (kernels/kan_conv2d.py COMPILED):
+# the tag their entries end in, and the family each is timed with
+STATIC_TAGS = {7: "recur3 silu", 8: "recur3 identity", 9: "taylor",
+               10: "bernstein", 11: "fourier"}
+STATIC_TIMED = {"recur3 silu": "HermiteKAN", "recur3 identity": "JacobiKAN",
+                "taylor": "TaylorKAN", "bernstein": "BersnsteinKAN",
+                "fourier": "FourierKAN"}
+# exact zeros the kernels must keep (the basis rows, and whether their
+# values or only their derivatives are 0): Bernstein's rows are 1 with a
+# derivative of exactly 0, Fibonacci's row 0 is 0, and Gegenbauer's rows
+# 1-3 at alpha_param 0 (the factory's and VGG's default)
+STATIC_ZERO = {"BersnsteinKAN": ((0, 1, 2, 3), "derivative"),
+               "FibonacciKAN": ((0,), "value"),
+               "GegenbauerKAN": ((1, 2, 3), "value")}
+# the images of phase 42's batch-1024 forward that the CPU recomputes
+STATIC_MODEL_CHECK = 64
+# At the seeded init FourierKAN's float32 train step is chaotic: on the CPU
+# alone, its weight gradients lie up to 1.5 times their largest entry from
+# float64 (a relative change of 1e-7 of the input moves its logits by
+# 7e-3; tools/f32_spread.py --kan_conv FourierKAN --steps 3).  Its train
+# phase scales the convs' poly_w by STATIC_CURVE (mnv3_smooth: the base
+# path stays), where float32's spread at the lockstep starts is 2.4e-2
+# (--curve 0.1) and the fixed tolerances tell a fault from rounding
+STATIC_CURVE = {"FourierKAN": 0.1}
+# A PReLU slope's gradient is one sum of a term per negative activation,
+# which cancels: at path E's lockstep starts plain float32 lies 25 times
+# its value from float64 on the CPU (HermiteKAN's KanConvND_0.prelu, step
+# 1) and F32_NOISE moves it by up to 35 (tools/f32_spread.py --kan_conv
+# HermiteKAN --steps 3), where no limit both holds it and lets a zero
+# gradient fail.  Path E's train phase prints the slopes' readings and
+# holds every other gradient (their spread reaches 0.19 at most: TaylorKAN)
+STATIC_UNHELD = (".prelu",)
 
 
 # readings that cuda_ms could not hold to device time: kernel name -> fields
@@ -1150,7 +1234,7 @@ def train_compare(mod, dev, kan_conv, lockstep=False, gpu_starts=False,
 
 
 def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
-                zero_entries=(), n_convs=13, hold_grads=True,
+                zero_entries=(), n_convs=13, hold_grads=True, unheld=(),
                 label=f"VGG16_small batch {TRAIN_BATCH}", **kw):
     """7 / 13 / 18 / 23 / 26 / 29 / 34. the training main path, by
     ``train_compare`` (``kw``: its model, batches and step, or the model's
@@ -1159,8 +1243,11 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
     statistics after each compared step (STATS_TOL); a step that did not
     update (and moved no statistic), or a zero gradient, must fail those
     checks (the control); with ``hold_grads`` False the gradients'
-    readings are printed and not held (phase 39's B-spline model).  Each
-    of the model's ``n_convs`` KAN or WavKAN
+    readings are printed and not held (phase 39's B-spline model); those
+    of the parameters whose names end in one of ``unheld`` are printed and
+    neither held nor counted in the control's limit (path E's PReLU
+    slopes, see STATIC_UNHELD).  Each of the model's ``n_convs`` KAN or
+    WavKAN
     convs' ``grad_params`` must get a non-zero gradient, each
     (parameter, index) of ``zero_entries`` an exactly zero one (with its
     parameter's reading printed), and ``mod``'s launch counts must be
@@ -1175,6 +1262,22 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
     for lg, lc in zip(losses_gpu, losses_cpu):
         check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
               f"train loss on the GPU {lg} vs the CPU {lc}")
+    if unheld:
+        free = [(e, i, n) for e, i, n in r["gpu_readings"]
+                if n.endswith(unheld)]
+        cpu_free = {(i, n): e for e, i, n in r["cpu_readings"]
+                    if n.endswith(unheld)}
+        print(f"[train] not held ({', '.join(unheld)}): GPU (CPU float32) "
+              f"gradients vs float64, the worst: " + ", ".join(
+                  f"{n} step {i} {e:.3e} ({cpu_free[(i, n)]:.3e})"
+                  for e, i, n in free[:4]), flush=True)
+        for key in ("gpu_readings", "cpu_readings"):
+            r[key] = [t for t in r[key] if not t[2].endswith(unheld)]
+        r["gpu_vs_f64"], r["cpu_vs_f64"] = r["gpu_readings"][0], \
+            r["cpu_readings"][0]
+        if r["spread"] is not None:
+            r["spread"] = {k: v for k, v in r["spread"].items()
+                           if not k[1].endswith(unheld)}
     worst_g, worst_step, worst_name = r["gpu_vs_f64"]
     cpu_g, cpu_step, cpu_name = r["cpu_vs_f64"]
     rel, worst = r["update_rel"], r["update_worst"]
@@ -3547,6 +3650,184 @@ def effv2_summary(kc, effv2_k, effv2_time, batch, card):
           + f" (on {card})", flush=True)
 
 
+# ------------------------------ KAN-VGG16_small, static bases: path E
+def static_basis(key):
+    """The basis of ``key``'s convs as VGG16_small builds them."""
+    from convkan_tpu_torch.nn.kan_conv import KanConvND
+    return KanConvND(STATIC_FAMILIES[key], 4, 4, 3, base_activation="silu",
+                     device="cpu").basis
+
+
+def static_tag(kc, key) -> str:
+    """The instantiation (STATIC_TAGS) that ``key``'s convs run."""
+    return STATIC_TAGS[kc.COMPILED[static_basis(key).key]]
+
+
+def zero_rows_check(kc, key, basis, x, bw, pw, g):
+    """STATIC_ZERO's rows of ``key`` on the card: with those rows of poly_w
+    zeroed the data gradient is bit-identical (their derivative is exactly
+    0), and where their values are 0 the forward too, and their rows of
+    the weight gradient are exactly 0."""
+    rows, what = STATIC_ZERO[key]
+    C, O, K = x.shape[-1], pw.shape[-1], basis.K
+    pz = pw.clone()
+    pz.view(3, 3, C, K, O)[:, :, :, list(rows)] = 0   # rows c*K + kk
+    spec = (basis, 3, 1)
+    w_all = kc.pack_w_all(bw, pw, C=C, K=K, k=3, O=O)
+    wz = kc.pack_w_all(bw, pz, C=C, K=K, k=3, O=O)
+    ok = torch.equal(kc.input_grad(x, w_all, g, *spec),
+                     kc.input_grad(x, wz, g, *spec))
+    if what == "value":
+        dw = kc.weight_grad(x, g, *spec).view(basis.R, C, -1)
+        ok = ok and not dw[list(rows)].any() and torch.equal(
+            kc.kan_conv2d(x, bw, pw, *spec), kc.kan_conv2d(x, bw, pz, *spec))
+    print(f"[static kernel] {key}: rows {list(rows)} (their {what} exactly "
+          f"0): data gradient unchanged with them zeroed"
+          + (", forward unchanged, their weight gradient exactly 0"
+             if what == "value" else "") + f" {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, f"{key}: the exact zeros of rows {list(rows)} are not kept")
+
+
+def phase_static_kernels(kc, gen, dev):
+    """41. each family's instantiation against its plain version: the
+    forward (TOL) and ``backward_case`` (the data gradient and the weight
+    partials against float64 within BWD_TOL, the reduction bit-exact, the
+    autograd path's gradients) at the 9 distinct VGG16_small shapes at
+    batch 64, x U(-2, 2), every kernel's result of two calls
+    bit-identical; the timed family of each instantiation also at the
+    first and the last shape at batch 1024 (the tiles of the step; the
+    partials held to float64 through the reduced dW); STATIC_ZERO's exact
+    zeros.  Returns max |err| per kernel by instantiation tag."""
+    errs = {}
+    for key in STATIC_FAMILIES:
+        basis = static_basis(key)
+        tag = static_tag(kc, key)
+        e = errs.setdefault(tag, dict.fromkeys(kc.KERNELS, 0.0))
+        cases = [(64, H, C, O) for H, C, O in dict.fromkeys(
+            VGG16_SMALL_CONVS)]
+        if STATIC_TIMED[tag] == key:
+            cases += [(TIME_BATCH, *VGG16_SMALL_CONVS[0]),
+                      (TIME_BATCH, *VGG16_SMALL_CONVS[-1])]
+        for B, H, C, O in cases:
+            x, bw, pw = conv_inputs(gen, B, H, C, O, 2.0, basis=basis)
+            g = torch.randn(B, H, H, O, generator=gen)
+            x, bw, pw, g = (t.to(dev) for t in (x, bw, pw, g))
+            y = kc.kan_conv2d(x, bw, pw, basis, 3, 1)
+            same = torch.equal(y, kc.kan_conv2d(x, bw, pw, basis, 3, 1))
+            torch.cuda.synchronize()
+            ref = kc.kan_conv2d_reference(x, bw, pw, basis, 3, 1)
+            err = (y - ref).abs().max().item()
+            ok = torch.allclose(y, ref, rtol=TOL, atol=TOL)
+            cfg = kc.launch_config(B, H, H, C, O, 3, 1, basis.R)
+            print(f"[static kernel] {key} ({basis}) B={B} {H}x{H} C={C} "
+                  f"O={O} (BN {cfg['BN']}, "
+                  f"{'skip' if cfg['skip'] else 'dense'}, CC {cfg['CC']}, "
+                  f"S {cfg['S']}, {cfg['blocks']} blocks): max|err| "
+                  f"{err:.3e}, two calls "
+                  f"{'bit-identical' if same else 'DIFFERENT'} "
+                  f"{'ok' if ok and same else 'FAIL'}", flush=True)
+            check(bool(torch.isfinite(y).all()), f"{key} kernel output not "
+                                                 "finite")
+            check(ok and same, f"{key} kernel disagrees with the plain "
+                               f"version, or two calls differ (B={B} H={H} "
+                               f"C={C} O={O})")
+            e["kan_conv2d_fwd"] = max(e["kan_conv2d_fwd"], err)
+            del y, ref
+            case, _, _, _ = backward_case(
+                kc, basis, x, bw, pw, g, 3, 1, partials=B < TIME_BATCH,
+                twice=True, tag=f"[static backward] {key}")
+            for name, v in case.items():
+                e[name] = max(e[name], v)
+            if key in STATIC_ZERO and B < TIME_BATCH and H == 16:
+                zero_rows_check(kc, key, basis, x, bw, pw, g)
+    return errs
+
+
+def static_model(key, seed, curve=1.0, device="cpu"):
+    """Path E's seeded VGG16_small of ``key`` (train.py's build: the (1, 1)
+    head), its poly_w scaled by ``curve`` (``mnv3_smooth``)."""
+    from convkan_tpu_torch.models.vgg import vggkan
+    return mnv3_smooth(vggkan(3, 10, arch="VGG16_small", kan_conv=key,
+                              classifier_type="Linear",
+                              generator=torch.Generator().manual_seed(seed),
+                              device=device), curve)
+
+
+def phase_static_model(kc, key, dev, imgs):
+    """42. ``key``'s seeded VGG16_small on the card at batch 1024: its
+    logits of the first STATIC_MODEL_CHECK images against the CPU's float32
+    and float64 (the GPU within CHEBY_F32 times the CPU float32's distance
+    from float64 plus MODEL_TOL), not the same for every image; 13 kernel
+    forwards, all of the family's basis (LegendreKAN: 13 plain-route convs
+    and no launch; its squash takes the batch's min and max, so its GPU
+    logits held are those of the CPU's batch).  Returns the GPU model
+    (eval mode), the launches by basis and the tolerance the logits were
+    held to."""
+    from convkan_tpu_torch.train.data import normalize_batch
+
+    model_cpu = static_model(key, 0).eval()
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    x = normalize_batch(torch.from_numpy(imgs), "CIFAR10")
+    n = STATIC_MODEL_CHECK
+    legendre = key == "LegendreKAN"
+    with torch.inference_mode():
+        kc.reset_launches()
+        got = model_gpu(x.to(dev)).cpu()
+        torch.cuda.synchronize()
+        by_basis = collections.Counter(kc.launches_by_basis)
+        plain = kc.plain_calls[kc.PLAIN]
+        # Legendre's squash is a min-max over the batch: the GPU runs the
+        # CPU's batch for the comparison
+        part = model_gpu(x[:n].to(dev)).cpu() if legendre else got[:n]
+        want = model_cpu(x[:n])
+        exact = copy.deepcopy(model_cpu).double()(x[:n].double())
+    e_cpu = (want.double() - exact).abs().max().item()
+    e_gpu = (part.double() - exact).abs().max().item()
+    tol = CHEBY_F32 * e_cpu + MODEL_TOL
+    want_basis = {} if legendre else \
+        {("kan_conv2d_fwd", static_basis(key).key): 13}
+    print(f"[static model] {key} VGG16_small logits {tuple(got.shape)}: "
+          f"the first {n} vs float64 on the CPU, GPU max|err| {e_gpu:.3e}, "
+          f"CPU float32 {e_cpu:.3e} (allowed {tol:.3e}); launches "
+          f"{dict(by_basis)}, plain-route convs {plain}", flush=True)
+    check(bool(torch.isfinite(got).all()), f"{key} logits not finite")
+    check((got - got[0]).abs().max().item() > 1e-3,
+          f"{key}: the logits are the same for every image")
+    check(e_gpu <= tol, f"{key} logits on the GPU further from float64 than "
+                        "the CPU's float32 allows")
+    check(dict(by_basis) == want_basis and plain == 13 * legendre,
+          f"{key}: expected {want_basis} launches and {13 * legendre} "
+          f"plain-route convs per forward")
+    return model_gpu, by_basis, tol
+
+
+def static_train(kc, dev, key):
+    """44. three lockstep train steps of ``key``'s VGG16_small (poly_w at
+    STATIC_CURVE) as phase 26 holds them: losses, every gradient but the
+    PReLU slopes (STATIC_UNHELD, printed) within GRAD_TOL of float64 or
+    F32_SPREAD x float32's spread at the same start, updates, the
+    control; per step 13 forward, 12 data-gradient, 13 weight-gradient and
+    13 reduction launches, all of the family's basis (LegendreKAN: no
+    launch, 13 plain-route convs).  Returns the launches by basis."""
+    curve = STATIC_CURVE.get(key, 1.0)
+    legendre = key == "LegendreKAN"
+    want = dict.fromkeys(kc.KERNELS, 0) if legendre else \
+        {"kan_conv2d_fwd": 13, "kan_conv2d_bwd_dx": 12,
+         "kan_conv2d_bwd_dw": 13, "kan_conv2d_bwd_dw_reduce": 13}
+    if legendre:
+        want[kc.PLAIN] = 13
+    phase_train(kc, dev, key, want, ["base_w", "poly_w"], lockstep=True,
+                f32_floor=True, unheld=STATIC_UNHELD,
+                label=f"VGG16_small batch {TRAIN_BATCH}, poly_w x {curve:g}",
+                build=lambda: static_model(key, 2, curve))
+    by_basis = collections.Counter(kc.launches_by_basis)
+    keys = {k for _, k in by_basis}
+    check(keys == (set() if legendre else {static_basis(key).key}),
+          f"{key}: the train steps launched the bases {keys}")
+    return by_basis
+
+
 def kernel_entry(name, source, replaces, launches, err, t, times_are,
                  shapes, **extra):
     """One kernel's entry of the {"kernels": [...]} line; ``launches`` per
@@ -3576,6 +3857,14 @@ def main():
     from convkan_tpu_torch.kernels import wav_conv2d as wc
 
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(name):
+        """Prints the seconds since the last lap: each path's share."""
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - t_lap[0]:.1f} s", flush=True)
+        t_lap[0] = now
+
     # ---------------------------------------------------------- 1. setup
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3589,16 +3878,24 @@ def main():
     for src in sources:  # build from the checkout's sources
         build.library_path(src).unlink(missing_ok=True)
     t0 = time.perf_counter()
+    took = {}
+
+    def build_one(src):
+        t = time.perf_counter()
+        build.build(src)
+        took[src] = round(time.perf_counter() - t, 1)
+
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
-        list(pool.map(build.build, sources))
+        list(pool.map(build_one, sources))
     print(f"[build] {', '.join(sources)} (in parallel): "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{time.perf_counter() - t0:.2f} s; each {took}", flush=True)
     for src in sources:
         log = build.library_path(src).with_suffix(".log").read_text()
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or \
                     "spill" in line:
                 print(f"[build] {src}: {line.strip()}")
+    lap("setup and build")
 
     dev = torch.device("cuda")
     knots = tuple(float(v) for v in make_bspline_grid(5, 3))
@@ -3667,6 +3964,7 @@ def main():
           f"layers), the rest {step_ms - kernel_ms:.3f} ms (on {card})",
           flush=True)
 
+    lap("B-spline KAN")
     # ------------------------------------------------------------ WavKAN
     wav_fwd_err = phase_wav_forward(wc, gen, dev)                    # 9
     wav_bwd_err = phase_wav_backward(wc, gen, dev)                   # 10
@@ -3696,6 +3994,7 @@ def main():
           f"{wav_step_ms - wav_kernel_ms:.3f} ms; predict "
           f"{wav_predict_ips:.1f} images/s (on {card})", flush=True)
 
+    lap("WavKAN")
     # ---------------------------------------------------------- ChebyKAN
     cheby = kc.cheby_basis(3)
     suffix = f"[{cheby.kind}{cheby.order}]"   # its entries' names end so
@@ -3725,6 +4024,7 @@ def main():
           f"{cheby_step_ms - cheby_kernel_ms:.3f} ms; predict "
           f"{cheby_predict_ips:.1f} images/s (on {card})", flush=True)
 
+    lap("ChebyKAN")
     # ----------------------------------------------------------- GRAMKAN
     gram = kc.gram_basis(3)
     gsuffix = f"[{gram.kind}{gram.order}]"    # its entries' names end so
@@ -3759,6 +4059,7 @@ def main():
           f"{gram_step_ms - gram_kernel_ms:.3f} ms; predict "
           f"{gram_predict_ips:.1f} images/s (on {card})", flush=True)
 
+    lap("GRAMKAN")
     # ------------------------------------- BatchNorm: path A (train.py)
     phase_bn_model(kc, dev, imgs)                                     # 25
     bn_train, bn_trained = phase_train(                               # 26
@@ -3778,6 +4079,7 @@ def main():
           f"this run); predict {bn_predict[False]:.1f} images/s, folded "
           f"{bn_predict[True]:.1f} (on {card})", flush=True)
 
+    lap("path A")
     # ----------------------------------- BASELINE config 4: path B
     c4_err = phase_config4_kernels(wc, gen, dev)                      # 28
     c4_want = {"wav_conv2d_fwd": 3, "wav_conv2d_bwd_dx": 2,
@@ -3803,6 +4105,7 @@ def main():
           f"{c4_totals['wav_conv2d_fwd']['ms']:.3f}), the rest "
           f"{c4_step_ms - c4_kernel_ms:.3f} ms (on {card})", flush=True)
 
+    lap("path B")
     # ------------------------------ KAN-MobileNetV3-small: path C
     mnv3_err = phase_mnv3_kernels(kc, gen, dev)                      # 31
     phase_mnv3_model(kc, dev)                                        # 32
@@ -3835,6 +4138,7 @@ def main():
               f"{parts['stem_ms']:.3f} and imagenet_batch "
               f"{parts['prep_ms']:.3f} (on {card})", flush=True)
 
+    lap("path C")
     # ----------------------------- KAN-EfficientNetV2-s: path D
     # the launches of each main-path run by basis (kc.launches_by_basis)
     effv2_err = phase_effv2_kernels(kc, gen, dev)                    # 36
@@ -3860,6 +4164,54 @@ def main():
         effv2_rows_nz[tag], effv2_convs(tag), gen, dev, card, effv2_batch)
         for tag, basis in effv2_bases(kc).items()}
     effv2_summary(kc, effv2_k, effv2_time, effv2_batch, card)
+
+    lap("path D")
+    # ------------------ KAN-VGG16_small with the static bases: path E
+    # the launches of each main-path run by basis (kc.launches_by_basis)
+    static_err = phase_static_kernels(kc, gen, dev)                  # 41
+    static_runs = collections.defaultdict(collections.Counter)
+    imgs1024 = np.random.RandomState(5).randint(
+        0, 256, (TIME_BATCH, 32, 32, 3), np.uint8)
+    static_predict, static_tol = {}, {}
+    for key in (*STATIC_FAMILIES, "LegendreKAN"):                    # 42
+        model_gpu, by_basis, static_tol[key] = phase_static_model(
+            kc, key, dev, imgs1024)
+        static_runs["model"] += by_basis
+        static_predict[key] = time_predict(model_gpu, key, card)
+        del model_gpu
+    for key in STATIC_FAMILIES:                                      # 43
+        # served logits held to phase 42's tolerance: the engine's batches
+        # run other tiles (other sums) than predict's, and FourierKAN's
+        # seeded float32 trunk amplifies that rounding (STATIC_CURVE)
+        n_serve, _ = phase_serve(kc, key, "kan_conv2d_fwd", imgs,
+                                 tol=static_tol[key])
+        keys = {k for _, k in kc.launches_by_basis}
+        check(keys == {static_basis(key).key},
+              f"{key}: serving launched the bases {keys}")
+        static_runs["serve"][("kan_conv2d_fwd",
+                              static_basis(key).key)] += n_serve
+    for key in (*STATIC_FAMILIES, "LegendreKAN"):                    # 44
+        static_runs["train"] += static_train(kc, dev, key)
+    static_ips = {key: time_train_step(key, dev, card)               # 45
+                  for key in STATIC_FAMILIES}
+    static_k = {tag: phase_kernel_times(
+        kc, f"[static time] {tag}", f"[static {tag}]",
+        static_basis(key), static_basis(key).R,
+        [(H, C, O, 3) for H, C, O in VGG16_SMALL_CONVS], gen, dev, card,
+        TIME_BATCH) for tag, key in STATIC_TIMED.items()}
+    for tag, key in STATIC_TIMED.items():
+        t = static_k[tag][0]
+        step_ms = 1e3 * TIME_BATCH / static_ips[key]
+        k_ms = sum(v["ms"] for v in t.values())
+        print(f"[static time] {key} train step {step_ms:.3f} ms at batch "
+              f"{TIME_BATCH}: KAN-conv kernels ({tag}) {k_ms:.3f} ms "
+              f"(forward {t['kan_conv2d_fwd']['ms']:.3f}, dx "
+              f"{t['kan_conv2d_bwd_dx']['ms']:.3f}, dW "
+              f"{t['kan_conv2d_bwd_dw']['ms']:.3f}, reductions "
+              f"{t['kan_conv2d_bwd_dw_reduce']['ms']:.3f}), the rest "
+              f"{step_ms - k_ms:.3f} ms; predict {static_predict[key]:.1f} "
+              f"images/s (on {card})", flush=True)
+    lap("path E")
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def kan_entries(suffix, fwd, shapes_, fwd_err, n_serve, counts, bwd_,
@@ -4009,6 +4361,35 @@ def main():
                         for f in ("FastKAN", "KAN")},
                     "peak_gib": {f"{f} remat={r}": round(t[5], 2)
                                  for (f, r), t in effv2_time.items()},
+                    "also_replaces": ALSO_REPLACES} if fwd else {}),
+                **({"entry_source": src} if red else {})))
+    # path E's five instantiations, each of the families that run it
+    for tag, timed in STATIC_TIMED.items():
+        totals_e, rows_e = static_k[tag]
+        fams = [k for k in STATIC_FAMILIES if static_tag(kc, k) == tag]
+        keys = {static_basis(k).key for k in fams}
+        for name in kc.KERNELS:
+            fwd = name == "kan_conv2d_fwd"
+            src = "convkan_tpu_torch/csrc/" + (kc.SOURCE if fwd else
+                                                kc.BWD_SOURCE)
+            red = name == "kan_conv2d_bwd_dw_reduce"
+            launches = {path: sum(c[(name, k)] for k in keys)
+                        for path, c in static_runs.items()}
+            check(sum(launches.values()) > 0,
+                  f"{name}[static {tag}] ran on no main path")
+            kernels.append(kernel_entry(
+                name + f"[static {tag}]", RED_SOURCE if red else src,
+                REPLACES if fwd else BWD_REPLACES, launches,
+                static_err[tag][name], totals_e[name],
+                f"sum over the 13 {timed} VGG16_small convs of one "
+                f"{'forward' if fwd else 'train step'} at batch "
+                f"{TIME_BATCH}",
+                [{k: r[k] for k in ("H", "C", "O", "S")} | r[name]
+                 for r in rows_e], families=fams, timed_with=timed,
+                train_images_per_s={k: round(static_ips[k], 1)
+                                    for k in fams},
+                **({"predict_images_per_s": {
+                    k: round(static_predict[k], 1) for k in fams},
                     "also_replaces": ALSO_REPLACES} if fwd else {}),
                 **({"entry_source": src} if red else {})))
     # path D's GRAMKAN models also ran the Gram SiLU instantiation (their

@@ -16,7 +16,7 @@
 //   grad_extra(x, p, acc, de)       the same, and adds sum_r acc[r] *
 //                                   dE_r/dp[j] to de[j] (a policy with an
 //                                   operand; its data-gradient epilogue).
-// Three policies:
+// Six policies:
 //   * BSpline<NK, ORDER, ACT>: E = [B_0(x) .. B_{K-1}(x), act(x)], the bases
 //     of basis/bspline.py's Cox-de Boor recurrence over NK knots at degree
 //     ORDER (K = NK - ORDER - 1) and the base path's SiLU (ACT 0), GELU
@@ -32,6 +32,18 @@
 //     (DEG + 1 values, a device array: p = beta) and the SiLU (ACT 0) or
 //     identity (ACT 3) of nn/kan_conv.py's "gram" family on every row (with
 //     identity the rows are the bare polynomials); R = DEG + 2.
+//   * Recur3<K, ACT>: E = [P_0(t) .. P_{K-1}(t), act(x)], t = tanh x, by
+//     the three-term recurrence P_0 = c0, P_1 = (A_1 t + B_1) / D_1, P_n =
+//     ((A_n t + B_n) P_{n-1} - C_n P_{n-2}) / D_n of basis/poly.py's
+//     recur3_cols: Jacobi, Bessel, Fibonacci, Gegenbauer, Hermite, Laguerre,
+//     Lucas and the Taylor monomials, each its own coefficients; R = K + 1;
+//     p = {c0, A_1, B_1, D_1, then A_n, B_n, C_n, D_n for n = 2..K-1}.
+//   * Bernstein<DEG>: E = [b_0(s) .. b_DEG(s), x], s = sigmoid x, by the
+//     reference's de Casteljau sweep from an all-ones buffer (every b_i is
+//     exactly 1 for s in [0, 1], and its derivative exactly 0), and the
+//     identity base row; R = DEG + 2; no parameters.
+//   * Fourier<G, ACT>: E = [cos(1 x) .. cos(G x), sin(1 x) .. sin(G x),
+//     act(x)]; R = 2 G + 1; no parameters.
 // Built without --use_fast_math: the B-spline recurrence needs true IEEE
 // divides, and expf/erff/tanhf the accurate versions.
 #pragma once
@@ -397,6 +409,172 @@ struct Gram {
   }
 };
 
+// The three-term recurrence policy (Recur3 above).  Explicitly rounded
+// (no FMA contraction), in the order of operations of the plain version,
+// which is each family's JAX list function's: a zero B adds +0, a C of -1
+// subtracts -P_{n-2}, a D of 1 divides exactly.  Every row is dense (P_0 =
+// c0 at every x: E is zero on the pad only because the kernels mask the pad
+// AFTER the expansion).
+template <int K, int ACT>
+struct Recur3 {
+  static_assert(K >= 2, "fewer than two rows are not compiled");
+  static constexpr int R = K + 1;
+  static constexpr int kExtras = 0;
+
+  // t = tanh x and P_0 .. P_{K-1}
+  __device__ __forceinline__ static float values(float x, const float* c,
+                                                 float* P) {
+    const float t = tanhf(x);
+    P[0] = c[0];
+    P[1] = __fdiv_rn(__fadd_rn(__fmul_rn(c[1], t), c[2]), c[3]);
+#pragma unroll
+    for (int n = 2; n < K; ++n) {
+      const float* q = c + 4 * n - 4;
+      P[n] = __fdiv_rn(
+          __fsub_rn(__fmul_rn(__fadd_rn(__fmul_rn(q[0], t), q[1]), P[n - 1]),
+                    __fmul_rn(q[2], P[n - 2])),
+          q[3]);
+    }
+    return t;
+  }
+
+  __device__ __forceinline__ static void expand(float x, const float* c,
+                                                float* dst, int stride,
+                                                int col) {
+    float P[K];
+    values(x, c, P);
+#pragma unroll
+    for (int n = 0; n < K; ++n) dst[n * stride + col] = P[n];
+    dst[K * stride + col] = base_act<ACT>(x);
+  }
+
+  __device__ __forceinline__ static void store(float x, const float* c,
+                                               float* dst) {
+    expand(x, c, dst, 1, 0);
+  }
+
+  // sum_n acc[n] P_n'(t) (1 - t^2) + acc[K] act'(x), the derivatives
+  // carried along the recurrence: P_0' = 0, P_1' = A_1 / D_1, P_n' =
+  // ((A_n t + B_n) P_{n-1}' + A_n P_{n-1} - C_n P_{n-2}') / D_n
+  __device__ __forceinline__ static float grad(float x, const float* c,
+                                               const float* acc) {
+    float P[K], D[K];
+    const float t = values(x, c, P);
+    D[0] = 0.0f;
+    D[1] = c[1] / c[3];
+    float sum = acc[1] * D[1];
+#pragma unroll
+    for (int n = 2; n < K; ++n) {
+      const float* q = c + 4 * n - 4;
+      D[n] = ((q[0] * t + q[1]) * D[n - 1] + q[0] * P[n - 1] -
+              q[2] * D[n - 2]) / q[3];
+      sum = fmaf(acc[n], D[n], sum);
+    }
+    return fmaf(acc[K], base_act_grad<ACT>(x), sum * (1.0f - t * t));
+  }
+};
+
+// The Bernstein policy: the reference's sweep, new b_i = b_i (1 - s) +
+// b_{i+1} s over the first DEG + 1 - j slots at sweep j, explicitly
+// rounded, from b = 1; the base row is x (base_input "raw").
+template <int DEG>
+struct Bernstein {
+  static constexpr int K = DEG + 1;
+  static constexpr int R = K + 1;
+  static constexpr int kExtras = 0;
+
+  // the rows, and with D their derivatives in s along the sweep: d_i' =
+  // (d_i (1 - s) - b_i) + d_{i+1} s + b_{i+1}, exactly 0 from b = 1
+  __device__ __forceinline__ static float sweep(float x, float* b, float* d) {
+    const float s = 1.0f / (1.0f + expf(-x));
+    const float u = __fsub_rn(1.0f, s);
+#pragma unroll
+    for (int i = 0; i < K; ++i) b[i] = 1.0f;
+    if (d != nullptr) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) d[i] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 1; j <= DEG; ++j) {
+#pragma unroll
+      for (int i = 0; i <= DEG - j; ++i) {
+        if (d != nullptr)
+          d[i] = __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(d[i], u), b[i]),
+                                     __fmul_rn(d[i + 1], s)),
+                           b[i + 1]);
+        b[i] = __fadd_rn(__fmul_rn(b[i], u), __fmul_rn(b[i + 1], s));
+      }
+    }
+    return s;
+  }
+
+  __device__ __forceinline__ static void expand(float x, const float*,
+                                                float* dst, int stride,
+                                                int col) {
+    float b[K];
+    sweep(x, b, nullptr);
+#pragma unroll
+    for (int n = 0; n < K; ++n) dst[n * stride + col] = b[n];
+    dst[K * stride + col] = x;
+  }
+
+  __device__ __forceinline__ static void store(float x, const float* p,
+                                               float* dst) {
+    expand(x, p, dst, 1, 0);
+  }
+
+  // sum_n acc[n] b_n'(s) s (1 - s) + acc[K]: the rows' part is exactly 0
+  __device__ __forceinline__ static float grad(float x, const float*,
+                                               const float* acc) {
+    float b[K], d[K];
+    const float s = sweep(x, b, d);
+    float sum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < K; ++n) sum = fmaf(acc[n], d[n], sum);
+    return fmaf(sum, s * (1.0f - s), acc[K]);
+  }
+};
+
+// The Fourier policy: cos(k x) and sin(k x) for k = 1..G of the rounded
+// product k x (sincosf, the accurate version), then the base row.
+template <int G, int ACT>
+struct Fourier {
+  static constexpr int K = 2 * G;
+  static constexpr int R = K + 1;
+  static constexpr int kExtras = 0;
+
+  __device__ __forceinline__ static void expand(float x, const float*,
+                                                float* dst, int stride,
+                                                int col) {
+#pragma unroll
+    for (int k = 1; k <= G; ++k) {
+      float sn, cs;
+      sincosf(__fmul_rn((float)k, x), &sn, &cs);
+      dst[(k - 1) * stride + col] = cs;
+      dst[(G + k - 1) * stride + col] = sn;
+    }
+    dst[K * stride + col] = base_act<ACT>(x);
+  }
+
+  __device__ __forceinline__ static void store(float x, const float* p,
+                                               float* dst) {
+    expand(x, p, dst, 1, 0);
+  }
+
+  // sum_k k (acc[G + k - 1] cos(k x) - acc[k - 1] sin(k x)) + acc[K] act'(x)
+  __device__ __forceinline__ static float grad(float x, const float*,
+                                               const float* acc) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int k = 1; k <= G; ++k) {
+      float sn, cs;
+      sincosf(__fmul_rn((float)k, x), &sn, &cs);
+      sum = fmaf((float)k, acc[G + k - 1] * cs - acc[k - 1] * sn, sum);
+    }
+    return fmaf(acc[K], base_act_grad<ACT>(x), sum);
+  }
+};
+
 // Calls f(Basis{}) with the policy of a C entry's basis code and returns
 // what f returns; cudaErrorInvalidValue for a basis the build does not
 // carry.  Codes (kernels/kan_conv2d.py COMPILED): 0 and 1, the B-spline of
@@ -404,7 +582,12 @@ struct Gram {
 // (its two clamp bounds as the parameters); 3, Gram of degree 3 with SiLU
 // (no parameters; beta as the operand); 4, the B-spline of 0 and 1 with
 // hardswish; 5 and 6, the B-spline of 0 and the Gram of 3 with the identity
-// (the projections of EfficientNetV2, built with base_activation=None).
+// (the projections of EfficientNetV2, built with base_activation=None);
+// 7 and 8, the three-term recurrence of 4 rows with SiLU (Bessel,
+// Fibonacci, Gegenbauer, Hermite, Laguerre, Lucas at degree 3) and with the
+// identity (Jacobi); 9, that of 3 rows with SiLU (Taylor, degree 3); 10,
+// Bernstein of degree 3 (identity base row); 11, Fourier of grid 5 with
+// SiLU.
 template <class F>
 cudaError_t with_basis(int code, int n_params, int order, F&& f) {
   if (code == 0 && n_params == 12 && order == 3) return f(BSpline<12, 3, 0>{});
@@ -414,6 +597,11 @@ cudaError_t with_basis(int code, int n_params, int order, F&& f) {
   if (code == 4 && n_params == 12 && order == 3) return f(BSpline<12, 3, 2>{});
   if (code == 5 && n_params == 12 && order == 3) return f(BSpline<12, 3, 3>{});
   if (code == 6 && n_params == 0 && order == 3) return f(Gram<3, 3>{});
+  if (code == 7 && n_params == 12 && order == 3) return f(Recur3<4, 0>{});
+  if (code == 8 && n_params == 12 && order == 3) return f(Recur3<4, 3>{});
+  if (code == 9 && n_params == 8 && order == 3) return f(Recur3<3, 0>{});
+  if (code == 10 && n_params == 0 && order == 3) return f(Bernstein<3>{});
+  if (code == 11 && n_params == 0 && order == 5) return f(Fourier<5, 0>{});
   return cudaErrorInvalidValue;
 }
 

@@ -92,6 +92,21 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTM = 8;                  // output pixels per thread
 constexpr int kMaxCC = 8;               // input channels per chunk
 constexpr int kMaxRS = 76;              // R*CC padded, R <= 9, CC <= 8
+
+// floats per expanded pixel (R*CC rounded up to an odd number of float4s)
+__host__ __device__ constexpr int row_stride(int R, int CC) {
+  const int f4 = (R * CC + 3) / 4;
+  return 4 * (f4 % 2 ? f4 : f4 + 1);
+}
+
+// the row tables' length for R rows per channel: kMaxRS up to R = 9, else
+// the widest row stride of CC <= kMaxCC (92 at Fourier's R = 11)
+__host__ __device__ constexpr int max_rs(int R) {
+  int m = kMaxRS;
+  for (int cc = 1; cc <= kMaxCC; ++cc)
+    if (row_stride(R, cc) > m) m = row_stride(R, cc);
+  return m;
+}
 constexpr int kMaxSplits = 16;          // channel splits of a tile: a cluster
 constexpr size_t kMaxSmem = 227 * 1024; // dynamic shared memory of a block
 
@@ -201,8 +216,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float knS[kMaxKnots];
-  __shared__ int rowG[kMaxRS];   // slice row rr: W_all row r*C + cl, or -1
-  __shared__ int rowCl[kMaxRS];  // slice row rr: channel cl of the chunk
+  // slice row rr: W_all row r*C + cl, or -1; and channel cl of the chunk
+  __shared__ int rowG[max_rs(R)];
+  __shared__ int rowCl[max_rs(R)];
 
   const int RS = s.rs;
   const int RC = R * s.CC;
@@ -525,13 +541,12 @@ int kan_conv2d_fwd(const void* x, const void* w_all, void* y, int B, int H,
   // float4s, so neighbouring pixels' float4 loads fall in different banks
   const int R = basis_rows(basis, n_params, order);
   const int NE = basis_extras(basis, n_params, order);
-  s.rs = (R * CC + 3) / 4 * 4;
-  if ((s.rs / 4) % 2 == 0) s.rs += 4;
+  s.rs = row_stride(R, CC);
   s.vecW = O % 4 == 0 && reinterpret_cast<uintptr_t>(w_all) % 16 == 0;
   Knots kn;
   if (s.Ho <= 0 || s.Wo <= 0 || CC < 1 || CC > kMaxCC || R < 1 ||
       (NE > 0) != (extra != nullptr) ||
-      s.rs > kMaxRS || !load_knots(params, n_params, &kn) ||
+      s.rs > max_rs(R) || !load_knots(params, n_params, &kn) ||
       (BN != 16 && BN != 32 && BN != 64 && BN != 128))
     return (int)cudaErrorInvalidValue;
   s.nch = (C + CC - 1) / CC;

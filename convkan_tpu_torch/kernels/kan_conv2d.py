@@ -1,7 +1,10 @@
 """KAN conv: the CUDA kernels' wrappers and their plain PyTorch versions,
 forward and backward, over a per-channel basis (``Basis``): the B-spline
-with its base path, the Chebyshev polynomials without one, or the Gram
-polynomials with a learnable operand (beta) and a base path.
+with its base path, the Chebyshev polynomials without one, the Gram
+polynomials with a learnable operand (beta) and a base path, or one of the
+static bases with a base path: a three-term recurrence on tanh x (Jacobi,
+Bessel, Fibonacci, Gegenbauer, Hermite, Laguerre, Lucas, Taylor), the
+reference's Bernstein sweep on sigmoid x, or the Fourier features.
 
 ``kan_conv2d`` computes the pre-norm output of a KAN conv (stride 1,
 dilation 1, groups 1, NHWC):
@@ -38,7 +41,10 @@ import numpy as np
 import torch
 
 from ..basis.bspline import bspline_basis_unrolled_list
-from ..basis.poly import chebyshev_basis_recurrence_list, gram_basis_cols
+from ..basis.poly import (RECUR3_FAMILIES, bernstein_basis_list,
+                          chebyshev_basis_recurrence_list, fourier_basis_list,
+                          gram_basis_cols, legendre_basis_list,
+                          recur3_coefficients, recur3_cols)
 from ..ops.conv import conv_nd
 from ..utils.activations import ACTIVATIONS
 
@@ -47,12 +53,21 @@ BWD_SOURCE = "kan_conv2d_bwd.cu"
 # the bases the kernels are compiled for (Basis.key), by the integer code
 # the C entries take: the B-spline of 12 knots at order 3 (grid 5) with a
 # SiLU, GELU, hardswish or identity base path, the Chebyshev polynomials of
-# degree 3, and the Gram polynomials of degree 3 with SiLU or the identity
-# on every row
+# degree 3, the Gram polynomials of degree 3 with SiLU or the identity on
+# every row, and the static bases of KAN-VGG16_small (base_activation
+# "silu", degree 3, grid 5): six recurrences of 4 rows with a SiLU base path
+# (one instantiation, their coefficients passed as parameters), Jacobi's
+# with the identity (base_input "raw"), Taylor's 3 monomials, Bernstein of
+# degree 3 (identity) and Fourier of grid 5
 COMPILED = {("bspline", 12, 3, "silu"): 0, ("bspline", 12, 3, "gelu"): 1,
             ("cheby", 3): 2, ("gram", 3, "silu"): 3,
             ("bspline", 12, 3, "hardswish"): 4,
-            ("bspline", 12, 3, "identity"): 5, ("gram", 3, "identity"): 6}
+            ("bspline", 12, 3, "identity"): 5, ("gram", 3, "identity"): 6,
+            **{(fam, 3, "silu"): 7 for fam in (
+                "bessel", "fibonacci", "gegenbauer", "hermite", "laguerre",
+                "lucas")},
+            ("jacobi", 3, "identity"): 8, ("taylor", 3, "silu"): 9,
+            ("bernstein", 3, "identity"): 10, ("fourier", 5, "silu"): 11}
 THREADS, TM = 256, 8             # forward block: threads, pixels per thread
 WARPS = THREADS // 32
 MAX_CHUNK = 8                    # input channels expanded per pass
@@ -133,11 +148,19 @@ class Basis:
     order ``order``), "cheby" (T_0 .. T_order of clamp(tanh x, -1 + eps,
     1 - eps), K = order + 1) or "gram" (act(p_0(t)) .. act(p_order(t)) of
     the Gram recurrence on t = tanh x with the learnable operand beta,
-    K = order + 1); ``act`` names the base path's activation ("identity"
-    for a conv built with base_activation=None), None for no base path
-    (Gram's rows take it too); ``degree_major`` gives poly_w's rows
-    kk*C + c (the family's layout) instead of c*K + kk.  Build it with
-    ``bspline_basis``, ``cheby_basis`` or ``gram_basis``."""
+    K = order + 1), a family of ``RECUR3_FAMILIES`` (P_0(t) .. P_{K-1}(t)
+    of t = tanh x by ``recur3_cols`` over its ``coefficients``; ``order``
+    the degree), "bernstein" (the reference's sweep on sigmoid x, K =
+    order + 1) or "fourier" (cos and sin of k x for k = 1..order, K =
+    2 order); ``act`` names the base path's activation ("identity" for a
+    conv built with base_activation=None or a family whose base path takes
+    x itself), None for no base path (Gram's rows take it too);
+    ``degree_major`` gives poly_w's rows kk*C + c (the family's layout)
+    instead of c*K + kk.  Build it with ``bspline_basis``, ``cheby_basis``,
+    ``gram_basis``, ``recur3_basis``, ``bernstein_basis`` or
+    ``fourier_basis``; ``legendre_basis`` (the plain route's only: no
+    kernel carries it) describes the Legendre polynomials of degree
+    ``order`` of an input the module has squashed."""
 
     kind: str
     K: int
@@ -146,6 +169,7 @@ class Basis:
     epsilon: float = 0.0
     act: Optional[str] = None
     degree_major: bool = False
+    coefficients: tuple = ()
 
     @property
     def R(self) -> int:
@@ -162,42 +186,72 @@ class Basis:
     def key(self) -> tuple:
         if self.kind == "bspline":
             return (self.kind, len(self.knots), self.order, self.act)
-        if self.kind == "gram":
-            return (self.kind, self.order, self.act)
-        return (self.kind, self.order)
+        if self.kind == "cheby":
+            return (self.kind, self.order)
+        return (self.kind, self.order, self.act)
 
     @property
     def params(self) -> tuple:
         """The C entries' float32 parameters: the knots, the clamp bounds
-        float32(-1 + eps), float32(1 - eps) as jnp.clip takes them, or
+        float32(-1 + eps), float32(1 - eps) as jnp.clip takes them, a
+        recurrence's coefficients (c0, A_1, B_1, D_1, then A_n, B_n, C_n,
+        D_n per row) rounded as torch rounds a Python scalar to float32, or
         none (Gram's beta is a device operand, not a parameter)."""
         if self.kind == "bspline":
             return self.knots
-        if self.kind == "gram":
-            return ()
-        return (float(np.float32(-1.0 + self.epsilon)),
-                float(np.float32(1.0 - self.epsilon)))
+        if self.kind == "cheby":
+            return (float(np.float32(-1.0 + self.epsilon)),
+                    float(np.float32(1.0 - self.epsilon)))
+        if self.kind in RECUR3_FAMILIES:
+            c0, first, steps = self.coefficients
+            return tuple(float(np.float32(v)) for v in
+                         (c0, *first, *itertools.chain(*steps)))
+        return ()
 
-    def columns(self, x, extra=None) -> list:
-        """[P_0(x) .. P_{K-1}(x)], each shaped like x, as the TPU kernels
-        build them (the Chebyshev recurrence, not the trig form; Gram's
-        rows after their activation).  ``extra``: Gram's beta, (K,) or one
-        such row per element of x on a last axis."""
+    def squash(self, x):
+        """The input of the expansion: tanh x (Gram, the recurrences),
+        sigmoid x (Bernstein), else x itself (the B-spline, Chebyshev,
+        whose clamp of tanh is part of its expansion, Fourier, Legendre,
+        whose batch min-max the module applies)."""
+        if self.kind == "gram" or self.kind in RECUR3_FAMILIES:
+            return torch.tanh(x)
+        if self.kind == "bernstein":
+            return torch.sigmoid(x)
+        return x
+
+    def expansion(self, t, extra=None) -> list:
+        """[P_0(t) .. P_{K-1}(t)] of the squashed input t, each shaped like
+        t, as the TPU kernels build them (the Chebyshev recurrence, not the
+        trig form; Gram's rows after their activation).  ``extra``: Gram's
+        beta, (K,) or one such row per element of t on a last axis."""
         if self.kind == "bspline":
-            return bspline_basis_unrolled_list(x, self.knots, self.order)
+            return bspline_basis_unrolled_list(t, self.knots, self.order)
         if self.kind == "gram":
             act = ACTIVATIONS[self.act]
-            return [act(p) for p in gram_basis_cols(torch.tanh(x),
-                                                    self.order, extra)]
-        return chebyshev_basis_recurrence_list(x, self.order, self.epsilon)
+            return [act(p) for p in gram_basis_cols(t, self.order, extra)]
+        if self.kind in RECUR3_FAMILIES:
+            return recur3_cols(t, self.coefficients)
+        if self.kind == "bernstein":
+            return bernstein_basis_list(t, self.order)
+        if self.kind == "fourier":
+            return fourier_basis_list(t, self.order)
+        if self.kind == "legendre":
+            return legendre_basis_list(t, self.order)
+        return chebyshev_basis_recurrence_list(t, self.order, self.epsilon)
+
+    def columns(self, x, extra=None) -> list:
+        """[P_0(x) .. P_{K-1}(x)] of the raw input: ``expansion`` of
+        ``squash``, the kernels' plain version."""
+        return self.expansion(self.squash(x), extra)
 
     def __str__(self) -> str:
         if self.kind == "bspline":
             return (f"bspline knots={len(self.knots)} order={self.order} "
                     f"act={self.act!r}")
-        if self.kind == "gram":
-            return f"gram degree={self.order} act={self.act!r}"
-        return f"cheby degree={self.order}"
+        if self.kind == "cheby":
+            return f"cheby degree={self.order}"
+        what = "grid" if self.kind == "fourier" else "degree"
+        return f"{self.kind} {what}={self.order} act={self.act!r}"
 
 
 def bspline_basis(knots, order: int, act: str) -> Basis:
@@ -223,6 +277,41 @@ def gram_basis(degree: int, act: str = "silu") -> Basis:
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown base activation {act!r}")
     return Basis("gram", degree + 1, degree, act=act, degree_major=True)
+
+
+def recur3_basis(family: str, degree: int, act: str, a: float = 1.0,
+                 b: float = 1.0, alpha: float = 1.0) -> Basis:
+    """``family``'s three-term recurrence on tanh x (``RECUR3_FAMILIES``;
+    ``a``, ``b``: Jacobi's; ``alpha``: Gegenbauer's alpha_param or
+    Laguerre's alpha) with the base path act(x); poly_w degree-major for
+    Jacobi, as the JAX "jacobi" family keeps it."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown base activation {act!r}")
+    coefficients = recur3_coefficients(family, degree, a, b, alpha)
+    return Basis(family, degree if family == "taylor" else degree + 1,
+                 degree, act=act, degree_major=family == "jacobi",
+                 coefficients=coefficients)
+
+
+def legendre_basis(degree: int) -> Basis:
+    """The Legendre polynomials P_0 .. P_degree (of the module's batch
+    min-max squash of x), the base path x itself, poly_w degree-major."""
+    return Basis("legendre", degree + 1, degree, act="identity",
+                 degree_major=True)
+
+
+def bernstein_basis(degree: int) -> Basis:
+    """The reference's Bernstein sweep of degree ``degree`` on sigmoid x,
+    with the base path x itself (base_input "raw")."""
+    return Basis("bernstein", degree + 1, degree, act="identity")
+
+
+def fourier_basis(grid_size: int, act: str) -> Basis:
+    """cos(k x) and sin(k x) for k = 1..grid_size, with the base path
+    act(x)."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown base activation {act!r}")
+    return Basis("fourier", 2 * grid_size, grid_size, act=act)
 
 
 def pack_w_all(base_w, poly_w, *, C: int, K: int, k: int, O: int,

@@ -1,21 +1,26 @@
 """KAN-VGG, port of ``convkan_tpu/models/vgg.py`` (``VGGKAN``, ``vggkan``,
-all five ``cfgs``) with B-spline KAN, ChebyKAN, GRAMKAN or WavKAN convs
-and the ``"Linear"`` head.
+all five ``cfgs``) with the convs of any ``CONV_KAN_FACTORY`` key (every
+KAN family but ReLU-KAN, WavKAN, and the standard ``"conv"`` block) and
+the ``"Linear"`` head.
 
 Channel-last: NHWC images in, logits out.  Submodules are named like the
 JAX parameter tree (``KanConvND_0`` .. ``KanConvND_{n-1}``, or
-``WavKANConvND_0`` .. for ``kan_conv="WavKAN"``, and ``Linear_0``),
-so a JAX ``params`` tree maps onto ``state_dict`` keys by flattening
-(utils/from_jax.py); a ChebyKAN conv has no ``base_w`` and no ``prelu``,
-and a GRAMKAN conv has ``beta_weights`` and no ``prelu``, as in JAX.  In
-train mode the head applies dropout (``dropout_linear``, default 0.5)
-before ``Linear_0`` and every conv but the first applies channel dropout
-(``conv_dropout``: at a KAN or ChebyKAN conv's output, at a GRAMKAN conv's
-tanh x before its basis, at a WavKAN conv's wavelet-path input); in eval
-mode both are the identity.  ``kan_norm_layer`` (InstanceNorm by default,
-or a registry name such as train.py's "BatchNorm2d") is every conv's
-output norm; a BatchNorm's running statistics are buffers, named like the
-JAX ``batch_stats`` (``KanConvND_0.norm.mean``, ``.var``).
+``WavKANConvND_0`` .. for ``kan_conv="WavKAN"`` and ``StdConvBlock_0`` ..
+for ``"conv"``, and ``Linear_0``), so a JAX ``params`` tree maps onto
+``state_dict`` keys by flattening (utils/from_jax.py); a conv has the
+parameters of its family (no ``base_w`` and no ``prelu`` for ChebyKAN,
+``beta_weights`` for GRAMKAN, ``prelu`` only where PReLU follows the
+norm), as in JAX.  The factory's keyword arguments are filtered as JAX's
+``_filtered`` filters them: only those the builder names (so Fourier takes
+``grid_size``, the polynomial families ``degree``, every family
+``base_activation``, default "silu").  In train mode the head applies
+dropout (``dropout_linear``, default 0.5) before ``Linear_0`` and every
+conv but the first applies channel dropout (``conv_dropout``, at the
+family's site); in eval mode both are the identity.  ``kan_norm_layer``
+(InstanceNorm by default, or a registry name such as train.py's
+"BatchNorm2d") is every conv's output norm; a BatchNorm's running
+statistics are buffers, named like the JAX ``batch_stats``
+(``KanConvND_0.norm.mean``, ``.var``).
 """
 
 from __future__ import annotations
@@ -89,7 +94,8 @@ class VGGKAN(nn.Module):
         conv = CONV_KAN_FACTORY[self.kan_conv]
         # the JAX _filtered rule: only keys the builder names
         accepted = set(signature(conv).parameters)
-        prefix = "WavKANConvND" if self.kan_conv == "WavKAN" else "KanConvND"
+        prefix = {"WavKAN": "WavKANConvND", "conv": "StdConvBlock"}.get(
+            self.kan_conv, "KanConvND")
         in_c, first, n = input_channels, True, 0
         self._plan = []
         for v in cfgs[arch]:

@@ -20,12 +20,13 @@ checkpoint is not ported yet):
     python -m convkan_tpu_torch.serve --model EfficientNetV2KAN --arch s \\
         --imagenet_preprocessing --kan_conv FastKAN --init_random
 
-(add ``--kan_conv WavKAN`` for the WavKAN convs, ``--kan_conv ChebyKAN``
-or ``--kan_conv GRAMKAN`` for the Chebyshev or Gram convs of degree
-``--degree``; MobileNetV3 takes ``KAN``, ``FastKAN`` and ``ChebyKAN``,
-``--width_scale``, ``--conv_type conv`` and ``--replace_depthwise``, its
-norm is ``--norm_layer`` and its BatchNorms are affine with
-``--norm_affine``, as train.py builds it; so do ``EfficientNetV2KAN``
+(add ``--kan_conv WavKAN`` for the WavKAN convs, ``--kan_conv ChebyKAN``,
+``GRAMKAN``, ``JacobiKAN``, ``HermiteKAN`` or any other key of the conv
+factory for that family's convs of degree ``--degree`` (FourierKAN:
+frequencies ``--grid_size``); MobileNetV3 takes ``KAN``, ``FastKAN`` and
+``ChebyKAN``, ``--width_scale``, ``--conv_type conv`` and
+``--replace_depthwise``, its norm is ``--norm_layer`` and its BatchNorms
+are affine with ``--norm_affine``, as train.py builds it; so do ``EfficientNetV2KAN``
 (``--arch`` s, m, l, tiny or kan_tiny) and ``EfficientNetKAN`` (b0, b1,
 b2 or b0_small .. b2_small), with KAN, FastKAN, ChebyKAN and GRAMKAN
 convs; ``--fold_bn`` raises for these two, whose standard depthwise
@@ -66,6 +67,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .factory.conv_factory import CONV_KAN_FACTORY
 from .train.data import input_shape as dataset_input_shape
 from .train.data import normalize_batch
 from .utils.fold_bn import fold_batch_norms
@@ -323,8 +325,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "s, m, l, tiny or kan_tiny; EfficientNetKAN: b0 (by "
                         "default), b1, b2, b0_small .. b2_small")
     p.add_argument("--kan_conv", default="KAN",
-                   choices=["KAN", "FastKAN", "ChebyKAN", "GRAMKAN",
-                            "WavKAN"],
+                   choices=sorted(CONV_KAN_FACTORY),
                    help="conv family of the trunk (train.py's flag)")
     p.add_argument("--conv_type", default="kanconv",
                    choices=["kanconv", "conv"],
@@ -345,9 +346,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="MobileNetV3KAN's and the EfficientNets' norm "
                         "(train.py's flag)")
     p.add_argument("--degree", type=int, default=3,
-                   help="polynomial degree of the ChebyKAN and GRAMKAN "
+                   help="polynomial degree of the polynomial families' "
                         "convs (train.py does not pass it to the "
                         "EfficientNets)")
+    p.add_argument("--grid_size", type=int, default=5,
+                   help="VGGKAN: the Fourier convs' frequencies (train.py's "
+                        "flag, which the VGG's B-spline convs also take)")
     p.add_argument("--kan_norm_layer", default="BatchNorm2d",
                    choices=sorted(NORM_LAYERS),
                    help="norm after each conv (train.py's flag)")
@@ -429,7 +433,8 @@ def build_engine(args):
             resolve_norm(args.kan_norm_layer) is InstanceNorm else (1, 1)
         model = vggkan(shape[-1], num_classes, arch=args.arch or "VGG16_small",
                        kan_conv=args.kan_conv, classifier_type="Linear",
-                       degree=args.degree, expected_feature_shape=head,
+                       degree=args.degree, grid_size=args.grid_size,
+                       expected_feature_shape=head,
                        width_scale=args.width_scale,
                        kan_norm_layer=args.kan_norm_layer,
                        affine=args.norm_affine, generator=gen,

@@ -1,7 +1,8 @@
 """PyTorch-parity initializers for the port's HWIO / (in, out) layouts,
 port of the parts of ``convkan_tpu/utils/initializers.py`` that serving
-with fresh weights needs (and the ``ku_5d`` rule of its KanConvND).  Every
-initializer draws from an explicit ``torch.Generator``.
+with fresh weights needs (and the ``ku_5d`` and ``normal_full`` rules of
+its KanConvND).  Every initializer draws from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -88,6 +89,13 @@ def ku_5d(fan_in: int):
     (legendre_kan_layers.py:99-108)."""
     bound = math.sqrt(3.0 / fan_in)
     return uniform(-bound, bound)
+
+
+def normal_full(input_dim: int, degree: int, kprod: int):
+    """The JAX KanConvND's "normal_full" poly_w init (Jacobi): N(0, std)
+    with std = 1 / (input_dim * (degree + 1) * prod(kernel)) over the FULL
+    input_dim, whatever the groups (jacobi_kan_layers.py:115)."""
+    return normal(0.0, 1.0 / (input_dim * (degree + 1) * kprod))
 
 
 def zeros(t: torch.Tensor, generator: torch.Generator = None):

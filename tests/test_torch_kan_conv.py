@@ -51,7 +51,7 @@ def test_seeded_init_is_deterministic_with_jax_shapes():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"family": "legendre"}, {"family": "relukan"}, {"ndim": 3},
+    {"family": "legendre", "ndim": 3}, {"family": "relukan"}, {"ndim": 3},
     {"kernel_size": (3, 5)}, {"ndim": 1},
 ])
 def test_unported_configs_raise(kwargs):

@@ -7,20 +7,26 @@ GPU's float32 readings against.
     python3 tools/f32_spread.py --model MobileNetV3KAN --kan_conv FastKAN \
         --curve 0.1 --trace
 
-``--kan_conv`` takes KAN, ChebyKAN, GRAMKAN or WavKAN.  For each seed of
-the model's weights (the (2, 2) head for ChebyKAN and WavKAN, as
-``chip_smoke.py`` builds them; KAN and GRAMKAN keep (1, 1)): the max |logit| difference of
-float32 and float64 on ``chip_smoke.py``'s 64 images (eval mode), its
-median over the images, and how far a relative change of 1e-7 of the
-input moves the float32 logits.  Then, for ``chip_smoke.py``'s train model
-and first batch, the first train step's gradients in float32 against
+``--kan_conv`` takes a key of the port's conv factory (for VGG16_small
+every one but FastKAN: KAN, ChebyKAN, GRAMKAN, WavKAN and path E's static
+families, JacobiKAN, HermiteKAN, FourierKAN, ...). For each seed of the
+model's weights (the (2, 2) head for ChebyKAN and WavKAN, as
+``chip_smoke.py`` builds them; the others keep (1, 1)): the max |logit|
+difference of float32 and float64 on ``chip_smoke.py``'s 64 images (eval
+mode), its median over the images, and how far a relative change of 1e-7
+of the input moves the float32 logits. Then, for ``chip_smoke.py``'s train
+model and first batch, the first train step's gradients in float32 against
 float64 (max |diff| over each parameter's largest entry, the worst three)
 with each KAN conv's output multiplied by 1 + delta * N(0, 1): how much a
 relative perturbation of the size of float32 sums taken in another order
-(the GPU's kernels) moves them.  ``--steps 3`` reads the three train steps
+(the GPU's kernels) moves them. ``--steps 3`` reads the three train steps
 of ``chip_smoke.py``'s lockstep phases instead (each from the float32
 run's state before it), ``--batch`` sets their batch and
-``--kan_norm_layer BatchNorm2d`` builds train.py's norm (phase 26).
+``--kan_norm_layer BatchNorm2d`` builds train.py's norm (phase 26);
+``--curve`` scales the convs' curved basis terms (``chip_smoke.mnv3_smooth``:
+path E's FourierKAN runs at ``chip_smoke.STATIC_CURVE``).  Last, the spread
+that ``chip_smoke.f32_spread`` reads at the lockstep starts, and the
+gradient limit it sets on every parameter but the PReLU slopes.
 
 ``--model EfficientNetV2KAN`` (``--kan_conv`` KAN, GRAMKAN or FastKAN)
 reads, for path D's s model (``chip_smoke.effv2_eval_model``: smoothed,
@@ -70,6 +76,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+from convkan_tpu_torch.factory.conv_factory import \
+    CONV_KAN_FACTORY  # noqa: E402
 from convkan_tpu_torch.models.vgg import vggkan  # noqa: E402
 from convkan_tpu_torch.nn import kan_conv as nk  # noqa: E402
 from convkan_tpu_torch.train.data import imagenet_batch  # noqa: E402
@@ -230,8 +238,7 @@ def main():
                    choices=["VGGKAN", "MobileNetV3KAN",
                             "EfficientNetV2KAN"])
     p.add_argument("--kan_conv", default="ChebyKAN",
-                   choices=["KAN", "ChebyKAN", "GRAMKAN", "WavKAN",
-                            "FastKAN"])
+                   choices=sorted(set(CONV_KAN_FACTORY) - {"conv"}))
     p.add_argument("--curve", type=float, default=1.0)
     p.add_argument("--trace", action="store_true")
     p.add_argument("--seeds", type=int, default=5)
@@ -248,16 +255,18 @@ def main():
         return mnv3(args)
     if args.model == "EfficientNetV2KAN":
         return effv2(args)
-    kw = {} if args.kan_conv in ("KAN", "GRAMKAN") else \
-        {"expected_feature_shape": (2, 2)}
+    kw = {"expected_feature_shape": (2, 2)} \
+        if args.kan_conv in ("ChebyKAN", "WavKAN") else {}
     kw["kan_norm_layer"] = args.kan_norm_layer
     imgs = np.random.RandomState(0).randint(0, 256, (64, 32, 32, 3),
                                             np.uint8)
     x = normalize_batch(torch.from_numpy(imgs), "CIFAR10")
     for seed in range(args.seeds):
-        m = vggkan(3, 10, arch="VGG16_small", kan_conv=args.kan_conv,
-                   classifier_type="Linear", device="cpu",
-                   generator=torch.Generator().manual_seed(seed), **kw).eval()
+        m = cs.mnv3_smooth(vggkan(
+            3, 10, arch="VGG16_small", kan_conv=args.kan_conv,
+            classifier_type="Linear", device="cpu",
+            generator=torch.Generator().manual_seed(seed), **kw),
+            args.curve).eval()
         with torch.no_grad():
             y32 = m(x)
             y64 = copy.deepcopy(m).double()(x.double())
@@ -273,7 +282,7 @@ def main():
     cs.TRAIN_BATCH = args.batch
     batch = cs.train_batches()[:args.steps]
     steps = range(args.steps)
-    base = cs.train_model(args.kan_conv, **kw)
+    base = cs.mnv3_smooth(cs.train_model(args.kan_conv, **kw), args.curve)
     _, _, snaps = cs.train_run(copy.deepcopy(base), "cpu", batch)
     starts = snaps[:-1]
     _, g64, _ = cs.train_run(copy.deepcopy(base).double(), "cpu", batch,
@@ -291,16 +300,34 @@ def main():
             nk.kan_conv2d = noisy
             _, g32, _ = cs.train_run(copy.deepcopy(base), "cpu", batch,
                                      starts)
-            worst = cs.grad_readings(g32, g64, steps)[:3]
+            readings = cs.grad_readings(g32, g64, steps)
+            slopes = [r for r in readings if r[2].endswith(".prelu")]
+            rest = [r for r in readings if not r[2].endswith(".prelu")]
             span = "first step" if args.steps == 1 else \
                 f"{args.steps} steps"
             print(f"{args.kan_conv} {args.kan_norm_layer} train model, batch "
                   f"{args.batch}, {span},"
                   f" conv outputs x (1 + {delta:g} N(0, 1)): gradients vs "
                   f"float64 " + ", ".join(f"{n} step {i} {e:.3e}"
-                                          for e, i, n in worst), flush=True)
+                                          for e, i, n in rest[:3])
+                  + ("; PReLU slopes " + ", ".join(
+                      f"{n} step {i} {e:.3e}" for e, i, n in slopes[:3])
+                     if slopes else ""), flush=True)
     finally:
         nk.kan_conv2d = conv
+    # the spread chip_smoke.py's lockstep phases read at these starts
+    # (f32_floor), and the limit it sets on the gradients other than the
+    # PReLU slopes (path E prints the slopes' readings, not holds them)
+    spread = cs.f32_spread(base, batch, starts, steps, None, g64)
+    rest = {k: v for k, v in spread.items() if not k[1].endswith(".prelu")}
+    top = max(rest.items(), key=lambda kv: kv[1])
+    print(f"{args.kan_conv} float32 spread (chip_smoke.f32_spread, conv "
+          f"outputs x (1 + {cs.F32_NOISE:g} N(0, 1)), seeds "
+          f"{cs.F32_NOISE_SEEDS}): but the PReLU slopes, max {top[1]:.3e} "
+          f"(step {top[0][0]}, {top[0][1]}): gradient limit "
+          f"{max(cs.GRAD_TOL, cs.F32_SPREAD * top[1]):.3e}; the slopes' "
+          f"max {max([0.0] + [v for k, v in spread.items() if k not in rest]):.3e}",
+          flush=True)
 
 
 if __name__ == "__main__":

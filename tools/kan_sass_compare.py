@@ -61,8 +61,8 @@ def key(name: str) -> str:
     if not m:
         return name
     ints = re.findall(r"L[ib](\d+)E", m.group(2))
-    basis = "cheby" if "Cheby" in name else "gram" if "Gram" in name \
-        else "bspline"
+    basis = next((b.lower() for b in ("Cheby", "Gram", "Recur3", "Bernstein",
+                                      "Fourier") if b in name), "bspline")
     if m.group(1) == "ordered_sum_kernel":
         basis = "-"
     return f"{m.group(1)}[{basis}]<{', '.join(ints)}>"
