@@ -9,7 +9,10 @@ ChebyKAN convs, serves and trains KAN-EfficientNetV2-s at 224 x 224
 B-spline convs, and serves and trains KAN-VGG16_small with each of the ten
 static bases (Jacobi, Bernstein, Bessel, Fibonacci, Fourier, Gegenbauer,
 Hermite, Laguerre, Lucas, Taylor) and with Legendre's (the plain route),
-on one CUDA card through the hand-written kernels and checks every step.
+then train.py's model zoo: serves and trains KAN-AlexNet small with its
+KAN head (train.py's default model), checks AlexNet default,
+MobileNetV1/V2 and config 2's FastKAN MLP, on one CUDA card through the
+hand-written kernels and checks every step.
 
     python3 chip_smoke.py
 
@@ -344,6 +347,43 @@ Fourier<5, SiLU>; LegendreKAN on the plain route):
      timed with the family of STATIC_TIMED) against its plain version,
      cuDNN over a materialized basis and the bound over every row of E
      (the dense rows: every row of these bases is computed).
+train.py's model zoo, path F (each model built by the serving CLI's
+build_model from train.py's argv, ZOO_ARGV: BatchNorm2d, affine off; the
+main path train.py --model AlexNetKAN --arch small --dataset CIFAR10
+--classifier_type KAN --kan_classifier KAN, served and trained; beside it
+AlexNet default, MobileNetV1 (its KAN convs on BSpline<12, 3, ReLU>, code
+12 of csrc/kan_basis.cuh) and MobileNetV2 default at 224 x 224 and
+MobileNetV2 kan_small at 32 x 32):
+ 46. the kernels at every kernel shape of those models (ZOO_CONVS) at
+     batch 64, and at AlexNet small's two 5x5 shapes at batch 1024, x
+     U(-2, 2) with the knots and exact zeros among its values: the forward
+     against the plain version (TOL), the backward kernels (MobileNetV2:
+     at three shapes) against float64 (BWD_TOL), reductions bit-exact, two
+     calls bit-identical;
+ 47. each model seeded, its running statistics set to a batch's
+     (mnv3_calibrate), on the card: logits of ZOO_CHECK images (224 x 224:
+     ZOO_CHECK_224) against the CPU's float32 and float64 (as phase 42),
+     per forward its KAN convs on the kernels (the basis of ZOO_ACT) and
+     ZOO_PLAIN strided stems on the plain route;
+ 48. serving, the main path: the CLI's engine (``--model AlexNetKAN
+     --arch small --classifier_type KAN``) over HTTP with phase 47's state
+     (serve_cli), and the CLI as a process of its own;
+ 49. training, the main path: three lockstep steps of AlexNet small with
+     the KAN head (batch TRAIN_BATCH, crops, flips, the head's dropout) GPU
+     vs CPU as phase 44 holds them (the PReLU slopes printed), per step 5
+     forward, 4 data-gradient, 5 weight-gradient and 5 reduction launches;
+ 50. times: the AlexNet step at batch 1024 (its 15 steps' launches held)
+     and predict; BASELINE config 2's FastKAN MLP [784, 128, 64, 10] (one
+     step against float64 on the CPU first) at MLP_BATCH, MLP_STEPS steps
+     chained; the MobileNetV1 and V2 config-5 steps (imagenet=True,
+     augment=False) and predict at ZOO_MOBILE_BATCH; each kernel per shape
+     of AlexNet small at batch 1024 (entries "[alexnet k5]") and of
+     MobileNetV1 at ZOO_MOBILE_BATCH ("[mnv1 relu]": the ReLU base row
+     counted in the bound for the half of x > 0) against its plain
+     version, cuDNN over a materialized basis and the bound.
+``python3 chip_smoke.py --path F`` builds the KAN-conv sources alone and
+runs path F only (a quicker check of its kernels; the contract is the run
+without arguments).
 Every time is device time from CUDA events in a preloaded queue (cuda_ms:
 a sleep kernel holds the card until the host has issued all timed calls);
 a kernel's timing that the host held back fails, any other is listed
@@ -360,6 +400,7 @@ import copy
 import functools
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -590,8 +631,9 @@ EFFV2_SD = 0.2
 # --curve 0.1 [--card]).  Its kernels are held on the step's own tensors
 # instead (``conv_kernel_readings``)
 EFFV2_TRAIN = {"GRAMKAN": True, "KAN": False}
-# timed steps of phase 40 (after warm-up steps)
-EFFV2_WARMUP, EFFV2_STEPS = 2, 5
+# timed steps of phase 40 (after warm-up steps; few, to keep the script
+# well inside its time limit)
+EFFV2_WARMUP, EFFV2_STEPS = 1, 4
 # GPU remat=True against remat=False (phase 39): each gradient within this
 # of its largest entry (the forward is the same computation on the same
 # inputs; cuDNN's backward algorithms may sum in another order)
@@ -640,6 +682,59 @@ STATIC_CURVE = {"FourierKAN": 0.1}
 # gradient fail.  Path E's train phase prints the slopes' readings and
 # holds every other gradient (their spread reaches 0.19 at most: TaylorKAN)
 STATIC_UNHELD = (".prelu",)
+
+# Path F: train.py's model zoo, each model built by the serving
+# CLI's build_model from train.py's argv (its defaults: BatchNorm2d for
+# both norm flags, affine off, head dropout 0.5), 10 classes, CIFAR-10's
+# normalization.  The main path is train.py --model AlexNetKAN --arch
+# small --dataset CIFAR10 --classifier_type KAN --kan_classifier KAN
+ZOO_ARGV = {
+    "alexnet_small": ["--model", "AlexNetKAN", "--arch", "small",
+                      "--classifier_type", "KAN", "--kan_classifier", "KAN"],
+    "alexnet_default": ["--model", "AlexNetKAN", "--imagenet_preprocessing"],
+    "mnv1": ["--model", "MobileNetV1KAN", "--imagenet_preprocessing"],
+    "mnv2": ["--model", "MobileNetV2KAN", "--imagenet_preprocessing"],
+    "mnv2_small": ["--model", "MobileNetV2KAN", "--arch", "kan_small"],
+}
+# (H, C, O, k) of each model's KAN convs on the kernels, in order (the
+# strided stems of AlexNet default, MobileNetV1 and MobileNetV2 default
+# take the plain route: one per forward); tests/test_torch_relu_kernels.py
+# walks the port's models to these lists
+ZOO_CONVS = {
+    "alexnet_small": [(32, 3, 64, 5), (15, 64, 192, 5), (7, 192, 384, 3),
+                      (7, 384, 256, 3), (7, 256, 256, 3)],
+    "alexnet_default": [(27, 64, 192, 5), (13, 192, 384, 3),
+                        (13, 384, 256, 3), (13, 256, 256, 3)],
+    "mnv1": [(112, 32, 64, 1), (56, 64, 128, 1), (56, 128, 128, 1),
+             (28, 128, 256, 1), (28, 256, 256, 1), (14, 256, 512, 1)]
+    + [(14, 512, 512, 1)] * 5 + [(7, 512, 1024, 1), (7, 1024, 1024, 1)],
+    "mnv2": [(112, 32, 16, 1), (112, 16, 96, 1), (56, 96, 24, 1),
+             (56, 24, 144, 1), (56, 144, 24, 1), (56, 24, 144, 1),
+             (28, 144, 32, 1)] + [(28, 32, 192, 1), (28, 192, 32, 1)] * 2
+    + [(28, 32, 192, 1), (14, 192, 64, 1)]
+    + [(14, 64, 384, 1), (14, 384, 64, 1)] * 3
+    + [(14, 64, 384, 1), (14, 384, 96, 1)]
+    + [(14, 96, 576, 1), (14, 576, 96, 1)] * 2
+    + [(14, 96, 576, 1), (7, 576, 160, 1)]
+    + [(7, 160, 960, 1), (7, 960, 160, 1)] * 2
+    + [(7, 160, 960, 1), (7, 960, 320, 1), (7, 320, 1280, 1)],
+    "mnv2_small": [(32, 3, 32, 3), (32, 32, 16, 1), (32, 16, 96, 1),
+                   (16, 96, 24, 1), (16, 24, 144, 1), (8, 144, 32, 1),
+                   (8, 32, 192, 1), (4, 192, 48, 1), (4, 48, 288, 1),
+                   (4, 288, 64, 1), (4, 64, 384, 1), (2, 384, 96, 1),
+                   (2, 96, 576, 1), (2, 576, 160, 1), (2, 160, 1280, 1)],
+}
+ZOO_PLAIN = {"alexnet_small": 0, "alexnet_default": 1, "mnv1": 1, "mnv2": 1,
+             "mnv2_small": 0}
+# the base activation of each model's KAN convs (MobileNetV1's: ReLU, the
+# instantiation BSpline<12, 3, ReLU>; the others SiLU)
+ZOO_ACT = {"mnv1": "relu"}
+# images checked against the CPU (32 x 32; 224 x 224), the MobileNets'
+# timed batch, config 2's (bench.py:228-284) and its timed steps
+ZOO_CHECK, ZOO_CHECK_224, ZOO_MOBILE_BATCH = 64, 2, 128
+MLP_BATCH, MLP_STEPS = 8192, 50
+# the entries of the kernels line that path F adds
+ZOO_SUFFIX = {"silu": "[alexnet k5]", "relu": "[mnv1 relu]"}
 
 
 # readings that cuda_ms could not hold to device time: kernel name -> fields
@@ -1362,22 +1457,24 @@ def phase_train(mod, dev, kan_conv, want_counts, grad_params, lockstep=False,
     return counts, r["model_gpu"]
 
 
-def time_train_step(kan_conv, dev, card, label=None, **model_kw):
-    """Median images/s of the VGG16_small train step at batch TIME_BATCH
-    (printed as ``label``, default ``kan_conv``)."""
+def time_train_step(kan_conv, dev, card, label=None, build=None,
+                    batch=TIME_BATCH, **model_kw):
+    """Median images/s of the VGG16_small train step (``build()``'s model,
+    on the card, in its place) at batch ``batch`` (printed as ``label``,
+    default ``kan_conv``)."""
     from convkan_tpu_torch.models.vgg import vggkan
     from convkan_tpu_torch.train.data import _synthetic
     from convkan_tpu_torch.train.loop import make_train_step
     from convkan_tpu_torch.train.state import create_train_state
 
-    model = vggkan(3, 10, arch="VGG16_small", kan_conv=kan_conv,
-                   classifier_type="Linear",
-                   generator=torch.Generator().manual_seed(3), device=dev,
-                   **model_kw)
+    model = build() if build else vggkan(
+        3, 10, arch="VGG16_small", kan_conv=kan_conv,
+        classifier_type="Linear", generator=torch.Generator().manual_seed(3),
+        device=dev, **model_kw)
     # CIFAR-10's 50,000 images in full batches; generator on the card
-    state = create_train_state(model, steps_per_epoch=50000 // TIME_BATCH)
+    state = create_train_state(model, steps_per_epoch=50000 // batch)
     step = make_train_step(model, "CIFAR10", augment=True)
-    x, y = _synthetic("CIFAR10", TIME_BATCH, seed=8)
+    x, y = _synthetic("CIFAR10", batch, seed=8)
     x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
     for _ in range(3):
         step(state, x, y).item()
@@ -1386,10 +1483,10 @@ def time_train_step(kan_conv, dev, card, label=None, **model_kw):
     for _ in range(12):
         t0 = time.perf_counter()
         step(state, x, y).item()  # host readback: the step is done
-        runs.append(TIME_BATCH / (time.perf_counter() - t0))
+        runs.append(batch / (time.perf_counter() - t0))
     ips = statistics.median(runs)
-    print(f"[time] {label or kan_conv} train step batch {TIME_BATCH}: median "
-          f"{ips:.1f} images/s ({1e3 * TIME_BATCH / ips:.3f} ms) over "
+    print(f"[time] {label or kan_conv} train step batch {batch}: median "
+          f"{ips:.1f} images/s ({1e3 * batch / ips:.3f} ms) over "
           f"{len(runs)} steps (min {min(runs):.1f}, max {max(runs):.1f}); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"on {card}", flush=True)
@@ -2437,7 +2534,8 @@ def phase_bn_serve(mod, trained, imgs):
           "served logits disagree with the CPU's eval logits")
     check(np.allclose(served[True], served[False], rtol=MODEL_TOL,
                       atol=MODEL_TOL), "folded logits disagree with unfolded")
-    cli = ["--arch", "VGG16_small", "--init_random", "--buckets", "1,64"]
+    cli = ["--model", "VGGKAN", "--dataset", "CIFAR10", "--arch",
+           "VGG16_small", "--init_random", "--buckets", "1,64"]
     outs = []
     for extra in ([], ["--fold_bn"]):
         engine, _ = build_engine(build_parser().parse_args(cli + extra))
@@ -2821,14 +2919,26 @@ def phase_mnv3_serve(kc, fam):
 
 
 def serve_224(kc, fam, model_name, arch, eval_model, per_forward, tag):
-    """33 / 38. serving, the main path: the CLI's engine (``build_engine``
-    of the argv below, in this process) serving the state of
-    ``eval_model(fam, served=True)`` (loaded with strict=True) behind the
-    HTTP server, launch counts zeroed first; 3 single-image requests and
-    one of 4 images; the answers against ``predict`` and against the CPU
-    model's eval logits (MODEL_TOL), not the same for every image, and the
-    counts read (``per_forward``: kernel forwards and plain routes per
-    forward).
+    """33 / 38. serving, the main path, by ``serve_cli``: the CLI's argv
+    for ``model_name`` at 224 x 224 (``--imagenet_preprocessing``), the
+    state of ``eval_model(fam, served=True)``, 4 seeded images."""
+    argv = ["--model", model_name, "--arch", arch, "--dataset", "CIFAR10",
+            "--imagenet_preprocessing", "--kan_conv", fam, "--init_random",
+            "--seed", "5", "--buckets", "1,4"]
+    return serve_cli(kc, argv, seeded_images(4, 33),
+                     lambda i: mnv3_prep(i, served=True),
+                     eval_model(fam, served=True), per_forward, tag)
+
+
+def serve_cli(kc, argv, imgs, prep, model, per_forward, tag):
+    """33 / 38 / 48. serving, the main path: the CLI's engine
+    (``build_engine`` of ``argv``, in this process) serving the state of
+    ``model`` (the CPU's, loaded with strict=True) behind the HTTP server,
+    launch counts zeroed first; 3 single-image requests of ``imgs`` and one
+    of all 4; the answers against ``predict`` and against the CPU model's
+    eval logits of ``prep(imgs)`` (MODEL_TOL), not the same for every
+    image, and the counts read (``per_forward``: kernel forwards and plain
+    routes per forward).
     Then the same argv run as ``python -m convkan_tpu_torch.serve`` in a
     process of its own (its seeded weights) answers one request of 4
     images, against the in-process engine's ``predict`` of the same seeded
@@ -2837,13 +2947,8 @@ def serve_224(kc, fam, model_name, arch, eval_model, per_forward, tag):
     from convkan_tpu_torch.serve import build_engine, build_parser, \
         make_server
 
-    argv = ["--model", model_name, "--arch", arch,
-            "--imagenet_preprocessing", "--kan_conv", fam, "--init_random",
-            "--seed", "5", "--buckets", "1,4"]
-    imgs = seeded_images(4, 33)
-    model = eval_model(fam, served=True)
     with torch.inference_mode():
-        want = model(mnv3_prep(imgs, served=True)).numpy()
+        want = model(prep(imgs)).numpy()
 
     def post(url, batch):
         req = urllib.request.Request(
@@ -3828,6 +3933,341 @@ def static_train(kc, dev, key):
     return by_basis
 
 
+# ------------------------------------ train.py's model zoo: path F
+def zoo_size(name) -> int:
+    return 224 if "--imagenet_preprocessing" in ZOO_ARGV[name] else 32
+
+
+def zoo_argv(name, seed=0):
+    """Path F's model ``name`` in train.py's vocabulary, as the serving CLI
+    takes it (seeded weights)."""
+    return ZOO_ARGV[name] + ["--dataset", "CIFAR10", "--init_random",
+                             "--seed", str(seed)]
+
+
+def zoo_model(name, seed=0, device="cpu"):
+    """Path F's model ``name`` as the serving CLI builds it (train.py's
+    build_model), its weights drawn from ``seed`` onto ``device``."""
+    from convkan_tpu_torch.serve import build_model, build_parser
+
+    args = build_parser().parse_args(zoo_argv(name, seed) +
+                                     ["--device", str(device)])
+    size = zoo_size(name)
+    return build_model(args, (size, size, 3), 10,
+                       torch.Generator().manual_seed(seed))
+
+
+def zoo_basis(kc, act):
+    """The B-spline (grid 5, order 3) of path F's convs with ``act``."""
+    from convkan_tpu_torch.basis.bspline import make_bspline_grid
+
+    knots = tuple(float(v) for v in make_bspline_grid(5, 3))
+    return kc.bspline_basis(knots, 3, act)
+
+
+def zoo_prep(imgs):
+    """The served form of uint8 images: CIFAR-10's normalization."""
+    from convkan_tpu_torch.train.data import normalize_batch
+    return normalize_batch(torch.from_numpy(imgs), "CIFAR10")
+
+
+def phase_zoo_kernels(kc, gen, dev):
+    """46. the new shapes and instantiation against their plain versions
+    (TOL) and float64 (``backward_case``, BWD_TOL; the reduction
+    bit-exact; two calls bit-identical) at batch 64: the SiLU B-spline at
+    every AlexNet shape (small and default: k = 5 and 3) and the first two
+    small ones (k = 5) at batch 1024 too, the ReLU B-spline at every
+    MobileNetV1 1x1 shape, and the SiLU B-spline at every MobileNetV2 shape
+    (default and kan_small; the backward at three of them).  x U(-2, 2)
+    with the knots and 64 exact zeros (ReLU's kink) among its values.
+    Returns max |err| per kernel by activation."""
+    errs = {act: dict.fromkeys(kc.KERNELS, 0.0) for act in ("silu", "relu")}
+    alex = ZOO_CONVS["alexnet_small"] + ZOO_CONVS["alexnet_default"]
+    mnv2 = list(dict.fromkeys(ZOO_CONVS["mnv2"] + ZOO_CONVS["mnv2_small"]))
+    cases = [("silu", 64, s, True) for s in dict.fromkeys(alex)]
+    cases += [("silu", TIME_BATCH, s, True)
+              for s in ZOO_CONVS["alexnet_small"][:2]]
+    cases += [("relu", 64, s, True) for s in dict.fromkeys(ZOO_CONVS["mnv1"])]
+    cases += [("silu", 64, s, s in (mnv2[0], mnv2[1], max(
+        mnv2, key=lambda t: t[1] * t[2]))) for s in mnv2]
+    for act, B, (H, C, O, k), bwd in cases:
+        basis = zoo_basis(kc, act)
+        pad = k // 2
+        x, bw, pw = conv_inputs(gen, B, H, C, O, 2.0, k=k, basis=basis)
+        flat = x.view(-1)
+        n = 4 * len(basis.knots)
+        flat[:n] = torch.tensor(basis.knots).repeat(4)
+        flat[n:n + 64] = 0.0
+        g = torch.randn(B, H, H, O, generator=gen)
+        x, bw, pw, g = (t.to(dev) for t in (x, bw, pw, g))
+        y = kc.kan_conv2d(x, bw, pw, basis, k, pad)
+        same = torch.equal(y, kc.kan_conv2d(x, bw, pw, basis, k, pad))
+        torch.cuda.synchronize()
+        ref = kc.kan_conv2d_reference(x, bw, pw, basis, k, pad)
+        err = (y - ref).abs().max().item()
+        ok = torch.allclose(y, ref, rtol=TOL, atol=TOL)
+        cfg = kc.launch_config(B, H, H, C, O, k, pad, basis.R)
+        print(f"[zoo kernel] {act} B={B} {H}x{H} C={C} O={O} k={k} (BN "
+              f"{cfg['BN']}, {'skip' if cfg['skip'] else 'dense'}, CC "
+              f"{cfg['CC']}, S {cfg['S']}, {cfg['blocks']} blocks): "
+              f"max|err| {err:.3e}, two calls "
+              f"{'bit-identical' if same else 'DIFFERENT'} "
+              f"{'ok' if ok and same else 'FAIL'}", flush=True)
+        check(bool(torch.isfinite(y).all()), "kernel output not finite")
+        check(ok and same, f"{act} kernel disagrees with the plain version, "
+                           f"or two calls differ (B={B} H={H} C={C} O={O} "
+                           f"k={k})")
+        e = errs[act]
+        e["kan_conv2d_fwd"] = max(e["kan_conv2d_fwd"], err)
+        del y, ref
+        if bwd:
+            case, _, _, _ = backward_case(
+                kc, basis, x, bw, pw, g, k, pad, partials=B < TIME_BATCH,
+                twice=True, tag=f"[zoo backward] {act}")
+            for name, v in case.items():
+                e[name] = max(e[name], v)
+        del x, bw, pw, g
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase_zoo_model(kc, name, dev):
+    """47. path F's model ``name`` (seeded, its running statistics set to a
+    batch's by ``mnv3_calibrate``) on the card against the CPU: the logits
+    of ZOO_CHECK images (32 x 32; ZOO_CHECK_224 at 224 x 224) within
+    CHEBY_F32 times the CPU float32's distance from float64 plus MODEL_TOL,
+    not the same for every image; per forward the model's KAN convs on the
+    kernels (ZOO_CONVS, the basis of ZOO_ACT) and ZOO_PLAIN on the plain
+    route.  Returns the GPU model (eval mode), its launches by basis and
+    the CPU model."""
+    size = zoo_size(name)
+    n = ZOO_CHECK if size == 32 else ZOO_CHECK_224
+    model_cpu = mnv3_calibrate(zoo_model(name), zoo_prep(
+        seeded_images(n, 46, size)))
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    x = zoo_prep(seeded_images(n, 47, size))
+    with torch.inference_mode():
+        kc.reset_launches()
+        got = model_gpu(x.to(dev)).cpu()
+        torch.cuda.synchronize()
+        by_basis = collections.Counter(kc.launches_by_basis)
+        plain = kc.plain_calls[kc.PLAIN]
+        want = model_cpu(x)
+        exact = copy.deepcopy(model_cpu).double()(x.double())
+    e_cpu = (want.double() - exact).abs().max().item()
+    e_gpu = (got.double() - exact).abs().max().item()
+    tol = CHEBY_F32 * e_cpu + MODEL_TOL
+    key = zoo_basis(kc, ZOO_ACT.get(name, "silu")).key
+    want_basis = {("kan_conv2d_fwd", key): len(ZOO_CONVS[name])}
+    print(f"[zoo model] {name} ({model_cpu.model_name}, {size}x{size}) "
+          f"logits {tuple(got.shape)} vs float64 on the CPU: GPU max|err| "
+          f"{e_gpu:.3e}, CPU float32 {e_cpu:.3e} (allowed {tol:.3e}); "
+          f"spread over the images {(got - got[0]).abs().max().item():.3e};"
+          f" launches per forward {dict(by_basis)}, plain-route convs "
+          f"{plain}", flush=True)
+    check(bool(torch.isfinite(got).all()), f"{name} logits not finite")
+    check((got - got[0]).abs().max().item() > 1e-3,
+          f"{name}: the logits are the same for every image")
+    check(e_gpu <= tol, f"{name} logits on the GPU further from float64 "
+                        "than the CPU's float32 allows")
+    check(dict(by_basis) == want_basis and plain == ZOO_PLAIN[name],
+          f"{name}: expected {want_basis} launches and {ZOO_PLAIN[name]} "
+          f"plain-route convs per forward")
+    return model_gpu, by_basis, model_cpu
+
+
+def zoo_train_step(kc, dev, card, model, B):
+    """50. train.py's step of ``model`` (path F's main path: crops, flips,
+    AdamW) at batch ``B``, timed by ``time_train_step``, with the launches
+    of its 15 steps counted; returns (images/s, launches by basis)."""
+    kc.reset_launches()
+    ips = time_train_step("AlexNetKAN small, KAN head", dev, card,
+                          build=lambda: model, batch=B)
+    per_step = {"kan_conv2d_fwd": 5, "kan_conv2d_bwd_dx": 4,
+                "kan_conv2d_bwd_dw": 5, "kan_conv2d_bwd_dw_reduce": 5}
+    check(dict(kc.launches) == {k: 15 * v for k, v in per_step.items()} and
+          kc.plain_calls[kc.PLAIN] == 0,
+          f"AlexNet's 15 timed steps launched {dict(kc.launches)}")
+    return ips, collections.Counter(kc.launches_by_basis)
+
+
+def time_mlp_step(dev, card):
+    """50. BASELINE config 2 (bench.py:228-284): the FastKAN MLP [784,
+    128, 64, 10] of MLP_KAN_FACTORY, one train step (forward, cross-entropy,
+    backward, AdamW) on U[0, 1) inputs at batch MLP_BATCH; no KAN-conv
+    kernel runs (dense layers: matmuls).  First one step on the card
+    against the same step on the CPU in float64 at batch 256 (the loss and
+    every gradient within 1e-4 of its largest entry), then MLP_STEPS steps
+    chained on the card, read back once.  Returns images/s."""
+    from convkan_tpu_torch.factory.mlp_factory import MLP_KAN_FACTORY
+    from convkan_tpu_torch.train.metrics import cross_entropy_loss
+    from convkan_tpu_torch.train.state import create_train_state
+
+    def build(device):
+        return MLP_KAN_FACTORY["FastKAN"](
+            [784, 128, 64, 10], generator=torch.Generator().manual_seed(0),
+            device=device)
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand(MLP_BATCH, 784, generator=gen)
+    y = torch.randint(0, 10, (MLP_BATCH,), generator=gen)
+    grads = {}
+    for where, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        m = build("cpu").to(where, dt).train()
+        loss = cross_entropy_loss(m(x[:256].to(where, dt)), y[:256].to(where))
+        loss.backward()
+        grads[where] = (loss.item(), {n: p.grad.double().cpu()
+                                      for n, p in m.named_parameters()})
+    e_loss = abs(grads["cuda"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
+    e_grad = max(((grads["cuda"][1][n] - g).abs().max() / g.abs().max())
+                 .item() for n, g in grads["cpu"][1].items())
+    print(f"[zoo mlp] config 2 FastKAN MLP one step at batch 256, card vs "
+          f"float64 on the CPU: loss {e_loss:.3e} relative, gradients max "
+          f"{e_grad:.3e} of each parameter's largest entry", flush=True)
+    check(e_loss <= 1e-4 and e_grad <= 1e-4,
+          "config 2's step on the card disagrees with float64")
+    model = build(dev)
+    state = create_train_state(model, steps_per_epoch=100)
+    x, y = x.to(dev), y.to(dev)
+
+    def step():
+        model.train()
+        loss = cross_entropy_loss(model(x, state.generator), y)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        return loss.detach()
+
+    first = step().item()
+    for _ in range(4):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MLP_STEPS):
+        loss = step()
+    last = loss.item()   # host readback: every step is done
+    ips = MLP_STEPS * MLP_BATCH / (time.perf_counter() - t0)
+    print(f"[zoo time] config 2 FastKAN MLP [784, 128, 64, 10] train step "
+          f"batch {MLP_BATCH}: {ips:.1f} images/s ("
+          f"{1e3 * MLP_BATCH / ips:.4f} ms) over {MLP_STEPS} chained steps; "
+          f"loss {first:.4f} -> {last:.4f} (on {card})", flush=True)
+    check(math.isfinite(last) and last < first, "config 2's loss does not "
+                                                "fall")
+    return ips
+
+
+def path_zoo(kc, gen, dev, card):
+    """Path F (phases 46-50): train.py's model zoo.  Returns the kernels
+    line's entries of ZOO_SUFFIX."""
+    t_phase = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        print(f"[time] phase {phase}: {now - t_phase[0]:.1f} s", flush=True)
+        t_phase[0] = now
+
+    errs = phase_zoo_kernels(kc, gen, dev)                            # 46
+    lap(46)
+    runs = {act: collections.defaultdict(collections.Counter)
+            for act in ("silu", "relu")}
+    gpu, cpu = {}, {}
+    for name in ZOO_ARGV:                                             # 47
+        gpu[name], by_basis, cpu[name] = phase_zoo_model(kc, name, dev)
+        act = ZOO_ACT.get(name, "silu")
+        if name.startswith("alexnet") or act == "relu":
+            runs[act]["model"] += by_basis
+        if name != "alexnet_small":
+            del gpu[name]
+    lap(47)
+    n_fwd, _ = serve_cli(                                             # 48
+        kc, ZOO_ARGV["alexnet_small"] + ["--dataset", "CIFAR10",
+                                         "--init_random", "--seed", "5",
+                                         "--buckets", "1,4"],
+        seeded_images(4, 48, 32), zoo_prep, cpu["alexnet_small"],
+        (len(ZOO_CONVS["alexnet_small"]), 0), "[zoo serve]")
+    runs["silu"]["serve"][("kan_conv2d_fwd",
+                           zoo_basis(kc, "silu").key)] += n_fwd
+    lap(48)
+    want = {"kan_conv2d_fwd": 5, "kan_conv2d_bwd_dx": 4,              # 49
+            "kan_conv2d_bwd_dw": 5, "kan_conv2d_bwd_dw_reduce": 5}
+    phase_train(kc, dev, "KAN", want, ["base_w", "poly_w"], lockstep=True,
+                f32_floor=True, n_convs=5, unheld=STATIC_UNHELD,
+                label=f"AlexNet small, KAN head, batch {TRAIN_BATCH}",
+                build=lambda: zoo_model("alexnet_small", seed=2))
+    runs["silu"]["train"] += collections.Counter(kc.launches_by_basis)
+    lap(49)
+    out = {}
+    out["alexnet_train"], c = zoo_train_step(                        # 50
+        kc, dev, card, zoo_model("alexnet_small", seed=3, device=dev),
+        TIME_BATCH)
+    runs["silu"][f"train_batch{TIME_BATCH}"] += c
+    out["alexnet_predict"] = time_predict(gpu.pop("alexnet_small"),
+                                          "AlexNetKAN small, KAN head", card)
+    out["mlp_train"] = time_mlp_step(dev, card)
+    for name in ("mnv1", "mnv2"):
+        n = len(ZOO_CONVS[name])
+        _, ips, pips, _, by_basis, _ = time_config5_step(
+            kc, name, "[zoo time]", zoo_model(name, seed=4, device=dev), dev,
+            ZOO_MOBILE_BATCH, 2, 6, {**dict.fromkeys(kc.KERNELS, n),
+                                     kc.PLAIN: 1}, 3, 50, card)
+        out[f"{name}_train"], out[f"{name}_predict"] = ips, pips
+        if name == "mnv1":
+            runs["relu"][f"train_batch{ZOO_MOBILE_BATCH}"] += \
+                collections.Counter(by_basis)
+    times = {
+        "silu": (phase_kernel_times(
+            kc, "[zoo time] alexnet", ZOO_SUFFIX["silu"],
+            zoo_basis(kc, "silu"), SPAN_ROWS, ZOO_CONVS["alexnet_small"],
+            gen, dev, card, TIME_BATCH), TIME_BATCH,
+            "AlexNet small's 5 convs"),
+        # ReLU's base row is 0 for x <= 0: half of x U(-1, 1)
+        "relu": (phase_kernel_times(
+            kc, "[zoo time] mnv1", ZOO_SUFFIX["relu"], zoo_basis(kc, "relu"),
+            SPAN_ROWS - 0.5, ZOO_CONVS["mnv1"], gen, dev, card,
+            ZOO_MOBILE_BATCH), ZOO_MOBILE_BATCH,
+            "MobileNetV1's 13 1x1 convs")}
+    lap(50)
+    for act, ((totals, rows), B, what) in times.items():
+        step_ms = 1e3 * B / (out["alexnet_train"] if act == "silu"
+                             else out["mnv1_train"])
+        k_ms = sum(v["ms"] for v in totals.values())
+        print(f"[zoo time] {what}: KAN-conv kernels {k_ms:.3f} ms of the "
+              f"{step_ms:.3f} ms train step at batch {B} (forward "
+              f"{totals['kan_conv2d_fwd']['ms']:.3f}, dx "
+              f"{totals['kan_conv2d_bwd_dx']['ms']:.3f}, dW "
+              f"{totals['kan_conv2d_bwd_dw']['ms']:.3f}, reductions "
+              f"{totals['kan_conv2d_bwd_dw_reduce']['ms']:.3f}), the rest "
+              f"{step_ms - k_ms:.3f} ms (on {card})", flush=True)
+    entries = []
+    for act, ((totals, rows), B, what) in times.items():
+        key = zoo_basis(kc, act).key
+        for name in kc.KERNELS:
+            fwd = name == "kan_conv2d_fwd"
+            src = "convkan_tpu_torch/csrc/" + (kc.SOURCE if fwd else
+                                                kc.BWD_SOURCE)
+            red = name == "kan_conv2d_bwd_dw_reduce"
+            launches = {path: c[(name, key)] for path, c in runs[act].items()}
+            check(sum(launches.values()) > 0,
+                  f"{name}{ZOO_SUFFIX[act]} ran on no main path")
+            model = "alexnet" if act == "silu" else "mnv1"
+            entries.append(kernel_entry(
+                name + ZOO_SUFFIX[act], RED_SOURCE if red else src,
+                REPLACES if fwd else BWD_REPLACES, launches, errs[act][name],
+                totals[name], f"sum over {what} of one "
+                f"{'forward' if fwd else 'train step'} at batch {B}",
+                [{k: r[k] for k in ("H", "C", "O", "k", "S")} | r[name]
+                 for r in rows],
+                train_images_per_s=round(out[f"{model}_train"], 1),
+                **({"predict_images_per_s": round(
+                    out[f"{model}_predict"], 1),
+                    "also_replaces": ALSO_REPLACES} if fwd else {}),
+                **({"entry_source": src} if red else {})))
+    print(f"[zoo time] path F throughputs (images/s): "
+          f"{json.dumps({k: round(v, 1) for k, v in out.items()})} "
+          f"(on {card})", flush=True)
+    return entries
+
+
 def kernel_entry(name, source, replaces, launches, err, t, times_are,
                  shapes, **extra):
     """One kernel's entry of the {"kernels": [...]} line; ``launches`` per
@@ -3874,7 +4314,9 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     set_full_f32()
-    sources = (kc.SOURCE, kc.BWD_SOURCE, wc.SOURCE, wc.BWD_SOURCE)
+    only_f = sys.argv[1:] == ["--path", "F"]   # path F alone
+    sources = (kc.SOURCE, kc.BWD_SOURCE) + \
+        (() if only_f else (wc.SOURCE, wc.BWD_SOURCE))
     for src in sources:  # build from the checkout's sources
         build.library_path(src).unlink(missing_ok=True)
     t0 = time.perf_counter()
@@ -3901,6 +4343,14 @@ def main():
     knots = tuple(float(v) for v in make_bspline_grid(5, 3))
     silu = kc.bspline_basis(knots, 3, "silu")
     gen = torch.Generator().manual_seed(0)
+    if only_f:
+        zoo_entries = path_zoo(kc, gen, dev, card)
+        lap("path F")
+        print(json.dumps({"kernels": zoo_entries}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     # ------------------------------------------ 2. kernel vs plain version
     cases = [(64, H, C, O, 1.0, "silu")
@@ -4119,8 +4569,7 @@ def main():
     mnv3_rows_nz = {"hardswish": SPAN_ROWS, "cheby3": CHEBY_ROWS}
     mnv3_k = {tag: phase_kernel_times(
         kc, f"[mnv3 time] {tag}", MNV3_SUFFIX[tag], basis, mnv3_rows_nz[tag],
-        [(H, C, O, 1) for H, C, O in MNV3_CONVS], gen, dev, card, mnv3_batch,
-        iters=(10, 2))
+        [(H, C, O, 1) for H, C, O in MNV3_CONVS], gen, dev, card, mnv3_batch)
         for tag, basis in mnv3_bases(kc).items()}
     for fam, tag in (("KAN", "hardswish"), ("ChebyKAN", "cheby3")):
         B, ips, _, _, parts = mnv3_time[fam]
@@ -4212,6 +4661,9 @@ def main():
               f"{step_ms - k_ms:.3f} ms; predict {static_predict[key]:.1f} "
               f"images/s (on {card})", flush=True)
     lap("path E")
+    # --------------------------------- train.py's model zoo: path F
+    zoo_entries = path_zoo(kc, gen, dev, card)                    # 46-50
+    lap("path F")
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def kan_entries(suffix, fwd, shapes_, fwd_err, n_serve, counts, bwd_,
@@ -4400,6 +4852,7 @@ def main():
             f"effv2_{path}": c[(name, gram.key)]
             for path, c in effv2_runs.items() if c[(name, gram.key)]})
         entry["launches"] = sum(entry["launches_by_path"].values())
+    kernels += zoo_entries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

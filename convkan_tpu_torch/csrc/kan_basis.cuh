@@ -20,8 +20,8 @@
 //   * BSpline<NK, ORDER, ACT>: E = [B_0(x) .. B_{K-1}(x), act(x)], the bases
 //     of basis/bspline.py's Cox-de Boor recurrence over NK knots at degree
 //     ORDER (K = NK - ORDER - 1) and the base path's SiLU (ACT 0), GELU
-//     (ACT 1), hardswish (ACT 2) or identity (ACT 3: a conv built with
-//     base_activation=None); R = K + 1; p = the knots.
+//     (ACT 1), hardswish (ACT 2), identity (ACT 3: a conv built with
+//     base_activation=None) or ReLU (ACT 4); R = K + 1; p = the knots.
 //   * Cheby<DEG>: E = [T_0(t) .. T_DEG(t)], t = min(max(tanh x, lo), hi),
 //     by the recurrence T_n = 2t T_{n-1} - T_{n-2} of basis/poly.py's
 //     chebyshev_basis_recurrence_list; no base path; R = DEG + 1; p = {lo,
@@ -82,19 +82,33 @@ __host__ __device__ __forceinline__ float hardswish_grad(float x) {
   return 1.0f;
 }
 
+// ReLU as torch's clamp_min(x, 0) takes it: x unless x < 0 (so -0 and NaN
+// pass through)
+__host__ __device__ __forceinline__ float relu(float x) {
+  return x < 0.0f ? 0.0f : x;
+}
+
+// its derivative as torch's and jax.nn.relu's backward take it: 1 for
+// x > 0, else 0 (0 at x = 0)
+__host__ __device__ __forceinline__ float relu_grad(float x) {
+  return x > 0.0f ? 1.0f : 0.0f;
+}
+
 template <int ACT>
 __device__ __forceinline__ float base_act(float x) {
   if (ACT == 0) return x / (1.0f + expf(-x));                        // SiLU
   if (ACT == 2) return hardswish(x);
   if (ACT == 3) return x;                                        // identity
+  if (ACT == 4) return relu(x);
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));      // GELU
 }
 
 // d act / dx: SiLU' = s (1 + x (1 - s)); GELU' (erf) = Phi(x) + x phi(x);
-// hardswish' of hardswish_grad; identity' = 1
+// hardswish' of hardswish_grad; identity' = 1; ReLU' of relu_grad
 template <int ACT>
 __device__ __forceinline__ float base_act_grad(float x) {
   if (ACT == 3) return 1.0f;
+  if (ACT == 4) return relu_grad(x);
   if (ACT == 0) {
     const float s = 1.0f / (1.0f + expf(-x));
     return s * (1.0f + x * (1.0f - s));
@@ -587,7 +601,7 @@ struct Fourier {
 // Fibonacci, Gegenbauer, Hermite, Laguerre, Lucas at degree 3) and with the
 // identity (Jacobi); 9, that of 3 rows with SiLU (Taylor, degree 3); 10,
 // Bernstein of degree 3 (identity base row); 11, Fourier of grid 5 with
-// SiLU.
+// SiLU; 12, the B-spline of 0 with ReLU (MobileNetV1's convs).
 template <class F>
 cudaError_t with_basis(int code, int n_params, int order, F&& f) {
   if (code == 0 && n_params == 12 && order == 3) return f(BSpline<12, 3, 0>{});
@@ -602,6 +616,7 @@ cudaError_t with_basis(int code, int n_params, int order, F&& f) {
   if (code == 9 && n_params == 8 && order == 3) return f(Recur3<3, 0>{});
   if (code == 10 && n_params == 0 && order == 3) return f(Bernstein<3>{});
   if (code == 11 && n_params == 0 && order == 5) return f(Fourier<5, 0>{});
+  if (code == 12 && n_params == 12 && order == 3) return f(BSpline<12, 3, 4>{});
   return cudaErrorInvalidValue;
 }
 

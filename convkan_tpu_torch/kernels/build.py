@@ -27,9 +27,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # flags of one source on top of NVCC_FLAGS: the WavKAN backward, the longest
 # build (its 57 kernels: 262 s alone on the H100 host, the other three
-# sources 114 s at most, built beside it), optimizes in two threads: 191 s,
-# every kernel's SASS identical to the single-threaded build's
-SOURCE_FLAGS = {"wav_conv2d_bwd.cu": ["-split-compile=2"]}
+# sources 118 s at most, built beside it), optimizes in four threads: 106 s
+# beside the others (two threads: 161-191 s), every kernel's SASS identical
+# to the single-threaded build's
+SOURCE_FLAGS = {"wav_conv2d_bwd.cu": ["-split-compile=4"]}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -52,9 +52,9 @@ SOURCE = "kan_conv2d_fwd.cu"
 BWD_SOURCE = "kan_conv2d_bwd.cu"
 # the bases the kernels are compiled for (Basis.key), by the integer code
 # the C entries take: the B-spline of 12 knots at order 3 (grid 5) with a
-# SiLU, GELU, hardswish or identity base path, the Chebyshev polynomials of
-# degree 3, the Gram polynomials of degree 3 with SiLU or the identity on
-# every row, and the static bases of KAN-VGG16_small (base_activation
+# SiLU, GELU, hardswish, identity or ReLU (MobileNetV1's) base path, the
+# Chebyshev polynomials of degree 3, the Gram polynomials of degree 3 with
+# SiLU or the identity on every row, and the static bases of KAN-VGG16_small (base_activation
 # "silu", degree 3, grid 5): six recurrences of 4 rows with a SiLU base path
 # (one instantiation, their coefficients passed as parameters), Jacobi's
 # with the identity (base_input "raw"), Taylor's 3 monomials, Bernstein of
@@ -67,7 +67,8 @@ COMPILED = {("bspline", 12, 3, "silu"): 0, ("bspline", 12, 3, "gelu"): 1,
                 "bessel", "fibonacci", "gegenbauer", "hermite", "laguerre",
                 "lucas")},
             ("jacobi", 3, "identity"): 8, ("taylor", 3, "silu"): 9,
-            ("bernstein", 3, "identity"): 10, ("fourier", 5, "silu"): 11}
+            ("bernstein", 3, "identity"): 10, ("fourier", 5, "silu"): 11,
+            ("bspline", 12, 3, "relu"): 12}
 THREADS, TM = 256, 8             # forward block: threads, pixels per thread
 WARPS = THREADS // 32
 MAX_CHUNK = 8                    # input channels expanded per pass

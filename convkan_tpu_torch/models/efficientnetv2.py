@@ -1,8 +1,10 @@
 """KAN-EfficientNetV2, port of ``convkan_tpu/models/efficientnetv2.py``
 (channel-last): Fused-MBConv and MBConv stages, squeeze-excitation (SiLU,
 sigmoid), per-block stochastic depth scaled by the block's index, the
-``s``, ``m``, ``l``, ``tiny`` and ``kan_tiny`` tables and the Linear head
-with its dropout.  The same engine builds EfficientNet V1
+``s``, ``m``, ``l``, ``tiny`` and ``kan_tiny`` tables, and the heads
+after the pooled features' dropout: Linear, KAN (a ``kan_classifier``
+MLP pooled -> classes), HiddenKAN (KAN pooled -> ``head_hidden_dim``,
+Linear) or, for any other name, none.  The same engine builds EfficientNet V1
 (``models/efficientnet.py``).
 
 Every KAN conv takes the model's activation (SiLU) but the projections
@@ -18,15 +20,15 @@ call site, so that default is dead there.
 Submodules are named as flax's scopes (``KanConvND_0`` (stem),
 ``_EffBlock_0`` .. with ``KanConvND_i``, ``StdConvBlock_0`` (the standard
 depthwise conv) and ``SqueezeExcitation_0`` inside, ``KanConvND_1``
-(head conv), ``Linear_0``; ``StdConvBlock_i`` for ``conv_type="conv"``),
+(head conv), ``Linear_0`` (``KanMLP_0`` for the KAN heads);
+``StdConvBlock_i`` for ``conv_type="conv"``),
 so a JAX variables tree maps onto the state_dict by a path join
 (``utils/from_jax.py``, which also maps the ``Checkpoint_EffBlock_i`` of a
 JAX model built with ``remat``).  With ``remat`` (the default, as in the
 JAX model) each block is rematerialized (``ops/remat_policy.py``).  In
 train mode the masks are drawn from the forward's generator in module
 order: a block's convs' channel dropout, then its DropPath, then the next
-block's, and the head's dropout last.  Not ported yet: the KAN and
-HiddenKAN classifier heads (``nn/kan_linear.py``).
+block's, and the head's dropout last.
 """
 
 from __future__ import annotations
@@ -47,7 +49,9 @@ from ..ops.remat_policy import checkpoint_block, resolve_remat_policy
 from ..ops.std_conv import StdConvBlock
 from ..utils.activations import silu
 from ..utils.norms import BatchNorm, resolve_norm
-from .common import _Scoped, make_conv_factory
+from .common import (_Scoped, make_conv_factory,
+                     make_mlp_classifier_factory, pop_classifier_overrides,
+                     resolve_classifier_overrides)
 from .mobilenet import _make_divisible
 
 
@@ -163,13 +167,11 @@ class _EffBlock(_Scoped):
 
 
 class EfficientNetV2KAN(_Scoped):
-    """The EfficientNet engine (V2, and V1 through all-MBConv tables) with
-    the Linear head.  Weights are drawn on the CPU from ``generator`` and
-    moved to ``device`` (None: the GPU, raising without one).  The JAX
-    model's fields that nothing ported reads (``groups``,
-    ``kan_norm_layer``, ``kan_classifier``, ``head_hidden_dim``) are not
-    taken; the builders drop them, as the JAX builders drop unknown
-    keys."""
+    """The EfficientNet engine (V2, and V1 through all-MBConv tables).
+    Weights are drawn on the CPU from ``generator`` and moved to ``device``
+    (None: the GPU, raising without one).  The JAX model's fields that
+    nothing reads (``groups``, ``kan_norm_layer``) are not taken; the
+    builders drop them, as the JAX builders drop unknown keys."""
 
     def __init__(self, inverted_residual_setting, dropout: float,
                  stochastic_depth_prob: float = 0.2, num_classes: int = 1000,
@@ -185,24 +187,26 @@ class EfficientNetV2KAN(_Scoped):
                  replace_depthwise: bool = False,
                  name_prefix: str = "EfficientNetV2", arch_tag: str = "s",
                  remat: bool = True, remat_policy: Any = None,
+                 kan_classifier: Optional[str] = "KAN",
+                 head_hidden_dim: int = 1024,
                  classifier_overrides: Optional[Mapping[str, Any]] = None, *,
                  generator: torch.Generator = None, device=None,
                  dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
-        if classifier_type in ("KAN", "HiddenKAN"):
-            raise NotImplementedError(
-                f"classifier_type={classifier_type!r} is not ported (the KAN "
-                "heads need nn/kan_linear.py, ROADMAP A6); 'Linear' is")
         if remat:   # the JAX model resolves the policy only under remat
             resolve_remat_policy(remat_policy)
         self.remat = remat
         self.conv_type, self.kan_conv = conv_type, kan_conv or "KAN"
         self.classifier_type = classifier_type
+        self.kan_classifier = kan_classifier
         self.name_prefix, self.arch_tag = name_prefix, arch_tag
-        overrides = dict(classifier_overrides or {})
-        head_drop = overrides.get("classifier_dropout")
-        self.head_dropout = dropout if head_drop is None else head_drop
+        ov = resolve_classifier_overrides(
+            classifier_overrides or {}, dropout=dropout,
+            spline_order=spline_order, grid_size=grid_size,
+            base_activation="silu", grid_range=grid_range,
+            l1_decay=l1_decay, degree=degree)
+        self.head_dropout = ov.pop("dropout")
         act = base_activation or "silu"
         norm = resolve_norm(norm_layer)
         norm_kwargs = {"affine": affine}
@@ -258,17 +262,33 @@ class EfficientNetV2KAN(_Scoped):
                     else _make_divisible(1280 * width_scale, 8))
         self._plan.append(self._scoped(conv(last_in, last_out,
                                             kernel_size=1)))
-        self.Linear_0 = Linear(last_out, num_classes, generator=generator,
-                               device=device) \
-            if classifier_type == "Linear" else None
+        make = {"generator": generator, "device": device}
+        self._head = []
+        if classifier_type in ("KAN", "HiddenKAN"):
+            head = make_mlp_classifier_factory(kan_classifier, dropout=0.0,
+                                               first_dropout=False, **ov,
+                                               **make)
+            hidden = num_classes if classifier_type == "KAN" else \
+                head_hidden_dim
+            self.KanMLP_0 = head([last_out, hidden])
+            self._head.append("KanMLP_0")
+            if classifier_type == "HiddenKAN":
+                self.Linear_0 = Linear(hidden, num_classes, **make)
+                self._head.append("Linear_0")
+        elif classifier_type == "Linear":
+            self.Linear_0 = Linear(last_out, num_classes, **make)
+            self._head.append("Linear_0")
         self.to(dtype)
 
     @property
     def model_name(self) -> str:
         convs = (f"_{self.kan_conv.upper()}" if self.conv_type == "kanconv"
                  else "_CONV")
+        head = ""
+        if self.classifier_type in ("KAN", "HiddenKAN"):
+            head = f"_{(self.kan_classifier or 'KAN').upper()}"
         return (f"{self.name_prefix}{self.arch_tag.upper()}-KAN_"
-                f"{self.classifier_type}{convs}")
+                f"{self.classifier_type}{head}{convs}")
 
     def forward(self, x, generator: torch.Generator = None):
         """Logits for NHWC x; ``generator`` draws the dropout and DropPath
@@ -280,7 +300,10 @@ class EfficientNetV2KAN(_Scoped):
         x = adaptive_avg_pool(x, (1, 1)).reshape(x.shape[0], -1)
         if self.training:
             x = head_dropout(x, self.head_dropout, generator)
-        return x if self.Linear_0 is None else self.Linear_0(x)
+        for name in self._head:
+            m = getattr(self, name)
+            x = m(x) if isinstance(m, Linear) else m(x, generator)
+        return x
 
 
 def _build(settings, arch_tag, name_prefix, num_classes, last_channel,
@@ -289,8 +312,7 @@ def _build(settings, arch_tag, name_prefix, num_classes, last_channel,
     keys become ``classifier_overrides``; keys the model does not take,
     and None values, are dropped; ``generator``, ``device`` and ``dtype``
     pass through."""
-    overrides = {k: kwargs.pop(k) for k in list(kwargs)
-                 if k.startswith("classifier_") and k != "classifier_type"}
+    overrides = pop_classifier_overrides(kwargs)
     names = set(signature(EfficientNetV2KAN.__init__).parameters)
     kwargs = {k: v for k, v in kwargs.items()
               if k in names and v is not None}

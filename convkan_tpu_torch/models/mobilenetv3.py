@@ -8,8 +8,9 @@ Every KAN conv takes the model-level activation (hardswish by default),
 as in the JAX package.  Submodules are named like flax's scopes
 (``KanConvND_0`` (stem), ``_MNV3Block_0`` .. with ``KanConvND_i``,
 ``StdConvBlock_i`` and ``SqueezeExcitation_0`` inside, ``KanConvND_1``
-(last conv), ``Linear_0``, ``Linear_1``; ``StdConvBlock_i`` in place of the
-KAN convs for ``conv_type="conv"``), so a JAX variables tree maps onto the
+(last conv), ``Linear_0``, ``Linear_1`` (the KAN head's ``KanMLP_0``,
+``KanMLP_1``); ``StdConvBlock_i`` in place of the KAN convs for
+``conv_type="conv"``), so a JAX variables tree maps onto the
 state_dict by a path join (utils/from_jax.py).  In train mode the convs'
 channel dropout (``conv_dropout``) and the head's dropout draw their masks
 from the forward's generator, convs first.  With ``remat`` each block is
@@ -17,7 +18,11 @@ rematerialized (``ops/remat_policy.py``: the policy "full", the forward's
 masks replayed, the running statistics moved once), as by JAX's
 ``nn.remat(_MNV3Block)``; flax then names the blocks
 ``Checkpoint_MNV3Block_i``, which ``utils/from_jax.py`` maps onto these
-names.  Not ported yet: the KAN classifier head.
+names.  ``classifier_type="KAN"`` builds the reference's intended KAN head
+(the JAX package's repair of kan_mobilenetv3.py:362): a ``kan_classifier``
+MLP pooled -> last_channel, dropout, one last_channel -> classes, its
+layers' base activation hardswish unless ``classifier_base_activation``
+says otherwise; any head but "KAN" and "Linear" is the identity.
 """
 
 from __future__ import annotations
@@ -36,7 +41,9 @@ from ..ops.remat_policy import checkpoint_block, resolve_remat_policy
 from ..ops.std_conv import StdConvBlock
 from ..utils.activations import hardsigmoid, hardswish, relu
 from ..utils.norms import BatchNorm, resolve_norm
-from .common import _Scoped, make_conv_factory
+from .common import (_Scoped, make_conv_factory,
+                     make_mlp_classifier_factory, pop_classifier_overrides,
+                     resolve_classifier_overrides)
 from .mobilenet import _make_divisible
 
 
@@ -164,7 +171,7 @@ class _MNV3Block(_Scoped):
 
 
 class MobileNetV3KAN(_Scoped):
-    """Channel-last KAN-MobileNetV3 with the Linear head.  Weights are
+    """Channel-last KAN-MobileNetV3.  Weights are
     drawn on the CPU from ``generator`` and moved to ``device`` (None: the
     GPU, raising without one)."""
 
@@ -181,7 +188,8 @@ class MobileNetV3KAN(_Scoped):
                  l1_decay: float = 0.0, degree: int = 3, affine: bool = True,
                  norm_layer: Any = BatchNorm, kan_norm_layer: Any = BatchNorm,
                  replace_depthwise: bool = False, conv_dropout: float = 0.0,
-                 remat: bool = False, remat_policy: Any = None, *,
+                 remat: bool = False, remat_policy: Any = None,
+                 classifier_overrides: Optional[Mapping[str, Any]] = None, *,
                  generator: torch.Generator = None, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -189,10 +197,6 @@ class MobileNetV3KAN(_Scoped):
         if remat:   # the JAX model resolves the policy only under remat
             resolve_remat_policy(remat_policy)
         self.remat = remat
-        if classifier_type != "Linear":
-            raise NotImplementedError(f"classifier_type={classifier_type!r} "
-                                      "is not ported (the KAN head needs "
-                                      "nn/kan_linear.py); only 'Linear' is")
         self.arch, self.num_classes = arch, num_classes
         self.dropout, self.input_channels = dropout, input_channels
         self.width_mult, self.conv_type = width_mult, conv_type
@@ -239,10 +243,21 @@ class MobileNetV3KAN(_Scoped):
             self._plan.append(self._scoped(_MNV3Block(mc, cnf)))
         last_in, last_out = cfgs[-1].out_channels, cfgs[-1].expanded_channels
         self._plan.append(self._scoped(block(last_in, last_out, 1, 1)))
-        self.Linear_0 = Linear(last_out, last_channel, generator=generator,
-                               device=device)
-        self.Linear_1 = Linear(last_channel, num_classes, generator=generator,
-                               device=device)
+        make = {"generator": generator, "device": device}
+        if classifier_type == "KAN":
+            ov = resolve_classifier_overrides(
+                classifier_overrides or {}, dropout=dropout,
+                spline_order=spline_order,
+                grid_size=grid_size, base_activation="hardswish",
+                grid_range=grid_range, l1_decay=l1_decay, degree=degree)
+            head = make_mlp_classifier_factory(kan_classifier,
+                                               first_dropout=False, **ov,
+                                               **make)
+            self.KanMLP_0 = head([last_out, last_channel])
+            self.KanMLP_1 = head([last_channel, num_classes])
+        elif classifier_type == "Linear":
+            self.Linear_0 = Linear(last_out, last_channel, **make)
+            self.Linear_1 = Linear(last_channel, num_classes, **make)
         self.to(dtype)
 
     @property
@@ -268,18 +283,26 @@ class MobileNetV3KAN(_Scoped):
             x = checkpoint_block(m, x, generator) if \
                 self.remat and isinstance(m, _MNV3Block) else m(x, generator)
         x = adaptive_avg_pool(x, (1, 1)).reshape(x.shape[0], -1)
-        x = hardswish(self.Linear_0(x))
+        if self.classifier_type == "KAN":
+            x = self.KanMLP_0(x, generator)
+        elif self.classifier_type == "Linear":
+            x = hardswish(self.Linear_0(x))
+        else:
+            return x
         if self.training:
             x = head_dropout(x, self.dropout, generator)
-        return self.Linear_1(x)
+        return self.Linear_1(x) if self.classifier_type == "Linear" else \
+            self.KanMLP_1(x, generator)
 
 
 def mobilenet_v3_kan(arch: str, num_classes: int = 1000, **kwargs
                      ) -> MobileNetV3KAN:
-    """Builder with the reference's flag vocabulary: keys the model does
-    not take are dropped (among them the ``classifier_*`` overrides, which
-    shape only the KAN head); ``generator``, ``device`` and ``dtype`` pass
-    through."""
+    """Builder with the reference's flag vocabulary: the ``classifier_*``
+    keys (but ``classifier_type``) become ``classifier_overrides``, keys
+    the model does not take are dropped; ``generator``, ``device`` and
+    ``dtype`` pass through."""
+    overrides = pop_classifier_overrides(kwargs)
     names = set(signature(MobileNetV3KAN.__init__).parameters)
     return MobileNetV3KAN(arch, num_classes=num_classes,
+                          classifier_overrides=overrides,
                           **{k: v for k, v in kwargs.items() if k in names})

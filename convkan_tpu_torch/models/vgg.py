@@ -1,7 +1,12 @@
 """KAN-VGG, port of ``convkan_tpu/models/vgg.py`` (``VGGKAN``, ``vggkan``,
 all five ``cfgs``) with the convs of any ``CONV_KAN_FACTORY`` key (every
 KAN family but ReLU-KAN, WavKAN, and the standard ``"conv"`` block) and
-the ``"Linear"`` head.
+every head of the reference's menu (kan_vgg.py:137-174): ``"KAN"`` (a
+``MLP_KAN_FACTORY`` MLP feat -> classes), ``"Linear"``, ``"HiddenKAN"``
+(KAN feat -> 1024, Linear), ``"VGGKAN"`` (Linear-ReLU twice, KAN 1024 ->
+classes), ``"VGG"`` (three Linears) and any other name the identity;
+the KAN layers of the family ``kan_classifier`` shaped by the
+``classifier_*`` overrides (``make_classifier_factory``).
 
 Channel-last: NHWC images in, logits out.  Submodules are named like the
 JAX parameter tree (``KanConvND_0`` .. ``KanConvND_{n-1}``, or
@@ -16,7 +21,9 @@ norm), as in JAX.  The factory's keyword arguments are filtered as JAX's
 ``base_activation``, default "silu").  In train mode the head applies
 dropout (``dropout_linear``, default 0.5) before ``Linear_0`` and every
 conv but the first applies channel dropout (``conv_dropout``, at the
-family's site); in eval mode both are the identity.  ``kan_norm_layer``
+family's site); the heads' dropouts (``classifier_dropout`` if given, else
+``dropout_linear``) sit where JAX's do; in eval mode all are the
+identity.  ``kan_norm_layer``
 (InstanceNorm by default, or a registry name such as train.py's
 "BatchNorm2d") is every conv's output norm; a BatchNorm's running
 statistics are buffers, named like the JAX ``batch_stats``
@@ -26,7 +33,7 @@ statistics are buffers, named like the JAX ``batch_stats``
 from __future__ import annotations
 
 from inspect import signature
-from typing import Any, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,7 +43,10 @@ from ..factory.conv_factory import CONV_KAN_FACTORY
 from ..ops.dropout import dropout
 from ..ops.layers import Linear
 from ..ops.pooling import adaptive_avg_pool, max_pool
+from ..utils.activations import relu
 from ..utils.norms import InstanceNorm, resolve_norm
+from .common import (make_mlp_classifier_factory, pop_classifier_overrides,
+                     resolve_classifier_overrides)
 
 cfgs: dict[str, list] = {
     "VGG16_small": [16, 16, "M", 32, 32, "M", 64, 64, 64, "M", 128, 128, 128,
@@ -52,8 +62,30 @@ cfgs: dict[str, list] = {
 }
 
 
+KAN_HEADS = ("HiddenKAN", "VGGKAN", "KAN")
+
+
+def make_classifier_factory(classifier_type: str,
+                            kan_classifier: Optional[str], spline_order=3,
+                            grid_size=5, grid_range=(-1, 1), l1_decay=0.0,
+                            degree=3, **overrides):
+    """fn(layers_hidden, **kw) building the KAN head's MLP of
+    ``kan_classifier`` (None: "KAN"), its layers shaped by the model's
+    arguments unless ``classifier_X`` overrides X (base activation "silu"
+    unless overridden), no dropout inside (kan_vgg.py:226-260); None for a
+    head without KAN layers."""
+    if classifier_type not in KAN_HEADS:
+        return None
+    ov = resolve_classifier_overrides(
+        overrides, spline_order=spline_order, grid_size=grid_size,
+        base_activation="silu", grid_range=grid_range, l1_decay=l1_decay,
+        degree=degree)
+    return make_mlp_classifier_factory(kan_classifier or "KAN", dropout=0.0,
+                                       first_dropout=False, **ov)
+
+
 class VGGKAN(nn.Module):
-    """Channel-last VGG with KAN convs and a Linear classifier.  Weights
+    """Channel-last VGG with KAN convs and any head of the menu.  Weights
     are drawn on the CPU from ``generator`` and moved to ``device`` (None:
     the GPU, raising without one)."""
 
@@ -68,8 +100,10 @@ class VGGKAN(nn.Module):
                  expected_feature_shape: Tuple[int, int] = (1, 1),
                  width_scale: int = 1, kan_norm_layer: Any = InstanceNorm,
                  std_conv_kernel_size: int = 3, std_conv_padding: int = 1,
-                 conv_dropout: float = 0.0, degree: int = 3, *,
-                 generator: torch.Generator = None, device=None,
+                 conv_dropout: float = 0.0, degree: int = 3,
+                 kan_classifier: Optional[str] = "KAN",
+                 classifier_overrides: Optional[Mapping[str, Any]] = None,
+                 *, generator: torch.Generator = None, device=None,
                  dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
@@ -80,15 +114,14 @@ class VGGKAN(nn.Module):
             raise NotImplementedError(
                 f"conv_type={conv_type!r} kan_conv={kan_conv!r} is not ported;"
                 f" only {sorted(CONV_KAN_FACTORY)} convs are")
-        if classifier_type != "Linear":
-            raise NotImplementedError(
-                f"classifier_type={classifier_type!r} is not ported; only "
-                "'Linear' is")
         self.input_channels = input_channels
         self.num_classes = num_classes
         self.arch = arch
-        self.dropout_linear = dropout_linear
+        overrides = dict(classifier_overrides or {})
+        p = overrides.get("classifier_dropout")
+        self.dropout_linear = dropout_linear if p is None else p
         self.classifier_type = classifier_type
+        self.kan_classifier = kan_classifier
         self.expected_feature_shape = tuple(expected_feature_shape)
         self.kan_conv = kan_conv or "KAN"
         conv = CONV_KAN_FACTORY[self.kan_conv]
@@ -119,14 +152,40 @@ class VGGKAN(nn.Module):
             in_c, first, n = out_c, False, n + 1
         feat = in_c * self.expected_feature_shape[0] * \
             self.expected_feature_shape[1]
-        self.Linear_0 = Linear(feat, num_classes, generator=generator,
-                               device=device)
+        make = {"generator": generator, "device": device}
+        kan = make_classifier_factory(
+            classifier_type, kan_classifier, spline_order=spline_order,
+            grid_size=grid_size, grid_range=grid_range, l1_decay=l1_decay,
+            degree=degree, **overrides)
+        # the head in order (kan_vgg.py:137-174): "drop", "relu", a Linear
+        # (in, out) or the KAN MLP ("kan", in, out); any other type: none
+        plan = {
+            "KAN": ["drop", ("kan", feat, num_classes)],
+            "Linear": ["drop", (feat, num_classes)],
+            "HiddenKAN": [("kan", feat, 1024), "drop", (1024, num_classes)],
+            "VGGKAN": [(feat, 1024), "relu", "drop", (1024, 1024), "relu",
+                       "drop", ("kan", 1024, num_classes)],
+            "VGG": [(feat, 1024), "relu", "drop", (1024, 1024), "relu",
+                    "drop", (1024, num_classes)]}.get(classifier_type, [])
+        self._head, n_linear = [], 0
+        for step in plan:
+            if isinstance(step, str):
+                self._head.append(step)
+            elif step[0] == "kan":
+                self.KanMLP_0 = kan(list(step[1:]), **make)
+                self._head.append("KanMLP_0")
+            else:
+                self._head.append(f"Linear_{n_linear}")
+                self.add_module(self._head[-1], Linear(*step, **make))
+                n_linear += 1
         self.to(dtype)
 
     @property
     def model_name(self) -> str:
-        return (f"VGGKAN_{self.classifier_type}_{self.kan_conv.upper()}_"
-                f"{self.arch}")
+        head = self.classifier_type
+        if head in KAN_HEADS:
+            head += f"_{(self.kan_classifier or 'KAN').upper()}"
+        return f"VGGKAN_{head}_{self.kan_conv.upper()}_{self.arch}"
 
     def forward(self, x, generator: torch.Generator = None):
         """Logits for NHWC x.  ``generator`` draws the dropout masks in
@@ -140,19 +199,26 @@ class VGGKAN(nn.Module):
                 getattr(self, step)(x, generator)
         x = adaptive_avg_pool(x, self.expected_feature_shape)
         x = x.reshape(x.shape[0], -1)
-        if self.training:
-            x = dropout(x, self.dropout_linear, generator)
-        return self.Linear_0(x)
+        for step in self._head:
+            if step == "drop":
+                if self.training:
+                    x = dropout(x, self.dropout_linear, generator)
+            elif step == "relu":
+                x = relu(x)
+            elif step == "KanMLP_0":
+                x = self.KanMLP_0(x, generator)
+            else:
+                x = getattr(self, step)(x)
+        return x
 
 
 def vggkan(input_channels: int, num_classes: int, **kwargs) -> VGGKAN:
-    """Builder with the reference's flag vocabulary.  Like the JAX builder
-    it drops keys VGGKAN does not take (the KAN-head ``classifier_*``
-    overrides, and ``affine``: the JAX model's ``_filtered`` rule keeps it
-    from a KAN conv's norm, so a BatchNorm there stays affine), except
-    ``classifier_dropout``: when not None it replaces ``dropout_linear``."""
-    if kwargs.get("classifier_dropout") is not None:
-        kwargs["dropout_linear"] = kwargs["classifier_dropout"]
+    """Builder with the reference's flag vocabulary: the ``classifier_*``
+    keys (but ``classifier_type``) become ``classifier_overrides``; like
+    the JAX builder it drops keys VGGKAN does not take (among them
+    ``affine``: the JAX model's ``_filtered`` rule keeps it from a KAN
+    conv's norm, so a BatchNorm there stays affine)."""
+    overrides = pop_classifier_overrides(kwargs)
     names = set(signature(VGGKAN.__init__).parameters)
-    return VGGKAN(input_channels, num_classes,
+    return VGGKAN(input_channels, num_classes, classifier_overrides=overrides,
                   **{k: v for k, v in kwargs.items() if k in names})

@@ -11,38 +11,44 @@
     runs on the device.
 
 CLI (serves freshly initialized weights from ``--seed``; restoring a
-checkpoint is not ported yet):
+checkpoint is not ported yet), with train.py's flags and defaults
+(``--model FlexibleAlexNet``, ``--dataset MNIST``):
 
+    python -m convkan_tpu_torch.serve --model AlexNetKAN --arch small \\
+        --dataset CIFAR10 --classifier_type KAN --init_random --port 8421
     python -m convkan_tpu_torch.serve --model VGGKAN --arch VGG16_small \\
-        --dataset CIFAR10 --init_random --port 8421 [--fold_bn]
+        --dataset CIFAR10 --init_random [--fold_bn]
     python -m convkan_tpu_torch.serve --model MobileNetV3KAN --arch small \\
         --imagenet_preprocessing --kan_conv FastKAN --init_random
     python -m convkan_tpu_torch.serve --model EfficientNetV2KAN --arch s \\
         --imagenet_preprocessing --kan_conv FastKAN --init_random
 
-(add ``--kan_conv WavKAN`` for the WavKAN convs, ``--kan_conv ChebyKAN``,
-``GRAMKAN``, ``JacobiKAN``, ``HermiteKAN`` or any other key of the conv
-factory for that family's convs of degree ``--degree`` (FourierKAN:
-frequencies ``--grid_size``); MobileNetV3 takes ``KAN``, ``FastKAN`` and
-``ChebyKAN``, ``--width_scale``, ``--conv_type conv`` and
-``--replace_depthwise``, its norm is ``--norm_layer`` and its BatchNorms
-are affine with ``--norm_affine``, as train.py builds it; so do ``EfficientNetV2KAN``
-(``--arch`` s, m, l, tiny or kan_tiny) and ``EfficientNetKAN`` (b0, b1,
-b2 or b0_small .. b2_small), with KAN, FastKAN, ChebyKAN and GRAMKAN
-convs; ``--fold_bn`` raises for these two, whose standard depthwise
-convs' norms it does not fold yet).  train.py's dropout and stochastic
-depth flags are accepted and do nothing: serving runs in eval mode.
+``--model`` takes every train.py model but the two ``parallel/`` MLPs:
+``FlexibleAlexNet`` (= ``AlexNetKAN``, ``--arch`` default or small),
+``VGGKAN`` (a cfgs key, VGG16 by default), ``MobileNetV1KAN``,
+``MobileNetV2KAN`` (default, small, kan_small), ``MobileNetV3KAN`` (small
+or large), ``EfficientNetV2KAN`` (s, m, l, tiny, kan_tiny) and
+``EfficientNetKAN`` (b0 .. b2, b0_small .. b2_small).  ``build_engine``
+wires each flag as train.py's ``build_model`` does: ``--kan_conv`` (any
+key of the conv factory; ``--degree``, ``--grid_size``,
+``--spline_order``, ``--groups``), ``--conv_type``, ``--norm_layer``,
+``--kan_norm_layer``, ``--norm_affine``, ``--width_scale``,
+``--replace_depthwise`` and the head: ``--classifier_type`` (Linear, KAN,
+HiddenKAN, VGGKAN, VGG, ...), ``--kan_classifier`` (any key of
+``MLP_KAN_FACTORY``) and the ``--classifier_*`` overrides.  A VGG's head
+pools to 7 x 7 with ``--imagenet_preprocessing``, else to 1 x 1.  An
+argv whose model cannot take the input (train.py's default, the
+``default`` AlexNet at MNIST's 28 x 28) is refused before anything runs,
+as the JAX CLI fails on it.  train.py's dropout and stochastic depth
+flags are accepted and do nothing: serving runs in eval mode.
 ``--imagenet_preprocessing`` serves 224 x 224 x 3 images with the
 dataset's normalization, as the JAX CLI does; the engine does not resize.
-The convs' norm is train.py's ``--kan_norm_layer``, BatchNorm2d by
-default, served in eval mode from its running statistics; ``--fold_bn``
-folds each KAN conv's BatchNorm into its weights
-(utils/fold_bn.py, with ``--bn_eps``) before serving.  A ChebyKAN trunk
-with InstanceNorm ends in that norm with nothing after it, so its head
-reads the last conv's 2x2 map (``expected_feature_shape=(2, 2)``): with
-(1, 1) the average pool of that norm is 0 and the logits would be the
-Linear bias for every image.  Every other trunk keeps train.py's (1, 1)
-head.
+The norms are served in eval mode from their running statistics;
+``--fold_bn`` folds each KAN conv's BatchNorm into its weights
+(utils/fold_bn.py, with ``--bn_eps``) before serving, and is refused for
+a model with standard convs whose norms it does not fold yet (the
+EfficientNets; MobileNetV1/V2 with standard depthwise convs; any
+``--conv_type conv``).
 
 Endpoints: POST /predict  {"instances": [...uint8 HWC arrays...]}
            -> {"predictions": [[per-class logits]...], "batch": n}
@@ -68,10 +74,11 @@ import torch
 
 from .device import resolve_device
 from .factory.conv_factory import CONV_KAN_FACTORY
+from .factory.mlp_factory import MLP_KAN_FACTORY
 from .train.data import input_shape as dataset_input_shape
 from .train.data import normalize_batch
 from .utils.fold_bn import fold_batch_norms
-from .utils.norms import NORM_LAYERS, InstanceNorm, resolve_norm
+from .utils.norms import NORM_LAYERS
 
 
 class InferenceEngine:
@@ -311,29 +318,35 @@ def make_server(engine: InferenceEngine, model_name: str, host: str,
 
 # train.py's flags that act only in training (dropout, stochastic depth)
 TRAIN_ONLY = ("--dropout_conv", "--dropout_linear", "--stochastic_depth_prob")
+# train.py's --classifier_base_activation choices (train.py:22-23)
+ACT_CHOICES = ["gelu", "silu", "relu", "leakyrelu", "prelu", "tanh",
+               "sigmoid", "hardswish", "None"]
+MODELS = ["FlexibleAlexNet", "AlexNetKAN", "VGGKAN", "MobileNetV1KAN",
+          "MobileNetV2KAN", "MobileNetV3KAN", "EfficientNetV2KAN",
+          "EfficientNetKAN"]
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Serve a convkan_tpu_torch model over HTTP.")
-    p.add_argument("--model", default="VGGKAN",
-                   choices=["VGGKAN", "MobileNetV3KAN", "EfficientNetV2KAN",
-                            "EfficientNetKAN"])
+    p.add_argument("--model", default="FlexibleAlexNet", choices=MODELS,
+                   help="train.py's model (FlexibleAlexNet = AlexNetKAN)")
     p.add_argument("--arch", default=None,
-                   help="VGGKAN: a cfgs key (VGG16_small by default); "
-                        "MobileNetV3KAN: small or large; EfficientNetV2KAN: "
-                        "s, m, l, tiny or kan_tiny; EfficientNetKAN: b0 (by "
-                        "default), b1, b2, b0_small .. b2_small")
+                   help="AlexNetKAN: default or small; VGGKAN: a cfgs key "
+                        "(VGG16 by default); MobileNetV2KAN: default, small "
+                        "or kan_small; MobileNetV3KAN: small or large; "
+                        "EfficientNetV2KAN: s, m, l, tiny or kan_tiny; "
+                        "EfficientNetKAN: b0 (by default), b1, b2, b0_small "
+                        ".. b2_small")
     p.add_argument("--kan_conv", default="KAN",
                    choices=sorted(CONV_KAN_FACTORY),
                    help="conv family of the trunk (train.py's flag)")
     p.add_argument("--conv_type", default="kanconv",
                    choices=["kanconv", "conv"],
-                   help="MobileNetV3KAN and the EfficientNets: KAN convs "
-                        "or standard ones")
+                   help="KAN convs or standard ones (not VGGKAN)")
     p.add_argument("--width_scale", type=float, default=1)
     p.add_argument("--replace_depthwise", action="store_true",
-                   help="MobileNetV3KAN and the EfficientNets: grouped KAN "
+                   help="the MobileNets and the EfficientNets: grouped KAN "
                         "depthwise convs")
     for flag in TRAIN_ONLY:
         p.add_argument(flag, type=float, default=None,
@@ -343,26 +356,44 @@ def build_parser() -> argparse.ArgumentParser:
                    help="224 x 224 x 3 inputs (train.py's flag)")
     p.add_argument("--norm_layer", default="BatchNorm2d",
                    choices=sorted(NORM_LAYERS),
-                   help="MobileNetV3KAN's and the EfficientNets' norm "
+                   help="the norm of standard convs, and of every conv of "
+                        "the MobileNets and the EfficientNets (train.py's "
+                        "flag)")
+    p.add_argument("--kan_norm_layer", default="BatchNorm2d",
+                   choices=sorted(NORM_LAYERS),
+                   help="norm after each KAN conv of VGGKAN and AlexNetKAN "
                         "(train.py's flag)")
+    p.add_argument("--norm_affine", action="store_true",
+                   help="train.py's flag; as there, it does not reach the "
+                        "norms of a VGGKAN's KAN convs")
     p.add_argument("--degree", type=int, default=3,
                    help="polynomial degree of the polynomial families' "
                         "convs (train.py does not pass it to the "
                         "EfficientNets)")
     p.add_argument("--grid_size", type=int, default=5,
-                   help="VGGKAN: the Fourier convs' frequencies (train.py's "
-                        "flag, which the VGG's B-spline convs also take)")
-    p.add_argument("--kan_norm_layer", default="BatchNorm2d",
-                   choices=sorted(NORM_LAYERS),
-                   help="norm after each conv (train.py's flag)")
-    p.add_argument("--norm_affine", action="store_true",
-                   help="train.py's flag; as there, it does not reach the "
-                        "norms of a VGGKAN's KAN convs")
+                   help="the B-spline's grid (the Fourier convs' "
+                        "frequencies)")
+    p.add_argument("--spline_order", type=int, default=3)
+    p.add_argument("--groups", type=int, default=1,
+                   help="groups of the KAN convs (train.py's flag)")
+    p.add_argument("--classifier_type", default="Linear",
+                   help="the head: Linear, KAN, HiddenKAN, VGGKAN, VGG, ... "
+                        "(train.py's flag; which a model takes is its own)")
+    p.add_argument("--kan_classifier", default="KAN",
+                   choices=sorted(MLP_KAN_FACTORY),
+                   help="the KAN head's family (train.py's flag)")
+    p.add_argument("--classifier_dropout", type=float, default=None)
+    p.add_argument("--classifier_grid_size", type=int, default=None)
+    p.add_argument("--classifier_spline_order", type=int, default=None)
+    p.add_argument("--classifier_l1_decay", type=float, default=None)
+    p.add_argument("--classifier_degree", type=int, default=None)
+    p.add_argument("--classifier_base_activation", default="None",
+                   choices=ACT_CHOICES)
     p.add_argument("--fold_bn", action="store_true",
-                   help="fold each conv's BatchNorm into its weights "
+                   help="fold each KAN conv's BatchNorm into its weights "
                         "before serving (utils/fold_bn.py)")
     p.add_argument("--bn_eps", type=float, default=1e-5)
-    p.add_argument("--dataset", default="CIFAR10",
+    p.add_argument("--dataset", default="MNIST",
                    choices=["MNIST", "SVHN", "CIFAR10", "CIFAR100"])
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--init_random", action="store_true",
@@ -378,15 +409,100 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def build_engine(args):
-    """Model + weights + engine from parsed CLI args (the testable core of
-    main).  Returns (engine, model name)."""
+def build_model(args, shape, num_classes: int, generator=None):
+    """The model of train.py's ``build_model`` (train.py:207-351) for the
+    parsed flags and the input ``shape``, its weights from ``generator``
+    onto ``args.device``; SystemExit where train.py exits or the model
+    cannot take the input."""
+    from .models.alexnet import alexnet_kan, feature_sizes
     from .models.efficientnet import efficientnet_kan, efficientnet_kan_small
     from .models.efficientnetv2 import (efficientnetv2_kan,
                                         efficientnetv2_kan_small)
+    from .models.mobilenet import mobilenet_v1_kan
+    from .models.mobilenetv2 import mobilenet_v2_kan
     from .models.mobilenetv3 import mobilenet_v3_kan
     from .models.vgg import vggkan
 
+    make = {"generator": generator, "device": args.device}
+    head = dict(
+        classifier_type=args.classifier_type,
+        classifier_spline_order=args.classifier_spline_order,
+        classifier_grid_size=args.classifier_grid_size,
+        classifier_dropout=args.classifier_dropout,
+        classifier_l1_decay=args.classifier_l1_decay,
+        classifier_degree=args.classifier_degree,
+        classifier_base_activation=(
+            None if args.classifier_base_activation == "None"
+            else args.classifier_base_activation))
+    kan_conv = args.kan_conv if args.conv_type == "kanconv" else None
+    # the flags every model of train.py takes alike
+    common = dict(conv_type=args.conv_type, norm_layer=args.norm_layer,
+                  kan_norm_layer=args.kan_norm_layer,
+                  affine=args.norm_affine, groups=args.groups,
+                  grid_size=args.grid_size, spline_order=args.spline_order,
+                  **head, **make)
+    if args.model == "VGGKAN":
+        return vggkan(
+            shape[-1], num_classes, kan_conv=kan_conv,
+            kan_classifier=(args.kan_classifier if args.classifier_type in
+                            ("VGGKAN", "KAN", "HiddenKAN") else None),
+            arch=args.arch or "VGG16",
+            expected_feature_shape=(7, 7) if args.imagenet_preprocessing
+            else (1, 1), width_scale=args.width_scale, degree=args.degree,
+            **common)
+    if args.model in ("FlexibleAlexNet", "AlexNetKAN"):
+        try:
+            feature_sizes(args.arch or "default", shape[0], shape[1])
+        except ValueError as e:
+            raise SystemExit(f"--model {args.model} --dataset {args.dataset}"
+                             f": {e}") from None
+        return alexnet_kan(
+            num_classes=num_classes, input_channels=shape[-1],
+            arch=args.arch or "default", kan_conv=kan_conv,
+            kan_classifier=args.kan_classifier, degree=args.degree,
+            **common)
+    mobile = dict(num_classes=num_classes, input_channels=shape[-1],
+                  width_mult=args.width_scale, kan_conv=args.kan_conv,
+                  replace_depthwise=args.replace_depthwise,
+                  kan_classifier=args.kan_classifier, degree=args.degree,
+                  **common)
+    if args.model == "MobileNetV1KAN":
+        return mobilenet_v1_kan(**mobile)
+    if args.model == "MobileNetV2KAN":
+        return mobilenet_v2_kan(arch=args.arch or "default", **mobile)
+    if args.model == "MobileNetV3KAN":
+        if args.arch not in ("large", "small"):
+            raise SystemExit("MobileNetV3 requires --arch large|small")
+        return mobilenet_v3_kan(args.arch, **mobile)
+    v2 = args.model == "EfficientNetV2KAN"
+    if v2 and args.arch not in ("s", "m", "l", "tiny", "kan_tiny"):
+        raise SystemExit(f"Unsupported EfficientNetV2 arch: {args.arch}")
+    if v2:
+        fn = efficientnetv2_kan_small if args.arch in (
+            "tiny", "kan_tiny") else efficientnetv2_kan
+    else:
+        fn = efficientnet_kan_small if args.arch and "small" in args.arch \
+            else efficientnet_kan
+    # train.py's builder call (train.py:321-351): no degree, no groups
+    del common["groups"]
+    return fn(arch=args.arch or "b0", num_classes=num_classes,
+              in_channels=shape[-1], kan_conv=args.kan_conv,
+              replace_depthwise=args.replace_depthwise,
+              kan_classifier=args.kan_classifier, **common)
+
+
+def _has_unfolded_norms(args) -> bool:
+    """Whether the model has standard convs, whose norms --fold_bn does
+    not fold yet (ROADMAP A9)."""
+    return args.model in ("EfficientNetV2KAN", "EfficientNetKAN") or \
+        args.conv_type == "conv" or (
+            args.model in ("MobileNetV1KAN", "MobileNetV2KAN") and
+            not args.replace_depthwise)
+
+
+def build_engine(args):
+    """Model + weights + engine from parsed CLI args (the testable core of
+    main).  Returns (engine, model name)."""
     if not args.init_random:
         raise SystemExit("restoring a checkpoint is not ported yet; pass "
                          "--init_random to serve seeded random weights")
@@ -394,51 +510,11 @@ def build_engine(args):
     shape = (224, 224, 3) if args.imagenet_preprocessing else \
         dataset_input_shape(args.dataset)
     num_classes = 100 if args.dataset == "CIFAR100" else 10
-    gen = torch.Generator().manual_seed(args.seed)
-    if args.fold_bn and args.model in ("EfficientNetV2KAN",
-                                       "EfficientNetKAN"):
-        raise SystemExit("--fold_bn does not fold the standard depthwise "
-                         f"convs' norms of {args.model} yet (ROADMAP A9)")
-    if args.model in ("EfficientNetV2KAN", "EfficientNetKAN"):
-        v2 = args.model == "EfficientNetV2KAN"
-        if v2 and args.arch not in ("s", "m", "l", "tiny", "kan_tiny"):
-            raise SystemExit(f"Unsupported EfficientNetV2 arch: {args.arch}")
-        if v2:
-            fn = efficientnetv2_kan_small if args.arch in (
-                "tiny", "kan_tiny") else efficientnetv2_kan
-        else:
-            fn = efficientnet_kan_small if args.arch and "small" in \
-                args.arch else efficientnet_kan
-        # train.py's builder call (train.py:321-351)
-        model = fn(
-            arch=args.arch or "b0", num_classes=num_classes,
-            in_channels=shape[-1], conv_type=args.conv_type,
-            kan_conv=args.kan_conv, replace_depthwise=args.replace_depthwise,
-            classifier_type="Linear", norm_layer=args.norm_layer,
-            kan_norm_layer=args.kan_norm_layer, affine=args.norm_affine,
-            generator=gen, device=args.device)
-    elif args.model == "MobileNetV3KAN":
-        if args.arch not in ("large", "small"):
-            raise SystemExit("MobileNetV3 requires --arch large|small")
-        model = mobilenet_v3_kan(
-            args.arch, num_classes=num_classes, input_channels=shape[-1],
-            width_mult=args.width_scale, conv_type=args.conv_type,
-            kan_conv=args.kan_conv, replace_depthwise=args.replace_depthwise,
-            classifier_type="Linear", norm_layer=args.norm_layer,
-            kan_norm_layer=args.kan_norm_layer, affine=args.norm_affine,
-            degree=args.degree, generator=gen, device=args.device)
-    else:
-        head = (7, 7) if args.imagenet_preprocessing else (2, 2) if \
-            args.kan_conv == "ChebyKAN" and \
-            resolve_norm(args.kan_norm_layer) is InstanceNorm else (1, 1)
-        model = vggkan(shape[-1], num_classes, arch=args.arch or "VGG16_small",
-                       kan_conv=args.kan_conv, classifier_type="Linear",
-                       degree=args.degree, grid_size=args.grid_size,
-                       expected_feature_shape=head,
-                       width_scale=args.width_scale,
-                       kan_norm_layer=args.kan_norm_layer,
-                       affine=args.norm_affine, generator=gen,
-                       device=args.device)
+    if args.fold_bn and _has_unfolded_norms(args):
+        raise SystemExit("--fold_bn does not fold the standard convs' "
+                         f"norms of {args.model} yet (ROADMAP A9)")
+    model = build_model(args, shape, num_classes,
+                        torch.Generator().manual_seed(args.seed))
     if args.fold_bn:
         print(f"folded {fold_batch_norms(model, eps=args.bn_eps)} "
               "BatchNorms", flush=True)

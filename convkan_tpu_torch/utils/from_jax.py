@@ -3,9 +3,10 @@
 The port keeps the JAX parameter names, shapes and layouts, so a flax
 ``params`` tree of numpy arrays maps onto a ``state_dict`` by joining the
 path with dots: ``{"KanConvND_0": {"poly_w": a}}`` -> ``"KanConvND_0.poly_w"``.
-One name differs: a conv's output norm, which flax names after its class
-(``BatchNorm_0``, ``LayerNorm_0``, ``GroupNorm_0``, ``RMSNorm_0``; also a
-``StdConvBlock``'s), is the port's ``norm``; FastKAN's named input norms
+One name differs: a conv's or a dense KAN layer's norm, which flax names
+after its class (``BatchNorm_0``, ``InstanceNorm_0``, ``LayerNorm_0``,
+``GroupNorm_0``, ``RMSNorm_0``; also a ``StdConvBlock``'s), is the port's
+``norm``; FastKAN's named input norms
 (``input_norm_{g}``) keep their names.  A block that flax rematerializes
 (``nn.remat``) carries ``Checkpoint`` before its class's name
 (``Checkpoint_EffBlock_3``, ``Checkpoint_MNV3Block_0``): the port names
@@ -26,8 +27,8 @@ import numpy as np
 import torch
 
 # flax's names of a conv's output norm -> the port's attribute
-_NORM_SCOPES = {f"{cls}_0": "norm" for cls in ("BatchNorm", "LayerNorm",
-                                               "GroupNorm", "RMSNorm")}
+_NORM_SCOPES = {f"{cls}_0": "norm" for cls in (
+    "BatchNorm", "InstanceNorm", "LayerNorm", "GroupNorm", "RMSNorm")}
 
 
 def _scope(key: str) -> str:

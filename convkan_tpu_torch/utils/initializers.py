@@ -19,6 +19,9 @@ def _fans(shape: Sequence[int], layout: str):
         return int(shape[-2]) * receptive, int(shape[-1]) * receptive
     if layout == "linear_io":
         return int(shape[0]), int(shape[1])
+    if layout == "torch":        # (out, in, *kernel)
+        receptive = math.prod(int(s) for s in shape[2:])
+        return int(shape[1]) * receptive, int(shape[0]) * receptive
     raise ValueError(f"unknown layout {layout!r}")
 
 
@@ -78,6 +81,28 @@ def normal(mean: float = 0.0, std: float = 1.0):
     def init(t: torch.Tensor, generator: torch.Generator):
         with torch.no_grad():
             return t.normal_(mean, std, generator=generator)
+
+    return init
+
+
+def xavier_uniform(gain: float = 1.0, layout: str = "conv_hwio"):
+    """torch.nn.init.xavier_uniform_: U(±gain·sqrt(6/(fan_in + fan_out)))."""
+    def init(t: torch.Tensor, generator: torch.Generator):
+        fan_in, fan_out = _fans(t.shape, layout)
+        return uniform_(t, gain * math.sqrt(6.0 / (fan_in + fan_out)),
+                        generator)
+
+    return init
+
+
+def trunc_normal(mean: float = 0.0, std: float = 1.0, a: float = -2.0,
+                 b: float = 2.0):
+    """torch.nn.init.trunc_normal_: N(mean, std) truncated at the absolute
+    bounds [a, b]."""
+    def init(t: torch.Tensor, generator: torch.Generator):
+        with torch.no_grad():
+            return torch.nn.init.trunc_normal_(t, mean, std, a, b,
+                                               generator=generator)
 
     return init
 

@@ -3,7 +3,9 @@
 
 InstanceNorm: eps 1e-5, ``affine=False``, no running statistics; each
 (sample, channel) is normalized over the spatial axes with the biased
-variance, in training and evaluation alike.
+variance, in training and evaluation alike; with ``affine`` a ``weight``
+(1) and ``bias`` (0) of shape (1, 1, 1, C), as the JAX module's for the
+4-D inputs of a 2-D conv.
 
 BatchNorm: eps 1e-5, momentum 0.1, ``affine=True``, running statistics
 (the buffers ``mean`` and ``var``, 0 and 1 at first).  In training each
@@ -36,17 +38,20 @@ class InstanceNorm(nn.Module):
     def __init__(self, num_features: int, eps: float = 1e-5,
                  affine: bool = False):
         super().__init__()
-        if affine:
-            raise NotImplementedError(
-                "InstanceNorm(affine=True) is not ported yet")
         self.num_features = num_features
         self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(torch.ones(1, 1, 1, num_features))
+            self.bias = nn.Parameter(torch.zeros(1, 1, 1, num_features))
+        else:
+            self.weight = self.bias = None
 
     def forward(self, x):
         axes = tuple(range(1, x.ndim - 1))
         mean = x.mean(dim=axes, keepdim=True)
         var = (x - mean).square().mean(dim=axes, keepdim=True)
-        return (x - mean) / torch.sqrt(var + self.eps)
+        y = (x - mean) / torch.sqrt(var + self.eps)
+        return y if self.weight is None else y * self.weight + self.bias
 
 
 class BatchNorm(nn.Module):

@@ -289,7 +289,8 @@ def test_serve_cli_fold_bn_and_bn_eps():
     """--fold_bn folds the 13 BatchNorms with --bn_eps (their variance then
     gives exactly 1 with that eps) and serves the unfolded engine's
     logits; --kan_norm_layer InstanceNorm2d builds InstanceNorm convs."""
-    base = ["--arch", "VGG16_kansmall", "--init_random", "--device", "cpu",
+    base = ["--model", "VGGKAN", "--dataset", "CIFAR10", "--arch",
+            "VGG16_kansmall", "--init_random", "--device", "cpu",
             "--buckets", "2"]
     imgs = np.random.RandomState(3).randint(0, 256, (2, 32, 32, 3),
                                             np.uint8)

@@ -162,22 +162,46 @@ def test_cpu_cheby_model_never_reaches_a_kernel_entry(monkeypatch):
 
 
 def test_serve_cli_builds_the_chebykan_model():
-    """--kan_conv ChebyKAN with InstanceNorm serves the (2, 2) head: its
-    logits see the image (with (1, 1) they would be the Linear bias for
-    every image)."""
-    args = build_parser().parse_args(
-        ["--arch", "VGG16_kansmall", "--kan_conv", "ChebyKAN",
-         "--kan_norm_layer", "InstanceNorm2d",
-         "--init_random", "--device", "cpu", "--buckets", "1,2"])
-    engine, name = build_engine(args)
+    """--kan_conv ChebyKAN with InstanceNorm builds the model of the JAX
+    CLI (train.py's build_model: the (1, 1) head, as train.py builds it
+    whatever the conv family and norm): JAX's seeded variables load with
+    strict=True and the engines' logits agree (float32, 1e-4)."""
+    from convkan_tpu.migrate import _load_train_module
+    from convkan_tpu.serve import build_engine as jax_build_engine
+
+    argv = ["--model", "VGGKAN", "--dataset", "CIFAR10", "--arch",
+            "VGG16_kansmall", "--kan_conv", "ChebyKAN", "--kan_norm_layer",
+            "InstanceNorm2d", "--init_random", "--seed", "4", "--buckets",
+            "1,2"]
+    train = _load_train_module()
+    p = train.build_parser()
+    for flag in ("--init_random", "--fold_bn", "--bf16"):
+        p.add_argument(flag, action="store_true")
+    p.add_argument("--kind", default="best")
+    p.add_argument("--ckpt_name", default=None)
+    p.add_argument("--bn_eps", type=float, default=1e-5)
+    p.add_argument("--buckets", default="1,8,64")
+    p.add_argument("--batch_timeout_ms", type=float, default=2.0)
+    jargs = p.parse_args(argv)
+    jengine, jname = jax_build_engine(jargs, train)
+    engine, name = build_engine(build_parser().parse_args(
+        argv + ["--device", "cpu"]))
     try:
-        assert name == "VGGKAN_Linear_CHEBYKAN_VGG16_kansmall"
-        assert engine.model.expected_feature_shape == (2, 2)
+        assert name == jname == "VGGKAN_Linear_CHEBYKAN_VGG16_kansmall"
+        assert engine.model.expected_feature_shape == (1, 1)
         assert engine.model.KanConvND_0.basis == kc.cheby_basis(3)
+        jm = train.build_model(jargs, (32, 32, 3), 10)
+        variables = jm.init(jax.random.PRNGKey(4),
+                            jnp.zeros((1, 32, 32, 3), jnp.float32),
+                            train=False)
+        engine.model.load_state_dict(
+            vggkan_state_dict_from_jax(variables), strict=True)
         imgs = np.random.RandomState(0).randint(0, 256, (3, 32, 32, 3),
                                                 np.uint8)
         out = engine.predict(imgs)
         assert out.shape == (3, 10) and np.isfinite(out).all()
-        assert np.abs(out[1] - out[0]).max() > 1e-4
+        np.testing.assert_allclose(out, jengine.predict(imgs), rtol=1e-4,
+                                   atol=1e-4)
     finally:
         engine.close()
+        jengine.close()

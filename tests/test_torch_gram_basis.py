@@ -81,7 +81,7 @@ def test_descriptor_rows_operand_and_layout():
     cheby = kc.cheby_basis(3)
     assert cheby.n_extra == 0 and not cheby.degree_major
     with pytest.raises(ValueError):
-        kc.gram_basis(3, "tanh")
+        kc.gram_basis(3, "softplus")
     x = torch.linspace(-3, 3, 11, dtype=torch.float64)[:, None]
     beta = torch.tensor([0.3, -0.2, 0.1, 0.4], dtype=torch.float64)
     E = kc.expand(x, b, beta)

@@ -197,7 +197,8 @@ def test_serve_cli_builds_the_gramkan_model():
     statistics, 0 and 1, do not renormalize the trunk's shrinking signal,
     so there the seeded logits are the bias up to rounding)."""
     args = build_parser().parse_args(
-        ["--arch", "VGG16_kansmall", "--kan_conv", "GRAMKAN",
+        ["--model", "VGGKAN", "--dataset", "CIFAR10",
+         "--arch", "VGG16_kansmall", "--kan_conv", "GRAMKAN",
          "--kan_norm_layer", "InstanceNorm2d",
          "--init_random", "--device", "cpu", "--buckets", "1,2"])
     engine, name = build_engine(args)

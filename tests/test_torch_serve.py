@@ -114,7 +114,8 @@ def test_http_predict_and_metrics(served):
 
 def test_cli_builds_seeded_engine_and_refuses_checkpoints():
     args = build_parser().parse_args(
-        ["--arch", "VGG16_kansmall", "--dataset", "CIFAR10", "--init_random",
+        ["--model", "VGGKAN", "--arch", "VGG16_kansmall", "--dataset",
+         "CIFAR10", "--init_random",
          "--device", "cpu", "--buckets", "2", "--seed", "5"])
     engine, name = build_engine(args)
     try:

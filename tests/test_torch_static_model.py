@@ -154,7 +154,8 @@ def test_serve_cli_builds_each_family(key):
     finite logits that see the image; --grid_size 3 gives Fourier 6
     bases; every conv of a kernel family takes the kernel route."""
     args = build_parser().parse_args(
-        ["--arch", "VGG16_kansmall", "--kan_conv", key, "--grid_size", "3",
+        ["--model", "VGGKAN", "--dataset", "CIFAR10",
+         "--arch", "VGG16_kansmall", "--kan_conv", key, "--grid_size", "3",
          "--kan_norm_layer", "InstanceNorm2d", "--init_random", "--device",
          "cpu", "--buckets", "1,2"])
     engine, name = build_engine(args)

@@ -62,4 +62,4 @@ def test_every_arch_builds_with_jax_state_dict_names(arch):
 def test_unported_heads_raise():
     with pytest.raises(NotImplementedError):
         vggkan(3, 10, arch="VGG16_kansmall", classifier_type="KAN",
-               device="cpu")
+               classifier_l1_decay=0.1, device="cpu")

@@ -257,7 +257,8 @@ def test_cpu_wavkan_never_reaches_a_kernel_entry(monkeypatch):
 
 def test_serve_cli_builds_the_wavkan_model():
     args = build_parser().parse_args(
-        ["--arch", "VGG16_kansmall", "--kan_conv", "WavKAN", "--init_random",
+        ["--model", "VGGKAN", "--dataset", "CIFAR10",
+         "--arch", "VGG16_kansmall", "--kan_conv", "WavKAN", "--init_random",
          "--device", "cpu", "--buckets", "1,2"])
     engine, name = build_engine(args)
     try:

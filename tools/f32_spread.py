@@ -60,6 +60,12 @@ seeded init).  ``--trace`` prints, for every KAN conv and BatchNorm in
 order, float32's error of its output and of its input (max |diff| over the
 largest float64 entry) and their ratio: where the rounding grows.  Needs
 no card but for ``--card``.
+
+``--model AlexNetKAN`` reads path F's main model (``chip_smoke.zoo_model``
+"alexnet_small": train.py's AlexNet small with the KAN head and
+BatchNorm2d): phase 47's eval logits (calibrated) in float32 against
+float64, then phase 49's train steps (``--steps 3``) as for VGG16_small
+above, with the convs' poly_w at ``--curve``.
 """
 
 from __future__ import annotations
@@ -236,7 +242,7 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default="VGGKAN",
                    choices=["VGGKAN", "MobileNetV3KAN",
-                            "EfficientNetV2KAN"])
+                            "EfficientNetV2KAN", "AlexNetKAN"])
     p.add_argument("--kan_conv", default="ChebyKAN",
                    choices=sorted(set(CONV_KAN_FACTORY) - {"conv"}))
     p.add_argument("--curve", type=float, default=1.0)
@@ -255,6 +261,8 @@ def main():
         return mnv3(args)
     if args.model == "EfficientNetV2KAN":
         return effv2(args)
+    if args.model == "AlexNetKAN":
+        return alexnet(args)
     kw = {"expected_feature_shape": (2, 2)} \
         if args.kan_conv in ("ChebyKAN", "WavKAN") else {}
     kw["kan_norm_layer"] = args.kan_norm_layer
@@ -280,9 +288,38 @@ def main():
     if args.kan_conv == "WavKAN":
         return
     cs.TRAIN_BATCH = args.batch
+    lockstep_readings(cs.mnv3_smooth(cs.train_model(args.kan_conv, **kw),
+                                     args.curve), args,
+                      f"{args.kan_conv} {args.kan_norm_layer} train model")
+
+
+def alexnet(args):
+    """Path F's AlexNet (small, KAN head) in float32 against float64:
+    the eval logits of phase 47 (calibrated), then the train steps of
+    phase 49 (module docs)."""
+    m = cs.mnv3_calibrate(cs.zoo_model("alexnet_small"), cs.zoo_prep(
+        cs.seeded_images(cs.ZOO_CHECK, 46, 32)))
+    x = cs.zoo_prep(cs.seeded_images(cs.ZOO_CHECK, 47, 32))
+    with torch.no_grad():
+        y32 = m(x)
+        y64 = copy.deepcopy(m).double()(x.double())
+        moved = (m(x * (1 + 1e-7)) - y32).abs().max().item()
+    print(f"AlexNet small eval logits float32 vs float64: max |diff| "
+          f"{(y32.double() - y64).abs().max().item():.3e}; input x (1 + "
+          f"1e-7) moves float32 by {moved:.3e}; max |logit| "
+          f"{y64.abs().max().item():.3f}", flush=True)
+    cs.TRAIN_BATCH = args.batch
+    lockstep_readings(cs.mnv3_smooth(cs.zoo_model("alexnet_small", seed=2),
+                                     args.curve), args,
+                      "AlexNet small, KAN head")
+
+
+def lockstep_readings(base, args, label):
+    """The train steps of ``chip_smoke.py``'s lockstep phases for
+    ``base`` in float32 against float64, with the KAN convs' outputs
+    perturbed, and the spread ``chip_smoke.f32_spread`` reads there."""
     batch = cs.train_batches()[:args.steps]
     steps = range(args.steps)
-    base = cs.mnv3_smooth(cs.train_model(args.kan_conv, **kw), args.curve)
     _, _, snaps = cs.train_run(copy.deepcopy(base), "cpu", batch)
     starts = snaps[:-1]
     _, g64, _ = cs.train_run(copy.deepcopy(base).double(), "cpu", batch,
@@ -305,8 +342,7 @@ def main():
             rest = [r for r in readings if not r[2].endswith(".prelu")]
             span = "first step" if args.steps == 1 else \
                 f"{args.steps} steps"
-            print(f"{args.kan_conv} {args.kan_norm_layer} train model, batch "
-                  f"{args.batch}, {span},"
+            print(f"{label}, batch {args.batch}, {span},"
                   f" conv outputs x (1 + {delta:g} N(0, 1)): gradients vs "
                   f"float64 " + ", ".join(f"{n} step {i} {e:.3e}"
                                           for e, i, n in rest[:3])
@@ -321,7 +357,7 @@ def main():
     spread = cs.f32_spread(base, batch, starts, steps, None, g64)
     rest = {k: v for k, v in spread.items() if not k[1].endswith(".prelu")}
     top = max(rest.items(), key=lambda kv: kv[1])
-    print(f"{args.kan_conv} float32 spread (chip_smoke.f32_spread, conv "
+    print(f"{label}: float32 spread (chip_smoke.f32_spread, conv "
           f"outputs x (1 + {cs.F32_NOISE:g} N(0, 1)), seeds "
           f"{cs.F32_NOISE_SEEDS}): but the PReLU slopes, max {top[1]:.3e} "
           f"(step {top[0][0]}, {top[0][1]}): gradient limit "
